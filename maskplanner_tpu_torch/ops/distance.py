@@ -1,0 +1,24 @@
+"""Pairwise squared distances (``maskplanner_tpu/ops/distance.py``).
+
+The port computes them in the JAX package's fixed-order elementwise form
+(its ``MASKPLANNER_DETERMINISTIC_NN`` branch): each entry is
+``((d0*d0) + (d1*d1)) + (d2*d2)`` of coordinate differences, with no
+matmul expansion and no fused multiply-add. That is how the CUDA kernels
+form distances too, so the plain versions and the kernels make identical
+in-radius decisions, bit for bit.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """(..., N, D), (..., M, D) -> (..., N, M) float32 squared distances."""
+    src = src.float()
+    dst = dst.float()
+    acc = None
+    for d in range(src.shape[-1]):
+        diff = src[..., :, None, d] - dst[..., None, :, d]
+        term = diff * diff
+        acc = term if acc is None else acc + term
+    return acc
