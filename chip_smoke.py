@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card.
+"""Drive the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,18 +8,41 @@ result line:
 
 1. card identity (name and power limit from nvidia-smi, torch and CUDA);
 2. build every CUDA kernel of ``maskplanner_tpu_torch/csrc`` with nvcc;
-3. each kernel against its plain PyTorch version on the card, at the
-   flagship shapes with a batch of 64: FPS indices identical; fused SA
-   indices identical and pooled max|Δ| <= 1e-4 · max|ref|; median times;
+3. the serving kernels against their plain PyTorch versions on the card, at
+   the flagship shapes with a batch of 64: FPS indices identical; fused SA
+   forward indices identical and pooled max|Δ| <= 1e-4 · max|ref|; times;
 4. the flagship forward (``config=[maskplanner,windows_v2,longx_v2]``,
    seeded weights) on 64 clouds of the synthetic windows-v2 data: finite
-   outputs of the right shapes, every kernel launched exactly twice, and 2
-   samples through the same model on the CPU (plain ops) within
+   outputs of the right shapes, FPS and the fused SA forward launched
+   exactly twice each, 2 samples on the CPU (plain ops) within
    1e-4 · max|ref|; forward time at batch 64 and 1;
 5. serving end to end: a run dir with the frozen config and a port
    checkpoint, an OBJ mesh, ``Predictor(device="cuda").predict_program``
    with ``cover_all=True``; per-request latency;
-6. a ``kernels`` JSON line, then the card line as the last line.
+6. the training kernels at the training shapes (a batch of 64 of the
+   synthetic windows-v2 train split, the seeded model): the fused SA
+   backward at sa1 and sa2 against autograd through the plain level, each
+   gradient held against the same level in float64: its rms error within
+   3 x the larger of the plain float32 version's and 5e-4 of the norm (see
+   ``check_against_exact``), and every positive max-pool output's gradient
+   routed (``check_routing``); the nearest-neighbour argmin at the step's
+   four shapes with its real masks, indices identical; the LAP on the
+   step's real 64 x 22 x 22 costs, permutations of equal total cost
+   (1e-5 relative); median times, the library yardstick
+   ``torch.cdist(x, y).argmin(-1)`` for the argmin;
+7. one training step at batch 64: every kernel's launches counted, exactly
+   fps 2, fused_sa_fwd 2, fused_sa_bwd 2, nn_argmin 4, lap 1;
+8. the card against the CPU (plain ops) on 2 samples of the batch: the loss
+   within 1e-4 relative, every parameter gradient's rms difference within
+   1e-3 of its norm plus a float32 rounding allowance measured against the
+   CPU step in float64;
+9. 30 Adam steps on the batch of 64: finite losses, the last below the
+   first;
+10. step time at batch 64 (host clock, median of 10) and device time by
+    kernel for one step (torch.profiler);
+11. ``train_maskplanner.main`` for 2 epochs of one step, then a
+    ``Predictor`` serves the checkpoint it wrote;
+12. the card line, a ``kernels`` JSON line, and the result line last.
 
 It needs one CUDA card and the repository around it; without either it
 exits non-zero.
@@ -41,17 +64,51 @@ import torch
 FLAGSHIP = "config=[maskplanner,windows_v2,longx_v2]"
 BATCH = 64
 REL_TOL = 1e-4
+PEAK_F32_OPS = 67e12      # H100 SXM, f32 outside the tensor cores (op/s)
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3 (byte/s)
 KERNELS = {
     "fps": dict(source="maskplanner_tpu_torch/csrc/fps.cu",
                 replaces="maskplanner_tpu/ops/pallas/fps.py:84"),
     "fused_sa_fwd": dict(
         source="maskplanner_tpu_torch/csrc/fused_sa_fwd.cu",
         replaces="maskplanner_tpu/ops/pallas/fused_sa_train.py:540"),
+    "fused_sa_bwd": dict(
+        source="maskplanner_tpu_torch/csrc/fused_sa_bwd.cu",
+        replaces="maskplanner_tpu/ops/pallas/fused_sa_train.py:589"),
+    "nn_argmin": dict(source="maskplanner_tpu_torch/csrc/nn_argmin.cu",
+                      replaces="maskplanner_tpu/ops/pallas/nn_argmin.py:54"),
+    "lap": dict(source="maskplanner_tpu_torch/csrc/lap.cu",
+                replaces="maskplanner_tpu/ops/pallas/lap.py:150"),
 }
+STEP_LAUNCHES = {"fps": 2, "fused_sa_fwd": 2, "fused_sa_bwd": 2,
+                 "nn_argmin": 4, "lap": 1}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def counters() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from maskplanner_tpu_torch.ops.cuda.fps import fps_cuda
+    from maskplanner_tpu_torch.ops.cuda.fused_sa import (fused_sa_bwd_cuda,
+                                                         fused_sa_cuda)
+    from maskplanner_tpu_torch.ops.cuda.lap import lap_cuda
+    from maskplanner_tpu_torch.ops.cuda.nn_argmin import nn_argmin_cuda
+
+    return {"fps": fps_cuda, "fused_sa_fwd": fused_sa_cuda,
+            "fused_sa_bwd": fused_sa_bwd_cuda, "nn_argmin": nn_argmin_cuda,
+            "lap": lap_cuda}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -85,6 +142,14 @@ def median_host_s(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time for ``ops`` f32 operations and ``nbytes`` moved."""
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
 def phase_identity() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -107,46 +172,58 @@ def phase_build() -> None:
                 log(f"[build] {name}: {line.strip()}")
 
 
-def load_clouds(cfg) -> np.ndarray:
-    """64 normalized clouds of the synthetic windows-v2 test split."""
-    from maskplanner_tpu.data import PaintDataset
+def load_items(cfg, split: str) -> list[dict]:
+    """64 items of the synthetic windows-v2 ``split``."""
+    from maskplanner_tpu_torch.data import PaintDataset
 
-    ds = PaintDataset(cfg, split="test", size=BATCH)
-    return np.stack([ds[i]["point_cloud"] for i in range(BATCH)])
+    ds = PaintDataset(cfg, split=split, size=BATCH)
+    return [ds[i] for i in range(BATCH)]
 
 
-def phase_kernels(model, xyz: torch.Tensor) -> dict:
-    """Kernel vs plain at the flagship sa1/sa2 shapes; returns results."""
+def mlp_macs(level) -> int:
+    """Multiply-adds of one neighbour row through a level's MLP."""
+    return sum(c.in_features * c.out_features for c in level.mlp_convs)
+
+
+def phase_kernels(model, xyz: torch.Tensor, res: dict) -> None:
+    """Serving kernels vs plain at the flagship sa1/sa2 shapes."""
     from maskplanner_tpu_torch.ops.cuda.fps import fps_cuda
     from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_cuda
     from maskplanner_tpu_torch.ops.fused_sa import fused_sa_forward_plain
     from maskplanner_tpu_torch.ops.sampling import fps_plain, index_points
 
-    res = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, check="pass")
-           for name in KERNELS}
     start = torch.zeros(BATCH, dtype=torch.int32, device=xyz.device)
     pts, feats = xyz, None
+    ops = {"fps": 0.0, "fused_sa_fwd": 0.0}
+    nbytes = {"fps": 0.0, "fused_sa_fwd": 0.0}
     for name, sa in (("sa1", model.sa1), ("sa2", model.sa2)):
-        got = fps_cuda(pts, sa.npoint, start)
-        ref = fps_plain(pts, sa.npoint, start)
+        B, N, _ = pts.shape
+        S, K = sa.npoint, sa.nsample
+        got = fps_cuda(pts, S, start)
+        ref = fps_plain(pts, S, start)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             raise AssertionError(f"FPS {name}: kernel indices differ from the "
                                  f"plain version at "
                                  f"{int((got != ref).sum())} places")
-        ms = median_ms(lambda: fps_cuda(pts, sa.npoint, start), 20)
-        plain = median_ms(lambda: fps_plain(pts, sa.npoint, start), 5, 1)
-        log(f"[kernels] fps {name} {tuple(pts.shape)}->{sa.npoint}: "
+        ms = median_ms(lambda: fps_cuda(pts, S, start), 20)
+        plain = median_ms(lambda: fps_plain(pts, S, start), 5, 1)
+        log(f"[kernels] fps {name} {tuple(pts.shape)}->{S}: "
             f"identical; kernel {ms:.4f} ms, plain {plain:.4f} ms")
         res["fps"]["ms"] += ms
         res["fps"]["plain_ms"] += plain
+        # per step and point: 3 sub, 3 mul, 2 add, a min and a compare
+        ops["fps"] += 10.0 * B * S * N
+        nbytes["fps"] += 4.0 * (B * N * 3 + B + B * S)
         # fused SA level on those centroids
         new_xyz = index_points(pts, got)
         params = sa.layer_params()
-        args = (sa.radius, sa.nsample)
-        pooled, idx = fused_sa_cuda(*args, True, pts, new_xyz, feats, params)
-        pooled_ref, idx_ref = fused_sa_forward_plain(
-            *args, "layer", pts, new_xyz, feats, params)
+        args = (sa.radius, K)
+        with torch.no_grad():
+            pooled, idx = fused_sa_cuda(*args, True, pts, new_xyz, feats,
+                                        params)
+            pooled_ref, idx_ref = fused_sa_forward_plain(
+                *args, "layer", pts, new_xyz, feats, params)
         torch.cuda.synchronize()
         if not torch.equal(idx, idx_ref):
             raise AssertionError(f"fused SA {name}: kernel neighbour indices "
@@ -156,42 +233,49 @@ def phase_kernels(model, xyz: torch.Tensor) -> dict:
         if not err <= REL_TOL * scale:
             raise AssertionError(f"fused SA {name}: max|Δ| {err} > "
                                  f"{REL_TOL} x {scale}")
-        ms = median_ms(lambda: fused_sa_cuda(*args, True, pts, new_xyz, feats,
-                                             params), 20)
-        plain = median_ms(lambda: fused_sa_forward_plain(
-            *args, "layer", pts, new_xyz, feats, params), 5, 1)
+        with torch.no_grad():
+            ms = median_ms(lambda: fused_sa_cuda(*args, True, pts, new_xyz,
+                                                 feats, params), 20)
+            plain = median_ms(lambda: fused_sa_forward_plain(
+                *args, "layer", pts, new_xyz, feats, params), 5, 1)
         distinct = float((idx_ref != idx_ref[..., :1]).sum(-1).float().mean()
                          + 1)
-        log(f"[kernels] fused_sa_fwd {name} N={pts.shape[1]} "
-            f"S={new_xyz.shape[1]} K={sa.nsample}: idx identical, max|Δ| "
-            f"{err:.3e} (max|ref| {scale:.3e}, mean distinct neighbours "
-            f"{distinct:.1f}); kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        log(f"[kernels] fused_sa_fwd {name} N={N} S={S} K={K}: idx "
+            f"identical, max|Δ| {err:.3e} (max|ref| {scale:.3e}, mean "
+            f"distinct neighbours {distinct:.1f}); kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms")
         fa = res["fused_sa_fwd"]
         fa["max_abs_err"] = max(fa["max_abs_err"], err)
         fa["ms"] += ms
         fa["plain_ms"] += plain
+        # the MLP's multiply-adds and the LayerNorms (about 8 operations an
+        # activation); the data-dependent ball-query scan is not counted,
+        # so the figure stays a lower bound
+        acts = sum(c.out_features for c in sa.mlp_convs)
+        ops["fused_sa_fwd"] += B * S * K * (2.0 * mlp_macs(sa) + 8.0 * acts)
+        w_bytes = 4.0 * sum(p.numel() for p in sa.parameters())
+        nbytes["fused_sa_fwd"] += (4.0 * (B * N * 3 + B * S * 3)
+                                   + (0 if feats is None else 4.0 *
+                                      feats.numel()) + w_bytes
+                                   + 4.0 * pooled.numel() + 4.0 * idx.numel())
         pts, feats = new_xyz, pooled_ref      # the next level's inputs
-    return res
+    for name in ops:
+        res[name].update(bound(ops[name], nbytes[name]))
+        res[name]["library_ms"] = None
 
 
-def phase_forward(model, clouds: np.ndarray) -> dict:
-    from maskplanner_tpu_torch.ops.cuda.fps import fps_cuda
-    from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_cuda
-
+def phase_forward(model, clouds: np.ndarray) -> None:
     dev = torch.device("cuda")
     x = torch.from_numpy(clouds).to(dev)
-    fps_cuda.launches = 0
-    fused_sa_cuda.launches = 0
+    reset_counts()
     with torch.inference_mode():
         out = model(x)
-    torch.cuda.synchronize()
-    launches = {"fps": fps_cuda.launches,
-                "fused_sa_fwd": fused_sa_cuda.launches}
+    launches = read_counts()
     log(f"[forward] launches in one forward: {launches}")
-    for name, n in launches.items():
-        if n != 2:
-            raise AssertionError(f"{name} launched {n} times in one forward, "
-                                 f"expected 2 (sa1, sa2)")
+    for name in ("fps", "fused_sa_fwd"):
+        if launches[name] != 2:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"one forward, expected 2 (sa1, sa2)")
     v, m = 449, 22
     expect = {"traj": (BATCH, v, 24), "stroke_masks": (BATCH, m, v),
               "mask_scores": (BATCH, m)}
@@ -225,28 +309,34 @@ def phase_forward(model, clouds: np.ndarray) -> dict:
     t1 = median_host_s(lambda: fwd(x[:1]), 20)
     log(f"[forward] batch {BATCH}: {t64 * 1e3:.3f} ms "
         f"({BATCH / t64:.1f} point clouds/s); batch 1: {t1 * 1e3:.3f} ms")
-    profile_forward(fwd, x)
-    return launches
+    profile(lambda: fwd(x), "forward", 3)
 
 
-def profile_forward(fwd, x) -> None:
-    """Device time by kernel over 3 forwards at batch 64 (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(fn, what: str, reps: int) -> None:
+    """Device time by kernel over ``reps`` calls of ``fn``
+    (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fwd(x)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.device_time_total / 3e3) for e in prof.key_averages()
-            if e.device_time_total > 0]
-    total = sum(ms for _, ms in rows)
+    # the kernels' own rows (an operator's or an annotation's row also
+    # holds its kernels' time)
+    rows = [(e.key, e.device_time_total / (reps * 1e3))
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+            and not e.key.startswith("Optimizer.")]
     if not rows:
-        log("[profile] no device time recorded: not measured")
+        log(f"[profile] {what}: no device time recorded: not measured")
         return
-    log(f"[profile] device time per forward {total:.3f} ms (sum over ops)")
-    for key, ms in sorted(rows, key=lambda r: -r[1])[:8]:
-        log(f"[profile] {ms:9.3f} ms {100 * ms / total:5.1f}%  {key[:90]}")
+    total = sum(ms for _, ms in rows)
+    log(f"[profile] {what}: device time {total:.3f} ms (sum over kernels)")
+    for key, ms in sorted(rows, key=lambda r: -r[1])[:10]:
+        log(f"[profile] {what} {ms:9.3f} ms {100 * ms / total:5.1f}%  "
+            f"{key[:90]}")
 
 
 def write_box_obj(path: str, dims, center) -> None:
@@ -263,37 +353,33 @@ def write_box_obj(path: str, dims, center) -> None:
             fh.write(f"f {f[0] + 1} {f[1] + 1} {f[2] + 1}\n")
 
 
-def phase_serve(cfg, model) -> None:
-    from maskplanner_tpu.utils.config import save_config
-    from maskplanner_tpu_torch.convert import save_checkpoint
-    from maskplanner_tpu_torch.ops.cuda.fps import fps_cuda
-    from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_cuda
+def serve_request(run_dir: str, label: str, reps: int) -> None:
+    """A Predictor on the card answers program requests for a box mesh;
+    both kernels run twice per request."""
     from maskplanner_tpu_torch.serve import Predictor
 
-    with tempfile.TemporaryDirectory() as run_dir:
-        save_config(cfg, run_dir)
-        save_checkpoint(run_dir, "last_checkpoint", model)
-        mesh = os.path.join(run_dir, "window.obj")
-        # a window-sized box in millimetres, off the origin
-        write_box_obj(mesh, dims=(900.0, 120.0, 1100.0),
-                      center=(400.0, 1500.0, 900.0))
-        pred = Predictor(run_dir, model="last", device="cuda")
-        fps_cuda.launches = 0
-        fused_sa_cuda.launches = 0
-        rows = pred.predict_program(mesh, cover_all=True)
-        if (fps_cuda.launches, fused_sa_cuda.launches) != (2, 2):
-            raise AssertionError("the serving request did not run each "
-                                 "kernel twice")
-        if rows.ndim != 2 or rows.shape[1] != 7 or rows.shape[0] == 0 \
-                or not np.isfinite(rows).all():
-            raise AssertionError(f"bad program rows: shape {rows.shape}")
-        n_strokes = len(np.unique(rows[:, 6]))
-        times = []
-        for _ in range(5):
-            t = time.perf_counter()
-            pred.predict_program(mesh, cover_all=True)
-            times.append(time.perf_counter() - t)
-        log(f"[serve] program {rows.shape[0]} poses, {n_strokes} strokes; "
+    mesh = os.path.join(run_dir, "window.obj")
+    # a window-sized box in millimetres, off the origin
+    write_box_obj(mesh, dims=(900.0, 120.0, 1100.0),
+                  center=(400.0, 1500.0, 900.0))
+    pred = Predictor(run_dir, model="last", device="cuda")
+    reset_counts()
+    rows = pred.predict_program(mesh, cover_all=True)
+    launches = read_counts()
+    if (launches["fps"], launches["fused_sa_fwd"]) != (2, 2):
+        raise AssertionError(f"{label}: the serving request did not run each "
+                             f"kernel twice: {launches}")
+    if rows.ndim != 2 or rows.shape[1] != 7 or rows.shape[0] == 0 \
+            or not np.isfinite(rows).all():
+        raise AssertionError(f"{label}: bad program rows: shape {rows.shape}")
+    n_strokes = len(np.unique(rows[:, 6]))
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        pred.predict_program(mesh, cover_all=True)
+        times.append(time.perf_counter() - t)
+    if times:
+        log(f"[{label}] program {rows.shape[0]} poses, {n_strokes} strokes; "
             f"request latency median {statistics.median(times) * 1e3:.1f} ms "
             f"(min {min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f})")
         # the request's parts: the rest is the host postprocess and export
@@ -301,38 +387,444 @@ def phase_serve(cfg, model) -> None:
         pc, _ = pred.preprocess(mesh)
         t_pre = time.perf_counter() - t
         t_fwd = median_host_s(lambda: pred.forward(pc[None]), 10)
-        log(f"[serve] of which preprocess {t_pre * 1e3:.1f} ms, forward "
+        log(f"[{label}] of which preprocess {t_pre * 1e3:.1f} ms, forward "
             f"{t_fwd * 1e3:.3f} ms")
+    else:
+        log(f"[{label}] program {rows.shape[0]} poses, {n_strokes} strokes")
+
+
+def phase_serve(cfg, model) -> None:
+    from maskplanner_tpu_torch.convert import save_checkpoint
+    from maskplanner_tpu_torch.utils.config import save_config
+
+    with tempfile.TemporaryDirectory() as run_dir:
+        save_config(cfg, run_dir)
+        save_checkpoint(run_dir, "last_checkpoint", model)
+        serve_request(run_dir, "serve", reps=5)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def active_weights(cfg, handler) -> dict:
+    """The loss weights after the delayed stroke-mask activation (1.0 and
+    100.0), so that every head has a gradient."""
+    from maskplanner_tpu_torch.train import apply_delayed_activations
+
+    return apply_delayed_activations(cfg, handler.init_weights(), 10 ** 6)
+
+
+def check_against_exact(name: str, got, plain, exact) -> float:
+    """Hold a kernel's gradient against the same level's in float64.
+
+    A float32 gradient of this network is only as good as its conditioning
+    allows. At the flagship shapes the plain float32 version itself lies
+    from 6e-5 to several percent of max|ref| from the float64 one, tensor by
+    tensor: LayerNorm rows of near-constant values amplify rounding, and
+    near-ties in the max over K neighbours fall to another neighbour when
+    the activations are summed in another order, each such flip moving a
+    few weight-gradient entries by O(1). The kernel's activations are
+    summed in another order than the plain version's, so its flips are its
+    own. Hence the measure is the root-mean-square error, which a handful
+    of flipped entries do not dominate: the kernel passes when
+    ||kernel − exact|| <= 3 · max(||plain − exact||, 5e-4 · ||exact||),
+    within three times the larger of the plain float32 version's own error
+    and the JAX package's fused-vs-unfused tolerance. Max-abs errors are
+    logged beside it. Returns max|kernel − plain|."""
+    exact = exact.double()
+    got64 = got.double()
+    plain64 = plain.double()
+    norm = float(exact.norm())
+    rms_k = float((got64 - exact).norm())
+    rms_p = float((plain64 - exact).norm())
+    scale = float(exact.abs().max())
+    max_k = float((got64 - exact).abs().max())
+    max_p = float((plain64 - exact).abs().max())
+    tiny = 1e-30
+    log(f"[train-kernels]   {name:14s} rel. rms error kernel "
+        f"{rms_k / max(norm, tiny):.2e} plain {rms_p / max(norm, tiny):.2e}; "
+        f"max error kernel {max_k / max(scale, tiny):.2e} plain "
+        f"{max_p / max(scale, tiny):.2e} of max|exact| {scale:.3e}")
+    tol = 3.0 * max(rms_p, 5e-4 * norm)
+    if not rms_k <= tol:
+        raise AssertionError(f"{name}: kernel rms error from float64 {rms_k} "
+                             f"> {tol} (3 x max(plain's {rms_p}, 5e-4 x "
+                             f"{norm}))")
+    return float((got - plain).abs().max())
+
+
+def check_routing(name, sa, leaves, params, idx, pooled) -> None:
+    """The max-pool backward finds the forward's winner for every (query,
+    channel): with d_pooled = 1 the last LayerNorm's beta gradient counts
+    the routed pairs that pass the ReLU, which must be every pair with a
+    positive maximum (a recompute that differed from the forward in one bit
+    would lose the pair)."""
+    from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_bwd_cuda
+
+    det = [None if t is None else t.detach() for t in leaves]
+    dparams = [tuple(t.detach() for t in layer) for layer in params]
+    pooled = pooled.detach()
+    _, _, _, grads = fused_sa_bwd_cuda(sa.nsample, True, *det, dparams, idx,
+                                       pooled, torch.ones_like(pooled))
+    routed = float(grads[-1][3].double().sum())
+    want = int((pooled > 0).sum())
+    log(f"[train-kernels]   routing: {routed:.0f} of {want} (query, channel) "
+        f"pairs with a positive max")
+    if routed != want:
+        raise AssertionError(f"fused SA {name}: the backward routed {routed} "
+                             f"max-pool gradients, expected {want}")
+
+
+def phase_train_kernels(cfg, model, batch, res: dict) -> None:
+    """The training kernels against their plain versions at the step's
+    shapes and inputs."""
+    from maskplanner_tpu_torch.losses import LossHandler
+    from maskplanner_tpu_torch.ops import hungarian as hung
+    from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_bwd_cuda
+    from maskplanner_tpu_torch.ops.cuda.lap import lap_cuda
+    from maskplanner_tpu_torch.ops.cuda.nn_argmin import nn_argmin_cuda
+    from maskplanner_tpu_torch.ops.fused_sa import (fused_sa_forward,
+                                                    fused_sa_forward_plain)
+    from maskplanner_tpu_torch.ops.nn_argmin import nn_argmin_plain
+    from maskplanner_tpu_torch.ops.sampling import (farthest_point_sample,
+                                                    index_points)
+    from maskplanner_tpu_torch.train import build_loss_batch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    # -- fused SA backward at sa1 and sa2 -------------------------------------
+    r = res["fused_sa_bwd"]
+    ops = nbytes = 0.0
+    pts, feats = batch["point_cloud"], None
+    for name, sa in (("sa1", model.sa1), ("sa2", model.sa2)):
+        B, N, _ = pts.shape
+        S, K = sa.npoint, sa.nsample
+        new_xyz = index_points(pts, farthest_point_sample(pts, S))
+        params = [tuple(t.detach().clone().requires_grad_(True) for t in l)
+                  for l in sa.layer_params()]
+        leaves = [pts.detach().clone().requires_grad_(True),
+                  new_xyz.detach().clone().requires_grad_(True),
+                  None if feats is None
+                  else feats.detach().clone().requires_grad_(True)]
+        names = ["d_xyz", "d_new_xyz"] + ([] if feats is None
+                                          else ["d_features"])
+        flat = [t for layer in params for t in layer]
+        names += [f"L{j}.{n}" for j in range(len(params))
+                  for n in ("dW", "db", "dgamma", "dbeta")]
+
+        def run(fn, ls, ps, level=sa):
+            return fn(level.radius, level.nsample, "layer", *ls, ps)
+
+        pooled, idx = run(fused_sa_forward, leaves, params)
+        ct = torch.randn(pooled.shape, generator=gen, device="cuda")
+        reset_counts()
+        g = torch.autograd.grad((pooled * ct).sum(),
+                                [t for t in leaves if t is not None] + flat)
+        if read_counts()["fused_sa_bwd"] != 1:
+            raise AssertionError("the level's backward did not run the "
+                                 "fused_sa_bwd kernel once")
+        ref, ridx = run(fused_sa_forward_plain, leaves, params)
+        if not torch.equal(idx, ridx):
+            raise AssertionError(f"fused SA {name}: neighbour indices differ")
+        gp = torch.autograd.grad((ref * ct).sum(),
+                                 [t for t in leaves if t is not None] + flat)
+        l64 = [None if t is None else t.detach().double().requires_grad_(True)
+               for t in leaves]
+        p64 = [tuple(t.detach().double().requires_grad_(True) for t in l)
+               for l in params]
+        ref64, _ = run(fused_sa_forward_plain, l64, p64)
+        g64 = torch.autograd.grad(
+            (ref64 * ct.double()).sum(),
+            [t for t in l64 if t is not None] + [t for l in p64 for t in l])
+        log(f"[train-kernels] fused_sa_bwd {name} B={B} N={N} S={S} K={K}:")
+        check_routing(name, sa, leaves, params, idx, pooled)
+        for n, a, b, c in zip(names, g, gp, g64):
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   check_against_exact(n, a, b, c))
+        # times: the kernel alone, and autograd's backward of the plain level
+        det = [None if t is None else t.detach() for t in leaves]
+        dparams = [tuple(t.detach() for t in l) for l in params]
+        ms = median_ms(lambda: fused_sa_bwd_cuda(
+            K, True, *det, dparams, idx, pooled.detach(), ct), 5)
+        ref, _ = run(fused_sa_forward_plain, leaves, params)
+        plain = median_ms(lambda: torch.autograd.grad(
+            (ref * ct).sum(), [t for t in leaves if t is not None] + flat,
+            retain_graph=True), 3, 1)
+        log(f"[train-kernels] fused_sa_bwd {name}: kernel {ms:.3f} ms, plain "
+            f"(autograd) {plain:.3f} ms")
+        r["ms"] += ms
+        r["plain_ms"] += plain
+        # recompute + weight gradient + input gradient: 3x the forward MLP
+        acts = sum(c.out_features for c in sa.mlp_convs)
+        ops += B * S * K * (6.0 * mlp_macs(sa) + 20.0 * acts)
+        # read: the points, centroids, features, indices, pooled output, its
+        # gradient and the weights; written: the gradients of all but the
+        # indices and the pooled output
+        pts_bytes = 4.0 * (pts.numel() + new_xyz.numel()
+                           + (0 if feats is None else feats.numel()))
+        w_bytes = 4.0 * sum(p.numel() for p in sa.parameters())
+        nbytes += (2 * pts_bytes + 2 * w_bytes
+                   + 4.0 * (idx.numel() + 2 * pooled.numel()))
+        pts, feats = new_xyz.detach(), pooled.detach()
+    r.update(bound(ops, nbytes))
+    r["library_ms"] = None
+
+    # -- the step's nearest-neighbour and LAP inputs --------------------------
+    model.train()
+    with torch.no_grad():
+        out = model(batch["point_cloud"])
+    handler = LossHandler(cfg["loss"], cfg)
+    lb = build_loss_batch(out, batch)
+    B = lb["y_pred"].shape[0]
+    poses = lb["y_pred"].reshape(B, -1, 6)
+    calls = [("forward segments", lb["y_pred"], lb["y"], lb["y_mask"]),
+             ("forward segments, reverse", lb["y"], lb["y_pred"], None),
+             ("reverse segments", lb["y"], lb["y_pred"], None),
+             ("reverse points", lb["traj_as_pc"], poses, None)]
+    r = res["nn_argmin"]
+    ops = nbytes = lib = 0.0
+    for what, x, y, mask in calls:
+        reset_counts()
+        got = nn_argmin_cuda(x, y, mask)
+        ref = nn_argmin_plain(x, y, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"nn_argmin {what}: indices differ at "
+                                 f"{int((got != ref).sum())} places")
+        ms = median_ms(lambda: nn_argmin_cuda(x, y, mask), 20)
+        plain = median_ms(lambda: nn_argmin_plain(x, y, mask), 5, 1)
+        cd = median_ms(lambda: torch.cdist(x, y).argmin(-1), 10)
+        Bx, P1, D = x.shape
+        P2 = y.shape[1]
+        log(f"[train-kernels] nn_argmin {what} {tuple(x.shape)} x "
+            f"{tuple(y.shape)} mask={mask is not None}: identical; kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, torch.cdist+argmin "
+            f"{cd:.4f} ms")
+        r["ms"] += ms
+        r["plain_ms"] += plain
+        lib += cd
+        ops += Bx * P1 * P2 * (3.0 * D + 1.0)
+        nbytes += 4.0 * (Bx * P1 * D + Bx * P2 * D + Bx * P1) + (
+            0 if mask is None else Bx * P2)
+    r.update(bound(ops, nbytes))
+    r["library_ms"] = lib
+
+    # the LAP's input, recorded from the loss itself
+    seen = []
+    orig = hung.lap
+    hung.lap = lambda cost: (seen.append(cost.clone()), orig(cost))[1]
+    try:
+        with torch.no_grad():
+            handler.compute(active_weights(cfg, handler), **lb)
+    finally:
+        hung.lap = orig
+    if len(seen) != 1 or tuple(seen[0].shape) != (BATCH, 22, 22):
+        raise AssertionError(f"expected one 64 x 22 x 22 LAP, got "
+                             f"{[tuple(c.shape) for c in seen]}")
+    cost = seen[0]
+    stats = {}
+    got = lap_cuda(cost)
+    ref = hung.lap_plain(cost, stats)
+    rows = torch.arange(22, device="cuda")
+    for b in range(BATCH):
+        if sorted(got[b].tolist()) != list(range(22)):
+            raise AssertionError(f"lap problem {b}: not a permutation")
+    c_got = cost.double().gather(2, got.long()[..., None]).sum((1, 2))
+    c_ref = cost.double().gather(2, ref.long()[..., None]).sum((1, 2))
+    rel = float(((c_got - c_ref).abs() / c_ref.abs().clamp(min=1e-30)).max())
+    agree = float((got == ref).float().mean())
+    if not rel <= 1e-5:
+        raise AssertionError(f"lap: total cost differs by {rel} relative")
+    del rows
+    ms = median_ms(lambda: lap_cuda(cost), 20)
+    plain = median_ms(lambda: hung.lap_plain(cost), 3, 1)
+    log(f"[train-kernels] lap {tuple(cost.shape)}: permutations, total cost "
+        f"max rel Δ {rel:.2e}, index agreement {agree:.4f}, "
+        f"{stats['steps']} Dijkstra steps; kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms")
+    n = cost.shape[1]
+    res["lap"].update(ms=ms, plain_ms=plain, library_ms=None,
+                      max_abs_err=float((c_got - c_ref).abs().max()),
+                      # per step and column: 3 add/sub, 2 compares, a select
+                      **bound(6.0 * stats["steps"] * n,
+                              4.0 * (cost.numel() + BATCH * n)))
+    model.eval()
+
+
+def to_batch(items: list[dict], device) -> dict:
+    from maskplanner_tpu_torch.data import collate
+    from maskplanner_tpu_torch.train import batch_to_device
+
+    return batch_to_device(collate(items), device)
+
+
+def phase_train_step(cfg, items) -> dict:
+    """Launch counts of one training step at batch 64, the card against the
+    CPU on 2 samples, a 30-step health check and the step time."""
+    from maskplanner_tpu_torch.losses import LossHandler
+    from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.train import make_optimizer, train_step
+
+    batch = to_batch(items, "cuda")
+    model = get_model(cfg, device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    handler = LossHandler(cfg["loss"], cfg)
+    weights = active_weights(cfg, handler)
+    opt = make_optimizer(model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    train_step(model, opt, handler, batch, weights, gen)   # warm up
+    reset_counts()
+    loss, _ = train_step(model, opt, handler, batch, weights, gen)
+    launches = read_counts()
+    log(f"[train] launches in one step: {launches}")
+    if launches != STEP_LAUNCHES:
+        raise AssertionError(f"one training step launched {launches}, "
+                             f"expected {STEP_LAUNCHES}")
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"non-finite training loss {float(loss)}")
+
+    phase_card_vs_cpu(cfg, items[:2], handler)
+
+    # health: 30 Adam steps on the batch
+    model = get_model(cfg, device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    opt = make_optimizer(model, cfg)
+    curve = [float(train_step(model, opt, handler, batch, weights, gen)[0])
+             for _ in range(30)]
+    log("[train] 30-step loss curve: " + " ".join(f"{v:.1f}" for v in curve))
+    if not all(np.isfinite(curve)) or not curve[-1] < curve[0]:
+        raise AssertionError("the loss did not fall over 30 steps, or went "
+                             "non-finite")
+
+    t = median_host_s(lambda: train_step(model, opt, handler, batch, weights,
+                                         gen), 10)
+    log(f"[train] step at batch {BATCH}: {t * 1e3:.3f} ms "
+        f"({BATCH / t:.1f} point clouds/s)")
+    profile(lambda: train_step(model, opt, handler, batch, weights, gen),
+            "train step", 1)
+    return launches
+
+
+def step_grads(model, handler, batch, weights):
+    from maskplanner_tpu_torch.train import train_step
+
+    opt = torch.optim.Adam(model.parameters(), lr=0.0)
+    loss, _ = train_step(model, opt, handler, batch, weights)
+    return float(loss), {n: p.grad.detach().cpu().double()
+                         for n, p in model.named_parameters()}
+
+
+def phase_card_vs_cpu(cfg, items, handler) -> None:
+    """One step's loss and gradients on the card and on the CPU.
+
+    The same weights, FPS from index 0, head dropout 0, the activated loss
+    weights. The loss within 1e-4 relative; each gradient's rms difference
+    within 1e-3 of its norm plus 3 x the CPU step's own float32 rms error on
+    that tensor, measured against the CPU step in float64 (rms, not max:
+    near-ties in the max-pools and the matchings fall apart in another
+    summation order and move single entries by O(1); see
+    ``check_against_exact``)."""
+    from maskplanner_tpu_torch.models import get_model
+
+    weights = active_weights(cfg, handler)
+    models = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                       ("cpu", torch.float64)):
+        m = get_model(cfg, device="cpu", dropout=0.0,
+                      generator=torch.Generator().manual_seed(0))
+        models[dev, dtype] = m.to(device=dev, dtype=dtype)
+    res = {}
+    for (dev, dtype), m in models.items():
+        b = to_batch(items, dev)
+        b = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in b.items()}
+        res[dev, dtype] = step_grads(m, handler, b, weights)
+    (l_gpu, g_gpu), (l_cpu, g_cpu), (l_64, g_64) = res.values()
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    log(f"[card-vs-cpu] loss card {l_gpu:.6f} cpu {l_cpu:.6f} (float64 "
+        f"{l_64:.6f}): rel Δ {rel:.2e}")
+    if not rel <= 1e-4:
+        raise AssertionError(f"the card's loss differs from the CPU's by "
+                             f"{rel} relative")
+    worst = (0.0, "")
+    for n, ref in g_cpu.items():
+        norm = float(ref.norm())
+        d = float((g_gpu[n] - ref).norm())
+        own = float((ref - g_64[n]).norm())
+        tol = 1e-3 * norm + 3.0 * own
+        if not d <= tol:
+            raise AssertionError(f"gradient {n}: card vs CPU rms {d} > {tol} "
+                                 f"(1e-3 x {norm} + 3 x {own})")
+        rel_max = float((g_gpu[n] - ref).abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+        worst = max(worst, (rel_max, n))
+    log(f"[card-vs-cpu] {len(g_cpu)} gradients agree; largest card-vs-CPU "
+        f"max|Δ| {worst[0]:.2e} of max|ref| ({worst[1]})")
+
+
+def phase_train_then_serve() -> None:
+    """The training entry point in-process, then a Predictor serves what it
+    wrote."""
+    from maskplanner_tpu_torch import train_maskplanner
+
+    with tempfile.TemporaryDirectory() as out:
+        reset_counts()
+        run_dir, _ = train_maskplanner.main([
+            FLAGSHIP, "device=cuda", "epochs=2", "eval_freq=1",
+            f"dataset_size={BATCH}", "test_dataset_size=8", "seed=1",
+            f"output_dir={out}"])
+        launches = read_counts()
+        if launches["fused_sa_bwd"] != 2 * STEP_LAUNCHES["fused_sa_bwd"]:
+            raise AssertionError(f"2 epochs of one step launched {launches}")
+        if not os.path.isfile(os.path.join(run_dir,
+                                           "last_checkpoint.torch.pt")):
+            raise AssertionError("train_maskplanner wrote no "
+                                 "last_checkpoint")
+        serve_request(run_dir, "train-then-serve", reps=0)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from maskplanner_tpu.utils.args import load_args
     from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.utils.args import load_args
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
 
     phase_identity()
     phase_build()
     cfg = load_args(argv=[FLAGSHIP])
+    res = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+           for name in KERNELS}
     model = get_model(cfg, device="cuda",
                       generator=torch.Generator().manual_seed(0))
-    clouds = load_clouds(cfg)
+    clouds = np.stack([it["point_cloud"] for it in load_items(cfg, "test")])
     with torch.inference_mode():
-        results = phase_kernels(model, torch.from_numpy(clouds).cuda())
-    launches = phase_forward(model, clouds)
+        phase_kernels(model, torch.from_numpy(clouds).cuda(), res)
+    phase_forward(model, clouds)
     phase_serve(cfg, model)
+    log(f"[time] serving phases done at {time.perf_counter() - t0:.1f} s")
 
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax",
-                                                                  "flax"))
+    train_items = load_items(cfg, "train")
+    phase_train_kernels(cfg, model, to_batch(train_items, "cuda"), res)
+    launches = phase_train_step(cfg, train_items)
+    phase_train_then_serve()
+    log(f"[time] all phases done at {time.perf_counter() - t0:.1f} s")
+
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "maskplanner_tpu", "jax", "flax"))
     if leaked:
-        raise AssertionError(f"jax was imported: {leaked}")
+        raise AssertionError(f"the JAX package or jax was imported: {leaked}")
     kernels = [dict(name=name, route="cuda", **KERNELS[name],
-                    launches=launches[name], **results[name])
+                    launches=launches[name], **res[name])
                for name in KERNELS]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

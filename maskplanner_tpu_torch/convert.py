@@ -18,6 +18,8 @@ to the original PyTorch repo's names:
 
 Dense kernels (in, out) are transposed to (out, in). BatchNorm ``mean`` /
 ``var`` are copied as they are (eval reads only them).
+:func:`flax_tree_from_state_dict` maps back (numpy out), for a ``state_dict``
+or a dict of gradients by parameter name.
 """
 from __future__ import annotations
 
@@ -81,6 +83,51 @@ def state_dict_from_flax(variables) -> dict[str, torch.Tensor]:
                 sd[name.replace("running_mean", "num_batches_tracked")] = \
                     torch.tensor(0, dtype=torch.long)
     return sd
+
+
+_FLAX_HEAD_PATHS = {v: k for k, v in _HEAD_MODULES.items()}
+_FLAX_ENCODER_LISTS = {v: k for k, v in _ENCODER_LISTS.items()}
+_TORCH_MODULE = re.compile(r"(sa\d)\.(mlp_convs|mlp_bns|mlp_lns)\.(\d+)$")
+
+
+def _flax_path(module: str) -> tuple[str, ...]:
+    m = _TORCH_MODULE.match(module)
+    if m:
+        sa, kind, j = m.groups()
+        return ("encoder", sa, "PointMLP_0",
+                f"{_FLAX_ENCODER_LISTS[kind]}_{j}")
+    try:
+        return _FLAX_HEAD_PATHS[module]
+    except KeyError:
+        raise KeyError(f"no Flax path for port module {module}") from None
+
+
+def flax_tree_from_state_dict(state) -> dict:
+    """Port ``state_dict`` (or gradients by parameter name) -> Flax
+    ``{"params": ..., "batch_stats": ...}`` nested dicts of numpy arrays;
+    ``num_batches_tracked`` has no counterpart and is dropped."""
+    tree: dict = {}
+    for name, value in state.items():
+        module, leaf = name.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        path = _flax_path(module)
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight":
+            dense = not path[-1].startswith(("BatchNorm", "LayerNorm"))
+            flax_leaf = "kernel" if dense else "scale"
+            if dense:
+                arr = arr.T
+        else:
+            flax_leaf = {"bias": "bias", "running_mean": "mean",
+                         "running_var": "var"}[leaf]
+        collection = ("batch_stats" if leaf.startswith("running_")
+                      else "params")
+        node = tree.setdefault(collection, {})
+        for key in path:
+            node = node.setdefault(key, {})
+        node[flax_leaf] = arr
+    return tree
 
 
 def checkpoint_name(model: str) -> str:

@@ -40,12 +40,18 @@
 
 #include <cmath>
 
+#include "fused_sa_common.cuh"
+
 namespace {
 
+using fused_sa::kThreads;
+using fused_sa::layer_norm_act;
+using fused_sa::layer_norm_stats;
+using fused_sa::layer_norm_xhat;
+using fused_sa::layer_product;
+using fused_sa::sq_dist;
+
 constexpr int kMaxLayers = 4;
-constexpr int kThreads = 256;
-constexpr int kRows = 4;  // neighbour rows per thread in the layer products
-constexpr float kLayerNormEps = 1e-6f;
 
 struct Layer {
   const float* wt;     // (ci, co) row-major: the Dense weight transposed
@@ -61,23 +67,6 @@ struct Mlp {
   int n_layers;
   int layer_norm;
 };
-
-__device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
-                                         float x, float y, float z) {
-  const float dx = __fsub_rn(qx, x);
-  const float dy = __fsub_rn(qy, y);
-  const float dz = __fsub_rn(qz, z);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
 
 __global__ void __launch_bounds__(kThreads)
     fused_sa_fwd_kernel(const float* __restrict__ xyz,
@@ -159,67 +148,26 @@ __global__ void __launch_bounds__(kThreads)
   int ld_cur = ld_a;
   float* nxt = buf_b;
   int ld_nxt = ld_b;
-  const int kq = (k_nb + kRows - 1) / kRows;  // rows kg, kg + kq, ...
   for (int l = 0; l < mlp.n_layers; ++l) {
     const Layer L = mlp.layer[l];
-    const int co4 = L.co >> 2;
-    const float4* wt4 = reinterpret_cast<const float4*>(L.wt);
-    // a thread computes a kRows x 4 tile: rows kg + r * kq (neighbouring
-    // lanes take neighbouring rows, odd stride: no bank conflict) and
-    // output channels 4 og .. 4 og + 3 (one float4 of weights per input
-    // channel, shared by the lanes of the same og)
-    for (int e = tid; e < kq * co4; e += blockDim.x) {
-      const int kg = e % kq;
-      const int og = e / kq;
-      const float* h[kRows];
-      float acc[kRows][4];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int k = kg + r * kq;
-        h[r] = cur + (k < k_nb ? k : kg) * ld_cur;  // rows past K: unused
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = __ldg(L.bias + 4 * og + c);
-      }
-      for (int i = 0; i < L.ci; ++i) {
-        const float4 w = __ldg(wt4 + static_cast<size_t>(i) * co4 + og);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float hv = h[r][i];
-          acc[r][0] = fmaf(w.x, hv, acc[r][0]);
-          acc[r][1] = fmaf(w.y, hv, acc[r][1]);
-          acc[r][2] = fmaf(w.z, hv, acc[r][2]);
-          acc[r][3] = fmaf(w.w, hv, acc[r][3]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int k = kg + r * kq;
-        if (k >= k_nb) continue;
-        float* o = nxt + k * ld_nxt + 4 * og;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          o[c] = mlp.layer_norm ? acc[r][c] : fmaxf(acc[r][c], 0.f);
-        }
-      }
+    const float4* w4 = reinterpret_cast<const float4*>(L.wt);
+    if (mlp.layer_norm) {
+      layer_product<fused_sa::kStorePlain>(cur, ld_cur, L.ci, k_nb, w4,
+                                           L.bias, L.co, nxt, ld_nxt);
+    } else {
+      layer_product<fused_sa::kStoreRelu>(cur, ld_cur, L.ci, k_nb, w4,
+                                          L.bias, L.co, nxt, ld_nxt);
     }
     __syncthreads();
     if (mlp.layer_norm) {
-      // one warp per neighbour row: centred two-pass mean / variance
-      const float inv_c = 1.f / static_cast<float>(L.co);
+      // one warp per neighbour row
       for (int k = warp; k < k_nb; k += n_warps) {
         float* row = nxt + k * ld_nxt;
-        float sum = 0.f;
-        for (int c = lane; c < L.co; c += 32) sum += row[c];
-        const float mu = warp_sum(sum) * inv_c;
-        float sq = 0.f;
+        float mu, inv;
+        layer_norm_stats(row, L.co, lane, mu, inv);
         for (int c = lane; c < L.co; c += 32) {
-          const float d = row[c] - mu;
-          sq = fmaf(d, d, sq);
-        }
-        const float inv = rsqrtf(warp_sum(sq) * inv_c + kLayerNormEps);
-        for (int c = lane; c < L.co; c += 32) {
-          const float y = (row[c] - mu) * inv;
-          row[c] = fmaxf(fmaf(y, __ldg(L.gamma + c), __ldg(L.beta + c)), 0.f);
+          row[c] = layer_norm_act(layer_norm_xhat(row[c], mu, inv),
+                                  __ldg(L.gamma + c), __ldg(L.beta + c));
         }
       }
       __syncthreads();

@@ -11,9 +11,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from maskplanner_tpu.data.pointcloud import (get_dim_orient_traj_points,
-                                             get_dim_traj_points)
-
+from ..data.pointcloud import get_dim_orient_traj_points, get_dim_traj_points
 from .maskplanner import MaskPlannerOutput, PointNet2StrokeMasks
 
 __all__ = ["MaskPlannerOutput", "PointNet2StrokeMasks", "compute_out_vectors",
@@ -72,10 +70,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def get_model(config, *, device: str | torch.device,
-              generator: torch.Generator | None = None) -> nn.Module:
+              generator: torch.Generator | None = None,
+              dropout: float = 0.3) -> nn.Module:
     """Build the backbone named by ``config.model.backbone`` in eval mode on
     ``device``, its weights drawn from ``generator`` (default: seeded from
-    ``config.seed``)."""
+    ``config.seed``). ``dropout``: the heads' rate in train mode."""
     which = config["model"]["backbone"]
     if which == "pointnet2_strokemasks_retrocompatible":
         which = "pointnet2_strokemasks"   # differs only in a layer name
@@ -96,6 +95,7 @@ def get_model(config, *, device: str | torch.device,
         n_stroke_masks=info["n_stroke_masks"],
         segment_confidence_scores=bool(config.get("per_segment_confidence")),
         encoder_norm=config["model"].get("norm") or "batch",
+        dropout=dropout,
     )
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.get("seed") or 0))

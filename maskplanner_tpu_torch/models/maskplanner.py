@@ -11,7 +11,7 @@ from typing import NamedTuple, Sequence
 import torch
 from torch import nn
 
-from .pointnet2 import (BATCH_NORM_EPS, PointNet2Encoder,
+from .pointnet2 import (BATCH_NORM_EPS, FlaxBatchNorm1d, PointNet2Encoder,
                         assemble_pose_output, regression_head)
 
 
@@ -23,11 +23,12 @@ class MaskPlannerOutput(NamedTuple):
 
 
 class PointNet2StrokeMasks(PointNet2Encoder):
-    """The flagship MaskPlanner model, eval forward.
+    """The flagship MaskPlanner model.
 
     The encoder levels are this module's own ``sa1``..``sa3`` and the heads
     carry the original repo's names, so the ``state_dict`` reads like the
-    original model's."""
+    original model's. ``dropout``: the heads' dropout rate in train mode
+    (0.3 as in the JAX package's ``RegressionHead``)."""
 
     def __init__(self, out_vectors: int, outdim: int = 3,
                  outdim_orient: int = 3, weight_orient: float = 1.0,
@@ -35,8 +36,9 @@ class PointNet2StrokeMasks(PointNet2Encoder):
                  hidden_size: Sequence[int] = (1024, 1024),
                  n_stroke_masks: int = 1,
                  segment_confidence_scores: bool = False,
-                 encoder_norm: str = "batch"):
+                 encoder_norm: str = "batch", dropout: float = 0.3):
         super().__init__(encoder_norm)
+        self.dropout = dropout
         self.out_vectors = out_vectors
         self.outdim_orient = outdim_orient
         self.weight_orient = weight_orient
@@ -45,7 +47,7 @@ class PointNet2StrokeMasks(PointNet2Encoder):
         n_pose = out_vectors * lambda_points
 
         def bn(c):
-            return nn.BatchNorm1d(c, eps=BATCH_NORM_EPS)
+            return FlaxBatchNorm1d(c, eps=BATCH_NORM_EPS)
 
         self.fc1, self.bn1 = nn.Linear(1024, h1), bn(h1)
         self.fc2, self.bn2 = nn.Linear(h1, h2), bn(h2)
@@ -62,12 +64,16 @@ class PointNet2StrokeMasks(PointNet2Encoder):
         self.sm_fc3 = nn.Linear(h2, out_vectors * n_stroke_masks)
         self.mask_conf_out = nn.Linear(h2, n_stroke_masks)
 
-    def forward(self, xyz: torch.Tensor) -> MaskPlannerOutput:
-        """xyz: (B, N, 3) normalized point clouds."""
-        feat = super().forward(xyz)
+    def forward(self, xyz: torch.Tensor,
+                generator: torch.Generator | None = None) -> MaskPlannerOutput:
+        """xyz: (B, N, 3) normalized point clouds. ``generator``: in train
+        mode, the random FPS starts and the dropout masks."""
+        feat = super().forward(xyz, generator)
         B = feat.shape[0]
+        drop = dict(rate=self.dropout, training=self.training,
+                    generator=generator)
         trunk = regression_head(feat, [(self.fc1, self.bn1),
-                                       (self.fc2, self.bn2)])
+                                       (self.fc2, self.bn2)], **drop)
         positions = self.fc3(trunk)
         if self.outdim_orient > 0:
             traj = assemble_pose_output(positions, self.fc_normals(trunk),
@@ -78,11 +84,11 @@ class PointNet2StrokeMasks(PointNet2Encoder):
         seg_conf = None
         if self.segment_confidence_scores:
             sc = regression_head(feat, [(self.seg_conf_fc1, None),
-                                        (self.seg_conf_fc2, None)])
+                                        (self.seg_conf_fc2, None)], **drop)
             seg_conf = torch.sigmoid(self.seg_conf_out(sc))
 
         sm = regression_head(feat, [(self.sm_fc1, self.sm_bn1),
-                                    (self.sm_fc2, self.sm_bn2)])
+                                    (self.sm_fc2, self.sm_bn2)], **drop)
         stroke_masks = self.sm_fc3(sm).reshape(B, self.n_stroke_masks,
                                                self.out_vectors)
         return MaskPlannerOutput(traj, stroke_masks, self.mask_conf_out(sm),

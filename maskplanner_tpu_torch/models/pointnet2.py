@@ -3,7 +3,13 @@
 Channel-last like the JAX package: xyz (B, N, 3), features (B, N, C). The
 modules are named as in the original PyTorch repository
 (``sa{i}.mlp_convs.{j}``, ``sa{i}.mlp_bns.{j}``), with ``mlp_lns.{j}`` for
-the LayerNorm levels it did not have. This slice ports the eval forward.
+the LayerNorm levels it did not have.
+
+Train mode follows Flax: BatchNorm normalizes with the batch's biased
+variance and moves its running statistics as ``0.9 running + 0.1 batch``
+(:class:`FlaxBatchNorm1d`), FPS starts each cloud at a random index drawn
+from an explicit ``torch.Generator`` (index 0 without one), and the heads'
+dropout draws its mask from that generator.
 """
 from __future__ import annotations
 
@@ -17,11 +23,57 @@ from ..ops.sampling import farthest_point_sample, index_points, \
     query_ball_point
 
 BATCH_NORM_EPS = 1e-5
+BATCH_NORM_MOMENTUM = 0.9  # Flax's: running = 0.9 running + 0.1 batch
+
+
+class FlaxBatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` (same parameters and buffers) whose train mode is
+    Flax's ``nn.BatchNorm``: mean and variance over the rows, the variance
+    as ``E[x²] − E[x]²`` clipped at 0 (biased), the output
+    ``(x − mean) · (rsqrt(var + eps) · scale) + bias``, and the running
+    statistics moved with momentum 0.9 by the biased variance
+    (``nn.BatchNorm1d`` would use the unbiased one). Eval mode is
+    ``nn.BatchNorm1d``'s: the running statistics."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(0)
+        var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = BATCH_NORM_MOMENTUM
+            self.running_mean.mul_(m).add_((1.0 - m) * mean)
+            self.running_var.mul_(m).add_((1.0 - m) * var)
+            self.num_batches_tracked += 1
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout whose keep mask comes from ``generator`` (the
+    global generator when None); the identity in eval or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.bernoulli(torch.full_like(x, 1.0 - rate),
+                           generator=generator)
+    return x * keep / (1.0 - rate)
+
+
+def random_starts(xyz: torch.Tensor,
+                  generator: torch.Generator | None) -> torch.Tensor | None:
+    """(B,) random FPS start indices drawn from ``generator``; None (start
+    0) without one."""
+    if generator is None:
+        return None
+    B, N, _ = xyz.shape
+    return torch.randint(0, N, (B,), generator=generator,
+                         device=generator.device).to(xyz.device)
 
 
 class PointMLP(nn.Module):
     """Shared per-point MLP: Linear -> norm -> ReLU per layer, over the last
-    axis. ``norm``: "batch" (eval BatchNorm from the running statistics),
+    axis. ``norm``: "batch" (:class:`FlaxBatchNorm1d` over all rows),
     "layer" (LayerNorm over channels, eps 1e-6 as in Flax) or "none"."""
 
     def __init__(self, in_channel: int, channels: Sequence[int], norm: str):
@@ -34,7 +86,7 @@ class PointMLP(nn.Module):
             nn.Linear(ci, co) for ci, co in zip(widths[:-1], widths[1:]))
         if norm == "batch":
             self.mlp_bns = nn.ModuleList(
-                nn.BatchNorm1d(c, eps=BATCH_NORM_EPS) for c in channels)
+                FlaxBatchNorm1d(c, eps=BATCH_NORM_EPS) for c in channels)
         elif norm == "layer":
             self.mlp_lns = nn.ModuleList(
                 nn.LayerNorm(c, eps=LAYER_NORM_EPS) for c in channels)
@@ -67,8 +119,10 @@ class SetAbstraction(PointMLP):
     """PointNet++ set-abstraction level, single-scale grouping.
 
     Grouped ``layer``/``none`` levels run as one fused level
-    (``ops.fused_sa.fused_sa_forward``: the CUDA kernel on the card). The
-    ``group_all`` level, and a grouped ``batch`` level, run as plain ops."""
+    (``ops.fused_sa.fused_sa_forward``: the CUDA kernels on the card), in
+    both modes. The ``group_all`` level runs as plain ops. A grouped
+    ``batch`` level runs as plain ops in eval; its train forward (the JAX
+    package's ``group_gather`` kernel) is not ported yet."""
 
     def __init__(self, npoint: int | None, radius: float | None,
                  nsample: int | None, in_channel: int,
@@ -79,17 +133,22 @@ class SetAbstraction(PointMLP):
         self.nsample = nsample
         self.group_all = group_all
 
-    def forward(self, xyz: torch.Tensor, features: torch.Tensor | None):
-        if self.training:
-            raise NotImplementedError(
-                "only the eval forward is ported: call model.eval()")
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor | None,
+                generator: torch.Generator | None = None):
+        """``generator``: the random FPS starts in train mode."""
         if self.group_all:
             new_xyz = xyz.new_zeros((xyz.shape[0], 1, 3))
             grouped = xyz[:, None]                              # (B, 1, N, 3)
             if features is not None:
                 grouped = torch.cat([grouped, features[:, None]], dim=-1)
             return new_xyz, self.run_mlp(grouped).amax(dim=2)
-        fps_idx = farthest_point_sample(xyz, self.npoint)
+        if self.training and self.norm == "batch":
+            raise NotImplementedError(
+                "the train forward of a grouped BatchNorm level (the JAX "
+                "package's group_gather kernel) is not ported yet "
+                "(ROADMAP.md, Queue 2)")
+        start = random_starts(xyz, generator) if self.training else None
+        fps_idx = farthest_point_sample(xyz, self.npoint, start)
         new_xyz = index_points(xyz, fps_idx)                    # (B, S, 3)
         if self.norm in ("layer", "none"):
             pooled, _ = fused_sa_forward(
@@ -126,23 +185,26 @@ class PointNet2Encoder(nn.Module):
         self.sa3 = SetAbstraction(None, None, None, 256 + 3, (256, 512, 1024),
                                   True, n3)
 
-    def forward(self, xyz: torch.Tensor) -> torch.Tensor:
-        l1_xyz, l1_f = self.sa1(xyz, None)
-        l2_xyz, l2_f = self.sa2(l1_xyz, l1_f)
+    def forward(self, xyz: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        l1_xyz, l1_f = self.sa1(xyz, None, generator)
+        l2_xyz, l2_f = self.sa2(l1_xyz, l1_f, generator)
         _, l3_f = self.sa3(l2_xyz, l2_f)
         return l3_f[:, 0, :]
 
 
-def regression_head(x: torch.Tensor, layers) -> torch.Tensor:
-    """The fc -> BatchNorm -> ReLU (-> dropout, a no-op in eval) trunk of
-    every regressor head; ``layers`` is ``[(linear, batchnorm or None)]``.
-    A function, so that the layers keep the original repo's names on the
-    model (``fc1``, ``bn1``, ``sm_fc1``, ...)."""
+def regression_head(x: torch.Tensor, layers, rate: float = 0.0,
+                    training: bool = False,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+    """The fc -> BatchNorm -> ReLU -> dropout trunk of every regressor head;
+    ``layers`` is ``[(linear, batchnorm or None)]``. A function, so that the
+    layers keep the original repo's names on the model (``fc1``, ``bn1``,
+    ``sm_fc1``, ...)."""
     for linear, bn in layers:
         x = linear(x)
         if bn is not None:
             x = bn(x)
-        x = torch.relu(x)
+        x = dropout(torch.relu(x), rate, training, generator)
     return x
 
 

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` compiles, on first use, into its own shared library
 with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``), under
 ``maskplanner_tpu_torch/_build/`` (git-ignored). The file name carries a hash
-of the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. :func:`build_all` starts one ``nvcc`` per source,
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source is rebuilt and a stale library is never loaded. :func:`build_all` starts one ``nvcc`` per source,
 all at once. A failed build raises with ``nvcc``'s output.
 
 Pointers and the stream are passed as ``ctypes.c_void_p`` (a plain int would
@@ -52,8 +52,11 @@ def _sources() -> list[str]:
 
 def _lib_path(name: str) -> str:
     h = hashlib.sha256()
-    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as fh:
-        h.update(fh.read())
+    # the source and every shared header of csrc/ (included or not)
+    headers = sorted(n for n in os.listdir(SRC_DIR) if n.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(SRC_DIR, fname), "rb") as fh:
+            h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 

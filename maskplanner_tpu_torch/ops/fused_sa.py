@@ -1,13 +1,11 @@
-"""One fused PointNet++ set-abstraction level, forward only.
+"""One fused PointNet++ set-abstraction level, forward and backward.
 
-Counterpart of ``maskplanner_tpu/ops/pallas/fused_sa_train.py``'s forward:
-first-K ball query -> gather ``[x - q ; f]`` (offsets first) -> per-point
-MLP (Dense, LayerNorm with eps 1e-6 or no norm, ReLU) -> max over K. A CUDA
-tensor goes to the kernel (``ops/cuda/fused_sa.py``), a CPU tensor to
-:func:`fused_sa_forward_plain`.
-
-This slice has no backward: asking for a gradient raises, so that nothing
-trains through the level silently.
+Counterpart of ``maskplanner_tpu/ops/pallas/fused_sa_train.py``: first-K
+ball query -> gather ``[x - q ; f]`` (offsets first) -> per-point MLP
+(Dense, LayerNorm with eps 1e-6 or no norm, ReLU) -> max over K. A CUDA
+tensor goes through :class:`FusedSALevel`, whose forward and backward are
+the kernels of ``ops/cuda/fused_sa.py``; a CPU tensor goes to
+:func:`fused_sa_forward_plain`, and autograd through it gives the gradient.
 """
 from __future__ import annotations
 
@@ -37,10 +35,48 @@ def fused_sa_forward_plain(radius: float, nsample: int, norm: str,
     return h.amax(dim=2), idx
 
 
+class FusedSALevel(torch.autograd.Function):
+    """The level on the card with a kernel for each direction. The forward
+    saves the neighbour indices and the pooled output; the backward
+    recomputes the activations from them (``csrc/fused_sa_bwd.cu``).
+
+    ``apply(radius, nsample, layer_norm, xyz, new_xyz, features, n_per,
+    *flat_params)``: ``flat_params`` holds the layers' tensors in order,
+    ``n_per`` of them a layer."""
+
+    @staticmethod
+    def forward(ctx, radius, nsample, layer_norm, xyz, new_xyz, features,
+                n_per, *flat):
+        from .cuda.fused_sa import fused_sa_cuda
+
+        params = [flat[i:i + n_per] for i in range(0, len(flat), n_per)]
+        pooled, idx = fused_sa_cuda(radius, nsample, layer_norm, xyz,
+                                    new_xyz, features, params)
+        ctx.level = (nsample, layer_norm, n_per)
+        ctx.save_for_backward(xyz, new_xyz, features, idx, pooled, *flat)
+        ctx.mark_non_differentiable(idx)
+        return pooled, idx
+
+    @staticmethod
+    def backward(ctx, d_pooled, _d_idx):
+        from .cuda.fused_sa import fused_sa_bwd_cuda
+
+        nsample, layer_norm, n_per = ctx.level
+        xyz, new_xyz, features, idx, pooled, *flat = ctx.saved_tensors
+        params = [flat[i:i + n_per] for i in range(0, len(flat), n_per)]
+        d_xyz, d_new, d_feat, d_params = fused_sa_bwd_cuda(
+            nsample, layer_norm, xyz, new_xyz, features, params, idx, pooled,
+            d_pooled.contiguous())
+        return (None, None, None, d_xyz, d_new, d_feat, None,
+                *(g for layer in d_params for g in layer))
+
+
 def fused_sa_forward(radius: float, nsample: int, norm: str,
                      xyz: torch.Tensor, new_xyz: torch.Tensor,
                      features: torch.Tensor | None, params):
-    """One SA level -> (pooled (B, S, C_last) f32, idx (B, S, K) int32).
+    """One SA level -> (pooled (B, S, C_last) f32, idx (B, S, K) int32),
+    differentiable in xyz, new_xyz, features and params (the neighbour
+    selection is piecewise constant, like every ball query).
 
     xyz (B, N, 3); new_xyz (B, S, 3), the FPS centroids; features (B, N, F)
     or None; params: per layer ``(w (C_out, C_in), b)``, plus
@@ -48,17 +84,14 @@ def fused_sa_forward(radius: float, nsample: int, norm: str,
     if norm not in ("layer", "none"):
         raise ValueError(f"the fused level takes norm 'layer' or 'none', "
                          f"got {norm!r}")
-    operands = [xyz, new_xyz, features, *(a for layer in params
-                                          for a in layer)]
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in operands):
-        raise RuntimeError("fused_sa_forward has no backward yet: run it "
-                           "under torch.no_grad() or torch.inference_mode()")
     if xyz.device.type == "cuda":
-        from .cuda.fused_sa import fused_sa_cuda
-
-        return fused_sa_cuda(radius, nsample, norm == "layer", xyz, new_xyz,
-                             features, params)
+        n_per = 4 if norm == "layer" else 2
+        flat = [a for layer in params for a in layer]
+        if any(len(layer) != n_per for layer in params):
+            raise ValueError("a layer is (w, b, gamma, beta) with LayerNorm, "
+                             "(w, b) without")
+        return FusedSALevel.apply(radius, nsample, norm == "layer", xyz,
+                                  new_xyz, features, n_per, *flat)
     if xyz.device.type == "cpu":
         return fused_sa_forward_plain(radius, nsample, norm, xyz, new_xyz,
                                       features, params)

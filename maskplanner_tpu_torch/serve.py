@@ -1,12 +1,12 @@
 """Serving: a trained run -> mesh-to-program inference
 (``maskplanner_tpu/serve.py``).
 
-The host steps are the JAX package's own modules, imported as they are:
-mesh sampling and normalization (``data.io``), the stroke-mask
+The host steps are the port's own copies of the JAX package's numpy-only
+modules: mesh sampling and normalization (``data.io``), the stroke-mask
 postprocess (``postprocess``), denormalization and the orientnorm -> Euler
-export (``data.pointcloud``, ``data.io``). The forward is the port's model on
-an explicit device; ``device="cuda"`` without a card raises, and nothing
-falls back to the CPU.
+export (``data.pointcloud``, ``data.io``), and ``resolve_scale``. The
+forward is the port's model on an explicit device; ``device="cuda"``
+without a card raises, and nothing falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -15,18 +15,44 @@ import os
 import numpy as np
 import torch
 
-from maskplanner_tpu.data.io import (get_mean_mesh, orientnorm_to_euler,
-                                     read_mesh_as_pointcloud, save_traj_file)
-from maskplanner_tpu.data.pointcloud import (denormalize_traj,
-                                             get_dim_traj_points)
-from maskplanner_tpu.postprocess import process_pred_stroke_masks_to_stroke_ids
-from maskplanner_tpu.postprocess.segments import process_stroke_segments
-from maskplanner_tpu.serve import resolve_scale
-from maskplanner_tpu.utils.config import (apply_retrocompat_defaults,
-                                          load_config)
-
 from .convert import checkpoint_name, load_checkpoint
+from .data.io import (DATASET_DOWNSCALE_FACTORS, get_dataset_name,
+                      get_mean_mesh, orientnorm_to_euler,
+                      read_mesh_as_pointcloud, save_traj_file)
+from .data.pointcloud import denormalize_traj, get_dim_traj_points
 from .models import MaskPlannerOutput, get_model
+from .postprocess import process_pred_stroke_masks_to_stroke_ids
+from .postprocess.segments import process_stroke_segments
+from .utils.config import apply_retrocompat_defaults, load_config
+
+
+def resolve_scale(config, data_scale_factor: float | None = None,
+                  allow_probe: bool = True) -> float:
+    """Workspace -> model-space downscale factor for a frozen run config.
+
+    Resolution order: explicit override > frozen ``data_scale_factor`` >
+    the per-category measured constant (reference utils/disk.py:16-43) >
+    a dataset probe (same rule as ``PaintDataset._compute_scale``, needs
+    the dataset on disk). ``normalization: none`` is always 1.0.
+    """
+    if data_scale_factor:
+        return float(data_scale_factor)
+    if config.get("normalization") == "none":
+        return 1.0
+    if config.get("data_scale_factor"):
+        return float(config["data_scale_factor"])
+    known = DATASET_DOWNSCALE_FACTORS.get(get_dataset_name(config["dataset"]))
+    if known is not None:
+        return float(known)
+    if allow_probe:
+        from .data.dataset import PaintDataset
+
+        probe = config.copy()
+        probe["data_scale_factor"] = None
+        return float(PaintDataset(probe, split="train").scale)
+    raise ValueError(
+        f"no downscale factor known for {config['dataset']}; pass "
+        f"data_scale_factor explicitly")
 
 
 def resolve_device(device: str | torch.device) -> torch.device:

@@ -140,6 +140,12 @@ def test_unported_backbone_and_norm_spec_raise():
 
 
 def test_training_forward_is_refused():
-    model = get_model(_small_config(64, False), device="cpu").train()
-    with pytest.raises(NotImplementedError, match="eval"):
-        model(torch.zeros(1, 64, 3))
+    """The train forward runs for the fused (LayerNorm / no-norm) levels; a
+    grouped BatchNorm level's train forward is not ported and raises."""
+    cfg = _small_config(64, False)
+    out = get_model(cfg, device="cpu").train()(torch.randn(2, 64, 3))
+    assert out.traj.requires_grad
+    model = get_model(_small_config(64, False, norm="batch"),
+                      device="cpu").train()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model(torch.zeros(2, 64, 3))

@@ -187,15 +187,18 @@ class TestFusedSA:
         assert idx[0, 1].tolist() == [0, 1, 2, 3]
 
     def test_gradient_request_raises(self):
+        """The level is differentiable in its inputs and weights; its
+        neighbour indices are not, and asking for their gradient raises."""
         case = _torch_args(*_sa_case("layer", True))
         w = case[3][0][0].clone().requires_grad_(True)
         params = ((w,) + case[3][0][1:],) + case[3][1:]
-        with pytest.raises(RuntimeError, match="no backward"):
-            fused_sa_forward(RADIUS, K, "layer", case[0], case[1], case[2],
-                             params)
-        with torch.no_grad():
-            fused_sa_forward(RADIUS, K, "layer", case[0], case[1], case[2],
-                             params)
+        pooled, idx = fused_sa_forward(RADIUS, K, "layer", case[0], case[1],
+                                       case[2], params)
+        assert pooled.requires_grad and not idx.requires_grad
+        pooled.sum().backward()
+        assert w.grad is not None and bool(torch.isfinite(w.grad).all())
+        with pytest.raises(RuntimeError):
+            idx.float().sum().backward()
 
     def test_cpu_tensors_never_count_a_launch(self):
         fps_before = fps_cuda.launches

@@ -3,8 +3,8 @@
 A fabricated on-disk category and a run dir from a fresh Flax init (as
 tests/test_serve.py), plus the port checkpoint written from the same
 variables: both ``Predictor``s must give the same program rows within 1e-4,
-raw and postprocessed. A child process shows that the port never imports
-jax or flax.
+raw and postprocessed. A child process shows that the port imports none of
+the JAX package, jax and flax.
 """
 import json
 import os
@@ -152,7 +152,7 @@ import sys
 import numpy as np
 import torch
 torch.set_num_threads(1)
-from maskplanner_tpu.utils.args import load_args
+from maskplanner_tpu_torch.utils.args import load_args
 from maskplanner_tpu_torch.models import get_model
 from maskplanner_tpu_torch.serve import Predictor
 cfg = load_args(argv=["config=[maskplanner,windows_v2,longx_v2]",
@@ -162,7 +162,8 @@ with torch.inference_mode():
 assert np.isfinite(out.traj.numpy()).all()
 rows = Predictor({run_dir!r}, device="cpu").predict_program({mesh!r})
 assert rows.shape[1] == 7
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("maskplanner_tpu", "jax", "flax"))
 assert not bad, bad
 print("ok")
 """

@@ -1,0 +1,318 @@
+"""The PyTorch port's training step against the JAX package's, on the CPU.
+
+The flagship configuration at small widths (``pc_points=64``, hidden
+32x32, 120 poses, 6 stroke masks), the same converted weights on both
+sides, FPS starting at index 0, dropout off (the port's rate 0; Flax's
+``Dropout`` patched to the identity) and the loss weights after the
+delayed activation, so that every head has a gradient. The loss agrees
+within 1e-5 relative, every parameter gradient within 5e-4 · max|ref|
+(through ``flax_tree_from_state_dict``) and the BatchNorm running
+statistics after the step within 1e-6, each plus the port's own float32
+rounding error on the tensor (see the step test). The JAX distances take
+their fixed-order form, which the port uses.
+"""
+import os
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from maskplanner_tpu.utils.args import load_args as jax_load_args
+from maskplanner_tpu_torch.utils.args import load_args
+
+torch.set_num_threads(1)
+
+FLAGSHIP = "config=[maskplanner,windows_v2,longx_v2]"
+SMALL = [FLAGSHIP, "pc_points=64", "model.hidden_size=[32,32]",
+         "n_pred_traj_points=120", "max_n_strokes=6", "batch_size=4"]
+STEP_BATCH = 4
+
+
+@pytest.fixture(scope="module")
+def monkeypatch_module():
+    mp = pytest.MonkeyPatch()
+    mp.setenv("MASKPLANNER_DETERMINISTIC_NN", "1")
+    yield mp
+    mp.undo()
+
+
+def _active_weights(weights_fn, config):
+    """The loss weights after the delayed stroke-mask activation."""
+    return weights_fn(config, dict(), 10 ** 6)
+
+
+@pytest.fixture(scope="module")
+def step_case(monkeypatch_module):
+    import flax.linen as fnn
+
+    from maskplanner_tpu.data import PaintDataset as JaxPaintDataset
+    from maskplanner_tpu.data import collate
+    from maskplanner_tpu.losses import LossHandler as JaxLossHandler
+    from maskplanner_tpu.models import get_model as get_flax_model
+    from maskplanner_tpu.train.schedulers import \
+        apply_delayed_activations as jax_delayed
+    from maskplanner_tpu.train.trainer import build_loss_batch as jax_blb
+
+    cfg = jax_load_args(argv=SMALL)
+    batch = collate([JaxPaintDataset(cfg, split="train", size=STEP_BATCH)[i]
+                     for i in range(STEP_BATCH)])
+    rng = np.random.default_rng(0)
+    model = get_flax_model(cfg)
+    variables = model.init(jax.random.PRNGKey(1),
+                           jnp.asarray(batch["point_cloud"]), train=False)
+    # Flax starts every bias at 0, so a centroid's own row (offset 0) makes
+    # sa1's first LayerNorm see a constant row: inverse std 1/sqrt(1e-6),
+    # which multiplies the rounding of its gradient by 1000. Seeded
+    # non-zero biases and scales keep the comparison about the port.
+    variables = jax.tree_util.tree_map_with_path(
+        lambda p, a: (np.asarray(a) + rng.normal(size=a.shape) * 0.1
+                      ).astype(np.float32)
+        if p[-1].key in ("bias", "scale", "mean") else
+        (rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+         if p[-1].key == "var" else np.asarray(a)), variables)
+
+    handler = JaxLossHandler(cfg["loss"], cfg)
+    weights = handler.init_weights()
+    weights.update(_active_weights(jax_delayed, cfg))
+    monkeypatch_module.setattr(fnn.Dropout, "__call__",
+                               lambda self, x, *a, **k: x)
+
+    def loss_fn(params):
+        out, mutated = model.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            jnp.asarray(batch["point_cloud"]), train=True,
+            mutable=["batch_stats"])
+        lb = jax_blb(out, jax.tree_util.tree_map(jnp.asarray, batch), cfg)
+        total, _ = handler.compute(weights, rng=None, **lb)
+        return total, mutated["batch_stats"]
+
+    # eager, as the port runs: under jit XLA fuses the fixed-order distance
+    # sums and the near-ties of the nearest-neighbour matching can fall the
+    # other way
+    (loss, new_stats), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+        variables["params"])
+    ref = dict(loss=float(loss),
+               grads=jax.tree_util.tree_map(np.asarray, grads),
+               stats=jax.tree_util.tree_map(np.asarray, new_stats))
+    return variables, batch, ref
+
+
+def _port_step(variables, batch, dtype):
+    """One port train step on the CPU in ``dtype`` with Adam at lr 0 ->
+    (loss, gradients and BatchNorm statistics as Flax trees)."""
+    from maskplanner_tpu_torch.convert import (flax_tree_from_state_dict,
+                                               state_dict_from_flax)
+    from maskplanner_tpu_torch.losses import LossHandler
+    from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.train import (apply_delayed_activations,
+                                             batch_to_device, train_step)
+
+    cfg = load_args(argv=SMALL)
+    model = get_model(cfg, device="cpu", dropout=0.0)
+    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    model.to(dtype)
+    handler = LossHandler(cfg["loss"], cfg)
+    weights = handler.init_weights()
+    weights.update(_active_weights(apply_delayed_activations, cfg))
+    b = batch_to_device(batch, "cpu")
+    b = {k: v.to(dtype) if v.is_floating_point() else v for k, v in b.items()}
+    # lr 0: the step's gradients stay in .grad and the weights do not move
+    optimizer = torch.optim.Adam(model.parameters(), lr=0.0)
+    loss, terms = train_step(model, optimizer, handler, b, weights)
+    assert list(terms) == ["asymm_v6_chamfer_with_stroke_masks"]
+    grads = flax_tree_from_state_dict(
+        {n: p.grad for n, p in model.named_parameters()})["params"]
+    stats = flax_tree_from_state_dict(model.state_dict())["batch_stats"]
+    return float(loss), grads, stats
+
+
+def _leaves(tree):
+    return {jax.tree_util.keystr(p): np.asarray(a, np.float64)
+            for p, a in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+# The JAX step's float32 error, against the same step in float64, measured
+# 4-10x the port's on the ill-conditioned tensors (Flax's LayerNorm and
+# BatchNorm take the variance as E[x²] − E[x]²; the port's CPU path centres
+# first). So the allowance for float32 rounding is this many times the
+# port's own float32 error on each tensor.
+ROUNDING_FACTOR = 10
+
+
+def test_one_train_step_matches_jax(step_case):
+    """Loss within 1e-5 relative, each gradient within 5e-4 · max|ref| and
+    the BatchNorm running statistics within 1e-6, each plus a float32
+    rounding allowance: ROUNDING_FACTOR times the port's own float32 error
+    on that value, measured against the same step in float64 (with the
+    matching decisions of the float32 distances). At random init this
+    network amplifies rounding a thousandfold on its way down to the
+    encoder (BatchNorm over a batch of 4, LayerNorm on near-constant rows),
+    and a Dense bias followed by a BatchNorm has an exact gradient of 0, so
+    both its values are rounding noise. A porting fault moves a value by
+    far more than that allowance."""
+    variables, batch, ref = step_case
+    loss, grads, stats = _port_step(variables, batch, torch.float32)
+    loss64, grads64, stats64 = _port_step(variables, batch, torch.float64)
+    np.testing.assert_allclose(
+        loss, ref["loss"], rtol=0,
+        atol=1e-5 * abs(ref["loss"]) + ROUNDING_FACTOR * abs(loss - loss64))
+    for got, exact, want, tol in (
+            (_leaves(grads), _leaves(grads64), _leaves(ref["grads"]),
+             lambda b: 5e-4 * np.abs(b).max()),
+            (_leaves(stats), _leaves(stats64), _leaves(ref["stats"]),
+             lambda b: 1e-6)):
+        assert sorted(got) == sorted(want)
+        for key, b in want.items():
+            own = np.abs(got[key] - exact[key]).max()
+            np.testing.assert_allclose(
+                got[key], b, rtol=0, atol=tol(b) + ROUNDING_FACTOR * own,
+                err_msg=key)
+
+
+def test_v6_loss_and_its_gradients_match_jax(monkeypatch_module):
+    from maskplanner_tpu.losses.mask_losses import \
+        asymm_v6_chamfer_with_stroke_masks as jax_v6
+    from maskplanner_tpu_torch.data import PaintDataset, collate
+    from maskplanner_tpu_torch.losses.mask_losses import \
+        asymm_v6_chamfer_with_stroke_masks
+
+    cfg = load_args(argv=SMALL)
+    batch = collate([PaintDataset(cfg, split="test", size=2)[i]
+                     for i in range(2)])
+    rng = np.random.default_rng(4)
+    S = batch["traj"].shape[1]
+    y_pred = (batch["traj"] + rng.normal(size=batch["traj"].shape) * 0.05)
+    y_pred = np.where(batch["traj"] == -100.0,
+                      rng.normal(size=y_pred.shape), y_pred).astype(np.float32)
+    masks = rng.normal(size=(2, 6, S)).astype(np.float32)
+    scores = rng.normal(size=(2, 6)).astype(np.float32)
+    weights = dict(weight_asymm_segment_chamfer=1.0,
+                   weight_reverse_asymm_point_chamfer=100.0,
+                   weight_reverse_asymm_segment_chamfer=0.01,
+                   explicit_weight_stroke_masks=1.0,
+                   explicit_weight_stroke_masks_confidence=100.0,
+                   explicit_no_stroke_weight=1.0)
+    fixed = dict(y=batch["traj"], y_mask=batch["stroke_ids"] >= 0,
+                 traj_as_pc=batch["traj_as_pc"],
+                 pc_mask=batch["stroke_ids_as_pc"] >= 0,
+                 stroke_ids=batch["stroke_ids"], seg_logits=None, outdim=6,
+                 weights=weights)
+
+    def jax_loss(yp, m, s):
+        return jax_v6(yp, pred_stroke_masks=m, mask_scores=s,
+                      **{k: (jnp.asarray(v) if isinstance(v, np.ndarray)
+                             else v) for k, v in fixed.items()})
+
+    ref, ref_g = jax.value_and_grad(jax_loss, (0, 1, 2))(
+        jnp.asarray(y_pred), jnp.asarray(masks), jnp.asarray(scores))
+    t = [torch.from_numpy(a).requires_grad_(True)
+         for a in (y_pred, masks, scores)]
+    got = asymm_v6_chamfer_with_stroke_masks(
+        t[0], pred_stroke_masks=t[1], mask_scores=t[2],
+        **{k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+           for k, v in fixed.items()})
+    np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
+    got.backward()
+    for a, b in zip(t, ref_g):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.grad.numpy(), b,
+                                   atol=1e-5 * (np.abs(b).max() + 1e-12))
+
+
+def test_lr_psacd_and_delayed_activations_match_over_epochs():
+    import optax  # noqa: F401  (the JAX schedule is an optax schedule)
+
+    from maskplanner_tpu.train.schedulers import (PSACDScheduler as JaxPSACD,
+                                                  apply_delayed_activations
+                                                  as jax_delayed, lr_schedule)
+    from maskplanner_tpu_torch.losses import LossHandler
+    from maskplanner_tpu_torch.train import (PSACDScheduler,
+                                             apply_delayed_activations,
+                                             make_lr_scheduler)
+
+    argv = [FLAGSHIP, "epochs=40", "lr_sched.step_sizes=[5,12,12,30]",
+            "psacd_scheduler.milestones=[7,20]",
+            "start_stroke_masks_loss_at=9"]
+    cfg, ref_cfg = load_args(argv=argv), jax_load_args(argv=argv)
+    spe = 3
+    sched = lr_schedule(ref_cfg, spe)
+    opt = torch.optim.Adam([torch.zeros(1, requires_grad=True)],
+                           lr=float(cfg["lr"]))
+    lr_sched = make_lr_scheduler(opt, cfg)
+    weights = LossHandler(cfg["loss"], cfg).init_weights()
+    ref_weights = dict(weights)
+    psacd = PSACDScheduler(cfg["psacd_scheduler"])
+    ref_psacd = JaxPSACD(ref_cfg["psacd_scheduler"])
+    epochs = int(cfg["epochs"])
+    for epoch in range(epochs):
+        for step in (epoch * spe, epoch * spe + spe - 1):
+            np.testing.assert_allclose(opt.param_groups[0]["lr"],
+                                       float(sched(step)), rtol=1e-6)
+        opt.step()
+        lr_sched.step()
+        if psacd.is_time_to_step(epoch, epochs):
+            weights = psacd.step_loss_weights(weights)
+        if ref_psacd.is_time_to_step(epoch, epochs):
+            ref_weights = ref_psacd.step_loss_weights(ref_weights)
+        weights = apply_delayed_activations(cfg, weights, epoch)
+        ref_weights = jax_delayed(ref_cfg, ref_weights, epoch)
+        assert weights.keys() == ref_weights.keys()
+        for k in weights:
+            np.testing.assert_allclose(weights[k], float(ref_weights[k]),
+                                       rtol=1e-6, err_msg=f"{k} @ {epoch}")
+    assert weights["explicit_weight_stroke_masks_confidence"] == 100.0
+    # a constant rate needs no scheduler
+    const = load_args(argv=[FLAGSHIP, "lr_sched.step_sizes=null"])
+    assert make_lr_scheduler(opt, const) is None
+
+
+def test_driver_trains_and_the_predictor_serves(tmp_path):
+    from maskplanner_tpu_torch import train_maskplanner
+    from maskplanner_tpu_torch.serve import Predictor
+
+    run_dir, model = train_maskplanner.main([
+        *SMALL, "batch_size=2", "device=cpu", "epochs=2", "eval_freq=1",
+        "dataset_size=4",
+        "test_dataset_size=2", "seed=3", f"output_dir={tmp_path}"])
+    assert not model.training
+    assert os.path.isfile(os.path.join(run_dir, "last_checkpoint.torch.pt"))
+    logs = (tmp_path / os.path.basename(run_dir) / "logs.jsonl").read_text()
+    assert logs.count('"eval_loss"') == 2
+    mesh = tmp_path / "box.obj"
+    corners = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                        for z in (-1, 1)], float) * [450.0, 60.0, 550.0]
+    faces = [(0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5), (0, 4, 5),
+             (0, 5, 1), (2, 3, 7), (2, 7, 6), (0, 2, 6), (0, 6, 4),
+             (1, 5, 7), (1, 7, 3)]
+    mesh.write_text("".join(f"v {a} {b} {c}\n" for a, b, c in corners)
+                    + "".join(f"f {a + 1} {b + 1} {c + 1}\n"
+                              for a, b, c in faces))
+    pred = Predictor(run_dir, model="last", device="cpu")
+    assert pred.epoch == 2
+    rows = pred.predict_program(str(mesh), postprocess=False)
+    assert rows.ndim == 2 and rows.shape[1] == 7 and np.isfinite(rows).all()
+
+
+def test_driver_refuses_what_is_not_ported(tmp_path):
+    from maskplanner_tpu_torch import train_maskplanner
+
+    for extra in (["resume=true"], ["device_dataset=true"],
+                  ["loss=[chamfer]"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train_maskplanner.main([*SMALL, "device=cpu", "epochs=1",
+                                    f"output_dir={tmp_path}", *extra])
+
+
+def test_driver_cuda_without_a_card_raises(tmp_path):
+    from maskplanner_tpu_torch import train_maskplanner
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_maskplanner.main([*SMALL, "epochs=1",
+                                f"output_dir={tmp_path}"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_maskplanner.main([*SMALL, "device=cuda", "epochs=1",
+                                f"output_dir={tmp_path}"])
