@@ -42,7 +42,24 @@ result line:
     kernel for one step (torch.profiler);
 11. ``train_maskplanner.main`` for 2 epochs of one step, then a
     ``Predictor`` serves the checkpoint it wrote;
-12. the card line, a ``kernels`` JSON line, and the result line last.
+12. the reference BatchNorm recipe (``model.norm=batch``, seeded weights,
+    BatchNorm running statistics away from 0/1), its kernels against their
+    plain versions at the step's sa1 and sa2 shapes (a batch of 64 of the
+    train split, sa2's features from the model's sa1): the ball-group
+    gather indices identical and values within 1e-6 · max|ref|, its
+    backward within 1e-5 · max|ref| of autograd through the plain grouping,
+    the ball query indices identical, the folded level pooled within
+    1e-4 · max|ref|; times and bounds;
+13. the BatchNorm recipe's forward at batch 64: exactly fps 2 and
+    ball_group 2 launches, finite outputs, 2 samples on the CPU within
+    1e-4 · max|ref|, forward time at batch 64 and 1, one ``Predictor``
+    request on a checkpoint of the model;
+14. its training step at batch 64: exactly fps 2, ball_group 2, nn_argmin 4,
+    lap 1 launches, the card against the CPU by phase 8's rule on 16
+    samples (on 2, the heads' BatchNorms normalise 2 rows and amplify the
+    encoder's float32 rounding past any fixed tolerance), 12 Adam steps
+    with falling loss, step time and device time by kernel;
+15. the card line, a ``kernels`` JSON line, and the result line last.
 
 It needs one CUDA card and the repository around it; without either it
 exits non-zero.
@@ -62,6 +79,7 @@ import numpy as np
 import torch
 
 FLAGSHIP = "config=[maskplanner,windows_v2,longx_v2]"
+BATCH_NORM = "model.norm=batch"
 BATCH = 64
 REL_TOL = 1e-4
 PEAK_F32_OPS = 67e12      # H100 SXM, f32 outside the tensor cores (op/s)
@@ -79,9 +97,28 @@ KERNELS = {
                       replaces="maskplanner_tpu/ops/pallas/nn_argmin.py:54"),
     "lap": dict(source="maskplanner_tpu_torch/csrc/lap.cu",
                 replaces="maskplanner_tpu/ops/pallas/lap.py:150"),
+    "ball_group": dict(
+        source="maskplanner_tpu_torch/csrc/group_gather.cu",
+        replaces="maskplanner_tpu/ops/pallas/group_gather.py:175"),
+    "ball_query": dict(
+        source="maskplanner_tpu_torch/csrc/group_gather.cu",
+        replaces="maskplanner_tpu/ops/pallas/ball_query.py:62"),
+    "fused_sa_folded": dict(
+        source="maskplanner_tpu_torch/csrc/fused_sa_fwd.cu",
+        replaces="maskplanner_tpu/ops/pallas/fused_sa.py:158"),
 }
-STEP_LAUNCHES = {"fps": 2, "fused_sa_fwd": 2, "fused_sa_bwd": 2,
-                 "nn_argmin": 4, "lap": 1}
+
+
+def launches_of(**counts) -> dict:
+    """Every kernel's expected launches: the given counts, 0 elsewhere."""
+    return {name: counts.get(name, 0) for name in KERNELS}
+
+
+FORWARD_LAUNCHES = launches_of(fps=2, fused_sa_fwd=2)
+STEP_LAUNCHES = launches_of(fps=2, fused_sa_fwd=2, fused_sa_bwd=2,
+                            nn_argmin=4, lap=1)
+BN_FORWARD_LAUNCHES = launches_of(fps=2, ball_group=2)
+BN_STEP_LAUNCHES = launches_of(fps=2, ball_group=2, nn_argmin=4, lap=1)
 
 
 def log(msg: str) -> None:
@@ -92,13 +129,17 @@ def counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from maskplanner_tpu_torch.ops.cuda.fps import fps_cuda
     from maskplanner_tpu_torch.ops.cuda.fused_sa import (fused_sa_bwd_cuda,
-                                                         fused_sa_cuda)
+                                                         fused_sa_cuda,
+                                                         folded_sa_cuda)
+    from maskplanner_tpu_torch.ops.cuda.group_gather import (ball_group_cuda,
+                                                             ball_query_cuda)
     from maskplanner_tpu_torch.ops.cuda.lap import lap_cuda
     from maskplanner_tpu_torch.ops.cuda.nn_argmin import nn_argmin_cuda
 
     return {"fps": fps_cuda, "fused_sa_fwd": fused_sa_cuda,
             "fused_sa_bwd": fused_sa_bwd_cuda, "nn_argmin": nn_argmin_cuda,
-            "lap": lap_cuda}
+            "lap": lap_cuda, "ball_group": ball_group_cuda,
+            "ball_query": ball_query_cuda, "fused_sa_folded": folded_sa_cuda}
 
 
 def reset_counts() -> None:
@@ -264,18 +305,18 @@ def phase_kernels(model, xyz: torch.Tensor, res: dict) -> None:
         res[name]["library_ms"] = None
 
 
-def phase_forward(model, clouds: np.ndarray) -> None:
+def phase_forward(model, clouds: np.ndarray, label: str = "forward",
+                  expect: dict = FORWARD_LAUNCHES) -> None:
     dev = torch.device("cuda")
     x = torch.from_numpy(clouds).to(dev)
     reset_counts()
     with torch.inference_mode():
         out = model(x)
     launches = read_counts()
-    log(f"[forward] launches in one forward: {launches}")
-    for name in ("fps", "fused_sa_fwd"):
-        if launches[name] != 2:
-            raise AssertionError(f"{name} launched {launches[name]} times in "
-                                 f"one forward, expected 2 (sa1, sa2)")
+    log(f"[{label}] launches in one forward: {launches}")
+    if launches != expect:
+        raise AssertionError(f"one forward launched {launches}, expected "
+                             f"{expect}")
     v, m = 449, 22
     expect = {"traj": (BATCH, v, 24), "stroke_masks": (BATCH, m, v),
               "mask_scores": (BATCH, m)}
@@ -295,7 +336,7 @@ def phase_forward(model, clouds: np.ndarray) -> None:
         b = getattr(ref, field)
         err = float((a - b).abs().max())
         scale = float(b.abs().max())
-        log(f"[forward] {field}: card vs CPU max|Δ| {err:.3e} "
+        log(f"[{label}] {field}: card vs CPU max|Δ| {err:.3e} "
             f"(max|ref| {scale:.3e})")
         if not err <= REL_TOL * scale:
             raise AssertionError(f"{field}: card and CPU disagree, {err} > "
@@ -307,14 +348,15 @@ def phase_forward(model, clouds: np.ndarray) -> None:
 
     t64 = median_host_s(lambda: fwd(x), 10)
     t1 = median_host_s(lambda: fwd(x[:1]), 20)
-    log(f"[forward] batch {BATCH}: {t64 * 1e3:.3f} ms "
+    log(f"[{label}] batch {BATCH}: {t64 * 1e3:.3f} ms "
         f"({BATCH / t64:.1f} point clouds/s); batch 1: {t1 * 1e3:.3f} ms")
-    profile(lambda: fwd(x), "forward", 3)
+    profile(lambda: fwd(x), label, 3)
 
 
-def profile(fn, what: str, reps: int) -> None:
+def profile(fn, what: str, reps: int, also: tuple = ()) -> None:
     """Device time by kernel over ``reps`` calls of ``fn``
-    (torch.profiler)."""
+    (torch.profiler): the ten largest, and any other whose name holds one
+    of ``also``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -334,9 +376,10 @@ def profile(fn, what: str, reps: int) -> None:
         return
     total = sum(ms for _, ms in rows)
     log(f"[profile] {what}: device time {total:.3f} ms (sum over kernels)")
-    for key, ms in sorted(rows, key=lambda r: -r[1])[:10]:
-        log(f"[profile] {what} {ms:9.3f} ms {100 * ms / total:5.1f}%  "
-            f"{key[:90]}")
+    for i, (key, ms) in enumerate(sorted(rows, key=lambda r: -r[1])):
+        if i < 10 or any(a in key for a in also):
+            log(f"[profile] {what} {ms:9.3f} ms {100 * ms / total:5.1f}%  "
+                f"{key[:90]}")
 
 
 def write_box_obj(path: str, dims, center) -> None:
@@ -353,9 +396,10 @@ def write_box_obj(path: str, dims, center) -> None:
             fh.write(f"f {f[0] + 1} {f[1] + 1} {f[2] + 1}\n")
 
 
-def serve_request(run_dir: str, label: str, reps: int) -> None:
-    """A Predictor on the card answers program requests for a box mesh;
-    both kernels run twice per request."""
+def serve_request(run_dir: str, label: str, reps: int,
+                  expect: dict = FORWARD_LAUNCHES) -> None:
+    """A Predictor on the card answers program requests for a box mesh,
+    launching ``expect`` each."""
     from maskplanner_tpu_torch.serve import Predictor
 
     mesh = os.path.join(run_dir, "window.obj")
@@ -366,9 +410,9 @@ def serve_request(run_dir: str, label: str, reps: int) -> None:
     reset_counts()
     rows = pred.predict_program(mesh, cover_all=True)
     launches = read_counts()
-    if (launches["fps"], launches["fused_sa_fwd"]) != (2, 2):
-        raise AssertionError(f"{label}: the serving request did not run each "
-                             f"kernel twice: {launches}")
+    if launches != expect:
+        raise AssertionError(f"{label}: the serving request launched "
+                             f"{launches}, expected {expect}")
     if rows.ndim != 2 or rows.shape[1] != 7 or rows.shape[0] == 0 \
             or not np.isfinite(rows).all():
         raise AssertionError(f"{label}: bad program rows: shape {rows.shape}")
@@ -393,14 +437,15 @@ def serve_request(run_dir: str, label: str, reps: int) -> None:
         log(f"[{label}] program {rows.shape[0]} poses, {n_strokes} strokes")
 
 
-def phase_serve(cfg, model) -> None:
+def phase_serve(cfg, model, label: str = "serve", reps: int = 3,
+                expect: dict = FORWARD_LAUNCHES) -> None:
     from maskplanner_tpu_torch.convert import save_checkpoint
     from maskplanner_tpu_torch.utils.config import save_config
 
     with tempfile.TemporaryDirectory() as run_dir:
         save_config(cfg, run_dir)
         save_checkpoint(run_dir, "last_checkpoint", model)
-        serve_request(run_dir, "serve", reps=5)
+        serve_request(run_dir, label, reps=reps, expect=expect)
 
 
 # ---------------------------------------------------------------------------
@@ -658,9 +703,12 @@ def to_batch(items: list[dict], device) -> dict:
     return batch_to_device(collate(items), device)
 
 
-def phase_train_step(cfg, items) -> dict:
+def phase_train_step(cfg, items, label: str = "train",
+                     expect: dict = STEP_LAUNCHES, steps: int = 30,
+                     compare: int = 2) -> dict:
     """Launch counts of one training step at batch 64, the card against the
-    CPU on 2 samples, a 30-step health check and the step time."""
+    CPU on ``compare`` samples, a ``steps``-step health check and the step
+    time."""
     from maskplanner_tpu_torch.losses import LossHandler
     from maskplanner_tpu_torch.models import get_model
     from maskplanner_tpu_torch.train import make_optimizer, train_step
@@ -676,32 +724,34 @@ def phase_train_step(cfg, items) -> dict:
     reset_counts()
     loss, _ = train_step(model, opt, handler, batch, weights, gen)
     launches = read_counts()
-    log(f"[train] launches in one step: {launches}")
-    if launches != STEP_LAUNCHES:
+    log(f"[{label}] launches in one step: {launches}")
+    if launches != expect:
         raise AssertionError(f"one training step launched {launches}, "
-                             f"expected {STEP_LAUNCHES}")
+                             f"expected {expect}")
     if not bool(torch.isfinite(loss)):
         raise AssertionError(f"non-finite training loss {float(loss)}")
 
-    phase_card_vs_cpu(cfg, items[:2], handler)
+    phase_card_vs_cpu(cfg, items[:compare], handler, label)
 
-    # health: 30 Adam steps on the batch
+    # health: Adam steps on the batch
     model = get_model(cfg, device="cuda",
                       generator=torch.Generator().manual_seed(0))
     opt = make_optimizer(model, cfg)
     curve = [float(train_step(model, opt, handler, batch, weights, gen)[0])
-             for _ in range(30)]
-    log("[train] 30-step loss curve: " + " ".join(f"{v:.1f}" for v in curve))
+             for _ in range(steps)]
+    log(f"[{label}] {steps}-step loss curve: "
+        + " ".join(f"{v:.1f}" for v in curve))
     if not all(np.isfinite(curve)) or not curve[-1] < curve[0]:
-        raise AssertionError("the loss did not fall over 30 steps, or went "
-                             "non-finite")
+        raise AssertionError(f"the loss did not fall over {steps} steps, or "
+                             f"went non-finite")
 
     t = median_host_s(lambda: train_step(model, opt, handler, batch, weights,
                                          gen), 10)
-    log(f"[train] step at batch {BATCH}: {t * 1e3:.3f} ms "
+    log(f"[{label}] step at batch {BATCH}: {t * 1e3:.3f} ms "
         f"({BATCH / t:.1f} point clouds/s)")
+    # index_add_: the ball-group backward's scatter
     profile(lambda: train_step(model, opt, handler, batch, weights, gen),
-            "train step", 1)
+            f"{label} step", 1, also=("indexFunc",))
     return launches
 
 
@@ -714,7 +764,7 @@ def step_grads(model, handler, batch, weights):
                          for n, p in model.named_parameters()}
 
 
-def phase_card_vs_cpu(cfg, items, handler) -> None:
+def phase_card_vs_cpu(cfg, items, handler, label: str = "train") -> None:
     """One step's loss and gradients on the card and on the CPU.
 
     The same weights, FPS from index 0, head dropout 0, the activated loss
@@ -741,8 +791,8 @@ def phase_card_vs_cpu(cfg, items, handler) -> None:
         res[dev, dtype] = step_grads(m, handler, b, weights)
     (l_gpu, g_gpu), (l_cpu, g_cpu), (l_64, g_64) = res.values()
     rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    log(f"[card-vs-cpu] loss card {l_gpu:.6f} cpu {l_cpu:.6f} (float64 "
-        f"{l_64:.6f}): rel Δ {rel:.2e}")
+    log(f"[card-vs-cpu] {label}: loss card {l_gpu:.6f} cpu {l_cpu:.6f} "
+        f"(float64 {l_64:.6f}): rel Δ {rel:.2e}")
     if not rel <= 1e-4:
         raise AssertionError(f"the card's loss differs from the CPU's by "
                              f"{rel} relative")
@@ -758,8 +808,8 @@ def phase_card_vs_cpu(cfg, items, handler) -> None:
         rel_max = float((g_gpu[n] - ref).abs().max()) / max(
             float(ref.abs().max()), 1e-30)
         worst = max(worst, (rel_max, n))
-    log(f"[card-vs-cpu] {len(g_cpu)} gradients agree; largest card-vs-CPU "
-        f"max|Δ| {worst[0]:.2e} of max|ref| ({worst[1]})")
+    log(f"[card-vs-cpu] {label}: {len(g_cpu)} gradients agree; largest "
+        f"card-vs-CPU max|Δ| {worst[0]:.2e} of max|ref| ({worst[1]})")
 
 
 def phase_train_then_serve() -> None:
@@ -781,6 +831,173 @@ def phase_train_then_serve() -> None:
             raise AssertionError("train_maskplanner wrote no "
                                  "last_checkpoint")
         serve_request(run_dir, "train-then-serve", reps=0)
+
+
+# ---------------------------------------------------------------------------
+# the reference BatchNorm recipe (model.norm=batch)
+# ---------------------------------------------------------------------------
+
+def bn_model(cfg):
+    """The seeded BatchNorm-recipe model in eval, its running statistics
+    drawn away from 0/1 so that the folded weights differ from the raw
+    ones."""
+    from maskplanner_tpu_torch.models import get_model
+
+    model = get_model(cfg, device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(torch.randn(buf.shape, generator=gen) * 0.1)
+            elif name.endswith("running_var"):
+                buf.copy_(torch.rand(buf.shape, generator=gen) + 0.5)
+    return model
+
+
+def scan_ops(radius: float, K: int, xyz, new_xyz) -> float:
+    """Operations of the first-K ball-query scan that these inputs need:
+    per query, every point up to its K-th in-radius neighbour (all N
+    without K of them), 9 operations a point (3 sub, 3 mul, 2 add, a
+    compare)."""
+    from maskplanner_tpu_torch.ops.distance import square_distance
+
+    N = xyz.shape[1]
+    rank = (square_distance(new_xyz, xyz) <= radius ** 2).int().cumsum(-1)
+    # the points before the K-th in-radius one have rank < K
+    scanned = torch.where(rank[..., -1] >= K, (rank < K).sum(-1) + 1, N)
+    return 9.0 * float(scanned.double().sum())
+
+
+def check_close(what: str, got, ref, rel: float) -> float:
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not err <= rel * scale:
+        raise AssertionError(f"{what}: max|Δ| {err} > {rel} x {scale}")
+    return err
+
+
+def phase_bn_kernels(model, batch, res: dict) -> dict:
+    """The ball-group gather, its backward, the ball query and the folded
+    level against their plain versions at the step's sa1 and sa2 shapes.
+    Returns the launches of the ball query and the folded level, driven
+    once a level through their entry points (no model path runs them)."""
+    from maskplanner_tpu_torch.ops.cuda.group_gather import ball_group_cuda
+    from maskplanner_tpu_torch.ops.fused_sa import (fold_pointmlp_params,
+                                                    fused_sa_forward_plain,
+                                                    fused_set_abstraction)
+    from maskplanner_tpu_torch.ops.group_gather import (ball_group_backward,
+                                                        ball_group_plain)
+    from maskplanner_tpu_torch.ops.sampling import (ball_query_plain,
+                                                    farthest_point_sample,
+                                                    index_points,
+                                                    query_ball_point)
+
+    pc = batch["point_cloud"]
+    gen = torch.Generator(device=pc.device).manual_seed(2)
+    own = launches_of()
+    ops = {k: 0.0 for k in ("ball_group", "ball_query", "fused_sa_folded")}
+    nbytes = dict(ops)
+    # sa2's inputs: the model's own sa1 (eval)
+    for name, sa, pts, feats in (("sa1", model.sa1, pc, None),
+                                 ("sa2", model.sa2, *model.sa1(pc, None))):
+        B, N, _ = pts.shape
+        S, K, r = sa.npoint, sa.nsample, sa.radius
+        new_xyz = index_points(pts, farthest_point_sample(pts, S))
+        F = 0 if feats is None else feats.shape[-1]
+        scan = scan_ops(r, K, pts, new_xyz)
+        in_bytes = 4.0 * (pts.numel() + new_xyz.numel()
+                          + (0 if feats is None else feats.numel()))
+        idx_bytes = 4.0 * B * S * K
+        # -- the ball-group gather (#6) ---------------------------------------
+        got, idx = ball_group_cuda(r, K, pts, new_xyz, feats)
+        ref, ref_idx = ball_group_plain(r, K, pts, new_xyz, feats)
+        torch.cuda.synchronize()
+        if not torch.equal(idx, ref_idx):
+            raise AssertionError(f"ball_group {name}: indices differ at "
+                                 f"{int((idx != ref_idx).sum())} places")
+        err = check_close(f"ball_group {name}", got, ref, 1e-6)
+        ms = median_ms(lambda: ball_group_cuda(r, K, pts, new_xyz, feats), 20)
+        plain = median_ms(lambda: ball_group_plain(r, K, pts, new_xyz, feats),
+                          5, 1)
+        log(f"[bn-kernels] ball_group {name} B={B} N={N} S={S} K={K} F={F}: "
+            f"idx identical, max|Δ| {err:.3e}; kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms")
+        rb = res["ball_group"]
+        rb["max_abs_err"] = max(rb["max_abs_err"], err)
+        rb["ms"] += ms
+        rb["plain_ms"] += plain
+        ops["ball_group"] += scan + B * S * K * 3.0
+        nbytes["ball_group"] += in_bytes + 4.0 * got.numel() + idx_bytes
+        # -- its backward (index_add_), against autograd through the plain
+        leaves = [pts.clone().requires_grad_(True),
+                  new_xyz.clone().requires_grad_(True),
+                  None if feats is None
+                  else feats.clone().requires_grad_(True)]
+        ct = torch.randn(got.shape, generator=gen, device=got.device)
+        with torch.enable_grad():
+            g_ref = torch.autograd.grad(
+                (ball_group_plain(r, K, *leaves)[0] * ct).sum(),
+                [t for t in leaves if t is not None])
+        g_got = ball_group_backward(idx, ct, N, True, True, feats is not None)
+        for what, a, b in zip(("d_xyz", "d_new_xyz", "d_features"), g_got,
+                              g_ref):
+            e = check_close(f"ball_group backward {name} {what}", a, b, 1e-5)
+            log(f"[bn-kernels]   backward {what}: max|Δ| {e:.3e} "
+                f"(max|ref| {float(b.abs().max()):.3e})")
+        if feats is not None:
+            # the step's backward: d_features alone (the points are data)
+            bwd = median_ms(lambda: ball_group_backward(idx, ct, N, False,
+                                                        False, True), 10)
+            log(f"[bn-kernels] ball_group backward {name} (index_add_ of "
+                f"d_features, as in the step): {bwd:.4f} ms")
+        # -- the ball query (#7), through its entry point -----------------------
+        reset_counts()
+        q_idx = query_ball_point(r, K, pts, new_xyz)
+        own["ball_query"] += read_counts()["ball_query"]
+        q_ref = ball_query_plain(r, K, pts, new_xyz)
+        if not torch.equal(q_idx, q_ref) or not torch.equal(q_idx, idx):
+            raise AssertionError(f"ball_query {name}: indices differ")
+        ms = median_ms(lambda: query_ball_point(r, K, pts, new_xyz), 20)
+        plain = median_ms(lambda: ball_query_plain(r, K, pts, new_xyz), 5, 1)
+        log(f"[bn-kernels] ball_query {name}: identical; kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms")
+        res["ball_query"]["ms"] += ms
+        res["ball_query"]["plain_ms"] += plain
+        ops["ball_query"] += scan
+        nbytes["ball_query"] += 4.0 * (pts.numel() + new_xyz.numel()) \
+            + idx_bytes
+        # -- the folded level (#8), through its entry point ---------------------
+        folded = [(w.detach(), b.detach()) for w, b in
+                  fold_pointmlp_params(sa)]
+        reset_counts()
+        pooled = fused_set_abstraction(r, K, pts, new_xyz, feats, folded)
+        own["fused_sa_folded"] += read_counts()["fused_sa_folded"]
+        p_ref, _ = fused_sa_forward_plain(r, K, "none", pts, new_xyz, feats,
+                                          folded)
+        err = check_close(f"fused_sa_folded {name}", pooled, p_ref, REL_TOL)
+        ms = median_ms(lambda: fused_set_abstraction(r, K, pts, new_xyz,
+                                                     feats, folded), 20)
+        plain = median_ms(lambda: fused_sa_forward_plain(
+            r, K, "none", pts, new_xyz, feats, folded), 5, 1)
+        log(f"[bn-kernels] fused_sa_folded {name}: max|Δ| {err:.3e} "
+            f"(max|ref| {float(p_ref.abs().max()):.3e}); kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms")
+        rf = res["fused_sa_folded"]
+        rf["max_abs_err"] = max(rf["max_abs_err"], err)
+        rf["ms"] += ms
+        rf["plain_ms"] += plain
+        acts = sum(c.out_features for c in sa.mlp_convs)
+        # the MLP's multiply-adds, a ReLU an activation, and the scan
+        ops["fused_sa_folded"] += scan + B * S * K * (2.0 * mlp_macs(sa)
+                                                      + acts)
+        nbytes["fused_sa_folded"] += in_bytes + 4.0 * sum(
+            w.numel() + b.numel() for w, b in folded) \
+            + 4.0 * pooled.numel()
+    for name in ops:
+        res[name].update(bound(ops[name], nbytes[name]))
+        res[name]["library_ms"] = None
+    return own
 
 
 def main() -> int:
@@ -812,14 +1029,37 @@ def main() -> int:
     phase_train_kernels(cfg, model, to_batch(train_items, "cuda"), res)
     launches = phase_train_step(cfg, train_items)
     phase_train_then_serve()
+    log(f"[time] flagship phases done at {time.perf_counter() - t0:.1f} s")
+
+    bn_cfg = load_args(argv=[FLAGSHIP, BATCH_NORM])
+    bn = bn_model(bn_cfg)
+    with torch.no_grad():   # the backward check turns autograd on itself
+        own = phase_bn_kernels(bn, to_batch(train_items, "cuda"), res)
+    phase_forward(bn, clouds, "bn-forward", BN_FORWARD_LAUNCHES)
+    phase_serve(bn_cfg, bn, "bn-serve", 1, BN_FORWARD_LAUNCHES)
+    # on 2 samples the heads' BatchNorms normalise 2 rows, which turns the
+    # encoder's float32 rounding into an O(1) difference (PERF.md §6)
+    bn_launches = phase_train_step(bn_cfg, train_items, "bn-train",
+                                   BN_STEP_LAUNCHES, 12, compare=16)
     log(f"[time] all phases done at {time.perf_counter() - t0:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "maskplanner_tpu", "jax", "flax"))
     if leaked:
         raise AssertionError(f"the JAX package or jax was imported: {leaked}")
+    # each kernel's launches on its path: the flagship training step, the
+    # BatchNorm recipe's step, or (no model path runs it) its own check
+    counted = {name: ("flagship step", launches[name]) for name in KERNELS}
+    counted["ball_group"] = ("model.norm=batch step",
+                             bn_launches["ball_group"])
+    for name in ("ball_query", "fused_sa_folded"):
+        counted[name] = ("own check, through its entry point", own[name])
+    for name, (path, n) in counted.items():
+        if n == 0:
+            raise AssertionError(f"{name} was never launched on {path}")
     kernels = [dict(name=name, route="cuda", **KERNELS[name],
-                    launches=launches[name], **res[name])
+                    launches=counted[name][1], launched_on=counted[name][0],
+                    **res[name])
                for name in KERNELS]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -19,7 +19,9 @@ to the original PyTorch repo's names:
 Dense kernels (in, out) are transposed to (out, in). BatchNorm ``mean`` /
 ``var`` are copied as they are (eval reads only them).
 :func:`flax_tree_from_state_dict` maps back (numpy out), for a ``state_dict``
-or a dict of gradients by parameter name.
+or a dict of gradients by parameter name. :func:`load_shapenet_encoder`
+warm-starts the encoder from the original repository's ShapeNet
+checkpoint.
 """
 from __future__ import annotations
 
@@ -128,6 +130,47 @@ def flax_tree_from_state_dict(state) -> dict:
             node = node.setdefault(key, {})
         node[flax_leaf] = arr
     return tree
+
+
+# The encoder tensors of the ShapeNet classifier checkpoint: everything
+# else (its head, fc1-fc3 and bn1-bn2, and num_batches_tracked) is left out
+# (``maskplanner_tpu/train/torch_convert.py::SHAPENET_HEAD_KEYS``).
+_ENCODER_KEY = re.compile(
+    r"sa[123]\.(mlp_convs|mlp_bns)\.\d+\."
+    r"(weight|bias|running_mean|running_var)$")
+
+
+def load_shapenet_encoder(model: nn.Module, path: str) -> list[str]:
+    """Warm-start sa1..sa3 of a BatchNorm encoder from the original
+    repository's ShapeNet classifier checkpoint (``pointnet2_cls_ssg.pth``,
+    ``{"model_state_dict": ...}``), in place -> the loaded keys.
+
+    The classifier head is dropped; the 1x1 Conv2d weights (C_out, C_in, 1,
+    1) are squeezed to the Linear layers' (C_out, C_in); BatchNorm weight,
+    bias and running statistics are copied (``num_batches_tracked`` is not:
+    the Flax-semantics BatchNorm does not read it). A key the model lacks
+    is skipped and a shape that differs raises, as
+    ``maskplanner_tpu/train/torch_convert.py::load_torch_pretrained`` does
+    in its ``mode="encoder"``."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    sd = blob.get("model_state_dict", blob)
+    own = model.state_dict()
+    loaded = []
+    with torch.no_grad():
+        for key, value in sd.items():
+            if not _ENCODER_KEY.match(key) or key not in own:
+                continue
+            if value.dim() == 4:
+                value = value[:, :, 0, 0]
+            if value.shape != own[key].shape:
+                raise ValueError(f"shape mismatch at {key}: model "
+                                 f"{tuple(own[key].shape)} vs checkpoint "
+                                 f"{tuple(value.shape)}")
+            own[key].copy_(value)
+            loaded.append(key)
+    if not loaded:
+        raise ValueError(f"no encoder weights found in {path}")
+    return loaded
 
 
 def checkpoint_name(model: str) -> str:

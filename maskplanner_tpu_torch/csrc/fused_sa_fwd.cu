@@ -9,6 +9,12 @@
 // neighbour, and max-pool over the K neighbours. Also writes the selected
 // indices. No (B, S, K, C) tensor reaches device memory.
 //
+// Without the LayerNorm, on Dense weights with an eval-mode BatchNorm folded
+// into them, the same kernel also replaces the inference kernel of
+// maskplanner_tpu/ops/pallas/fused_sa.py (`_fused_sa_raw`): that kernel
+// computes relu(W' h + b') per layer and the max over K, which is this
+// kernel's no-norm function (ops/fused_sa.py::fused_set_abstraction).
+//
 // What bounds it on this card: f32 arithmetic on the CUDA cores. At the
 // flagship batch of 64 the MLP costs about 26 GFLOP at sa1 (1.05 M
 // neighbour rows x 12.5 K MAC) and 69 GFLOP at sa2 (0.52 M rows x 65.9 K
@@ -16,11 +22,12 @@
 // small (the clouds, the weights, the pooled output). The plain version
 // instead writes about 0.5 GB of activations per level to device memory.
 //
-// What the design does about it: one block per query. Selection: each warp
-// tests 32 consecutive points, __ballot_sync + __popc give every in-radius
-// point its rank, the warps' ballots are summed in shared memory so the
-// block takes 32 * warps points per round in index order, and the scan
-// stops as soon as K points are found. The gathered rows and every layer's
+// What the design does about it: one block per query. Selection
+// (ball_select.cuh, shared with group_gather.cu): each warp tests 32
+// consecutive points, __ballot_sync + __popc give every in-radius point its
+// rank, the warps' ballots are summed in shared memory so the block takes
+// 32 * warps points per round in index order, and the scan stops as soon
+// as K points are found. The gathered rows and every layer's
 // activations stay in shared memory, in two ping-pong buffers whose row
 // stride is odd so that lanes reading different rows hit different banks.
 // A thread computes a tile of 4 neighbours x 4 output channels, 16
@@ -40,6 +47,7 @@
 
 #include <cmath>
 
+#include "ball_select.cuh"
 #include "fused_sa_common.cuh"
 
 namespace {
@@ -49,7 +57,6 @@ using fused_sa::layer_norm_act;
 using fused_sa::layer_norm_stats;
 using fused_sa::layer_norm_xhat;
 using fused_sa::layer_product;
-using fused_sa::sq_dist;
 
 constexpr int kMaxLayers = 4;
 
@@ -93,38 +100,9 @@ __global__ void __launch_bounds__(kThreads)
   const float qz = new_xyz[3 * static_cast<size_t>(query) + 2];
 
   // -- selection: first k_nb in-radius points, ascending index -----------
-  int count = 0;  // identical in every thread (read from shared memory)
-  for (int base = 0; base < n && count < k_nb; base += blockDim.x) {
-    const int j = base + tid;
-    const bool in = j < n && sq_dist(qx, qy, qz, pts[3 * j], pts[3 * j + 1],
-                                     pts[3 * j + 2]) <= radius2;
-    const unsigned m = __ballot_sync(0xffffffffu, in);
-    if (lane == 0) ballots[warp] = m;
-    __syncthreads();
-    int rank = count;
-    int total = 0;
-    for (int w = 0; w < n_warps; ++w) {
-      const int c = __popc(ballots[w]);
-      if (w < warp) rank += c;
-      total += c;
-    }
-    if (in) {
-      rank += __popc(m & ((1u << lane) - 1u));
-      if (rank < k_nb) sel[rank] = j;
-    }
-    count += total;
-    __syncthreads();
-  }
-  // missing slots repeat the first neighbour; an empty ball gives index 0
-  const int found = count < k_nb ? count : k_nb;
-  const int first = found > 0 ? sel[0] : 0;
-  __syncthreads();
-  for (int k = tid; k < k_nb; k += blockDim.x) {
-    const int v = k < found ? sel[k] : first;
-    sel[k] = v;
-    idx_out[static_cast<size_t>(query) * k_nb + k] = v;
-  }
-  __syncthreads();
+  ball_select::select_first_k(pts, n, qx, qy, qz, radius2, k_nb, sel,
+                              ballots,
+                              idx_out + static_cast<size_t>(query) * k_nb);
 
   // -- gather [x - q ; f] into buf_a ---------------------------------------
   const int cin = 3 + f;

@@ -18,9 +18,10 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.fused_sa import LAYER_NORM_EPS, fused_sa_forward
-from ..ops.sampling import farthest_point_sample, index_points, \
-    query_ball_point
+from ..ops.fused_sa import (LAYER_NORM_EPS, fold_pointmlp_params,
+                            fused_sa_forward)
+from ..ops.group_gather import ball_group
+from ..ops.sampling import farthest_point_sample, index_points
 
 BATCH_NORM_EPS = 1e-5
 BATCH_NORM_MOMENTUM = 0.9  # Flax's: running = 0.9 running + 0.1 batch
@@ -120,9 +121,14 @@ class SetAbstraction(PointMLP):
 
     Grouped ``layer``/``none`` levels run as one fused level
     (``ops.fused_sa.fused_sa_forward``: the CUDA kernels on the card), in
-    both modes. The ``group_all`` level runs as plain ops. A grouped
-    ``batch`` level runs as plain ops in eval; its train forward (the JAX
-    package's ``group_gather`` kernel) is not ported yet."""
+    both modes. A grouped ``batch`` level groups with
+    ``ops.group_gather.ball_group`` (the ball-group kernel on the card),
+    then, as ``maskplanner_tpu/models/pointnet2.py`` does: in train, the MLP
+    with batch statistics and the max over K; in eval with features (sa2),
+    the Dense/ReLU chain with the BatchNorm folded into its weights
+    (``ops.fused_sa.fold_pointmlp_params``) and the max; in eval without
+    features (sa1), the MLP with running statistics and the max. The
+    ``group_all`` level runs as plain ops."""
 
     def __init__(self, npoint: int | None, radius: float | None,
                  nsample: int | None, in_channel: int,
@@ -142,11 +148,6 @@ class SetAbstraction(PointMLP):
             if features is not None:
                 grouped = torch.cat([grouped, features[:, None]], dim=-1)
             return new_xyz, self.run_mlp(grouped).amax(dim=2)
-        if self.training and self.norm == "batch":
-            raise NotImplementedError(
-                "the train forward of a grouped BatchNorm level (the JAX "
-                "package's group_gather kernel) is not ported yet "
-                "(ROADMAP.md, Queue 2)")
         start = random_starts(xyz, generator) if self.training else None
         fps_idx = farthest_point_sample(xyz, self.npoint, start)
         new_xyz = index_points(xyz, fps_idx)                    # (B, S, 3)
@@ -155,11 +156,14 @@ class SetAbstraction(PointMLP):
                 self.radius, self.nsample, self.norm, xyz, new_xyz, features,
                 self.layer_params())
             return new_xyz, pooled
-        idx = query_ball_point(self.radius, self.nsample, xyz, new_xyz)
-        grouped = index_points(xyz, idx) - new_xyz[:, :, None, :]
-        if features is not None:
-            grouped = torch.cat([grouped, index_points(features, idx)], dim=-1)
-        return new_xyz, self.run_mlp(grouped).amax(dim=2)
+        grouped, _ = ball_group(self.radius, self.nsample, xyz, new_xyz,
+                                features)                       # (B, S, K, C)
+        if self.training or features is None:
+            return new_xyz, self.run_mlp(grouped).amax(dim=2)
+        h = grouped
+        for w, b in fold_pointmlp_params(self):
+            h = torch.relu(torch.matmul(h, w.t()) + b)
+        return new_xyz, h.amax(dim=2)
 
 
 def level_norms(norm: str) -> list[str]:

@@ -1,7 +1,8 @@
 """Wrappers of the fused set-abstraction kernels: the forward
 (``csrc/fused_sa_fwd.cu``) and the backward (``csrc/fused_sa_bwd.cu``).
 
-``fused_sa_cuda.launches`` and ``fused_sa_bwd_cuda.launches`` count the
+``fused_sa_cuda.launches``, ``folded_sa_cuda.launches`` (the forward on
+BatchNorm-folded weights) and ``fused_sa_bwd_cuda.launches`` count the
 kernels' launches (a run that should go through a kernel reads its count
 after resetting it to 0).
 """
@@ -152,12 +153,10 @@ def fused_sa_bwd_cuda(nsample: int, layer_norm: bool, xyz: torch.Tensor,
 fused_sa_bwd_cuda.launches = 0
 
 
-def fused_sa_cuda(radius: float, nsample: int, layer_norm: bool,
-                  xyz: torch.Tensor, new_xyz: torch.Tensor,
-                  features: torch.Tensor | None, params):
-    """One SA level on the card -> (pooled (B, S, C_last) f32,
-    idx (B, S, nsample) int32). Arguments as ``ops.fused_sa.fused_sa_forward``;
-    every layer width must be a multiple of 4."""
+def _forward(radius: float, nsample: int, layer_norm: bool,
+             xyz: torch.Tensor, new_xyz: torch.Tensor,
+             features: torch.Tensor | None, params):
+    """Launch ``csrc/fused_sa_fwd.cu`` -> (pooled, idx)."""
     xyz, new_xyz, features, F, chans = _check_level(xyz, new_xyz, features,
                                                     params, layer_norm)
     device = xyz.device
@@ -182,8 +181,35 @@ def fused_sa_cuda(radius: float, nsample: int, layer_norm: bool,
                   c_chans, c_ptrs, int(layer_norm), pooled.data_ptr(),
                   idx.data_ptr(), build.stream_ptr(device))
     build.check(err, "fused_sa_forward")
-    fused_sa_cuda.launches += 1
     return pooled, idx
 
 
+def fused_sa_cuda(radius: float, nsample: int, layer_norm: bool,
+                  xyz: torch.Tensor, new_xyz: torch.Tensor,
+                  features: torch.Tensor | None, params):
+    """One SA level on the card -> (pooled (B, S, C_last) f32,
+    idx (B, S, nsample) int32). Arguments as ``ops.fused_sa.fused_sa_forward``;
+    every layer width must be a multiple of 4."""
+    out = _forward(radius, nsample, layer_norm, xyz, new_xyz, features,
+                   params)
+    fused_sa_cuda.launches += 1
+    return out
+
+
 fused_sa_cuda.launches = 0
+
+
+def folded_sa_cuda(radius: float, nsample: int, xyz: torch.Tensor,
+                   new_xyz: torch.Tensor, features: torch.Tensor | None,
+                   folded) -> torch.Tensor:
+    """One eval-mode BatchNorm level on the card, the norm folded into the
+    layers ``folded = [(w (C_out, C_in), b)]``: the same kernel without
+    LayerNorm -> pooled (B, S, C_last) f32. Counted apart from
+    :func:`fused_sa_cuda`."""
+    pooled, _ = _forward(radius, nsample, False, xyz, new_xyz, features,
+                         folded)
+    folded_sa_cuda.launches += 1
+    return pooled
+
+
+folded_sa_cuda.launches = 0

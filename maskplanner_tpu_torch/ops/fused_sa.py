@@ -6,12 +6,19 @@ ball query -> gather ``[x - q ; f]`` (offsets first) -> per-point MLP
 tensor goes through :class:`FusedSALevel`, whose forward and backward are
 the kernels of ``ops/cuda/fused_sa.py``; a CPU tensor goes to
 :func:`fused_sa_forward_plain`, and autograd through it gives the gradient.
+
+:func:`fused_set_abstraction` is the counterpart of
+``maskplanner_tpu/ops/pallas/fused_sa.py``: a grouped BatchNorm level in
+eval, its norm folded into the Dense weights (:func:`fold_pointmlp_params`).
+Folded, a layer is Dense then ReLU, which is the fused level without a
+norm; so on the card it launches the same forward kernel with
+``norm="none"`` on the folded weights.
 """
 from __future__ import annotations
 
 import torch
 
-from .sampling import index_points, query_ball_point
+from .sampling import ball_query_plain, index_points
 
 LAYER_NORM_EPS = 1e-6
 
@@ -20,7 +27,7 @@ def fused_sa_forward_plain(radius: float, nsample: int, norm: str,
                            xyz: torch.Tensor, new_xyz: torch.Tensor,
                            features: torch.Tensor | None, params):
     """Plain version: the same level as separate PyTorch ops."""
-    idx = query_ball_point(radius, nsample, xyz, new_xyz)        # (B, S, K)
+    idx = ball_query_plain(radius, nsample, xyz, new_xyz)        # (B, S, K)
     h = index_points(xyz, idx) - new_xyz[:, :, None, :]
     if features is not None:
         h = torch.cat([h, index_points(features, idx)], dim=-1)
@@ -95,4 +102,45 @@ def fused_sa_forward(radius: float, nsample: int, norm: str,
     if xyz.device.type == "cpu":
         return fused_sa_forward_plain(radius, nsample, norm, xyz, new_xyz,
                                       features, params)
+    raise ValueError(f"no fused SA level for device {xyz.device}")
+
+
+def fold_pointmlp_params(mlp) -> list:
+    """A BatchNorm ``PointMLP`` (``models.pointnet2``) in eval -> per layer
+    ``(w (C_out, C_in), b (C_out,))`` with the running-statistics
+    BatchNorm folded in, so that ``relu(h·wᵀ + b)`` is Dense -> BatchNorm
+    (eval) -> ReLU: ``s = γ / sqrt(var + eps)``, ``w = W · s[:, None]``,
+    ``b = (b_dense − mean) · s + β``
+    (``maskplanner_tpu/ops/pallas/fused_sa.py::fold_pointmlp_params``)."""
+    folded = []
+    for conv, bn in zip(mlp.mlp_convs, mlp.mlp_bns):
+        s = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+        folded.append((conv.weight * s[:, None],
+                       (conv.bias - bn.running_mean) * s + bn.bias))
+    return folded
+
+
+def fused_set_abstraction(radius: float, nsample: int, xyz: torch.Tensor,
+                          new_xyz: torch.Tensor,
+                          features: torch.Tensor | None,
+                          folded) -> torch.Tensor:
+    """One eval-mode BatchNorm level on folded weights (``folded`` from
+    :func:`fold_pointmlp_params`) -> pooled (B, S, C_last) f32: ball query,
+    gather ``[x − q ; f]``, ``relu(h·wᵀ + b)`` per layer, max over K.
+    Inference only: on the card the result carries no gradient, as the
+    JAX kernel defines none.
+
+    Layer 1 is formed as ``w·[x − q ; f] + b``, not as the TPU kernel's
+    ``w·[x ; f] − w[:, :3]·q + b``: the two differ by the rounding of that
+    reassociation, a few float32 ulps of the larger of |w·x| and |w·q|,
+    and the two agree within 2e-5 · max|pooled| (with the TPU kernel's
+    hi/lo gather; ``tests/test_torch_port_group.py``)."""
+    if xyz.device.type == "cuda":
+        from .cuda.fused_sa import folded_sa_cuda
+
+        return folded_sa_cuda(radius, nsample, xyz, new_xyz, features,
+                              folded)
+    if xyz.device.type == "cpu":
+        return fused_sa_forward_plain(radius, nsample, "none", xyz, new_xyz,
+                                      features, folded)[0]
     raise ValueError(f"no fused SA level for device {xyz.device}")

@@ -1,7 +1,8 @@
 """Point sampling and grouping (``maskplanner_tpu/ops/sampling.py``).
 
-``farthest_point_sample`` launches the CUDA kernel for a CUDA tensor and
-runs :func:`fps_plain` for a CPU tensor; any other device raises.
+``farthest_point_sample`` and ``query_ball_point`` launch their CUDA
+kernels for a CUDA tensor and run their plain versions (:func:`fps_plain`,
+:func:`ball_query_plain`) for a CPU tensor; any other device raises.
 """
 from __future__ import annotations
 
@@ -69,6 +70,19 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
     ascending index order; missing slots repeat the first one, and an empty
     ball gives index 0. xyz (B, N, 3), new_xyz (B, S, 3) -> (B, S, nsample)
     int32."""
+    if xyz.device.type == "cuda":
+        from .cuda.group_gather import ball_query_cuda
+
+        return ball_query_cuda(radius, nsample, xyz, new_xyz)
+    if xyz.device.type == "cpu":
+        return ball_query_plain(radius, nsample, xyz, new_xyz)
+    raise ValueError(f"no ball query for device {xyz.device}")
+
+
+def ball_query_plain(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`query_ball_point`: the (B, S, N) distances,
+    then the ``nsample`` smallest in-radius indices."""
     N = xyz.shape[1]
     within = square_distance(new_xyz, xyz) <= radius ** 2       # (B, S, N)
     idx = torch.arange(N, device=xyz.device)

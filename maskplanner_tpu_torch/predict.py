@@ -2,7 +2,9 @@
 robot programs, from a run directory holding a port checkpoint.
 
     python -m maskplanner_tpu_torch.predict --run RUN_DIR --model last \\
-        --meshes a.obj b.obj --out predicted_programs --device cuda
+        --meshes a.obj b.obj --out predicted_programs
+
+It runs on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ def parse_args(argv=None):
     p.add_argument("--meshes", nargs="*", default=[],
                    help="OBJ mesh files to predict programs for")
     p.add_argument("--out", default="predicted_programs")
-    p.add_argument("--device", required=True, help="cuda | cpu")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default; raises without a card) | cpu")
     p.add_argument("--no_postprocess", action="store_true",
                    help="dump raw predicted segments instead of the "
                         "concatenated/resampled strokes")

@@ -10,12 +10,15 @@ with the eval loss every ``eval_freq`` epochs, then the PSACD curriculum
 and the delayed loss activations. At every eval it writes
 ``last_checkpoint`` (``convert.save_checkpoint``), which the port's
 ``Predictor`` serves. It runs on the card unless ``device=cpu`` is given;
-``device=cuda`` without a card raises.
+``device=cuda`` without a card raises. With ``model.pretrained`` (the
+default) and ``model.norm=batch`` it warm-starts the encoder from the
+original repository's ShapeNet checkpoint when the file is there.
 
 Not ported yet (each raises when its config asks for it): resume, the
 adversarial losses, the device-resident epoch (``device_dataset=true``),
-warm starts from a pretrained run or encoder. The eval metrics and the
-final ``.npy`` prediction dumps are skipped, with a notice.
+warm starts from a pretrained run (``model.pretrained_custom``). The eval
+metrics and the final ``.npy`` prediction dumps are skipped, with a
+notice.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import time
 
 import torch
 
-from .convert import save_checkpoint
+from .convert import load_shapenet_encoder, save_checkpoint
 from .data.dataset import DataLoader, PaintDataset
 from .losses import LossHandler
 from .models import get_model
@@ -57,6 +60,28 @@ def _refuse_unported(config) -> None:
     if config["model"].get("pretrained_custom"):
         raise NotImplementedError("model.pretrained_custom warm starts are "
                                   "not ported yet (ROADMAP.md, port queue)")
+
+
+def warm_start_encoder(model, config) -> list[str] | None:
+    """The ShapeNet encoder warm start (``model.pretrained``): sa1..sa3 from
+    ``model.pretrained_path`` or ``pretrained_models/pointnet2_cls_ssg.pth``
+    -> the loaded keys. Under any norm but ``batch`` (the checkpoint's
+    running statistics have no target), or without the file, it warns and
+    returns None."""
+    pth = config["model"].get("pretrained_path") or os.path.join(
+        "pretrained_models", "pointnet2_cls_ssg.pth")
+    enc_norm = config["model"].get("norm") or "batch"
+    if not os.path.isfile(pth):
+        print(f"WARNING: model.pretrained set but {pth} not found; encoder "
+              f"starts from random init")
+        return None
+    if enc_norm != "batch":
+        print(f"WARNING: torch encoder warm start ({pth}) requires "
+              f"model.norm=batch (got {enc_norm!r}); skipping")
+        return None
+    loaded = load_shapenet_encoder(model, pth)
+    print(f"Encoder warm-started from {pth} ({len(loaded)} tensors)")
+    return loaded
 
 
 def evaluate(model, loader, handler, weights, device):
@@ -106,8 +131,7 @@ def main(argv=None):
     model = get_model(config, device=device,
                       generator=torch.Generator().manual_seed(seed))
     if config["model"].get("pretrained"):
-        print("WARNING: model.pretrained: encoder warm starts are not ported "
-              "yet; the encoder starts from random init")
+        warm_start_encoder(model, config)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Model: {config['model']['backbone']} | params: "
           f"{n_params / 1e6:.2f}M | device: {device}")

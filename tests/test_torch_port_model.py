@@ -8,6 +8,12 @@ every tensor shows in the outputs), the tree is converted with
 Tolerance rtol 1e-4, atol 1e-5: Flax's LayerNorm takes the variance as
 E[x²] − E[x]² while the port centres first, and the two frameworks sum the
 matmuls in different orders; both differences are f32 rounding.
+
+The BatchNorm recipe (``model.norm=batch``) and a hybrid with BatchNorm at
+sa2 are held against two JAX references: the plain XLA path, and the path
+the JAX package takes on its accelerator (``_use_pallas`` patched to True,
+the Pallas kernels in interpret mode): the ball-group gather kernel, and at
+sa2 the Dense/ReLU chain with the BatchNorm folded into its weights.
 """
 import numpy as np
 import jax
@@ -47,16 +53,26 @@ def _perturb(variables, rng):
     return jax.tree_util.tree_map_with_path(noise, variables)
 
 
-@pytest.fixture(scope="module", params=[(64, True, "layer+layer+batch"),
-                                        (1024, False, "layer+layer+batch"),
-                                        (256, False, "none+batch+layer")],
-                ids=["pc64-segconf", "pc1024", "pc256-none-batch-layer"])
+@pytest.fixture(scope="module", params=[
+    (64, True, "layer+layer+batch", "xla"),
+    (1024, False, "layer+layer+batch", "xla"),
+    (256, False, "none+batch+layer", "xla"),
+    (256, False, "batch", "xla"),
+    (256, False, "batch", "folded"),
+    (256, True, "layer+batch+batch", "xla"),
+    (256, True, "layer+batch+batch", "folded")],
+    ids=["pc64-segconf", "pc1024", "pc256-none-batch-layer", "pc256-batch",
+         "pc256-batch-folded", "pc256-layer-batch-batch",
+         "pc256-layer-batch-batch-folded"])
 def both_models(request, monkeypatch_module):
+    from jax.experimental import pallas as pl
+
     from maskplanner_tpu.models import get_model as get_flax_model
+    from maskplanner_tpu.models import pointnet2 as flax_pointnet2
 
     # the port's distances are the JAX package's fixed-order form
     monkeypatch_module.setenv("MASKPLANNER_DETERMINISTIC_NN", "1")
-    pc_points, seg_conf, norm = request.param
+    pc_points, seg_conf, norm, reference = request.param
     cfg = _small_config(pc_points, seg_conf, norm)
     rng = np.random.default_rng(pc_points)
     pc = (rng.normal(size=(2, pc_points, 3)) * 0.5).astype(np.float32)
@@ -65,12 +81,27 @@ def both_models(request, monkeypatch_module):
                                 train=False)
     variables = _perturb(variables, rng)
     ref = flax_model.apply(variables, jnp.asarray(pc), train=False)
+    ref_error = None
+    if reference == "folded":
+        with pytest.MonkeyPatch.context() as mp:
+            orig = pl.pallas_call
+            mp.setattr(pl, "pallas_call",
+                       lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+            mp.setattr(flax_pointnet2, "_use_pallas", lambda: True)
+            xla, ref = ref, flax_model.apply(variables, jnp.asarray(pc),
+                                             train=False)
+        # the accelerator path's own distance from the XLA path
+        ref_error = {f: None if getattr(ref, f) is None else
+                     np.abs(np.asarray(getattr(ref, f))
+                            - np.asarray(getattr(xla, f)))
+                     for f in ("traj", "stroke_masks", "mask_scores",
+                               "seg_conf")}
 
     model = get_model(cfg, device="cpu")
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     with torch.inference_mode():
         out = model(torch.from_numpy(pc))
-    return cfg, ref, out
+    return cfg, ref, out, ref_error
 
 
 @pytest.fixture(scope="module")
@@ -83,18 +114,30 @@ def monkeypatch_module():
 @pytest.mark.parametrize("field", ["traj", "stroke_masks", "mask_scores",
                                    "seg_conf"])
 def test_forward_matches_flax(both_models, field):
-    cfg, ref, out = both_models
+    """Within rtol 1e-4, atol 1e-5 of the reference. Against the JAX
+    accelerator path the allowance grows by that path's own distance from
+    the XLA path, element by element: its LayerNorm level (``fused_sa_train``)
+    gathers through a hi/lo bf16 split, which at pc256 moves the
+    ``layer+batch+batch`` outputs by up to 5.5e-5 · max|traj|, where the
+    port lies within 4.3e-6 · max|traj| of the XLA path (ROADMAP.md,
+    Queue 3)."""
+    cfg, ref, out, ref_error = both_models
     a, b = getattr(ref, field), getattr(out, field)
     if a is None:
         assert b is None
         return
     b = b.numpy()
+    a = np.asarray(a)
     assert b.shape == a.shape and np.isfinite(b).all()
-    np.testing.assert_allclose(b, np.asarray(a), rtol=1e-4, atol=1e-5)
+    if ref_error is None:
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5)
+    else:
+        np.testing.assert_array_less(
+            np.abs(b - a), 1e-5 + 1e-4 * np.abs(a) + ref_error[field] + 1e-12)
 
 
 def test_output_shapes(both_models):
-    cfg, _, out = both_models
+    cfg, _, out, _ = both_models
     info = get_io_info("MaskPlanner", cfg)
     v, m = info["out_vectors"], info["n_stroke_masks"]
     assert out.traj.shape == (2, v, cfg["lambda_points"] * 6)
@@ -139,13 +182,20 @@ def test_unported_backbone_and_norm_spec_raise():
         level_norms("layer+batch")
 
 
-def test_training_forward_is_refused():
-    """The train forward runs for the fused (LayerNorm / no-norm) levels; a
-    grouped BatchNorm level's train forward is not ported and raises."""
-    cfg = _small_config(64, False)
-    out = get_model(cfg, device="cpu").train()(torch.randn(2, 64, 3))
-    assert out.traj.requires_grad
-    model = get_model(_small_config(64, False, norm="batch"),
-                      device="cpu").train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(2, 64, 3))
+def test_training_forward_of_every_norm_gives_gradients():
+    """The train forward runs for the fused (LayerNorm / no-norm) levels and
+    for the grouped BatchNorm levels, and every encoder weight gets a
+    gradient; an unknown norm raises."""
+    for norm in ("layer+layer+batch", "batch"):
+        model = get_model(_small_config(64, False, norm=norm),
+                          device="cpu").train()
+        out = model(torch.randn(2, 64, 3) * 0.5,
+                    generator=torch.Generator().manual_seed(0))
+        assert out.traj.requires_grad
+        out.traj.square().sum().backward()
+        for name, p in model.named_parameters():
+            if name.startswith(("sa1.", "sa2.")) and name.endswith("weight"):
+                assert p.grad is not None and bool(p.grad.abs().sum() > 0), \
+                    (norm, name)
+    with pytest.raises(ValueError, match="unknown norm"):
+        get_model(_small_config(64, False, norm="group"), device="cpu")
