@@ -21,17 +21,21 @@ result line:
    with ``cover_all=True``; per-request latency;
 6. the training kernels at the training shapes (a batch of 64 of the
    synthetic windows-v2 train split, the seeded model): the fused SA
-   backward at sa1 and sa2 against autograd through the plain level, each
-   gradient held against the same level in float64: its rms error within
-   3 x the larger of the plain float32 version's and 5e-4 of the norm (see
-   ``check_against_exact``), and every positive max-pool output's gradient
-   routed (``check_routing``); the nearest-neighbour argmin at the step's
+   backward (K1 ``fused_sa_bwd`` then K2 ``sa_weight_grad``) at sa1 and sa2
+   against autograd through the plain level, each gradient held against
+   the same level in float64: its rms error within 3 x the larger of the
+   plain float32 version's and 5e-4 of the norm (see
+   ``check_against_exact``), every positive max-pool output's gradient
+   routed (``check_routing``), the weight gradients bitwise equal across
+   two launches (``check_deterministic``), K1 and K2 timed apart; the
+   nearest-neighbour argmin at the step's
    four shapes with its real masks, indices identical; the LAP on the
    step's real 64 x 22 x 22 costs, permutations of equal total cost
    (1e-5 relative); median times, the library yardstick
    ``torch.cdist(x, y).argmin(-1)`` for the argmin;
 7. one training step at batch 64: every kernel's launches counted, exactly
-   fps 2, fused_sa_fwd 2, fused_sa_bwd 2, nn_argmin 4, lap 1;
+   fps 2, fused_sa_fwd 2, fused_sa_bwd 2, sa_weight_grad 2, nn_argmin 4,
+   lap 1;
 8. the card against the CPU (plain ops) on 2 samples of the batch: the loss
    within 1e-4 relative, every parameter gradient's rms difference within
    1e-3 of its norm plus a float32 rounding allowance measured against the
@@ -84,6 +88,7 @@ BATCH = 64
 REL_TOL = 1e-4
 PEAK_F32_OPS = 67e12      # H100 SXM, f32 outside the tensor cores (op/s)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 (byte/s)
+PEAK_TF32_OPS = 495e12    # H100 SXM, TF32 on the tensor cores (op/s)
 KERNELS = {
     "fps": dict(source="maskplanner_tpu_torch/csrc/fps.cu",
                 replaces="maskplanner_tpu/ops/pallas/fps.py:84"),
@@ -92,6 +97,10 @@ KERNELS = {
         replaces="maskplanner_tpu/ops/pallas/fused_sa_train.py:540"),
     "fused_sa_bwd": dict(
         source="maskplanner_tpu_torch/csrc/fused_sa_bwd.cu",
+        replaces="maskplanner_tpu/ops/pallas/fused_sa_train.py:589"),
+    # the backward's second kernel: the weight gradients
+    "sa_weight_grad": dict(
+        source="maskplanner_tpu_torch/csrc/sa_weight_grad.cu",
         replaces="maskplanner_tpu/ops/pallas/fused_sa_train.py:589"),
     "nn_argmin": dict(source="maskplanner_tpu_torch/csrc/nn_argmin.cu",
                       replaces="maskplanner_tpu/ops/pallas/nn_argmin.py:54"),
@@ -116,7 +125,7 @@ def launches_of(**counts) -> dict:
 
 FORWARD_LAUNCHES = launches_of(fps=2, fused_sa_fwd=2)
 STEP_LAUNCHES = launches_of(fps=2, fused_sa_fwd=2, fused_sa_bwd=2,
-                            nn_argmin=4, lap=1)
+                            sa_weight_grad=2, nn_argmin=4, lap=1)
 BN_FORWARD_LAUNCHES = launches_of(fps=2, ball_group=2)
 BN_STEP_LAUNCHES = launches_of(fps=2, ball_group=2, nn_argmin=4, lap=1)
 
@@ -130,14 +139,16 @@ def counters() -> dict:
     from maskplanner_tpu_torch.ops.cuda.fps import fps_cuda
     from maskplanner_tpu_torch.ops.cuda.fused_sa import (fused_sa_bwd_cuda,
                                                          fused_sa_cuda,
-                                                         folded_sa_cuda)
+                                                         folded_sa_cuda,
+                                                         sa_weight_grad_cuda)
     from maskplanner_tpu_torch.ops.cuda.group_gather import (ball_group_cuda,
                                                              ball_query_cuda)
     from maskplanner_tpu_torch.ops.cuda.lap import lap_cuda
     from maskplanner_tpu_torch.ops.cuda.nn_argmin import nn_argmin_cuda
 
     return {"fps": fps_cuda, "fused_sa_fwd": fused_sa_cuda,
-            "fused_sa_bwd": fused_sa_bwd_cuda, "nn_argmin": nn_argmin_cuda,
+            "fused_sa_bwd": fused_sa_bwd_cuda,
+            "sa_weight_grad": sa_weight_grad_cuda, "nn_argmin": nn_argmin_cuda,
             "lap": lap_cuda, "ball_group": ball_group_cuda,
             "ball_query": ball_query_cuda, "fused_sa_folded": folded_sa_cuda}
 
@@ -183,12 +194,16 @@ def median_host_s(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def bound(ops: float, nbytes: float) -> dict:
-    """The least time for ``ops`` f32 operations and ``nbytes`` moved."""
-    t_ops = ops / PEAK_F32_OPS * 1e3
+def bound(ops: float, nbytes: float, tf32_ops: float = 0.0,
+          prefix: str = "") -> dict:
+    """The least time for ``ops`` f32 operations on the CUDA cores plus
+    ``tf32_ops`` operations of 3xTF32 tensor-core products (each three
+    passes at the TF32 rate) and ``nbytes`` moved."""
+    t_ops = (ops / PEAK_F32_OPS + 3.0 * tf32_ops / PEAK_TF32_OPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    return dict(bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return {f"{prefix}bound_ms": max(t_ops, t_bytes),
+            f"{prefix}bound_by": "operations" if t_ops >= t_bytes
+            else "bytes"}
 
 
 def phase_identity() -> None:
@@ -505,13 +520,14 @@ def check_routing(name, sa, leaves, params, idx, pooled) -> None:
     the routed pairs that pass the ReLU, which must be every pair with a
     positive maximum (a recompute that differed from the forward in one bit
     would lose the pair)."""
-    from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_bwd_cuda
+    from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_backward_cuda
 
     det = [None if t is None else t.detach() for t in leaves]
     dparams = [tuple(t.detach() for t in layer) for layer in params]
     pooled = pooled.detach()
-    _, _, _, grads = fused_sa_bwd_cuda(sa.nsample, True, *det, dparams, idx,
-                                       pooled, torch.ones_like(pooled))
+    _, _, _, grads = fused_sa_backward_cuda(sa.nsample, True, *det, dparams,
+                                            idx, pooled,
+                                            torch.ones_like(pooled))
     routed = float(grads[-1][3].double().sum())
     want = int((pooled > 0).sum())
     log(f"[train-kernels]   routing: {routed:.0f} of {want} (query, channel) "
@@ -521,12 +537,31 @@ def check_routing(name, sa, leaves, params, idx, pooled) -> None:
                              f"max-pool gradients, expected {want}")
 
 
+def check_deterministic(name, args) -> None:
+    """Two launches of the level's backward (K1 then K2) give the same
+    weight gradients, bit for bit: no atomic and a summation order fixed by
+    the shapes."""
+    from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_backward_cuda
+
+    first = fused_sa_backward_cuda(*args)[3]
+    second = fused_sa_backward_cuda(*args)[3]
+    for j, (a, b) in enumerate(zip(first, second)):
+        for n, x, y in zip(("dW", "db", "dgamma", "dbeta"), a, b):
+            if not torch.equal(x, y):
+                raise AssertionError(f"fused SA {name}: L{j}.{n} differs "
+                                     f"between two launches")
+    log(f"[train-kernels]   weight gradients bitwise equal across two "
+        f"launches ({len(first)} layers x dW, db, dgamma, dbeta)")
+
+
 def phase_train_kernels(cfg, model, batch, res: dict) -> None:
     """The training kernels against their plain versions at the step's
     shapes and inputs."""
     from maskplanner_tpu_torch.losses import LossHandler
     from maskplanner_tpu_torch.ops import hungarian as hung
-    from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_bwd_cuda
+    from maskplanner_tpu_torch.ops.cuda.fused_sa import (fused_sa_bwd_cuda,
+                                                         sa_weight_grad_cuda,
+                                                         scratch_floats)
     from maskplanner_tpu_torch.ops.cuda.lap import lap_cuda
     from maskplanner_tpu_torch.ops.cuda.nn_argmin import nn_argmin_cuda
     from maskplanner_tpu_torch.ops.fused_sa import (fused_sa_forward,
@@ -537,9 +572,10 @@ def phase_train_kernels(cfg, model, batch, res: dict) -> None:
     from maskplanner_tpu_torch.train import build_loss_batch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    # -- fused SA backward at sa1 and sa2 -------------------------------------
-    r = res["fused_sa_bwd"]
-    ops = nbytes = 0.0
+    # -- fused SA backward (K1 + K2) at sa1 and sa2 -----------------------------
+    k1, k2 = res["fused_sa_bwd"], res["sa_weight_grad"]
+    work = {name: dict(ops=0.0, tf32=0.0, bytes=0.0)
+            for name in ("fused_sa_bwd", "sa_weight_grad")}
     pts, feats = batch["point_cloud"], None
     for name, sa in (("sa1", model.sa1), ("sa2", model.sa2)):
         B, N, _ = pts.shape
@@ -565,9 +601,10 @@ def phase_train_kernels(cfg, model, batch, res: dict) -> None:
         reset_counts()
         g = torch.autograd.grad((pooled * ct).sum(),
                                 [t for t in leaves if t is not None] + flat)
-        if read_counts()["fused_sa_bwd"] != 1:
-            raise AssertionError("the level's backward did not run the "
-                                 "fused_sa_bwd kernel once")
+        counts = read_counts()
+        if (counts["fused_sa_bwd"], counts["sa_weight_grad"]) != (1, 1):
+            raise AssertionError("the level's backward did not run K1 and K2 "
+                                 "once each")
         ref, ridx = run(fused_sa_forward_plain, leaves, params)
         if not torch.equal(idx, ridx):
             raise AssertionError(f"fused SA {name}: neighbour indices differ")
@@ -584,35 +621,75 @@ def phase_train_kernels(cfg, model, batch, res: dict) -> None:
         log(f"[train-kernels] fused_sa_bwd {name} B={B} N={N} S={S} K={K}:")
         check_routing(name, sa, leaves, params, idx, pooled)
         for n, a, b, c in zip(names, g, gp, g64):
-            r["max_abs_err"] = max(r["max_abs_err"],
-                                   check_against_exact(n, a, b, c))
-        # times: the kernel alone, and autograd's backward of the plain level
+            err = check_against_exact(n, a, b, c)
+            r = k2 if n.startswith("L") else k1
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+        # times: K1 with the step's flags (sa2's features alone carry a
+        # gradient), K2 on its rows, and autograd's backward of the plain
+        # level
         det = [None if t is None else t.detach() for t in leaves]
         dparams = [tuple(t.detach() for t in l) for l in params]
-        ms = median_ms(lambda: fused_sa_bwd_cuda(
-            K, True, *det, dparams, idx, pooled.detach(), ct), 5)
+        needs = (False, False, feats is not None)
+        args = (K, True, *det, dparams, idx, pooled.detach(), ct)
+        check_deterministic(name, args)
+        _, _, _, scratch, vec, chans = fused_sa_bwd_cuda(*args, needs)
+        rows = idx.numel()
+        ms1 = median_ms(lambda: fused_sa_bwd_cuda(*args, needs), 5)
+        ms2 = median_ms(lambda: sa_weight_grad_cuda(scratch, vec, chans,
+                                                    True, rows), 5)
+        del scratch, vec
         ref, _ = run(fused_sa_forward_plain, leaves, params)
         plain = median_ms(lambda: torch.autograd.grad(
             (ref * ct).sum(), [t for t in leaves if t is not None] + flat,
             retain_graph=True), 3, 1)
-        log(f"[train-kernels] fused_sa_bwd {name}: kernel {ms:.3f} ms, plain "
-            f"(autograd) {plain:.3f} ms")
-        r["ms"] += ms
-        r["plain_ms"] += plain
-        # recompute + weight gradient + input gradient: 3x the forward MLP
+        log(f"[train-kernels] fused_sa_bwd {name}: K1 {ms1:.3f} ms + K2 "
+            f"{ms2:.3f} ms = {ms1 + ms2:.3f} ms, plain (autograd) "
+            f"{plain:.3f} ms")
+        k1["ms"] += ms1
+        k2["ms"] += ms2
+        # the plain version computes both kernels' function at once
+        k1["plain_ms"] += plain
+        k2["plain_ms"] += plain
+        # K1: the recompute (the forward's MLP and LayerNorms), the
+        # LayerNorm backward (about 12 operations an activation) and, for
+        # every layer the step asks it of, the input-gradient product; K2:
+        # the weight-gradient products. Together the 6x MAC + 20x acts of
+        # the whole backward.
         acts = sum(c.out_features for c in sa.mlp_convs)
-        ops += B * S * K * (6.0 * mlp_macs(sa) + 20.0 * acts)
-        # read: the points, centroids, features, indices, pooled output, its
-        # gradient and the weights; written: the gradients of all but the
-        # indices and the pooled output
+        macs = mlp_macs(sa)
+        din = macs - (0 if feats is not None else
+                      sa.mlp_convs[0].in_features
+                      * sa.mlp_convs[0].out_features)
+        R = B * S * K
+        work["fused_sa_bwd"]["ops"] += R * (2.0 * macs + 20.0 * acts)
+        work["fused_sa_bwd"]["tf32"] += R * 2.0 * din
+        work["sa_weight_grad"]["tf32"] += R * 2.0 * macs
+        # K1 reads the points, features, indices, pooled output, its
+        # gradient and the weights, and writes the scratch rows and the
+        # per-query sums (and d_features); K2 reads those and writes the
+        # weight gradients
         pts_bytes = 4.0 * (pts.numel() + new_xyz.numel()
-                           + (0 if feats is None else feats.numel()))
+                           + 2 * (0 if feats is None else feats.numel()))
         w_bytes = 4.0 * sum(p.numel() for p in sa.parameters())
-        nbytes += (2 * pts_bytes + 2 * w_bytes
-                   + 4.0 * (idx.numel() + 2 * pooled.numel()))
+        side = 4.0 * (scratch_floats(chans, R)
+                      + B * S * 3 * acts)
+        work["fused_sa_bwd"]["bytes"] += (pts_bytes + w_bytes + side
+                                          + 4.0 * (idx.numel()
+                                                   + 2 * pooled.numel()))
+        work["sa_weight_grad"]["bytes"] += side + w_bytes
         pts, feats = new_xyz.detach(), pooled.detach()
-    r.update(bound(ops, nbytes))
-    r["library_ms"] = None
+    for kname, wk in work.items():
+        # the f32 rule of earlier rows: every operation at the CUDA cores'
+        # rate; beside it, this design's mix (products on the tensor cores)
+        res[kname].update(bound(wk["ops"] + wk["tf32"], wk["bytes"]))
+        res[kname].update(bound(wk["ops"], wk["bytes"], wk["tf32"], "mix_"))
+        res[kname]["library_ms"] = None
+    log(f"[train-kernels] fused SA backward bound (f32 rule) "
+        f"{k1['bound_ms'] + k2['bound_ms']:.4f} ms; K1 "
+        f"{k1['bound_ms']:.4f} ({k1['bound_by']}), K2 {k2['bound_ms']:.4f} "
+        f"({k2['bound_by']}); this design's mix: K1 {k1['mix_bound_ms']:.4f} "
+        f"({k1['mix_bound_by']}), K2 {k2['mix_bound_ms']:.4f} "
+        f"({k2['mix_bound_by']})")
 
     # -- the step's nearest-neighbour and LAP inputs --------------------------
     model.train()
@@ -824,7 +901,9 @@ def phase_train_then_serve() -> None:
             f"dataset_size={BATCH}", "test_dataset_size=8", "seed=1",
             f"output_dir={out}"])
         launches = read_counts()
-        if launches["fused_sa_bwd"] != 2 * STEP_LAUNCHES["fused_sa_bwd"]:
+        if launches["fused_sa_bwd"] != 2 * STEP_LAUNCHES["fused_sa_bwd"] \
+                or launches["sa_weight_grad"] != 2 * STEP_LAUNCHES[
+                    "sa_weight_grad"]:
             raise AssertionError(f"2 epochs of one step launched {launches}")
         if not os.path.isfile(os.path.join(run_dir,
                                            "last_checkpoint.torch.pt")):

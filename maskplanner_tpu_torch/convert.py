@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import os
 import re
+import shutil
 
 import numpy as np
 import torch
@@ -195,6 +196,13 @@ def save_checkpoint(run_dir: str, name: str, model: nn.Module,
     path = checkpoint_path(run_dir, name)
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     torch.save({"model": state, "epoch": int(epoch)}, path)
+    return path
+
+
+def copy_checkpoint(run_dir: str, src: str, dst: str) -> str:
+    """Copy ``<run_dir>/<src>.torch.pt`` to ``<run_dir>/<dst>.torch.pt``."""
+    path = checkpoint_path(run_dir, dst)
+    shutil.copyfile(checkpoint_path(run_dir, src), path)
     return path
 
 

@@ -11,6 +11,14 @@
 
 #include <cuda_runtime.h>
 
+#include "tf32_mma.cuh"
+
+// Timing studies of the backward only (fused_sa_bwd.cu, which documents
+// the bits); 0 in every real build.
+#ifndef SA_BWD_SKIP
+#define SA_BWD_SKIP 0
+#endif
+
 namespace fused_sa {
 
 constexpr int kThreads = 256;
@@ -92,6 +100,138 @@ __device__ __forceinline__ void layer_product(
         } else {
           o[c] = acc[r][c];
         }
+      }
+    }
+  }
+}
+
+// A group of n consecutive threads of the block (whole warps) that works
+// and synchronises on its own: barrier `bar` (0: the whole block).
+struct Threads {
+  int tid;  // the thread's index in the group
+  int n;    // threads in the group
+  int bar;  // its named barrier
+
+  __device__ __forceinline__ void sync() const {
+    if (bar == 0) {
+      __syncthreads();
+    } else {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(n) : "memory");
+    }
+  }
+};
+
+// Copy rows [i0, i0 + cnt) of a row-major (n, n_out) weight in device
+// memory (16-byte aligned rows, n_out a multiple of 4) into shared memory
+// at stride ldw, asynchronously (cp.async), by the threads of `th`;
+// commits one group of copies.
+__device__ __forceinline__ void stage_rows(const Threads& th,
+                                           const float* __restrict__ w,
+                                           int n_out, int i0, int cnt,
+                                           float* dst, int ldw) {
+  const int o4 = n_out >> 2;
+  for (int e = th.tid; e < cnt * o4; e += th.n) {
+    const int i = e / o4;
+    const int c = (e - i * o4) << 2;
+    tf32::cp_async16(dst + i * ldw + c,
+                     w + static_cast<size_t>(i0 + i) * n_out + c, true);
+  }
+  tf32::cp_async_commit();
+}
+
+// The layer product of layer_product, out[k][o] = bias[o] + sum_i
+// in[k][i] * w[i][o], for the backward's recompute, with the weights in
+// shared memory. Either the whole weight wt (n_in, n_out) already sits at
+// wbuf (resident, stride ldw), or its rows go through wbuf in tiles of
+// `tile` input channels, two buffers of stride ldw (at least n_out, a
+// multiple of 4), the next tile copied (cp.async) while the block computes
+// on the current one. Each output is still ONE fmaf chain over i in
+// ascending order, starting from the bias, whatever the tiling: tiles go in
+// order and a thread keeps its accumulators across them. So every value is
+// bit for bit the one layer_product and the forward kernel form, which the
+// backward's first-winner routing needs. A thread computes kR rows x 4
+// outputs (kR chosen by the caller so that the rows x n_out outputs keep
+// every thread busy); a warp spans at most 8 rows (with a row stride of 4
+// mod 32 its reads of `in` are conflict-free) and 4 outputs per row it
+// spans. Above th.n work items it makes several passes, streaming the
+// weights again. store is a Store, kStorePlain or kStoreRelu (an argument,
+// not a template parameter: one copy of the code). Every thread of `th`
+// must call it; the caller synchronises afterwards.
+template <int kR>
+__device__ void staged_product(const Threads& th, int store, const float* in,
+                               int ld_in, int n_in,
+                               int rows, const float* __restrict__ wt,
+                               const float* __restrict__ bias, int n_out,
+                               float* out, int ld_out, float* wbuf, int tile,
+                               int ldw, bool resident) {
+  const int o4 = n_out >> 2;
+  const int kq = (rows + kR - 1) / kR;
+  // a warp: kb rows x ob float4 outputs; kw warps along the rows
+  const int kb = kq % 8 == 0 ? 8 : (kq % 4 == 0 ? 4 : (kq % 2 == 0 ? 2 : 1));
+  const int ob = 32 / kb;
+  const int kw = kq / kb;
+  const int warps = kw * ((o4 + ob - 1) / ob);
+  const int lane = th.tid & 31;
+  if (resident) tile = n_in;
+  const int n_tiles = (n_in + tile - 1) / tile;
+  for (int base = 0; base < warps; base += th.n >> 5) {
+    const int wi = base + (th.tid >> 5);
+    const int kg = (wi % kw) * kb + lane % kb;
+    const int og = (wi / kw) * ob + lane / kb;
+    const bool active = wi < warps && og < o4;
+    const float* h[kR];
+    float acc[kR][4];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int k = kg + r * kq;
+      h[r] = in + (k < rows ? k : 0) * ld_in;  // rows past the end: unused
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[r][c] = (bias == nullptr || !active) ? 0.f
+                                                 : __ldg(bias + 4 * og + c);
+      }
+    }
+    const bool stage = !resident && !(SA_BWD_SKIP & 64);
+    if (stage) stage_rows(th, wt, n_out, 0, min(tile, n_in), wbuf, ldw);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int i0 = t * tile;
+      if (!resident) {
+        if (t + 1 < n_tiles && stage) {
+          stage_rows(th, wt, n_out, i0 + tile, min(tile, n_in - i0 - tile),
+                     wbuf + ((t + 1) & 1) * tile * ldw, ldw);
+          tf32::cp_async_wait<1>();
+        } else {
+          tf32::cp_async_wait<0>();
+        }
+        th.sync();
+      }
+      if (active && !(SA_BWD_SKIP & 128)) {
+        const float* wb = wbuf + (t & 1) * tile * ldw + 4 * og;
+        const int cnt = min(tile, n_in - i0);
+#pragma unroll 4
+        for (int i = 0; i < cnt; ++i) {
+          const float4 w = *reinterpret_cast<const float4*>(wb + i * ldw);
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            const float hv = h[r][i0 + i];
+            acc[r][0] = fmaf(w.x, hv, acc[r][0]);
+            acc[r][1] = fmaf(w.y, hv, acc[r][1]);
+            acc[r][2] = fmaf(w.z, hv, acc[r][2]);
+            acc[r][3] = fmaf(w.w, hv, acc[r][3]);
+          }
+        }
+      }
+      if (!resident) th.sync();  // the buffer is refilled two tiles on
+    }
+    if (!active) continue;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int k = kg + r * kq;
+      if (k >= rows) continue;
+      float* o = out + k * ld_out + 4 * og;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        o[c] = store == kStoreRelu ? fmaxf(acc[r][c], 0.f) : acc[r][c];
       }
     }
   }

@@ -50,33 +50,38 @@ def _sources() -> list[str]:
     return sorted(n[:-3] for n in os.listdir(SRC_DIR) if n.endswith(".cu"))
 
 
-def _lib_path(name: str) -> str:
+def _lib_path(name: str, defines: tuple = ()) -> str:
     h = hashlib.sha256()
     # the source and every shared header of csrc/ (included or not)
     headers = sorted(n for n in os.listdir(SRC_DIR) if n.endswith(".cuh"))
     for fname in [f"{name}.cu", *headers]:
         with open(os.path.join(SRC_DIR, fname), "rb") as fh:
             h.update(fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + defines).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def build_all() -> dict[str, str]:
+def build_all(variants: dict | None = None) -> dict[str, str]:
     """Compile every ``csrc/*.cu`` that has no up-to-date library, one
-    ``nvcc`` process per source, concurrently. Returns ``{name: path}``."""
+    ``nvcc`` process per source, concurrently. Returns ``{name: path}``.
+    ``variants`` instead builds ``{key: (source name, (-D flags...))}``,
+    copies of a source under other macro settings (timing studies)."""
+    jobs = variants or {name: (name, ()) for name in _sources()}
     with _lock:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        paths = {name: _lib_path(name) for name in _sources()}
+        paths = {key: _lib_path(name, defines)
+                 for key, (name, defines) in jobs.items()}
         todo = {n: p for n, p in paths.items() if not os.path.isfile(p)}
         if not todo:
             return paths
         nvcc = _nvcc()
         procs = {}
-        for name, path in todo.items():
+        for key, path in todo.items():
+            name, defines = jobs[key]
             tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+            cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", tmp,
                    os.path.join(SRC_DIR, f"{name}.cu")]
-            procs[name] = (tmp, subprocess.Popen(
+            procs[key] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
         failed = []

@@ -1,10 +1,13 @@
 """Wrappers of the fused set-abstraction kernels: the forward
-(``csrc/fused_sa_fwd.cu``) and the backward (``csrc/fused_sa_bwd.cu``).
+(``csrc/fused_sa_fwd.cu``) and the backward in two kernels, K1
+(``csrc/fused_sa_bwd.cu``: recompute, routing, input gradients, the rows
+of the weight gradient) and K2 (``csrc/sa_weight_grad.cu``: the weight
+gradients as fixed-order split-K products).
 
 ``fused_sa_cuda.launches``, ``folded_sa_cuda.launches`` (the forward on
-BatchNorm-folded weights) and ``fused_sa_bwd_cuda.launches`` count the
-kernels' launches (a run that should go through a kernel reads its count
-after resetting it to 0).
+BatchNorm-folded weights), ``fused_sa_bwd_cuda.launches`` (K1) and
+``sa_weight_grad_cuda.launches`` (K2) count the kernels' launches (a run
+that should go through a kernel reads its count after resetting it to 0).
 """
 from __future__ import annotations
 
@@ -16,16 +19,33 @@ import torch
 from . import build
 
 _MAX_LAYERS = 4
+# rows of one split of K2's split-K weight-gradient product: the number of
+# splits follows from the shapes alone, and with it every summation order
+SPLIT_ROWS = 8192
+
+
+def bwd_signature(fn):
+    """Set the ctypes signature of K1's C entry point ``fn``."""
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+    return fn
 
 
 @functools.cache
 def _bind_bwd():
-    fn = build.library("fused_sa_bwd").fused_sa_backward
+    return bwd_signature(build.library("fused_sa_bwd").fused_sa_backward)
+
+
+@functools.cache
+def _bind_wgrad():
+    fn = build.library("sa_weight_grad").sa_weight_grad
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
     return fn
 
 
@@ -87,14 +107,23 @@ def _check_level(xyz, new_xyz, features, params, layer_norm: bool):
     return xyz, new_xyz, features, F, chans
 
 
+def scratch_floats(chans, rows: int) -> int:
+    """Floats of K1's scratch: per layer, d_pre (rows, C_out) and the
+    layer's input (rows, C_in rounded up to a multiple of 4)."""
+    return rows * sum(co + (ci + 3) // 4 * 4
+                      for ci, co in zip(chans[:-1], chans[1:]))
+
+
 def fused_sa_bwd_cuda(nsample: int, layer_norm: bool, xyz: torch.Tensor,
                       new_xyz: torch.Tensor, features: torch.Tensor | None,
                       params, idx: torch.Tensor, pooled: torch.Tensor,
-                      d_pooled: torch.Tensor):
-    """Backward of :func:`fused_sa_cuda` on the card, from its ``idx`` (which
-    carries the neighbour selection) and ``pooled`` -> (d_xyz (B, N, 3),
-    d_new_xyz (B, S, 3), d_features (B, N, F) or None, per-layer gradients
-    shaped like ``params``)."""
+                      d_pooled: torch.Tensor, needs=(True, True, True)):
+    """K1: the backward of :func:`fused_sa_cuda` on the card up to the
+    weight gradients, from its ``idx`` (which carries the neighbour
+    selection) and ``pooled`` -> (d_xyz (B, N, 3), d_new_xyz (B, S, 3),
+    d_features (B, N, F), each None unless ``needs`` (xyz, new_xyz,
+    features) asks for it; scratch, vec: the rows and per-query sums
+    :func:`sa_weight_grad_cuda` takes; chans)."""
     xyz, new_xyz, features, F, chans = _check_level(xyz, new_xyz, features,
                                                     params, layer_norm)
     device = xyz.device
@@ -110,47 +139,100 @@ def fused_sa_bwd_cuda(nsample: int, layer_norm: bool, xyz: torch.Tensor,
         raise ValueError(f"pooled and d_pooled must be {shape}")
     idx = idx.contiguous()
 
-    ptrs, gptrs, keep, grads = [], [], [], []
+    ptrs, keep = [], []  # keep: the operands stay alive through the launch
     for layer in params:
         w = _f32(layer[0], device, "weight")
         co, ci = w.shape
-        wt = w.t().contiguous()                   # (ci, co), the recompute
+        wt = w.t().contiguous()                    # (ci, co), the recompute
         w_pad = torch.zeros((co, (ci + 3) // 4 * 4), dtype=torch.float32,
                             device=device)
         w_pad[:, :ci] = w                          # (co, ci_pad), d_in
         rest = [_f32(a, device, "bias/gamma/beta") for a in layer[1:]]
-        # the kernel sums the weight gradients over all blocks in f64
-        g = [torch.zeros_like(w, dtype=torch.float64)] + [
-            torch.zeros_like(a, dtype=torch.float64) for a in rest]
         keep += [wt, w_pad, *rest]
         ptrs += [wt.data_ptr(), w_pad.data_ptr(),
                  *(a.data_ptr() for a in rest)]
-        gptrs += [t.data_ptr() for t in g]
         if not layer_norm:
             ptrs += [None, None]
-            gptrs += [None, None]
-        grads.append(tuple(g))
 
-    d_xyz = torch.zeros_like(xyz)
-    d_feat = None if features is None else torch.zeros_like(features)
-    d_new = torch.empty_like(new_xyz)
+    need_xyz, need_new, need_feat = needs
+    need_feat = need_feat and features is not None
+    d_xyz = torch.zeros_like(xyz) if need_xyz else None
+    d_feat = torch.zeros_like(features) if need_feat else None
+    d_new = torch.empty_like(new_xyz) if need_new else None
+    rows = B * S * nsample
+    scratch = torch.empty(scratch_floats(chans, rows), dtype=torch.float32,
+                          device=device)
+    n_vec = sum(chans[1:]) * (3 if layer_norm else 1)
+    vec = torch.empty((B * S, n_vec), dtype=torch.float32, device=device)
     c_chans = (ctypes.c_int * len(chans))(*chans)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    c_gptrs = (ctypes.c_void_p * len(gptrs))(*gptrs)
-    err = _bind_bwd()(xyz.data_ptr(), new_xyz.data_ptr(),
-                      None if features is None else features.data_ptr(),
+    need = int(need_xyz) | 2 * int(need_new) | 4 * int(need_feat)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _bind_bwd()(xyz.data_ptr(), new_xyz.data_ptr(), ptr(features),
                       idx.data_ptr(), pooled.data_ptr(), d_pooled.data_ptr(),
                       B, N, S, F, nsample, len(params), c_chans, c_ptrs,
-                      c_gptrs, int(layer_norm), d_xyz.data_ptr(),
-                      None if d_feat is None else d_feat.data_ptr(),
-                      d_new.data_ptr(), build.stream_ptr(device))
+                      int(layer_norm), need, ptr(d_xyz), ptr(d_feat),
+                      ptr(d_new), scratch.data_ptr(), vec.data_ptr(),
+                      build.stream_ptr(device))
     build.check(err, "fused_sa_backward")
     fused_sa_bwd_cuda.launches += 1
-    grads = tuple(tuple(t.float() for t in layer) for layer in grads)
-    return d_xyz, d_new, d_feat, grads
+    return d_xyz, d_new, d_feat, scratch, vec, chans
 
 
 fused_sa_bwd_cuda.launches = 0
+
+
+def sa_weight_grad_cuda(scratch: torch.Tensor, vec: torch.Tensor, chans,
+                        layer_norm: bool, rows: int):
+    """K2: the level's weight gradients from K1's ``scratch`` rows and
+    ``vec`` sums -> per layer (dW (C_out, C_in), db) plus (dgamma, dbeta)
+    with LayerNorm, the same bits from run to run."""
+    device = scratch.device
+    n_layers = len(chans) - 1
+    queries = vec.shape[0]
+    for t, what in ((scratch, "scratch"), (vec, "vec")):
+        if t.device.type != "cuda" or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous float32 on the card")
+    if scratch.numel() != scratch_floats(chans, rows) or \
+            vec.shape[1] != sum(chans[1:]) * (3 if layer_norm else 1):
+        raise ValueError("scratch and vec do not follow the level's widths")
+    splits = max(1, -(-rows // SPLIT_ROWS))
+    sizes = [co * ci for ci, co in zip(chans[:-1], chans[1:])]
+    vec_sizes = [co for co in chans[1:] for _ in range(3 if layer_norm
+                                                       else 1)]
+    slot = sum(sizes) + sum(vec_sizes)
+    part = torch.empty((splits, slot), dtype=torch.float32, device=device)
+    out = torch.empty(slot, dtype=torch.float32, device=device)
+    c_chans = (ctypes.c_int * len(chans))(*chans)
+    err = _bind_wgrad()(scratch.data_ptr(), vec.data_ptr(), rows, queries,
+                        n_layers, c_chans, int(layer_norm), splits,
+                        part.data_ptr(), out.data_ptr(),
+                        build.stream_ptr(device))
+    build.check(err, "sa_weight_grad")
+    sa_weight_grad_cuda.launches += 1
+    pieces = iter(torch.split(out, sizes + vec_sizes))
+    dws = [next(pieces).view(co, ci)
+           for ci, co in zip(chans[:-1], chans[1:])]
+    return [(dw, *(next(pieces) for _ in range(3 if layer_norm else 1)))
+            for dw in dws]
+
+
+sa_weight_grad_cuda.launches = 0
+
+
+def fused_sa_backward_cuda(nsample: int, layer_norm: bool, xyz, new_xyz,
+                           features, params, idx, pooled, d_pooled,
+                           needs=(True, True, True)):
+    """The level's whole backward on the card, K1 then K2 -> (d_xyz,
+    d_new_xyz, d_features, each None where not asked; per-layer gradients
+    shaped like ``params``)."""
+    d_xyz, d_new, d_feat, scratch, vec, chans = fused_sa_bwd_cuda(
+        nsample, layer_norm, xyz, new_xyz, features, params, idx, pooled,
+        d_pooled, needs)
+    grads = sa_weight_grad_cuda(scratch, vec, chans, layer_norm,
+                                idx.numel())
+    return d_xyz, d_new, d_feat, grads
 
 
 def _forward(radius: float, nsample: int, layer_norm: bool,

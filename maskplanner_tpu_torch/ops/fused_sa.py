@@ -6,6 +6,10 @@ ball query -> gather ``[x - q ; f]`` (offsets first) -> per-point MLP
 tensor goes through :class:`FusedSALevel`, whose forward and backward are
 the kernels of ``ops/cuda/fused_sa.py``; a CPU tensor goes to
 :func:`fused_sa_forward_plain`, and autograd through it gives the gradient.
+:func:`fused_sa_backward_plain` is the backward in the kernels'
+decomposition, and :func:`tf32_split` / :func:`matmul_3xtf32` emulate
+their 3xTF32 tensor-core products; the tests hold both against the JAX
+package and against autograd.
 
 :func:`fused_set_abstraction` is the counterpart of
 ``maskplanner_tpu/ops/pallas/fused_sa.py``: a grouped BatchNorm level in
@@ -23,29 +27,158 @@ from .sampling import ball_query_plain, index_points
 LAYER_NORM_EPS = 1e-6
 
 
+def _gather_plain(xyz, new_xyz, features, idx):
+    """The neighbour rows ``[x - q ; f]`` (B, S, K, 3 + F)."""
+    h = index_points(xyz, idx) - new_xyz[:, :, None, :]
+    if features is not None:
+        h = torch.cat([h, index_points(features, idx)], dim=-1)
+    return h
+
+
+def _mlp_plain(h, params, norm: str) -> list:
+    """The per-point MLP on rows ``h`` -> per layer (input, xhat, inv,
+    activation); xhat and inv (the LayerNorm's normalised value and inverse
+    std) are None without a norm."""
+    layers = []
+    for layer in params:
+        inp = h
+        h = torch.matmul(h, layer[0].t()) + layer[1]
+        xhat = inv = None
+        if norm == "layer":
+            mu = h.mean(-1, keepdim=True)
+            var = ((h - mu) ** 2).mean(-1, keepdim=True)
+            inv = torch.rsqrt(var + LAYER_NORM_EPS)
+            xhat = (h - mu) * inv
+            h = xhat * layer[2] + layer[3]
+        h = torch.relu(h)
+        layers.append((inp, xhat, inv, h))
+    return layers
+
+
 def fused_sa_forward_plain(radius: float, nsample: int, norm: str,
                            xyz: torch.Tensor, new_xyz: torch.Tensor,
                            features: torch.Tensor | None, params):
     """Plain version: the same level as separate PyTorch ops."""
     idx = ball_query_plain(radius, nsample, xyz, new_xyz)        # (B, S, K)
-    h = index_points(xyz, idx) - new_xyz[:, :, None, :]
-    if features is not None:
-        h = torch.cat([h, index_points(features, idx)], dim=-1)
-    for layer in params:
-        h = torch.matmul(h, layer[0].t()) + layer[1]
+    layers = _mlp_plain(_gather_plain(xyz, new_xyz, features, idx), params,
+                        norm)
+    return layers[-1][3].amax(dim=2), idx
+
+
+def tf32_split(x: torch.Tensor):
+    """``x`` -> (hi, lo), both TF32 values (10-bit mantissa) in float32:
+    hi is ``x`` rounded to nearest (ties away from zero, as
+    ``cvt.rna.tf32.f32``) on the int32 view, lo the rounded remainder. The
+    3xTF32 product a·b ~ a_hi·b_hi + a_hi·b_lo + a_lo·b_hi is what the
+    backward's ``mma.sync`` products compute."""
+    def rna(t):
+        return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000) \
+            .view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the tensor cores form it in 3xTF32: three products of
+    the TF32 parts, each summed in float32."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def split_sum(parts) -> torch.Tensor:
+    """Partial sums added one after another in the given order."""
+    total = None
+    for p in parts:
+        total = p if total is None else total + p
+    return total
+
+
+def fused_sa_backward_plain(nsample: int, norm: str, xyz: torch.Tensor,
+                            new_xyz: torch.Tensor,
+                            features: torch.Tensor | None, params,
+                            idx: torch.Tensor, pooled: torch.Tensor,
+                            d_pooled: torch.Tensor,
+                            needs=(True, True, True), splits: int = 1):
+    """The level's backward in the kernels' decomposition
+    (``csrc/fused_sa_bwd.cu`` then ``csrc/sa_weight_grad.cu``), from the
+    forward's ``idx`` and ``pooled``:
+
+    1. recompute every layer from the re-gathered rows;
+    2. route ``d_pooled[c]`` to the FIRST neighbour whose last activation
+       is >= ``pooled[c]`` (and > 0: the ReLU);
+    3. per layer, last to first: the LayerNorm backward, then the rows the
+       weight gradient needs, ``d_pre`` (rows, C_out) and the layer's input
+       (rows, C_in), then the input gradient ``d_pre · W`` masked by the
+       previous activation's ReLU;
+    4. dW = Σ d_preᵀ · in, db = Σ d_pre, dgamma = Σ d_act · xhat,
+       dbeta = Σ d_act, each over ``splits`` contiguous row ranges summed
+       in range order;
+    5. d_xyz, d_new_xyz and d_features from layer 0's input gradient, each
+       only where ``needs`` (xyz, new_xyz, features) asks for it.
+
+    -> (d_xyz or None, d_new_xyz or None, d_features or None, per-layer
+    gradients shaped like ``params``). ``nsample`` is the K of ``idx``."""
+    if idx.shape[-1] != nsample:
+        raise ValueError(f"idx must hold {nsample} neighbours a query")
+    x = _gather_plain(xyz, new_xyz, features, idx)
+    layers = _mlp_plain(x, params, norm)
+    act = layers[-1][3]
+    hit = act >= pooled[:, :, None, :]
+    first = hit & (hit.int().cumsum(2) == 1)
+    d = torch.where(first & (act > 0), d_pooled[:, :, None, :], 0.0)
+    rows = d.shape[0] * d.shape[1] * d.shape[2]
+    step = -(-rows // splits)
+
+    def fixed_order(fn, *ts):
+        flat = [t.reshape(rows, t.shape[-1]) for t in ts]
+        return split_sum(fn(*(t[r:r + step] for t in flat))
+                         for r in range(0, rows, step))
+
+    grads = [None] * len(params)
+    need_in = any(needs)
+    for l in range(len(params) - 1, -1, -1):
+        inp, xhat, inv, _ = layers[l]
+        w = params[l][0]
+        extra = ()
         if norm == "layer":
-            mu = h.mean(-1, keepdim=True)
-            var = ((h - mu) ** 2).mean(-1, keepdim=True)
-            h = (h - mu) * torch.rsqrt(var + LAYER_NORM_EPS) * layer[2] \
-                + layer[3]
-        h = torch.relu(h)
-    return h.amax(dim=2), idx
+            extra = (fixed_order(lambda a, b: (a * b).sum(0), d, xhat),
+                     fixed_order(lambda a: a.sum(0), d))
+            dx = d * params[l][2]
+            d = inv * (dx - dx.mean(-1, keepdim=True)
+                       - xhat * (dx * xhat).mean(-1, keepdim=True))
+        grads[l] = (fixed_order(lambda a, b: a.t() @ b, d, inp),
+                    fixed_order(lambda a: a.sum(0), d), *extra)
+        if l > 0:
+            d = torch.where(layers[l - 1][3] > 0, d @ w, 0.0)
+        elif need_in:
+            d = d @ w
+    d_xyz = d_new = d_feat = None
+    if need_in:
+        B, N, _ = xyz.shape
+        flat = (idx.long() + N * torch.arange(B, device=idx.device)
+                [:, None, None]).reshape(-1)
+        if needs[0]:
+            d_xyz = torch.zeros(B * N, 3, dtype=d.dtype, device=d.device) \
+                .index_add_(0, flat, d[..., :3].reshape(-1, 3)) \
+                .view(B, N, 3)
+        if needs[1]:
+            d_new = -d[..., :3].sum(2)
+        if needs[2] and features is not None:
+            F = features.shape[-1]
+            d_feat = torch.zeros(B * N, F, dtype=d.dtype, device=d.device) \
+                .index_add_(0, flat, d[..., 3:].reshape(-1, F)) \
+                .view(B, N, F)
+    return d_xyz, d_new, d_feat, [tuple(g) for g in grads]
 
 
 class FusedSALevel(torch.autograd.Function):
-    """The level on the card with a kernel for each direction. The forward
+    """The level on the card with kernels for each direction. The forward
     saves the neighbour indices and the pooled output; the backward
-    recomputes the activations from them (``csrc/fused_sa_bwd.cu``).
+    recomputes the activations from them (``csrc/fused_sa_bwd.cu``) and
+    forms the weight gradients from the rows it writes
+    (``csrc/sa_weight_grad.cu``).
 
     ``apply(radius, nsample, layer_norm, xyz, new_xyz, features, n_per,
     *flat_params)``: ``flat_params`` holds the layers' tensors in order,
@@ -66,14 +199,16 @@ class FusedSALevel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_pooled, _d_idx):
-        from .cuda.fused_sa import fused_sa_bwd_cuda
+        from .cuda.fused_sa import fused_sa_backward_cuda
 
         nsample, layer_norm, n_per = ctx.level
         xyz, new_xyz, features, idx, pooled, *flat = ctx.saved_tensors
         params = [flat[i:i + n_per] for i in range(0, len(flat), n_per)]
-        d_xyz, d_new, d_feat, d_params = fused_sa_bwd_cuda(
+        # only the input gradients autograd asks for (the points and the
+        # FPS centroids of a step carry none)
+        d_xyz, d_new, d_feat, d_params = fused_sa_backward_cuda(
             nsample, layer_norm, xyz, new_xyz, features, params, idx, pooled,
-            d_pooled.contiguous())
+            d_pooled.contiguous(), needs=ctx.needs_input_grad[3:6])
         return (None, None, None, d_xyz, d_new, d_feat, None,
                 *(g for layer in d_params for g in layer))
 

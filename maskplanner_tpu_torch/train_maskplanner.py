@@ -8,8 +8,11 @@ The same ``config=[...] k=v`` contract: config -> seed -> run dir and frozen
 config -> data -> model -> Adam and the LR milestones -> the epoch loop,
 with the eval loss every ``eval_freq`` epochs, then the PSACD curriculum
 and the delayed loss activations. At every eval it writes
-``last_checkpoint`` (``convert.save_checkpoint``), which the port's
-``Predictor`` serves. It runs on the card unless ``device=cpu`` is given;
+``last_checkpoint`` (``convert.save_checkpoint``), copies it to
+``best_model`` when the eval loss improves and, under
+``save_intermediate_models``, to ``intermediate_checkpoint_epoch{N}`` every
+``save_intermediate_models_freq`` epochs; the port's ``Predictor`` serves
+any of them. ``no_save`` writes none. It runs on the card unless ``device=cpu`` is given;
 ``device=cuda`` without a card raises. With ``model.pretrained`` (the
 default) and ``model.norm=batch`` it warm-starts the encoder from the
 original repository's ShapeNet checkpoint when the file is there.
@@ -28,7 +31,7 @@ import time
 
 import torch
 
-from .convert import load_shapenet_encoder, save_checkpoint
+from .convert import copy_checkpoint, load_shapenet_encoder, save_checkpoint
 from .data.dataset import DataLoader, PaintDataset
 from .losses import LossHandler
 from .models import get_model
@@ -173,11 +176,21 @@ def main(argv=None):
                 log["eval_loss"] = eval_loss
                 log.update({f"{k}_eval_loss": v
                             for k, v in eval_terms.items()})
-                if eval_loss < best_eval_loss:
+                is_best = eval_loss < best_eval_loss
+                if is_best:
                     best_eval_loss, best_epoch = eval_loss, epoch + 1
                 if not config.get("no_save"):
                     save_checkpoint(run_dir, "last_checkpoint", model,
                                     epoch=epoch + 1)
+                    if is_best:
+                        copy_checkpoint(run_dir, "last_checkpoint",
+                                        "best_model")
+                    if (config.get("save_intermediate_models")
+                            and (epoch + 1) % int(
+                                config["save_intermediate_models_freq"]) == 0):
+                        copy_checkpoint(
+                            run_dir, "last_checkpoint",
+                            f"intermediate_checkpoint_epoch{epoch + 1}")
                 print(f"[{epoch + 1}/{epochs}] train {epoch_loss:.4f} "
                       f"| eval {eval_loss:.4f} | {log['epoch_seconds']:.2f}s")
             log_fh.write(json.dumps(log) + "\n")

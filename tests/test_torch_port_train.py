@@ -342,6 +342,36 @@ def test_driver_trains_and_the_predictor_serves(tmp_path):
     assert rows.ndim == 2 and rows.shape[1] == 7 and np.isfinite(rows).all()
 
 
+def test_driver_writes_best_and_intermediate_checkpoints(tmp_path):
+    import json
+
+    from maskplanner_tpu_torch import train_maskplanner
+    from maskplanner_tpu_torch.serve import Predictor
+
+    run_dir, _ = train_maskplanner.main([
+        *SMALL, "batch_size=2", "device=cpu", "epochs=2", "eval_freq=1",
+        "dataset_size=4", "test_dataset_size=2", "seed=3", "no_save=false",
+        "save_intermediate_models=true", "save_intermediate_models_freq=1",
+        f"output_dir={tmp_path}"])
+    for name in ("last_checkpoint", "best_model",
+                 "intermediate_checkpoint_epoch1",
+                 "intermediate_checkpoint_epoch2"):
+        assert os.path.isfile(os.path.join(run_dir, f"{name}.torch.pt")), name
+    with open(os.path.join(run_dir, "summary.json")) as fh:
+        best_epoch = json.load(fh)["best_epoch"]
+    assert best_epoch in (1, 2)
+    assert Predictor(run_dir, model="best", device="cpu").epoch == best_epoch
+    assert Predictor(run_dir, model="intermediate_epoch1",
+                     device="cpu").epoch == 1
+    # no_save writes no checkpoint at all
+    run_dir, _ = train_maskplanner.main([
+        *SMALL, "batch_size=2", "device=cpu", "epochs=1", "eval_freq=1",
+        "dataset_size=4", "test_dataset_size=2", "seed=3", "no_save=true",
+        "save_intermediate_models=true", "save_intermediate_models_freq=1",
+        f"output_dir={tmp_path / 'nosave'}"])
+    assert not [f for f in os.listdir(run_dir) if f.endswith(".torch.pt")]
+
+
 def test_driver_refuses_what_is_not_ported(tmp_path):
     from maskplanner_tpu_torch import train_maskplanner
 

@@ -304,10 +304,11 @@ def test_fused_level_gradients_match_jax(norm, with_features,
 
 
 def test_cpu_tensors_never_count_a_launch():
-    from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_bwd_cuda
+    from maskplanner_tpu_torch.ops.cuda.fused_sa import (fused_sa_bwd_cuda,
+                                                         sa_weight_grad_cuda)
 
     before = (nn_argmin_cuda.launches, lap_cuda.launches,
-              fused_sa_bwd_cuda.launches)
+              fused_sa_bwd_cuda.launches, sa_weight_grad_cuda.launches)
     x = torch.randn(1, 5, 3)
     nn_argmin(x, x)
     lap(torch.randn(2, 3, 3))
@@ -321,7 +322,8 @@ def test_cpu_tensors_never_count_a_launch():
     pooled.sum().backward()
     assert w.grad is not None
     assert (nn_argmin_cuda.launches, lap_cuda.launches,
-            fused_sa_bwd_cuda.launches) == before
+            fused_sa_bwd_cuda.launches,
+            sa_weight_grad_cuda.launches) == before
 
 
 @pytest.mark.cuda
@@ -365,3 +367,47 @@ class TestKernelsOnCard:
         r = torch.autograd.grad((ref * ct).sum(), flat)
         for a, b in zip(g, r):
             assert float((a - b).abs().max()) <= 5e-4 * float(b.abs().max())
+
+    @pytest.mark.parametrize("norm", ["layer", "none"])
+    def test_backward_kernels_match_their_plain_version(self, cuda_device,
+                                                        norm):
+        """K1 with each input flag and K2 against the decomposition's plain
+        version; K2's sums the same bits on a second launch."""
+        from maskplanner_tpu_torch.ops.cuda.fused_sa import (
+            fused_sa_bwd_cuda, sa_weight_grad_cuda)
+        from maskplanner_tpu_torch.ops.fused_sa import (
+            fused_sa_backward_plain, fused_sa_forward_plain)
+
+        xyz, new_xyz, feats, params = _sa_case(norm, True)
+        leaves = [torch.from_numpy(a).to(cuda_device)
+                  for a in (xyz, new_xyz, feats)]
+        tparams = [tuple(torch.from_numpy(a).to(cuda_device) for a in l)
+                   for l in params]
+        pooled, idx = fused_sa_forward_plain(0.35, 16, norm, *leaves,
+                                             tparams)
+        ct = torch.randn_like(pooled)
+        args = (16, norm == "layer", *leaves, tparams, idx, pooled, ct)
+        for needs in ((True, True, True), (False, False, True),
+                      (False, False, False)):
+            ref = fused_sa_backward_plain(16, norm, *leaves, tparams, idx,
+                                          pooled, ct, needs=needs)
+            before = (fused_sa_bwd_cuda.launches,
+                      sa_weight_grad_cuda.launches)
+            *got, scratch, vec, chans = fused_sa_bwd_cuda(*args, needs)
+            grads = sa_weight_grad_cuda(scratch, vec, chans,
+                                        norm == "layer", idx.numel())
+            again = sa_weight_grad_cuda(scratch, vec, chans,
+                                        norm == "layer", idx.numel())
+            assert (fused_sa_bwd_cuda.launches,
+                    sa_weight_grad_cuda.launches) == (before[0] + 1,
+                                                      before[1] + 2)
+            for a, b in zip(got, ref[:3]):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    assert float((a - b).abs().max()) \
+                        <= 5e-4 * float(b.abs().max())
+            for layer, rlayer, layer2 in zip(grads, ref[3], again):
+                for a, b, c in zip(layer, rlayer, layer2):
+                    assert torch.equal(a, c)
+                    assert float((a - b).abs().max()) \
+                        <= 5e-4 * float(b.abs().max())
