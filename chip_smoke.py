@@ -10,7 +10,9 @@ result line:
 2. build every CUDA kernel of ``maskplanner_tpu_torch/csrc`` with nvcc;
 3. the serving kernels against their plain PyTorch versions on the card, at
    the flagship shapes with a batch of 64: FPS indices identical; fused SA
-   forward indices identical and pooled max|Δ| <= 1e-4 · max|ref|; times;
+   forward indices identical, pooled max|Δ| <= 1e-4 · max|ref|, and two
+   launches' pooled outputs bitwise equal; times, and bounds by the f32
+   rule and by the design's mix (products on the tensor cores in 3xTF32);
 4. the flagship forward (``config=[maskplanner,windows_v2,longx_v2]``,
    seeded weights) on 64 clouds of the synthetic windows-v2 data: finite
    outputs of the right shapes, FPS and the fused SA forward launched
@@ -31,7 +33,8 @@ result line:
    nearest-neighbour argmin at the step's
    four shapes with its real masks, indices identical; the LAP on the
    step's real 64 x 22 x 22 costs, permutations of equal total cost
-   (1e-5 relative); median times, the library yardstick
+   (1e-5 relative); median times, bounds (for K1 and K2 also by the
+   design's mix), the library yardstick
    ``torch.cdist(x, y).argmin(-1)`` for the argmin;
 7. one training step at batch 64: every kernel's launches counted, exactly
    fps 2, fused_sa_fwd 2, fused_sa_bwd 2, sa_weight_grad 2, nn_argmin 4,
@@ -53,7 +56,8 @@ result line:
     gather indices identical and values within 1e-6 · max|ref|, its
     backward within 1e-5 · max|ref| of autograd through the plain grouping,
     the ball query indices identical, the folded level pooled within
-    1e-4 · max|ref|; times and bounds;
+    1e-4 · max|ref|; times and bounds (the folded level also by the
+   design's mix);
 13. the BatchNorm recipe's forward at batch 64: exactly fps 2 and
     ball_group 2 launches, finite outputs, 2 samples on the CPU within
     1e-4 · max|ref|, forward time at batch 64 and 1, one ``Predictor``
@@ -252,6 +256,7 @@ def phase_kernels(model, xyz: torch.Tensor, res: dict) -> None:
     pts, feats = xyz, None
     ops = {"fps": 0.0, "fused_sa_fwd": 0.0}
     nbytes = {"fps": 0.0, "fused_sa_fwd": 0.0}
+    tf32 = 0.0  # the fused forward's products, on the tensor cores
     for name, sa in (("sa1", model.sa1), ("sa2", model.sa2)):
         B, N, _ = pts.shape
         S, K = sa.npoint, sa.nsample
@@ -289,6 +294,13 @@ def phase_kernels(model, xyz: torch.Tensor, res: dict) -> None:
         if not err <= REL_TOL * scale:
             raise AssertionError(f"fused SA {name}: max|Δ| {err} > "
                                  f"{REL_TOL} x {scale}")
+        # the backward routes by equality with this output: a launch gives
+        # the same bits every time
+        with torch.no_grad():
+            again, _ = fused_sa_cuda(*args, True, pts, new_xyz, feats, params)
+        if not torch.equal(pooled, again):
+            raise AssertionError(f"fused SA {name}: two launches' pooled "
+                                 f"outputs differ")
         with torch.no_grad():
             ms = median_ms(lambda: fused_sa_cuda(*args, True, pts, new_xyz,
                                                  feats, params), 20)
@@ -297,7 +309,8 @@ def phase_kernels(model, xyz: torch.Tensor, res: dict) -> None:
         distinct = float((idx_ref != idx_ref[..., :1]).sum(-1).float().mean()
                          + 1)
         log(f"[kernels] fused_sa_fwd {name} N={N} S={S} K={K}: idx "
-            f"identical, max|Δ| {err:.3e} (max|ref| {scale:.3e}, mean "
+            f"identical, max|Δ| {err:.3e} (max|ref| {scale:.3e}), two "
+            f"launches bitwise equal (mean "
             f"distinct neighbours {distinct:.1f}); kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms")
         fa = res["fused_sa_fwd"]
@@ -308,16 +321,26 @@ def phase_kernels(model, xyz: torch.Tensor, res: dict) -> None:
         # activation); the data-dependent ball-query scan is not counted,
         # so the figure stays a lower bound
         acts = sum(c.out_features for c in sa.mlp_convs)
-        ops["fused_sa_fwd"] += B * S * K * (2.0 * mlp_macs(sa) + 8.0 * acts)
+        ops["fused_sa_fwd"] += B * S * K * 8.0 * acts
+        tf32 += B * S * K * 2.0 * mlp_macs(sa)
         w_bytes = 4.0 * sum(p.numel() for p in sa.parameters())
         nbytes["fused_sa_fwd"] += (4.0 * (B * N * 3 + B * S * 3)
                                    + (0 if feats is None else 4.0 *
                                       feats.numel()) + w_bytes
                                    + 4.0 * pooled.numel() + 4.0 * idx.numel())
         pts, feats = new_xyz, pooled_ref      # the next level's inputs
+    res["fps"].update(bound(ops["fps"], nbytes["fps"]))
+    # the f32 rule of earlier rows: every operation at the CUDA cores'
+    # rate; beside it, this design's mix (products on the tensor cores)
+    fa = res["fused_sa_fwd"]
+    fa.update(bound(ops["fused_sa_fwd"] + tf32, nbytes["fused_sa_fwd"]))
+    fa.update(bound(ops["fused_sa_fwd"], nbytes["fused_sa_fwd"], tf32,
+                    "mix_"))
     for name in ops:
-        res[name].update(bound(ops[name], nbytes[name]))
         res[name]["library_ms"] = None
+    log(f"[kernels] fused_sa_fwd bound: f32 rule {fa['bound_ms']:.4f} ms "
+        f"({fa['bound_by']}), this design's mix {fa['mix_bound_ms']:.4f} ms "
+        f"({fa['mix_bound_by']})")
 
 
 def phase_forward(model, clouds: np.ndarray, label: str = "forward",
@@ -654,15 +677,15 @@ def phase_train_kernels(cfg, model, batch, res: dict) -> None:
         # LayerNorm backward (about 12 operations an activation) and, for
         # every layer the step asks it of, the input-gradient product; K2:
         # the weight-gradient products. Together the 6x MAC + 20x acts of
-        # the whole backward.
+        # the whole backward. Every product runs on the tensor cores.
         acts = sum(c.out_features for c in sa.mlp_convs)
         macs = mlp_macs(sa)
         din = macs - (0 if feats is not None else
                       sa.mlp_convs[0].in_features
                       * sa.mlp_convs[0].out_features)
         R = B * S * K
-        work["fused_sa_bwd"]["ops"] += R * (2.0 * macs + 20.0 * acts)
-        work["fused_sa_bwd"]["tf32"] += R * 2.0 * din
+        work["fused_sa_bwd"]["ops"] += R * 20.0 * acts
+        work["fused_sa_bwd"]["tf32"] += R * 2.0 * (macs + din)
         work["sa_weight_grad"]["tf32"] += R * 2.0 * macs
         # K1 reads the points, features, indices, pooled output, its
         # gradient and the weights, and writes the scratch rows and the
@@ -977,6 +1000,7 @@ def phase_bn_kernels(model, batch, res: dict) -> dict:
     own = launches_of()
     ops = {k: 0.0 for k in ("ball_group", "ball_query", "fused_sa_folded")}
     nbytes = dict(ops)
+    tf32 = 0.0  # the folded level's products, on the tensor cores
     # sa2's inputs: the model's own sa1 (eval)
     for name, sa, pts, feats in (("sa1", model.sa1, pc, None),
                                  ("sa2", model.sa2, *model.sa1(pc, None))):
@@ -1068,14 +1092,22 @@ def phase_bn_kernels(model, batch, res: dict) -> dict:
         rf["plain_ms"] += plain
         acts = sum(c.out_features for c in sa.mlp_convs)
         # the MLP's multiply-adds, a ReLU an activation, and the scan
-        ops["fused_sa_folded"] += scan + B * S * K * (2.0 * mlp_macs(sa)
-                                                      + acts)
+        ops["fused_sa_folded"] += scan + B * S * K * acts
+        tf32 += B * S * K * 2.0 * mlp_macs(sa)
         nbytes["fused_sa_folded"] += in_bytes + 4.0 * sum(
             w.numel() + b.numel() for w, b in folded) \
             + 4.0 * pooled.numel()
     for name in ops:
-        res[name].update(bound(ops[name], nbytes[name]))
+        # the f32 rule: the folded level's products at the CUDA cores' rate
+        extra = tf32 if name == "fused_sa_folded" else 0.0
+        res[name].update(bound(ops[name] + extra, nbytes[name]))
         res[name]["library_ms"] = None
+    rf = res["fused_sa_folded"]
+    rf.update(bound(ops["fused_sa_folded"], nbytes["fused_sa_folded"], tf32,
+                    "mix_"))
+    log(f"[bn-kernels] fused_sa_folded bound: f32 rule {rf['bound_ms']:.4f} "
+        f"ms, this design's mix {rf['mix_bound_ms']:.4f} ms "
+        f"({rf['mix_bound_by']})")
     return own
 
 

@@ -1,9 +1,12 @@
-"""Where the fused set-abstraction backward's time goes, on the card.
+"""Where the fused set-abstraction level's time goes, on the card.
 
     python -m maskplanner_tpu_torch.bench_sa_backward
 
-Builds copies of K1 (``csrc/fused_sa_bwd.cu``) that each leave out one
-phase (the ``SA_BWD_SKIP`` macro), and times them and K2
+First the forward (``csrc/fused_sa_fwd.cu``): copies that each leave out
+one phase (``SA_BWD_SKIP``: the products' mma loop, the LayerNorms, the
+neighbour scan, the weight-tile streaming), each timed at sa1 and sa2.
+Then the backward: copies of K1 (``csrc/fused_sa_bwd.cu``) that each
+leave out one phase (the ``SA_BWD_SKIP`` macro), and times them and K2
 (``csrc/sa_weight_grad.cu``) at the flagship shapes: the seeded
 ``config=[maskplanner,windows_v2,longx_v2]`` model's sa1 and sa2 on 64
 clouds of the synthetic windows-v2 train split, with the training step's
@@ -41,6 +44,11 @@ VARIANTS = {"full": 0, "no recompute products": 1, "no scratch rows": 2,
             "input gradient: no mma loop": 32,
             "no weight-tile streaming": 64,
             "recompute: no multiply-adds": 128}
+# forward copy -> SA_BWD_SKIP bits (csrc/fused_sa_common.cuh)
+FWD_VARIANTS = {"full": 0, "no products' mma loop": 128,
+                "no LayerNorms": 256, "no neighbour scan": 512,
+                "no weight-tile streaming": 64,
+                "no mma loop, LayerNorms or scan": 896}
 # other shapes of the full K1 (csrc/fused_sa_bwd.cu macros): one thread
 # group a block instead of as many as fit
 SHAPES = {"one thread group a block": ("-DSA_BWD_GROUPS=1",)}
@@ -76,13 +84,18 @@ def main() -> None:
     jobs = {key: ("fused_sa_bwd", (f"-DSA_BWD_SKIP={bits}",))
             for key, bits in VARIANTS.items()}
     jobs["phases"] = ("fused_sa_bwd", ("-DSA_BWD_PHASES",))
+    jobs.update({f"fwd {key}": ("fused_sa_fwd", (f"-DSA_BWD_SKIP={bits}",))
+                 for key, bits in FWD_VARIANTS.items()})
     for key, flags in SHAPES.items():
         jobs[key] = ("fused_sa_bwd", flags)
     paths = build.build_all(jobs)
-    for line in build.build_logs.get("full", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[ptxas] {line.strip()}")
+    for key, what in (("fwd full", "forward"), ("full", "K1")):
+        for line in build.build_logs.get(key, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas] {what}: {line.strip()}")
     phases_lib = ctypes.CDLL(paths.pop("phases"))
+    fwd_paths = {key[4:]: paths.pop(key) for key in list(paths)
+                 if key.startswith("fwd ")}
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     if os.path.isfile(cuobjdump):
         sass = subprocess.run([cuobjdump, "-sass", paths["full"]],
@@ -101,12 +114,21 @@ def main() -> None:
                                      for i in range(64)])).cuda()
     feats = None
     gen = torch.Generator(device="cuda").manual_seed(1)
-    bind = cuda_sa._bind_bwd
+    bind, bind_fwd = cuda_sa._bind_bwd, cuda_sa._bind
     try:
         for name, sa in (("sa1", model.sa1), ("sa2", model.sa2)):
             K = sa.nsample
             new_xyz = index_points(pts, farthest_point_sample(pts, sa.npoint))
             params = [tuple(t.detach() for t in l) for l in sa.layer_params()]
+            for key, path in fwd_paths.items():
+                lib = ctypes.CDLL(path)
+                fn = cuda_sa.fwd_signature(lib.fused_sa_forward)
+                cuda_sa._bind = lambda fn=fn: fn
+                with torch.no_grad():
+                    ms = median_ms(lambda: cuda_sa.fused_sa_cuda(
+                        sa.radius, K, True, pts, new_xyz, feats, params))
+                print(f"{name} forward {key:35s} {ms:9.4f} ms")
+            cuda_sa._bind = bind_fwd
             with torch.no_grad():
                 pooled, idx = cuda_sa.fused_sa_cuda(sa.radius, K, True, pts,
                                                     new_xyz, feats, params)
@@ -139,6 +161,7 @@ def main() -> None:
             pts, feats = new_xyz, pooled
     finally:
         cuda_sa._bind_bwd = bind
+        cuda_sa._bind = bind_fwd
 
 
 if __name__ == "__main__":

@@ -20,16 +20,19 @@
 // -sum_k d_in[k, :3] each only under their flag.
 //
 // Exactness of the routing: the recompute goes through the forward's own
-// device functions (fused_sa_common.cuh: every activation one fmaf chain
-// over ascending input channel, starting from the bias), so each
-// activation is bit for bit the one the forward max-pooled, and the `>=`
-// test finds the forward's winner.
+// device functions (fused_sa_common.cuh: every layer ONE 3xTF32
+// tensor-core product, mma_product, each output one accumulator from its
+// bias over the k-steps of 8 zero-padded input channels in ascending
+// order; then the same LayerNorm), so each activation is bit for bit the
+// one the forward max-pooled, and the `>=` test finds the forward's
+// winner.
 //
-// What bounds it on this card: the recompute, f32 on the CUDA cores (about
-// 26 GFLOP at sa1 and 69 GFLOP at sa2 at the flagship batch of 64), and
-// the scratch rows it writes (388 floats a row at sa1, 900 at sa2: 1.63 GB
-// and 1.89 GB). The input gradients d_in = d_pre · W run on the tensor
-// cores in 3xTF32 (tf32_mma.cuh).
+// What bounds it on this card: the products of the recompute and of the
+// input gradients (about 26 GFLOP each at sa1 and 69 at sa2 at the
+// flagship batch of 64; both on the tensor cores in 3xTF32, tf32_mma.cuh),
+// the LayerNorm forward and backward on the CUDA cores, and the scratch
+// rows it writes (388 floats a row at sa1, 900 at sa2: 1.63 GB and 1.89
+// GB).
 //
 // What the design does about it: persistent blocks of 512 threads, one an
 // SM. A query's K rows go through shared memory in chunks of up to 32: per
@@ -39,16 +42,15 @@
 // LayerNorms, routing, sums, scratch rows), too short to fill an SM alone,
 // so a block holds as many independent thread groups as its shared memory
 // allows, each on its own queries with its own named barrier. The weights
-// sit in shared memory: at sa1 every layer's transposed weight (52 KB) is
+// sit in shared memory: at sa1 every layer's padded transposed weight (55
+// KB, row stride 8 mod 32, columns swizzled: fused_sa_common.cuh) is
 // resident for the whole kernel and read by both groups (the recompute's
-// float4 rows, and the input gradient's B fragments, split into TF32 parts
-// as they are read); at sa2 (264 KB) one group streams them per chunk in
-// tiles double-buffered with cp.async. The recompute takes 4 rows x 4
-// outputs a thread (fused_sa_common.cuh::staged_product), the tile that
-// asks the fewest shared-memory load cycles a multiply-add. Row strides
-// are 4 modulo 32 floats, so that the mma fragment loads (8 rows x 4
-// neighbouring columns a warp) and the recompute's reads (at most 8 rows a
-// warp) hit distinct banks.
+// B fragments, and the input gradient's, which read it transposed; both
+// split into TF32 parts as they are read); at sa2 (266 KB) one group
+// streams them per chunk in tiles double-buffered with cp.async. The
+// activations' row strides are 4 modulo 32 floats, so that the mma A
+// fragment loads (8 rows x 4 neighbouring columns a warp) hit distinct
+// banks.
 // The max-pool routing, the column sums (db, dgamma, dbeta) and the
 // LayerNorm backward spread their rows over all the group's threads, in a
 // fixed order. A per-channel "not yet taken" flag carries the first-winner
@@ -73,8 +75,9 @@
 // result is then wrong. 1: the recompute's products, 2: the scratch rows,
 // 4: the input-gradient products, 8: the LayerNorm backward, 16: the column
 // sums of d_pre, 32: the input gradient's mma loop (its weight tiles still
-// staged), 64: the streaming of weight tiles (the products run on stale
-// tiles), 128: the recompute's multiply-adds (its tiles still staged).
+// staged), 64: the streaming of the recompute's weight tiles (its products
+// run on stale tiles), 128: the recompute's mma loop (its tiles still
+// staged).
 // SA_BWD_GROUPS: thread groups a block, instead of the most that fit.
 #ifndef SA_BWD_GROUPS
 #define SA_BWD_GROUPS 0
@@ -103,8 +106,6 @@ namespace {
 
 using fused_sa::kStorePlain;
 using fused_sa::kStoreRelu;
-using fused_sa::layer_norm_act;
-using fused_sa::layer_norm_stats;
 using fused_sa::layer_norm_xhat;
 using fused_sa::Threads;
 using fused_sa::warp_sum;
@@ -120,7 +121,7 @@ constexpr int kNeedNewXyz = 2;
 constexpr int kNeedFeats = 4;
 
 struct Layer {
-  const float* wt;     // (ci, co): the Dense weight transposed
+  const float* wt;     // (ci8, co8): the Dense weight transposed, padded
   const float* w_pad;  // (co, ci_pad): the Dense weight, zero-padded
   const float* bias;   // (co,)
   const float* gamma;  // (co,) or null without LayerNorm
@@ -130,10 +131,12 @@ struct Layer {
   int ci;
   int co;
   int ci_pad;  // ci rounded up to a multiple of 4
+  int ci8;     // ci rounded up to a multiple of 8 (the recompute's k)
+  int co8;     // co rounded up to a multiple of 8
   int ld;      // row stride of this layer's h and activation buffers
   int vec;     // offset of this layer's db (dgamma, dbeta) in a vec slot
   int tile;    // input channels of a streamed weight tile, recompute
-  int ld_wt;   // stride of wt's rows in shared memory (4 mod 32)
+  int ld_wt;   // stride of wt's rows in shared memory (8 mod 32, swizzled)
   int tk;      // output channels of a streamed w_pad tile
   int ld_w;    // its row stride (8 mod 32: conflict-free B fragments)
   int res_wt;  // resident weights: offset of wt in the weight buffer
@@ -211,8 +214,9 @@ __device__ void column_sums(const Threads& th, const float* d,
 // its lo parts, in shared memory (stride ld_d, 4 mod 32: the A fragment
 // loads, 8 rows x 4 neighbouring columns, hit 32 distinct banks; rows up to
 // the next multiple of 16 are read and their results dropped). The weight
-// comes either (from_wt) from the resident transposed copy wt (ci rows of
-// stride ld_wt, 4 mod 32: B[c][n] = wt[n][c], conflict-free too) or as
+// comes either (from_wt) from the resident transposed copy wt (ci8 rows of
+// stride ld_wt, 8 mod 32, swizzled: B[c][n] = wt[n][c], conflict-free too)
+// or as
 // w_pad's rows (co, ci_pad) through wbuf in tiles of tk rows (a multiple of
 // 8), two buffers of stride ld_w (8 mod 32), the next copied (cp.async)
 // while the warps work on the current one; either way split into its TF32
@@ -246,7 +250,7 @@ __device__ void input_grad(const Threads& th, bool mask, bool from_wt,
     const bool stage = !from_wt && !(SA_BWD_SKIP & 64);
     if (stage) {
       fused_sa::stage_rows(th, L.w_pad, L.ci_pad, 0, min(tk, co),
-                           const_cast<float*>(wbuf), L.ld_w);
+                           const_cast<float*>(wbuf), L.ld_w, false);
     }
     for (int tt = 0; tt < n_tiles; ++tt) {
       const int k_base = tt * tk;
@@ -255,7 +259,7 @@ __device__ void input_grad(const Threads& th, bool mask, bool from_wt,
           fused_sa::stage_rows(
               th, L.w_pad, L.ci_pad, k_base + tk, min(tk, co - k_base - tk),
               const_cast<float*>(wbuf) + ((tt + 1) & 1) * tk * L.ld_w,
-              L.ld_w);
+              L.ld_w, false);
           tf32::cp_async_wait<1>();
         } else {
           tf32::cp_async_wait<0>();
@@ -290,9 +294,9 @@ __device__ void input_grad(const Threads& th, bool mask, bool from_wt,
             float b0 = 0.f;
             float b1 = 0.f;
             if (from_wt) {
-              const float* b = wb + n * L.ld_wt + k_base + k;
-              if (n < ci && k < cnt) b0 = b[0];
-              if (n < ci && k + 4 < cnt) b1 = b[4];
+              const float* b = wb + n * L.ld_wt;
+              if (n < ci && k < cnt) b0 = b[fused_sa::swizzled(n, k)];
+              if (n < ci && k + 4 < cnt) b1 = b[fused_sa::swizzled(n, k + 4)];
             } else {
               const float* b = wb + k * L.ld_w + n;
               if (n < L.ci_pad && k < cnt) b0 = b[0];
@@ -330,18 +334,14 @@ __device__ void input_grad(const Threads& th, bool mask, bool from_wt,
   }
 }
 
-// The recompute's product (fused_sa_common.cuh), 4 rows x 4 outputs a
-// thread. The product is bound by its shared-memory loads (a warp's float4
-// of weights costs 4 cycles, whatever it broadcasts), so 4 rows a thread,
-// 8 load cycles for 16 FMAs, finish before 2 rows on twice the threads
-// (6 for 8), though fewer threads are busy.
+// The recompute's product: the forward's own (fused_sa_common.cuh), on
+// the resident weight or streamed tiles of it.
 __device__ void recompute(const Threads& th, int store, const float* in,
                           int ld_in, int rows, const Layer& L, float* out,
                           float* wbuf, bool resident) {
-  fused_sa::staged_product<4>(th, store, in, ld_in, L.ci, rows, L.wt, L.bias,
-                              L.co, out, L.ld,
-                              resident ? wbuf + L.res_wt : wbuf, L.tile,
-                              L.ld_wt, resident);
+  fused_sa::mma_product(th, store, in, ld_in, rows, L.wt, L.bias, L.ci8, L.co,
+                        L.co8, out, L.ld, resident ? wbuf + L.res_wt : wbuf,
+                        L.ld_wt, L.tile, 2, resident);
 }
 
 // The rows [0, rows) x [0, n) of d split for the tensor cores, in place:
@@ -439,8 +439,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const Threads block{static_cast<int>(threadIdx.x), kThreads, 0};
     for (int l = 0; l < n_layers; ++l) {
       const Layer& L = mlp.layer[l];
-      fused_sa::stage_rows(block, L.wt, L.co, 0, L.ci, wbuf + L.res_wt,
-                           L.ld_wt);
+      fused_sa::stage_rows(block, L.wt, L.co8, 0, L.ci8, wbuf + L.res_wt,
+                           L.ld_wt, true);
     }
     tf32::cp_async_wait<0>();
   }
@@ -494,32 +494,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         PHASE(1);
         if (mlp.layer_norm) {
           float* mu_l = stats + 2 * l * chunk;
-          float* inv_l = mu_l + chunk;
-          // two rows a warp at a time, for independent work in flight
-          for (int k0w = 2 * warp; k0w < rows; k0w += 2 * n_warps) {
-            const int k1 = min(k0w + 1, rows - 1);
-            const float* row0 = own + h_off[l] + k0w * L.ld;
-            const float* row1 = own + h_off[l] + k1 * L.ld;
-            float mu0, inv0, mu1, inv1;
-            layer_norm_stats(row0, L.co, lane, mu0, inv0);
-            layer_norm_stats(row1, L.co, lane, mu1, inv1);
-            for (int c = lane; c < L.co; c += 32) {
-              const float gm = __ldg(L.gamma + c);
-              const float bt = __ldg(L.beta + c);
-              const float v0 =
-                  layer_norm_act(layer_norm_xhat(row0[c], mu0, inv0), gm, bt);
-              const float v1 =
-                  layer_norm_act(layer_norm_xhat(row1[c], mu1, inv1), gm, bt);
-              own[a_off[l] + k0w * L.ld + c] = v0;
-              own[a_off[l] + k1 * L.ld + c] = v1;
-            }
-            if (lane == 0) {
-              mu_l[k0w] = mu0;
-              inv_l[k0w] = inv0;
-              mu_l[k1] = mu1;
-              inv_l[k1] = inv1;
-            }
-          }
+          fused_sa::layer_norm_rows(th, own + h_off[l], L.ld, rows, L.co,
+                                    L.gamma, L.beta, own + a_off[l], L.ld,
+                                    mu_l, mu_l + chunk);
           th.sync();
           PHASE(2);
         }
@@ -686,9 +663,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Inputs as fused_sa_forward, plus idx (b, s, k) int32 and pooled (b, s, C)
 // from it and d_pooled (b, s, C), all contiguous. Layer l reads
-// layer_ptrs[5l .. 5l+4] = (wt (ci, co), w_pad (co, ci_pad), bias, gamma,
-// beta), with chans[l] = ci, chans[l + 1] = co, ci_pad = ci rounded up to a
-// multiple of 4 (w_pad's columns past ci zero); gamma and beta are null when
+// layer_ptrs[5l .. 5l+4] = (wt (ci8, co8), w_pad (co, ci_pad), bias, gamma,
+// beta), with chans[l] = ci, chans[l + 1] = co, wt the Dense weight
+// transposed and zero-padded to multiples of 8 as the forward takes it,
+// ci_pad = ci rounded up to a multiple of 4 (w_pad's columns past ci
+// zero); gamma and beta are null when
 // layer_norm == 0. Every co is a multiple of 4 and at most 512; wt and w_pad
 // are 16-byte aligned. need: bit 0 d_xyz, bit 1 d_new_xyz, bit 2 d_feats;
 // what is not asked may be null. The caller zeroes d_xyz (b, n, 3) and
@@ -716,7 +695,9 @@ extern "C" int fused_sa_backward(const float* xyz, const float* new_xyz,
   Mlp mlp;
   mlp.n_layers = n_layers;
   mlp.layer_norm = layer_norm;
-  mlp.ld_x = row_stride(chans[0]);
+  // the gathered rows' channels zero-padded to 8 (the recompute's k), at
+  // a stride of 4 mod 8, which keeps its A fragments conflict-free too
+  mlp.ld_x = (((chans[0] + 7) & ~7) + 3) / 8 * 8 + 4;
   mlp.n_vec = 0;
   mlp.ld_max = 0;
   const size_t rows_all = static_cast<size_t>(b) * s * k_nb;
@@ -738,8 +719,10 @@ extern "C" int fused_sa_backward(const float* xyz, const float* new_xyz,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     L.ci_pad = (L.ci + 3) & ~3;
-    L.ld = row_stride(L.co);
-    L.ld_wt = row_stride(L.co);
+    L.ci8 = (L.ci + 7) & ~7;
+    L.co8 = (L.co + 7) & ~7;
+    L.ld = row_stride(L.co8);
+    L.ld_wt = row_stride(L.co8, 8);
     L.ld_w = row_stride(L.ci_pad, 8);
     L.vec = mlp.n_vec;
     L.d_rows = p;
@@ -747,10 +730,9 @@ extern "C" int fused_sa_backward(const float* xyz, const float* new_xyz,
     L.in_rows = p;
     p += rows_all * L.ci_pad;
     L.res_wt = w_resident;
-    w_resident += L.ci * L.ld_wt;
-    w_full = std::max({w_full, 2 * L.ci * L.ld_wt,
-                       2 * ((L.co + 7) & ~7) * L.ld_w});
-    w_min = std::max({w_min, 2 * 4 * L.ld_wt, 2 * 8 * L.ld_w});
+    w_resident += L.ci8 * L.ld_wt;
+    w_full = std::max({w_full, 2 * L.ci8 * L.ld_wt, 2 * L.co8 * L.ld_w});
+    w_min = std::max({w_min, 2 * 8 * L.ld_wt, 2 * 8 * L.ld_w});
     mlp.n_vec += L.co * (layer_norm ? 3 : 1);
     mlp.ld_max = std::max(mlp.ld_max, L.ld);
     row_floats += L.ld * (layer_norm ? 2 : 1);
@@ -786,7 +768,7 @@ extern "C" int fused_sa_backward(const float* xyz, const float* new_xyz,
   if (!found) return static_cast<int>(cudaErrorInvalidValue);
   for (int l = 0; l < n_layers; ++l) {
     Layer& L = mlp.layer[l];
-    L.tile = std::min(L.ci, mlp.n_wbuf / (2 * L.ld_wt));
+    L.tile = std::min(L.ci8, (mlp.n_wbuf / (2 * L.ld_wt)) & ~7);
     L.tk = std::min((L.co + 7) & ~7, (mlp.n_wbuf / (2 * L.ld_w)) & ~7);
   }
   const size_t smem = sizeof(float) * (mlp.groups * mlp.state + mlp.n_wbuf);

@@ -49,10 +49,8 @@ def _bind_wgrad():
     return fn
 
 
-@functools.cache
-def _bind():
-    lib = build.library("fused_sa_fwd")
-    fn = lib.fused_sa_forward
+def fwd_signature(fn):
+    """Set the ctypes signature of the forward's C entry point ``fn``."""
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -61,6 +59,11 @@ def _bind():
                    ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     return fn
+
+
+@functools.cache
+def _bind():
+    return fwd_signature(build.library("fused_sa_fwd").fused_sa_forward)
 
 
 def _f32(t: torch.Tensor, device: torch.device, what: str) -> torch.Tensor:
@@ -107,6 +110,17 @@ def _check_level(xyz, new_xyz, features, params, layer_norm: bool):
     return xyz, new_xyz, features, F, chans
 
 
+def padded_transpose(w: torch.Tensor) -> torch.Tensor:
+    """A Dense weight (C_out, C_in) -> its transpose zero-padded to
+    (C_in, C_out) rounded up to multiples of 8: the layout of the layer
+    product both kernels share (the mma's k and n of 8)."""
+    co, ci = w.shape
+    pad = (0, -co % 8, 0, -ci % 8)
+    if not any(pad):
+        return w.t().contiguous()
+    return torch.nn.functional.pad(w.t(), pad)
+
+
 def scratch_floats(chans, rows: int) -> int:
     """Floats of K1's scratch: per layer, d_pre (rows, C_out) and the
     layer's input (rows, C_in rounded up to a multiple of 4)."""
@@ -143,7 +157,7 @@ def fused_sa_bwd_cuda(nsample: int, layer_norm: bool, xyz: torch.Tensor,
     for layer in params:
         w = _f32(layer[0], device, "weight")
         co, ci = w.shape
-        wt = w.t().contiguous()                    # (ci, co), the recompute
+        wt = padded_transpose(w)                   # (ci8, co8), the recompute
         w_pad = torch.zeros((co, (ci + 3) // 4 * 4), dtype=torch.float32,
                             device=device)
         w_pad[:, :ci] = w                          # (co, ci_pad), d_in
@@ -246,7 +260,7 @@ def _forward(radius: float, nsample: int, layer_norm: bool,
     S = new_xyz.shape[1]
     ptrs, keep = [], []  # keep: the operands stay alive through the launch
     for layer in params:
-        wt = _f32(layer[0], device, "weight").t().contiguous()  # (ci, co)
+        wt = padded_transpose(_f32(layer[0], device, "weight"))  # (ci8, co8)
         rest = [_f32(a, device, "bias/gamma/beta") for a in layer[1:]]
         keep += [wt, *rest]
         ptrs += [wt.data_ptr(), *(a.data_ptr() for a in rest)]

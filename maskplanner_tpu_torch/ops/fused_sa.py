@@ -8,8 +8,8 @@ the kernels of ``ops/cuda/fused_sa.py``; a CPU tensor goes to
 :func:`fused_sa_forward_plain`, and autograd through it gives the gradient.
 :func:`fused_sa_backward_plain` is the backward in the kernels'
 decomposition, and :func:`tf32_split` / :func:`matmul_3xtf32` emulate
-their 3xTF32 tensor-core products; the tests hold both against the JAX
-package and against autograd.
+the 3xTF32 tensor-core products of both directions' kernels; the tests
+hold both against the JAX package and against autograd.
 
 :func:`fused_set_abstraction` is the counterpart of
 ``maskplanner_tpu/ops/pallas/fused_sa.py``: a grouped BatchNorm level in
@@ -35,14 +35,16 @@ def _gather_plain(xyz, new_xyz, features, idx):
     return h
 
 
-def _mlp_plain(h, params, norm: str) -> list:
+def _mlp_plain(h, params, norm: str, product=torch.matmul) -> list:
     """The per-point MLP on rows ``h`` -> per layer (input, xhat, inv,
     activation); xhat and inv (the LayerNorm's normalised value and inverse
-    std) are None without a norm."""
+    std) are None without a norm. ``product(h, wᵀ)`` forms each Dense
+    layer's product; the tests pass :func:`matmul_3xtf32` to emulate the
+    kernels' tensor-core product."""
     layers = []
     for layer in params:
         inp = h
-        h = torch.matmul(h, layer[0].t()) + layer[1]
+        h = product(h, layer[0].t()) + layer[1]
         xhat = inv = None
         if norm == "layer":
             mu = h.mean(-1, keepdim=True)
@@ -70,7 +72,9 @@ def tf32_split(x: torch.Tensor):
     hi is ``x`` rounded to nearest (ties away from zero, as
     ``cvt.rna.tf32.f32``) on the int32 view, lo the rounded remainder. The
     3xTF32 product a·b ~ a_hi·b_hi + a_hi·b_lo + a_lo·b_hi is what the
-    backward's ``mma.sync`` products compute."""
+    kernels' ``mma.sync`` products compute (every layer product of the
+    forward and of the backward's recompute, the backward's input and
+    weight gradients)."""
     def rna(t):
         return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000) \
             .view(torch.float32)

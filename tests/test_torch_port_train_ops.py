@@ -372,9 +372,11 @@ class TestKernelsOnCard:
     def test_backward_kernels_match_their_plain_version(self, cuda_device,
                                                         norm):
         """K1 with each input flag and K2 against the decomposition's plain
-        version; K2's sums the same bits on a second launch."""
+        version; K2's sums the same bits on a second launch. K1 routes by
+        equality with the kernel forward's pooled output (its recompute
+        forms the forward's bits), the plain version with its own."""
         from maskplanner_tpu_torch.ops.cuda.fused_sa import (
-            fused_sa_bwd_cuda, sa_weight_grad_cuda)
+            fused_sa_bwd_cuda, fused_sa_cuda, sa_weight_grad_cuda)
         from maskplanner_tpu_torch.ops.fused_sa import (
             fused_sa_backward_plain, fused_sa_forward_plain)
 
@@ -383,14 +385,17 @@ class TestKernelsOnCard:
                   for a in (xyz, new_xyz, feats)]
         tparams = [tuple(torch.from_numpy(a).to(cuda_device) for a in l)
                    for l in params]
-        pooled, idx = fused_sa_forward_plain(0.35, 16, norm, *leaves,
-                                             tparams)
+        pooled, idx = fused_sa_cuda(0.35, 16, norm == "layer", *leaves,
+                                    tparams)
+        ref_pooled, ref_idx = fused_sa_forward_plain(0.35, 16, norm, *leaves,
+                                                     tparams)
+        assert torch.equal(idx, ref_idx)
         ct = torch.randn_like(pooled)
         args = (16, norm == "layer", *leaves, tparams, idx, pooled, ct)
         for needs in ((True, True, True), (False, False, True),
                       (False, False, False)):
             ref = fused_sa_backward_plain(16, norm, *leaves, tparams, idx,
-                                          pooled, ct, needs=needs)
+                                          ref_pooled, ct, needs=needs)
             before = (fused_sa_bwd_cuda.launches,
                       sa_weight_grad_cuda.launches)
             *got, scratch, vec, chans = fused_sa_bwd_cuda(*args, needs)
