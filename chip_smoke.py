@@ -9,15 +9,20 @@ result line:
 1. card identity (name and power limit from nvidia-smi, torch and CUDA);
 2. build every CUDA kernel of ``maskplanner_tpu_torch/csrc`` with nvcc;
 3. the serving kernels against their plain PyTorch versions on the card, at
-   the flagship shapes with a batch of 64: FPS indices identical; fused SA
+   the flagship shapes with a batch of 64: FPS indices identical at batch
+   64 and 1, and on clouds of duplicated points and of sizes that leave the
+   kernel's last warp partly empty; an FPS start index out of range traps
+   the kernel in a child process, which must exit non-zero; fused SA
    forward indices identical, pooled max|Δ| <= 1e-4 · max|ref|, and two
-   launches' pooled outputs bitwise equal; times, and bounds by the f32
-   rule and by the design's mix (products on the tensor cores in 3xTF32);
+   launches' pooled outputs bitwise equal; times (FPS also at batch 1 and
+   a step), and bounds by the f32 rule and by the design's mix (products
+   on the tensor cores in 3xTF32);
 4. the flagship forward (``config=[maskplanner,windows_v2,longx_v2]``,
    seeded weights) on 64 clouds of the synthetic windows-v2 data: finite
    outputs of the right shapes, FPS and the fused SA forward launched
    exactly twice each, 2 samples on the CPU (plain ops) within
-   1e-4 · max|ref|; forward time at batch 64 and 1;
+   1e-4 · max|ref|; forward time at batch 64 and 1, and device time by
+   kernel at both;
 5. serving end to end: a run dir with the frozen config and a port
    checkpoint, an OBJ mesh, ``Predictor(device="cuda").predict_program``
    with ``cover_all=True``; per-request latency;
@@ -30,14 +35,17 @@ result line:
    ``check_against_exact``), every positive max-pool output's gradient
    routed (``check_routing``), the weight gradients bitwise equal across
    two launches (``check_deterministic``), K1 and K2 timed apart; the
-   nearest-neighbour argmin at the step's
-   four shapes with its real masks, indices identical; the LAP on the
+   nearest-neighbour argmin at the step's three calls with their real
+   masks, and on inputs with exact ties on a grid (d 6 and 24), a mask
+   that is not a prefix and sizes that are multiples of no tile, indices
+   identical; each call timed, and a second bound, this design's f32
+   instruction floor; the LAP on the
    step's real 64 x 22 x 22 costs, permutations of equal total cost
    (1e-5 relative); median times, bounds (for K1 and K2 also by the
    design's mix), the library yardstick
    ``torch.cdist(x, y).argmin(-1)`` for the argmin;
 7. one training step at batch 64: every kernel's launches counted, exactly
-   fps 2, fused_sa_fwd 2, fused_sa_bwd 2, sa_weight_grad 2, nn_argmin 4,
+   fps 2, fused_sa_fwd 2, fused_sa_bwd 2, sa_weight_grad 2, nn_argmin 3,
    lap 1;
 8. the card against the CPU (plain ops) on 2 samples of the batch: the loss
    within 1e-4 relative, every parameter gradient's rms difference within
@@ -62,7 +70,7 @@ result line:
     ball_group 2 launches, finite outputs, 2 samples on the CPU within
     1e-4 · max|ref|, forward time at batch 64 and 1, one ``Predictor``
     request on a checkpoint of the model;
-14. its training step at batch 64: exactly fps 2, ball_group 2, nn_argmin 4,
+14. its training step at batch 64: exactly fps 2, ball_group 2, nn_argmin 3,
     lap 1 launches, the card against the CPU by phase 8's rule on 16
     samples (on 2, the heads' BatchNorms normalise 2 rows and amplify the
     encoder's float32 rounding past any fixed tolerance), 12 Adam steps
@@ -86,6 +94,7 @@ import time
 import numpy as np
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = "config=[maskplanner,windows_v2,longx_v2]"
 BATCH_NORM = "model.norm=batch"
 BATCH = 64
@@ -93,6 +102,7 @@ REL_TOL = 1e-4
 PEAK_F32_OPS = 67e12      # H100 SXM, f32 outside the tensor cores (op/s)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 (byte/s)
 PEAK_TF32_OPS = 495e12    # H100 SXM, TF32 on the tensor cores (op/s)
+F32_LANES = 128           # f32 add, multiply or compare lanes of an SM
 KERNELS = {
     "fps": dict(source="maskplanner_tpu_torch/csrc/fps.cu",
                 replaces="maskplanner_tpu/ops/pallas/fps.py:84"),
@@ -129,9 +139,9 @@ def launches_of(**counts) -> dict:
 
 FORWARD_LAUNCHES = launches_of(fps=2, fused_sa_fwd=2)
 STEP_LAUNCHES = launches_of(fps=2, fused_sa_fwd=2, fused_sa_bwd=2,
-                            sa_weight_grad=2, nn_argmin=4, lap=1)
+                            sa_weight_grad=2, nn_argmin=3, lap=1)
 BN_FORWARD_LAUNCHES = launches_of(fps=2, ball_group=2)
-BN_STEP_LAUNCHES = launches_of(fps=2, ball_group=2, nn_argmin=4, lap=1)
+BN_STEP_LAUNCHES = launches_of(fps=2, ball_group=2, nn_argmin=3, lap=1)
 
 
 def log(msg: str) -> None:
@@ -168,20 +178,11 @@ def read_counts() -> dict:
 
 
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of ``fn`` over ``reps`` calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    """Median device time of ``fn`` over ``reps`` calls (CUDA events), the
+    host's launch gap included."""
+    from maskplanner_tpu_torch.bench_fps_argmin import median_ms as timed
+
+    return timed(fn, reps, warmup)
 
 
 def median_host_s(fn, reps: int, warmup: int = 1) -> float:
@@ -210,13 +211,23 @@ def bound(ops: float, nbytes: float, tf32_ops: float = 0.0,
             else "bytes"}
 
 
-def phase_identity() -> None:
+def phase_identity() -> dict:
+    """The card's name and power limit (logged), its SMs and its largest SM
+    clock (Hz)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(smi.stdout.strip().splitlines()[0])
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    card = {"sms": torch.cuda.get_device_properties(0).multi_processor_count,
+            "clock_hz": float(clock) * 1e6}
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
+        f"device {torch.cuda.get_device_name(0)}, {card['sms']} SMs, largest "
+        f"SM clock {clock} MHz")
+    return card
 
 
 def phase_build() -> None:
@@ -257,22 +268,32 @@ def phase_kernels(model, xyz: torch.Tensor, res: dict) -> None:
     ops = {"fps": 0.0, "fused_sa_fwd": 0.0}
     nbytes = {"fps": 0.0, "fused_sa_fwd": 0.0}
     tf32 = 0.0  # the fused forward's products, on the tensor cores
+    rf = res["fps"]
+    rf.update(ms_batch1=0.0, us_per_step={})
     for name, sa in (("sa1", model.sa1), ("sa2", model.sa2)):
         B, N, _ = pts.shape
         S, K = sa.npoint, sa.nsample
-        got = fps_cuda(pts, S, start)
-        ref = fps_plain(pts, S, start)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            raise AssertionError(f"FPS {name}: kernel indices differ from the "
-                                 f"plain version at "
-                                 f"{int((got != ref).sum())} places")
+        for b in (1, BATCH):        # got: the batch's picks
+            got = fps_cuda(pts[:b], S, start[:b])
+            ref = fps_plain(pts[:b], S, start[:b])
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"FPS {name} batch {b}: kernel indices differ from the "
+                    f"plain version at {int((got != ref).sum())} places")
         ms = median_ms(lambda: fps_cuda(pts, S, start), 20)
+        one = pts[:1].contiguous()
+        ms1 = median_ms(lambda: fps_cuda(one, S, start[:1]), 20)
         plain = median_ms(lambda: fps_plain(pts, S, start), 5, 1)
-        log(f"[kernels] fps {name} {tuple(pts.shape)}->{S}: "
-            f"identical; kernel {ms:.4f} ms, plain {plain:.4f} ms")
-        res["fps"]["ms"] += ms
-        res["fps"]["plain_ms"] += plain
+        log(f"[kernels] fps {name} {tuple(pts.shape)}->{S}: identical at "
+            f"batch {BATCH} and 1; kernel {ms:.4f} ms ({1e3 * ms / S:.4f} us "
+            f"a step), batch 1 {ms1:.4f} ms ({1e3 * ms1 / S:.4f} us a step); "
+            f"plain {plain:.4f} ms")
+        rf["ms"] += ms
+        rf["ms_batch1"] += ms1
+        rf["plain_ms"] += plain
+        rf["us_per_step"].update({f"{name} batch {BATCH}": 1e3 * ms / S,
+                                  f"{name} batch 1": 1e3 * ms1 / S})
         # per step and point: 3 sub, 3 mul, 2 add, a min and a compare
         ops["fps"] += 10.0 * B * S * N
         nbytes["fps"] += 4.0 * (B * N * 3 + B + B * S)
@@ -330,6 +351,8 @@ def phase_kernels(model, xyz: torch.Tensor, res: dict) -> None:
                                    + 4.0 * pooled.numel() + 4.0 * idx.numel())
         pts, feats = new_xyz, pooled_ref      # the next level's inputs
     res["fps"].update(bound(ops["fps"], nbytes["fps"]))
+    check_fps_edges(xyz)
+    check_fps_trap()
     # the f32 rule of earlier rows: every operation at the CUDA cores'
     # rate; beside it, this design's mix (products on the tensor cores)
     fa = res["fused_sa_fwd"]
@@ -341,6 +364,55 @@ def phase_kernels(model, xyz: torch.Tensor, res: dict) -> None:
     log(f"[kernels] fused_sa_fwd bound: f32 rule {fa['bound_ms']:.4f} ms "
         f"({fa['bound_by']}), this design's mix {fa['mix_bound_ms']:.4f} ms "
         f"({fa['mix_bound_by']})")
+
+
+def check_fps_edges(xyz: torch.Tensor) -> None:
+    """FPS against its plain version on clouds of duplicated points and of
+    sizes that leave the kernel's last warp partly empty."""
+    from maskplanner_tpu_torch.ops.cuda.fps import fps_cuda
+    from maskplanner_tpu_torch.ops.sampling import fps_plain
+
+    gen = torch.Generator(device=xyz.device).manual_seed(3)
+    # each of a cloud's first 1280 points 4 times, in shuffled order
+    order = torch.randperm(5120, generator=gen, device=xyz.device)
+    dup = xyz[:8, :1280].repeat(1, 4, 1)[:, order].contiguous()
+    cases = {"duplicated points": (dup, 512)}
+    for n in (1, 33, 1000, 5121):
+        cases[f"{n} points"] = (torch.randn((8, n, 3), generator=gen,
+                                            device=xyz.device),
+                                min(n + 3, 512))
+    for what, (pts, npoint) in cases.items():
+        start = torch.randint(0, pts.shape[1], (pts.shape[0],),
+                              generator=gen, device=xyz.device,
+                              dtype=torch.int32)
+        got = fps_cuda(pts, npoint, start)
+        if not torch.equal(got, fps_plain(pts, npoint, start)):
+            raise AssertionError(f"FPS on {what}: kernel indices differ from "
+                                 f"the plain version")
+    log(f"[kernels] fps identical on {', '.join(cases)}")
+
+
+def check_fps_trap() -> None:
+    """A start index out of range traps the FPS kernel (the context is lost
+    then, so a child process launches it): the child must fail after the
+    launch."""
+    code = ("import torch\n"
+            "from maskplanner_tpu_torch.ops.sampling import "
+            "farthest_point_sample\n"
+            "x = torch.rand(2, 100, 3, device='cuda')\n"
+            "farthest_point_sample(x, 8, torch.tensor([0, 100], "
+            "dtype=torch.int32, device='cuda'))\n"
+            "print('launched', flush=True)\n"
+            "torch.cuda.synchronize()\n")
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=ROOT)
+    said = " ".join(p.stdout.split())
+    if p.returncode == 0 or "launched" not in p.stdout:
+        raise AssertionError(f"an out-of-range FPS start did not fail after "
+                             f"the launch: exit {p.returncode}, {said!r}, "
+                             f"{p.stderr[-400:]!r}")
+    log(f"[kernels] fps start out of range: the child exited "
+        f"{p.returncode} after the launch ({said!r})")
 
 
 def phase_forward(model, clouds: np.ndarray, label: str = "forward",
@@ -389,6 +461,8 @@ def phase_forward(model, clouds: np.ndarray, label: str = "forward",
     log(f"[{label}] batch {BATCH}: {t64 * 1e3:.3f} ms "
         f"({BATCH / t64:.1f} point clouds/s); batch 1: {t1 * 1e3:.3f} ms")
     profile(lambda: fwd(x), label, 3)
+    # a request's device part: how much of the batch-1 forward is FPS
+    profile(lambda: fwd(x[:1]), f"{label} batch 1", 10, also=("fps",))
 
 
 def profile(fn, what: str, reps: int, also: tuple = ()) -> None:
@@ -577,7 +651,29 @@ def check_deterministic(name, args) -> None:
         f"launches ({len(first)} layers x dW, db, dgamma, dbeta)")
 
 
-def phase_train_kernels(cfg, model, batch, res: dict) -> None:
+def nn_argmin_edges(x, y, mask) -> dict:
+    """Inputs that stress the argmin's exactness, beside a step call's
+    (x, y, mask): the call's shapes on a grid whose squared distances are
+    exact in float32 (many exact ties), a random mask that is not a prefix,
+    and sizes that are multiples of no tile or warp count."""
+    gen = torch.Generator(device=x.device).manual_seed(4)
+
+    def grid(shape, step):
+        return torch.randint(-2, 3, shape, generator=gen, device=x.device,
+                             dtype=torch.float32) * step
+
+    D = x.shape[-1]
+    step = 0.5 if D <= 8 else 0.25
+    valid = torch.rand(y.shape[:2], generator=gen, device=x.device) > 0.4
+    odd = (torch.randn((3, 257, D), generator=gen, device=x.device),
+           torch.randn((3, 1031, D), generator=gen, device=x.device),
+           torch.rand((3, 1031), generator=gen, device=x.device) > 0.4)
+    return {f"ties d={D}": (grid(x.shape, step), grid(y.shape, step), mask),
+            f"non-prefix mask d={D}": (x, y, valid),
+            f"odd sizes d={D}": odd}
+
+
+def phase_train_kernels(cfg, model, batch, res: dict, card: dict) -> None:
     """The training kernels against their plain versions at the step's
     shapes and inputs."""
     from maskplanner_tpu_torch.losses import LossHandler
@@ -722,12 +818,14 @@ def phase_train_kernels(cfg, model, batch, res: dict) -> None:
     lb = build_loss_batch(out, batch)
     B = lb["y_pred"].shape[0]
     poses = lb["y_pred"].reshape(B, -1, 6)
+    # the step's three searches (the loss's forward segment term searches
+    # one direction only)
     calls = [("forward segments", lb["y_pred"], lb["y"], lb["y_mask"]),
-             ("forward segments, reverse", lb["y"], lb["y_pred"], None),
              ("reverse segments", lb["y"], lb["y_pred"], None),
              ("reverse points", lb["traj_as_pc"], poses, None)]
     r = res["nn_argmin"]
-    ops = nbytes = lib = 0.0
+    r["call_ms"] = {}
+    ops = nbytes = lib = instr = 0.0
     for what, x, y, mask in calls:
         reset_counts()
         got = nn_argmin_cuda(x, y, mask)
@@ -746,13 +844,33 @@ def phase_train_kernels(cfg, model, batch, res: dict) -> None:
             f"{ms:.4f} ms, plain {plain:.4f} ms, torch.cdist+argmin "
             f"{cd:.4f} ms")
         r["ms"] += ms
+        r["call_ms"][what] = ms
         r["plain_ms"] += plain
         lib += cd
         ops += Bx * P1 * P2 * (3.0 * D + 1.0)
+        # this design: d subtracts, d multiplies, d - 1 adds (no FMA), a
+        # compare and two selects a pair, each an instruction of a lane
+        instr += Bx * P1 * P2 * (3.0 * D + 2.0)
         nbytes += 4.0 * (Bx * P1 * D + Bx * P2 * D + Bx * P1) + (
             0 if mask is None else Bx * P2)
+    for what, x, y, mask in calls[::2]:        # d = 24 and d = 6
+        for edge, (ex, ey, em) in nn_argmin_edges(x, y, mask).items():
+            got = nn_argmin_cuda(ex, ey, em)
+            ref = nn_argmin_plain(ex, ey, em)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"nn_argmin {edge}: indices differ at "
+                                     f"{int((got != ref).sum())} places")
+            log(f"[train-kernels] nn_argmin {edge} {tuple(ex.shape)} x "
+                f"{tuple(ey.shape)} mask={em is not None}: identical")
     r.update(bound(ops, nbytes))
+    # the f32 lanes of every SM at the card's largest clock
+    r["instr_bound_ms"] = instr / (F32_LANES * card["sms"]
+                                   * card["clock_hz"]) * 1e3
+    r["instr_bound_by"] = "f32 instruction issue"
     r["library_ms"] = lib
+    log(f"[train-kernels] nn_argmin: {len(calls)} calls {r['ms']:.4f} ms; "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), this design's "
+        f"instruction floor {r['instr_bound_ms']:.4f} ms")
 
     # the LAP's input, recorded from the loss itself
     seen = []
@@ -1122,7 +1240,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
 
-    phase_identity()
+    card = phase_identity()
     phase_build()
     cfg = load_args(argv=[FLAGSHIP])
     res = {name: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
@@ -1137,7 +1255,7 @@ def main() -> int:
     log(f"[time] serving phases done at {time.perf_counter() - t0:.1f} s")
 
     train_items = load_items(cfg, "train")
-    phase_train_kernels(cfg, model, to_batch(train_items, "cuda"), res)
+    phase_train_kernels(cfg, model, to_batch(train_items, "cuda"), res, card)
     launches = phase_train_step(cfg, train_items)
     phase_train_then_serve()
     log(f"[time] flagship phases done at {time.perf_counter() - t0:.1f} s")

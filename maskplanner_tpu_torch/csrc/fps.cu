@@ -7,19 +7,53 @@
 // with the largest running distance next (ties -> the lowest index).
 //
 // What bounds it on this card: latency, not bytes or FLOPs. Each of the
-// `npoint` steps depends on the previous one (512 steps at sa1), every step
-// ends in a block-wide argmax, and there is one block per cloud, so at a
-// batch of 64 only 64 of the 132 SMs have work.
+// `npoint` steps depends on the previous one (512 steps at sa1), and every
+// step ends in a block-wide argmax. One block takes one cloud, so a step
+// costs the issue of its distance updates on one SM (about 12 instructions
+// a point: 3 subtracts, 3 multiplies, 2 adds, a min, and a compare and two
+// selects of the local argmax) plus the chain of the argmax: the warp
+// reductions, a barrier and the reduction of the warps' winners. On an
+// H100 80GB HBM3 at a 700 W limit, at 5120 points, the step takes about
+// 0.53 us, of which a build without the distance update (FPS_NO_UPDATE,
+// bench_fps_argmin.py) keeps about 0.33 us: the argmax chain and its
+// local compares.
 //
-// What the design does about it: the whole step runs inside one block with
-// no trip to device memory. Each thread keeps its points' coordinates and
-// running distances in registers (PPT points per thread: 5120 points on
-// 1024 threads -> 5); a copy of the cloud in shared
-// memory (60 KB at 5120 points, above the 48 KB default, so the kernel
-// raises its dynamic shared memory limit) serves the centroid lookup. The
-// argmax is a warp-shuffle reduction followed by one over the warps' winners
-// in shared memory: two __syncthreads per step. Making several clouds share
-// an SM, or one cloud span a cluster, is left to later work.
+// What the design does about it:
+// - Contiguous ownership: thread t owns points [t*P, (t+1)*P) and keeps
+//   their coordinates and running distances in registers, so lane order is
+//   index order and the lowest index among ties is the lowest lane's.
+// - A warp argmax in two reductions: the running distances are >= 0, so
+//   their bit patterns order as unsigned integers. `redux.sync` takes the
+//   largest key, and a second `redux.sync` the lowest index among the
+//   lanes that hold it (the others offer ~0).
+// - One barrier a step: each warp writes its (key, index) to a slot of a
+//   double buffer (step & 1); after one __syncthreads every warp reduces
+//   the slots itself the same way, so no second barrier and no broadcast
+//   through shared memory. A slot is written again only two steps later,
+//   after the next barrier, which every reader of it has passed.
+// - The centroid comes from a float4 copy of the cloud in shared memory
+//   (one 16-byte load); the picks are staged in shared memory and written
+//   once at the end.
+// - 512 threads a cloud above 2048 points, else 256: fewer, fuller threads
+//   lengthen the local compare chain, more add warps to the barrier and to
+//   the issue of the per-warp reductions (256, 512 and 1024 are timed by
+//   bench_fps_argmin.py). A pairwise tree for the local argmax measured no
+//   faster than the linear scan. A cluster of blocks per cloud is not
+//   tried: it would halve the update's issue at batch 64 but add a
+//   cluster-wide exchange to every step's chain.
+// Padded slots (j >= n) keep the running distance 0 at coordinates 0, and
+// fminf(0, d >= 0) stays 0: their key 0 is never above a real point's, and
+// among equal keys a real point's lower index wins (once every real point
+// is at 0, the lowest, index 0, is picked, as the plain version does).
+//
+// A start index outside [0, n) prints the cloud and the index and traps,
+// so that it fails loudly at the next synchronize without a host sync.
+//
+// Two build switches serve timing studies only (bench_fps_argmin.py sets
+// them; no path of the port does): FPS_THREADS=t fixes the threads a block,
+// and the P=20 case of fps_forward is reached only through it (256 threads
+// at more than 4096 points); FPS_NO_UPDATE replaces the distance update by
+// one instruction, so that what remains is the argmax chain.
 //
 // The squared distance is formed as (x-cx)^2 + (y-cy)^2 + (z-cz)^2 with
 // round-to-nearest intrinsics, so that no FMA contraction changes it: the
@@ -28,13 +62,12 @@
 
 #include <cuda_runtime.h>
 
-#include <climits>
-#include <cmath>
+#include <cstdio>
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxSlots = 8;  // points per thread: clouds of up to 8192
+constexpr int kMaxPoints = 8192;   // points a cloud
+constexpr int kMaxStaged = 8192;   // picks staged in shared memory
 
 __device__ __forceinline__ float sq_dist(float x, float y, float z, float cx,
                                          float cy, float cz) {
@@ -45,23 +78,28 @@ __device__ __forceinline__ float sq_dist(float x, float y, float z, float cx,
                    __fmul_rn(dz, dz));
 }
 
-// (v, i) beats (best_v, best_i) when it is larger, or equal at a lower index.
-__device__ __forceinline__ void arg_max_merge(float v, int i, float& best_v,
-                                              int& best_i) {
-  if (v > best_v || (v == best_v && i < best_i)) {
-    best_v = v;
-    best_i = i;
-  }
+// The lowest index among the warp's lanes that hold its largest key, and
+// that key. Lanes own increasing index ranges, so the lowest such index is
+// the lowest lane's.
+__device__ __forceinline__ int warp_arg_max(unsigned key, int index,
+                                            unsigned& max_key) {
+  max_key = __reduce_max_sync(0xffffffffu, key);
+  return static_cast<int>(__reduce_min_sync(
+      0xffffffffu, key == max_key ? static_cast<unsigned>(index) : ~0u));
 }
 
-template <int PPT>
-__global__ void __launch_bounds__(kMaxThreads)
+// The most threads a block of P points a thread may have: registers for
+// the 4 P values a thread keeps.
+__host__ __device__ constexpr int threads_for(int P) {
+  return P <= 8 ? 1024 : (P <= 16 ? 512 : 256);
+}
+
+template <int P>
+__global__ void __launch_bounds__(threads_for(P))
     fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
                int n, int npoint, int* __restrict__ out) {
-  extern __shared__ float cloud[];  // x[n], y[n], z[n]
-  __shared__ float warp_v[32];
-  __shared__ int warp_i[32];
-  __shared__ int next_s;
+  extern __shared__ float4 cloud[];  // n points (x, y, z, 0), then picks
+  __shared__ uint2 slots[2][32];     // (key, index) of each warp
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -69,109 +107,154 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int warp = tid >> 5;
   const int n_warps = blockDim.x >> 5;
   const float* pts = xyz + static_cast<size_t>(b) * n * 3;
+  // thread 0 records each pick: in shared memory, written out at the end,
+  // unless there are more picks than kMaxStaged
+  const bool staged = npoint <= kMaxStaged;
+  int* const picks = staged ? reinterpret_cast<int*>(cloud + n)
+                            : out + static_cast<size_t>(b) * npoint;
 
-  for (int e = tid; e < 3 * n; e += blockDim.x) {
-    cloud[(e % 3) * n + e / 3] = pts[e];
-  }
-
-  float px[PPT], py[PPT], pz[PPT], dist[PPT];
-#pragma unroll
-  for (int p = 0; p < PPT; ++p) {
-    const int j = tid + p * blockDim.x;
-    if (j < n) {
-      px[p] = pts[3 * j];
-      py[p] = pts[3 * j + 1];
-      pz[p] = pts[3 * j + 2];
-    } else {
-      px[p] = py[p] = pz[p] = 0.f;
-    }
-    dist[p] = 1e10f;
-  }
   int far = start[b];
+  if (far < 0 || far >= n) {
+    if (tid == 0) {
+      printf("fps: cloud %d has start index %d outside [0, %d)\n", b, far,
+             n);
+    }
+    __trap();
+  }
+  float* flat = reinterpret_cast<float*>(cloud);
+  for (int e = tid; e < 3 * n; e += blockDim.x) {
+    flat[(e / 3) * 4 + e % 3] = pts[e];
+  }
   __syncthreads();
+  float px[P], py[P], pz[P], dist[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int j = tid * P + p;
+    if (j < n) {
+      const float4 c = cloud[j];
+      px[p] = c.x;
+      py[p] = c.y;
+      pz[p] = c.z;
+      dist[p] = 1e10f;
+    } else {
+      px[p] = py[p] = pz[p] = dist[p] = 0.f;
+    }
+  }
 
+  uint2* const own_slot = &slots[0][warp];
+  const uint2* const read_slot = &slots[0][lane];
   for (int i = 0; i < npoint; ++i) {
-    if (tid == 0) out[static_cast<size_t>(b) * npoint + i] = far;
-    const float cx = cloud[far], cy = cloud[n + far], cz = cloud[2 * n + far];
-    float best_v = -INFINITY;
-    int best_i = INT_MAX;
+    if (tid == 0) picks[i] = far;
+    const float4 c = cloud[far];
+#ifdef FPS_NO_UPDATE
+    const float cut = fabsf(c.x);
 #pragma unroll
-    for (int p = 0; p < PPT; ++p) {
-      const int j = tid + p * blockDim.x;
-      if (j < n) {
-        dist[p] = fminf(dist[p], sq_dist(px[p], py[p], pz[p], cx, cy, cz));
-        // j grows with p: a strict '>' keeps the lowest index among ties
-        if (dist[p] > best_v) {
-          best_v = dist[p];
-          best_i = j;
-        }
+    for (int p = 0; p < P; ++p) dist[p] = fminf(dist[p], cut);
+#else
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      dist[p] = fminf(dist[p], sq_dist(px[p], py[p], pz[p], c.x, c.y, c.z));
+    }
+#endif
+    // p grows with the index: a strict '>' keeps the lowest among ties
+    float best = dist[0];
+    int best_p = 0;
+#pragma unroll
+    for (int p = 1; p < P; ++p) {
+      if (dist[p] > best) {
+        best = dist[p];
+        best_p = p;
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float v = __shfl_down_sync(0xffffffffu, best_v, off);
-      const int k = __shfl_down_sync(0xffffffffu, best_i, off);
-      arg_max_merge(v, k, best_v, best_i);
-    }
-    if (lane == 0) {
-      warp_v[warp] = best_v;
-      warp_i[warp] = best_i;
-    }
+    const int buf = (i & 1) * 32;
+    unsigned max_key;
+    const int g = warp_arg_max(__float_as_uint(best), tid * P + best_p,
+                               max_key);
+    if (lane == 0) own_slot[buf] = make_uint2(max_key, g);
     __syncthreads();
-    if (warp == 0) {
-      best_v = lane < n_warps ? warp_v[lane] : -INFINITY;
-      best_i = lane < n_warps ? warp_i[lane] : INT_MAX;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float v = __shfl_down_sync(0xffffffffu, best_v, off);
-        const int k = __shfl_down_sync(0xffffffffu, best_i, off);
-        arg_max_merge(v, k, best_v, best_i);
-      }
-      if (lane == 0) next_s = best_i;
-    }
+    // every warp reduces the warps' winners; lanes past the warps hold key
+    // 0, which warp 0 ties or beats at a lower index
+    const uint2 s = lane < n_warps ? read_slot[buf] : make_uint2(0u, ~0u);
+    far = warp_arg_max(s.x, static_cast<int>(s.y), max_key);
+  }
+  if (staged) {
     __syncthreads();
-    far = next_s;
+    for (int e = tid; e < npoint; e += blockDim.x) {
+      out[static_cast<size_t>(b) * npoint + e] = picks[e];
+    }
   }
 }
 
-template <int PPT>
+template <int P>
 cudaError_t launch(const float* xyz, const int* start, int b, int n,
                    int npoint, int threads, int* out, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(3) * n * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel<PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const int staged = npoint <= kMaxStaged ? npoint : 0;
+  const size_t smem = static_cast<size_t>(n) * sizeof(float4) +
+                      static_cast<size_t>(staged) * sizeof(int);
+  // the shared memory limit, raised when a call needs more (a call costs
+  // host time)
+  constexpr int kDevices = 16;  // devices whose setting is remembered
+  static size_t smem_set[kDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  fps_kernel<PPT><<<b, threads, smem, stream>>>(xyz, start, n, npoint, out);
+  size_t unknown = 0;
+  size_t& set = device < kDevices ? smem_set[device] : unknown;
+  if (smem > 48 * 1024 && smem > set) {
+    err = cudaFuncSetAttribute(fps_kernel<P>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    set = smem;
+  }
+  fps_kernel<P><<<b, threads, smem, stream>>>(xyz, start, n, npoint, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// xyz (b, n, 3) f32 contiguous, start (b,) int32 in [0, n) -> out (b, npoint)
-// int32. Returns a cudaError_t as int (0 = launched).
+// xyz (b, n, 3) f32 contiguous, start (b,) int32 in [0, n) (checked on the
+// device: a start outside traps) -> out (b, npoint) int32. Returns a
+// cudaError_t as int (0 = launched).
 extern "C" int fps_forward(const float* xyz, const int* start, int b, int n,
                            int npoint, int* out, void* stream) {
-  if (b <= 0 || n <= 0 || npoint <= 0 || n > kMaxSlots * kMaxThreads) {
+  if (b <= 0 || n <= 0 || npoint <= 0 || n > kMaxPoints) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int threads = n >= kMaxThreads ? kMaxThreads : ((n + 31) / 32) * 32;
-  const int ppt = (n + threads - 1) / threads;
+#ifdef FPS_THREADS
+  int threads = FPS_THREADS;
+#else
+  // 512 threads a cloud of more than 2048 points (10 points a thread at
+  // sa1's 5120), else 256 (2 at sa2's 512): fewer threads each with more
+  // points lengthen the local argmax chain, more add warps to the barrier
+  // and to the issue of the per-warp reductions
+  int threads = n > 2048 ? 512 : 256;
+#endif
+  // points a thread: the fewest of the instantiated counts that fit in
+  // `threads` threads and in the count's register budget
+  const int counts[] = {1, 2, 4, 5, 8, 10, 16, 20};
+  int ppt = 0;
+  for (int c : counts) {
+    const int t = ((n + c - 1) / c + 31) / 32 * 32;
+    if (t <= threads && t <= threads_for(c)) {
+      ppt = c;
+      threads = t;
+      break;
+    }
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // one instantiation per slot count keeps the register arrays exact at
-  // the model's sizes (5120 points -> 5 slots)
   switch (ppt) {
 #define MP_FPS_CASE(P) \
   case P:              \
     return static_cast<int>(launch<P>(xyz, start, b, n, npoint, threads, out, s));
     MP_FPS_CASE(1)
     MP_FPS_CASE(2)
-    MP_FPS_CASE(3)
     MP_FPS_CASE(4)
     MP_FPS_CASE(5)
-    MP_FPS_CASE(6)
-    MP_FPS_CASE(7)
     MP_FPS_CASE(8)
+    MP_FPS_CASE(10)
+    MP_FPS_CASE(16)
+    MP_FPS_CASE(20)
 #undef MP_FPS_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.chamfer import chamfer_distance
+from ..ops.chamfer import mask_from_padding, nearest_sq_distance
 from ..ops.hungarian import hungarian
 from .chamfer_losses import (reverse_asymm_point_chamfer,
                              reverse_asymm_segment_chamfer)
@@ -79,11 +79,14 @@ def stroke_masks_loss(pred_to_gt_match, pred_stroke_masks, scores,
 
 
 def _forward_segment_chamfer_with_matching(y_pred, y, y_mask):
-    """Unreduced forward segment chamfer + matching indices."""
-    nn_dist, _, match, _ = chamfer_distance(
-        y_pred, y, padded=True, y_mask=y_mask, asymmetric=True,
-        return_matching=True, point_reduction=None, batch_reduction=None)
-    return nn_dist, match  # (B, S_pred), (B, S_pred)
+    """Unreduced forward segment chamfer + matching indices: the values of
+    ``chamfer_distance(y_pred, y, padded=True, y_mask=y_mask,
+    asymmetric=True, return_matching=True, point_reduction=None,
+    batch_reduction=None)``, whose reverse matching this loss does not use,
+    so only the forward direction is searched."""
+    if y_mask is None:
+        y_mask = mask_from_padding(y)
+    return nearest_sq_distance(y_pred, y, y_mask)  # (B, S_pred), (B, S_pred)
 
 
 def asymm_v6_chamfer_with_stroke_masks(

@@ -34,6 +34,15 @@ def _gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                         idx.long()[..., None].expand(-1, -1, points.shape[-1]))
 
 
+def nearest_sq_distance(x, y, y_mask=None):
+    """One direction of the chamfer distance: for every x row the squared
+    distance to its nearest valid y row, recomputed by a gather, and that
+    row's index -> (B, P1) distances, (B, P1) int32 indices. One
+    ``nn_argmin`` launch."""
+    idx = nn_argmin(x, y, y_mask)
+    return ((x - _gather_rows(y, idx)) ** 2).sum(-1), idx
+
+
 def chamfer_distance(x, y, x_mask=None, y_mask=None, batch_reduction="mean",
                      point_reduction="mean", velocities=False,
                      min_centroids=False, padded=False,
@@ -60,11 +69,9 @@ def chamfer_distance(x, y, x_mask=None, y_mask=None, batch_reduction="mean",
     cham_y = x.new_zeros((B, P2))
     x_idx = y_idx = None
     if not reverse_asymmetric or return_matching:
-        x_idx = nn_argmin(x, y, y_mask)
-        cham_x = ((x - _gather_rows(y, x_idx)) ** 2).sum(-1)
+        cham_x, x_idx = nearest_sq_distance(x, y, y_mask)
     if not asymmetric or return_matching:
-        y_idx = nn_argmin(y, x, x_mask)
-        cham_y = ((y - _gather_rows(x, y_idx)) ** 2).sum(-1)
+        cham_y, y_idx = nearest_sq_distance(y, x, x_mask)
 
     if x_mask is not None:
         cham_x = torch.where(x_mask, cham_x, 0.0)

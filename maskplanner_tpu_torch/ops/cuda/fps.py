@@ -12,7 +12,7 @@ import torch
 
 from . import build
 
-_MAX_POINTS = 8 * 1024  # csrc/fps.cu: up to 8 points per thread
+_MAX_POINTS = 8 * 1024  # csrc/fps.cu: kMaxPoints
 
 
 @functools.cache
@@ -29,7 +29,9 @@ def _bind():
 def fps_cuda(xyz: torch.Tensor, npoint: int,
              start: torch.Tensor) -> torch.Tensor:
     """(B, N, 3) f32 CUDA points, (B,) int32 start indices in [0, N) ->
-    (B, npoint) int32 indices."""
+    (B, npoint) int32 indices. A start index outside [0, N) is caught on
+    the card, without a host sync: the kernel traps, and the next
+    synchronize raises."""
     if not xyz.is_cuda or xyz.dtype != torch.float32 or xyz.dim() != 3 \
             or xyz.shape[-1] != 3:
         raise ValueError(f"fps_cuda takes (B, N, 3) float32 CUDA points, got "

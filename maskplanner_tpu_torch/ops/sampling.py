@@ -48,18 +48,20 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
                           start: torch.Tensor | None = None) -> torch.Tensor:
     """Iterative farthest point sampling -> (B, npoint) int32 indices.
 
-    ``start``: optional (B,) start indices; the default starts every cloud at
-    index 0 (the deterministic eval path)."""
+    ``start``: optional (B,) start indices in [0, N); the default starts
+    every cloud at index 0 (the deterministic eval path). On the CPU a start
+    outside raises ``ValueError``; on the card the kernel checks it and
+    traps, so that the host does not wait for the device."""
     B, N, _ = xyz.shape
     if start is None:
         start = torch.zeros(B, dtype=torch.int32, device=xyz.device)
-    elif bool(((start < 0) | (start >= N)).any()):
-        raise ValueError(f"FPS start indices must lie in [0, {N})")
     if xyz.device.type == "cuda":
         from .cuda.fps import fps_cuda
 
         return fps_cuda(xyz, npoint, start)
     if xyz.device.type == "cpu":
+        if bool(((start < 0) | (start >= N)).any()):
+            raise ValueError(f"FPS start indices must lie in [0, {N})")
         return fps_plain(xyz, npoint, start)
     raise ValueError(f"no FPS for device {xyz.device}")
 

@@ -48,14 +48,25 @@ def _grid_cloud(B=2, side=4):
 
 
 def _fps_cases():
+    """Random clouds, exact ties on a grid, more picks than points, clouds
+    whose sizes leave the kernel's last warp partly empty (1, 33, 513,
+    1000), and a cloud of 4 copies of each of 50 points in shuffled order
+    (duplicates tie at distance 0)."""
     rng = np.random.default_rng(3)
     rand = rng.normal(size=(3, 200, 3)).astype(np.float32)
     small = rng.normal(size=(2, 10, 3)).astype(np.float32)
+    dup = np.concatenate([rng.normal(size=(2, 50, 3))] * 4, axis=1)
+    dup = dup[:, rng.permutation(200)].astype(np.float32)
+    sized = {f"n{n}": (rng.normal(size=(2, n, 3)).astype(np.float32),
+                       min(n + 3, 96), np.array([0, n - 1], np.int32))
+             for n in (1, 33, 513, 1000)}
     return {
         "start0": (rand, 64, None),
         "starts": (rand, 64, np.array([0, 17, 199], np.int32)),
         "ties": (_grid_cloud(), 40, np.array([0, 63], np.int32)),
         "npoint_gt_n": (small, 16, None),
+        "duplicates": (dup, 80, np.array([3, 150], np.int32)),
+        **sized,
     }
 
 
@@ -225,6 +236,35 @@ class TestKernelsOnCard:
         got = farthest_point_sample(xyz, 512, start)
         assert fps_cuda.launches == before + 1
         assert torch.equal(got, fps_plain(xyz, 512, start))
+        for case, (pts, npoint, first) in FPS_CASES.items():
+            pts = torch.from_numpy(pts).to(cuda_device)
+            first = torch.zeros(pts.shape[0], dtype=torch.int32,
+                                device=cuda_device) if first is None \
+                else torch.from_numpy(first).to(cuda_device)
+            assert torch.equal(farthest_point_sample(pts, npoint, first),
+                               fps_plain(pts, npoint, first)), case
+
+    def test_fps_start_out_of_range_traps(self, cuda_device):
+        """A start index outside [0, N) is checked on the card: the kernel
+        traps (which ends the CUDA context), so a child process runs it and
+        must fail after the launch."""
+        import os
+        import subprocess
+        import sys
+
+        code = ("import torch\n"
+                "from maskplanner_tpu_torch.ops.sampling import "
+                "farthest_point_sample\n"
+                "x = torch.rand(2, 100, 3, device='cuda')\n"
+                "farthest_point_sample(x, 8, torch.tensor([0, 100], "
+                "dtype=torch.int32, device='cuda'))\n"
+                "print('launched', flush=True)\n"
+                "torch.cuda.synchronize()\n")
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=300, cwd=root)
+        assert p.returncode != 0
+        assert "launched" in p.stdout
 
     @pytest.mark.parametrize("norm", ["layer", "none"])
     def test_fused_sa_kernel_matches_plain(self, cuda_device, norm):

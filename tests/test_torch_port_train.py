@@ -268,6 +268,71 @@ def test_v6_loss_and_its_gradients_match_jax(monkeypatch_module):
                                    atol=1e-5 * (np.abs(b).max() + 1e-12))
 
 
+@pytest.mark.parametrize("mask", ["y_mask", "padding"])
+def test_v6_loss_searches_three_times_and_is_unchanged(mask, monkeypatch):
+    """The forward segment term searches only the direction it uses: the
+    v6 loss's value and gradients are bitwise those of the four-search
+    form (the term through ``chamfer_distance(..., asymmetric=True,
+    return_matching=True)``, whose reverse matching it discarded), with 3
+    ``nn_argmin`` calls instead of 4; with ``y_mask`` given, and with the
+    mask taken from the -100 padding."""
+    from maskplanner_tpu_torch.data import PaintDataset, collate
+    from maskplanner_tpu_torch.losses import mask_losses
+    from maskplanner_tpu_torch.ops import chamfer
+
+    cfg = load_args(argv=SMALL)
+    batch = collate([PaintDataset(cfg, split="test", size=2)[i]
+                     for i in range(2)])
+    rng = np.random.default_rng(8)
+    S = batch["traj"].shape[1]
+    y_pred = (batch["traj"] + rng.normal(size=batch["traj"].shape) * 0.05)
+    y_pred = np.where(batch["traj"] == -100.0,
+                      rng.normal(size=y_pred.shape), y_pred).astype(np.float32)
+    inputs = (y_pred, rng.normal(size=(2, 6, S)).astype(np.float32),
+              rng.normal(size=(2, 6)).astype(np.float32))
+    weights = dict(weight_asymm_segment_chamfer=1.0,
+                   weight_reverse_asymm_point_chamfer=100.0,
+                   weight_reverse_asymm_segment_chamfer=0.01,
+                   explicit_weight_stroke_masks=1.0,
+                   explicit_weight_stroke_masks_confidence=100.0,
+                   explicit_no_stroke_weight=1.0)
+    fixed = dict(y=torch.from_numpy(batch["traj"]),
+                 y_mask=(torch.from_numpy(batch["stroke_ids"] >= 0)
+                         if mask == "y_mask" else None),
+                 traj_as_pc=torch.from_numpy(batch["traj_as_pc"]),
+                 pc_mask=torch.from_numpy(batch["stroke_ids_as_pc"] >= 0),
+                 stroke_ids=torch.from_numpy(batch["stroke_ids"]),
+                 seg_logits=None, outdim=6, weights=weights)
+    searches = []
+    search = chamfer.nn_argmin
+    monkeypatch.setattr(chamfer, "nn_argmin",
+                        lambda *a: (searches.append(a), search(*a))[1])
+
+    def loss_and_grads():
+        t = [torch.from_numpy(a).requires_grad_(True) for a in inputs]
+        searches.clear()
+        loss = mask_losses.asymm_v6_chamfer_with_stroke_masks(
+            t[0], pred_stroke_masks=t[1], mask_scores=t[2], **fixed)
+        loss.backward()
+        return loss.detach(), [a.grad for a in t], len(searches)
+
+    loss, grads, n = loss_and_grads()
+
+    def four_search_term(y_pred, y, y_mask):
+        nn_dist, _, match, _ = chamfer.chamfer_distance(
+            y_pred, y, padded=True, y_mask=y_mask, asymmetric=True,
+            return_matching=True, point_reduction=None, batch_reduction=None)
+        return nn_dist, match
+
+    monkeypatch.setattr(mask_losses, "_forward_segment_chamfer_with_matching",
+                        four_search_term)
+    ref_loss, ref_grads, ref_n = loss_and_grads()
+    assert (n, ref_n) == (3, 4)
+    assert torch.equal(loss, ref_loss)
+    for a, b in zip(grads, ref_grads):
+        assert torch.equal(a, b)
+
+
 def test_lr_psacd_and_delayed_activations_match_over_epochs():
     import optax  # noqa: F401  (the JAX schedule is an optax schedule)
 

@@ -52,21 +52,37 @@ def cuda_device():
 
 
 def _nn_case(name):
+    """Random rows, or (``ties_*``) rows on a grid whose squared distances
+    are exact in float32, so that many pairs tie exactly; the masks are
+    random (not a prefix); ``odd_tiles`` has set sizes that are multiples
+    of no tile or warp count."""
     rng = np.random.default_rng(7)
     shapes = {"unmasked": (2, 130, 77, 24), "masked": (2, 130, 77, 24),
-              "all_invalid_row": (2, 40, 33, 6), "odd_sizes": (3, 9, 5, 5)}
+              "all_invalid_row": (2, 40, 33, 6), "odd_sizes": (3, 9, 5, 5),
+              "ties_d6": (2, 97, 131, 6), "ties_d24": (2, 61, 83, 24),
+              "nonprefix_mask": (3, 45, 70, 24), "odd_tiles": (2, 257, 1031, 7)}
     B, P1, P2, D = shapes[name]
-    x = rng.normal(size=(B, P1, D)).astype(np.float32)
-    y = rng.normal(size=(B, P2, D)).astype(np.float32)
+    if name.startswith("ties"):
+        step = 0.5 if D == 6 else 0.25
+        x = (rng.integers(-2, 3, size=(B, P1, D)) * step).astype(np.float32)
+        y = (rng.integers(-2, 3, size=(B, P2, D)) * step).astype(np.float32)
+    else:
+        x = rng.normal(size=(B, P1, D)).astype(np.float32)
+        y = rng.normal(size=(B, P2, D)).astype(np.float32)
     mask = None
-    if name != "unmasked":
+    if name not in ("unmasked", "ties_d6"):
         mask = rng.random((B, P2)) > 0.4
         if name == "all_invalid_row":
             mask[1] = False
+        if name == "nonprefix_mask":
+            mask[0] = np.arange(P2) % 2 == 1       # every other row
+            mask[1] = False
+            mask[1, -1] = True                     # the last row alone
     return x, y, mask
 
 
-NN_CASES = ["unmasked", "masked", "all_invalid_row", "odd_sizes"]
+NN_CASES = ["unmasked", "masked", "all_invalid_row", "odd_sizes", "ties_d6",
+            "ties_d24", "nonprefix_mask", "odd_tiles"]
 
 
 class TestNnArgmin:
