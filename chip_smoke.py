@@ -75,7 +75,19 @@ result line:
     samples (on 2, the heads' BatchNorms normalise 2 rows and amplify the
     encoder's float32 rounding past any fixed tolerance), 12 Adam steps
     with falling loss, step time and device time by kernel;
-15. the card line, a ``kernels`` JSON line, and the result line last.
+15. bf16 serving (``model.bf16=true``, the JAX CLI's default), both
+    recipes, on the same weights as their f32 phases: the fused SA
+    forward's bf16 mode at sa1 and sa2 (batch 64) against the plain bf16
+    level, indices identical, pooled within 3 x the plain level's own
+    spread between float32 and float64 sums of the same bf16 operands;
+    the single-pass ball-group gather against its plain version, indices
+    and values identical; times and bounds (bf16 products at the tensor
+    cores' bf16 rate); each recipe's bf16 forward (exactly fps 2 and
+    fused_sa_fwd_bf16 2, or fps 2 and ball_group_single 2), finite, 2
+    samples on the CPU within a relative L2 error of 2e-2 (the JAX
+    package's bf16 tolerance), the bf16 − f32 gap at batch 64, forward
+    times and device time by kernel; a bf16 ``Predictor`` request each;
+16. the card line, a ``kernels`` JSON line, and the result line last.
 
 It needs one CUDA card and the repository around it; without either it
 exits non-zero.
@@ -102,6 +114,12 @@ REL_TOL = 1e-4
 PEAK_F32_OPS = 67e12      # H100 SXM, f32 outside the tensor cores (op/s)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 (byte/s)
 PEAK_TF32_OPS = 495e12    # H100 SXM, TF32 on the tensor cores (op/s)
+PEAK_BF16_OPS = 989e12    # H100 SXM, dense bf16 on the tensor cores (op/s)
+# bf16 card against CPU: the relative L2 error within the JAX package's bf16
+# tolerance. Not a max: the bf16 pose assembly normalises small raw
+# orientations, where one flipped bf16 rounding moves a single element by
+# percents of max|ref| (the bf16 − f32 gap itself does so)
+BF16_REL_TOL = 2e-2
 F32_LANES = 128           # f32 add, multiply or compare lanes of an SM
 KERNELS = {
     "fps": dict(source="maskplanner_tpu_torch/csrc/fps.cu",
@@ -129,6 +147,15 @@ KERNELS = {
     "fused_sa_folded": dict(
         source="maskplanner_tpu_torch/csrc/fused_sa_fwd.cu",
         replaces="maskplanner_tpu/ops/pallas/fused_sa.py:158"),
+    # the bf16 modes of #2 and #6
+    "fused_sa_fwd_bf16": dict(
+        source="maskplanner_tpu_torch/csrc/fused_sa_fwd.cu",
+        replaces="maskplanner_tpu/ops/pallas/fused_sa_train.py:540",
+        mode='precision="default"'),
+    "ball_group_single": dict(
+        source="maskplanner_tpu_torch/csrc/group_gather.cu",
+        replaces="maskplanner_tpu/ops/pallas/group_gather.py:175",
+        mode="single_pass=True"),
 }
 
 
@@ -142,6 +169,8 @@ STEP_LAUNCHES = launches_of(fps=2, fused_sa_fwd=2, fused_sa_bwd=2,
                             sa_weight_grad=2, nn_argmin=3, lap=1)
 BN_FORWARD_LAUNCHES = launches_of(fps=2, ball_group=2)
 BN_STEP_LAUNCHES = launches_of(fps=2, ball_group=2, nn_argmin=3, lap=1)
+BF16_FORWARD_LAUNCHES = launches_of(fps=2, fused_sa_fwd_bf16=2)
+BN_BF16_FORWARD_LAUNCHES = launches_of(fps=2, ball_group_single=2)
 
 
 def log(msg: str) -> None:
@@ -151,12 +180,13 @@ def log(msg: str) -> None:
 def counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from maskplanner_tpu_torch.ops.cuda.fps import fps_cuda
-    from maskplanner_tpu_torch.ops.cuda.fused_sa import (fused_sa_bwd_cuda,
+    from maskplanner_tpu_torch.ops.cuda.fused_sa import (fused_sa_bf16_cuda,
+                                                         fused_sa_bwd_cuda,
                                                          fused_sa_cuda,
                                                          folded_sa_cuda,
                                                          sa_weight_grad_cuda)
-    from maskplanner_tpu_torch.ops.cuda.group_gather import (ball_group_cuda,
-                                                             ball_query_cuda)
+    from maskplanner_tpu_torch.ops.cuda.group_gather import (
+        ball_group_cuda, ball_group_single_cuda, ball_query_cuda)
     from maskplanner_tpu_torch.ops.cuda.lap import lap_cuda
     from maskplanner_tpu_torch.ops.cuda.nn_argmin import nn_argmin_cuda
 
@@ -164,7 +194,9 @@ def counters() -> dict:
             "fused_sa_bwd": fused_sa_bwd_cuda,
             "sa_weight_grad": sa_weight_grad_cuda, "nn_argmin": nn_argmin_cuda,
             "lap": lap_cuda, "ball_group": ball_group_cuda,
-            "ball_query": ball_query_cuda, "fused_sa_folded": folded_sa_cuda}
+            "ball_query": ball_query_cuda, "fused_sa_folded": folded_sa_cuda,
+            "fused_sa_fwd_bf16": fused_sa_bf16_cuda,
+            "ball_group_single": ball_group_single_cuda}
 
 
 def reset_counts() -> None:
@@ -200,11 +232,13 @@ def median_host_s(fn, reps: int, warmup: int = 1) -> float:
 
 
 def bound(ops: float, nbytes: float, tf32_ops: float = 0.0,
-          prefix: str = "") -> dict:
+          prefix: str = "", bf16_ops: float = 0.0) -> dict:
     """The least time for ``ops`` f32 operations on the CUDA cores plus
     ``tf32_ops`` operations of 3xTF32 tensor-core products (each three
-    passes at the TF32 rate) and ``nbytes`` moved."""
-    t_ops = (ops / PEAK_F32_OPS + 3.0 * tf32_ops / PEAK_TF32_OPS) * 1e3
+    passes at the TF32 rate) plus ``bf16_ops`` of bf16 tensor-core products,
+    and ``nbytes`` moved."""
+    t_ops = (ops / PEAK_F32_OPS + 3.0 * tf32_ops / PEAK_TF32_OPS
+             + bf16_ops / PEAK_BF16_OPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return {f"{prefix}bound_ms": max(t_ops, t_bytes),
             f"{prefix}bound_by": "operations" if t_ops >= t_bytes
@@ -227,6 +261,10 @@ def phase_identity() -> dict:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}, {card['sms']} SMs, largest "
         f"SM clock {clock} MHz")
+    # the bf16 forward turns it off around itself (models.maskplanner.
+    # f32_accumulation): the JAX reference sums bf16 products in f32
+    log(f"cuBLAS bf16 reduced-precision reduction allowed by default: "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     return card
 
 
@@ -416,7 +454,11 @@ def check_fps_trap() -> None:
 
 
 def phase_forward(model, clouds: np.ndarray, label: str = "forward",
-                  expect: dict = FORWARD_LAUNCHES) -> None:
+                  expect: dict = FORWARD_LAUNCHES,
+                  bf16: bool = False) -> dict:
+    """One forward's launches (returned), outputs, the card against the CPU
+    on 2 samples (max|Δ| within 1e-4 · max|ref|; a bf16 model's relative L2
+    error within ``BF16_REL_TOL``), times and profiles."""
     dev = torch.device("cuda")
     x = torch.from_numpy(clouds).to(dev)
     reset_counts()
@@ -446,9 +488,13 @@ def phase_forward(model, clouds: np.ndarray, label: str = "forward",
         b = getattr(ref, field)
         err = float((a - b).abs().max())
         scale = float(b.abs().max())
+        l2 = float((a - b).double().norm() / b.double().norm())
         log(f"[{label}] {field}: card vs CPU max|Δ| {err:.3e} "
-            f"(max|ref| {scale:.3e})")
-        if not err <= REL_TOL * scale:
+            f"(max|ref| {scale:.3e}), relative L2 {l2:.3e}")
+        if bf16 and not l2 <= BF16_REL_TOL:
+            raise AssertionError(f"{field}: card and CPU disagree, relative "
+                                 f"L2 {l2} > {BF16_REL_TOL}")
+        if not bf16 and not err <= REL_TOL * scale:
             raise AssertionError(f"{field}: card and CPU disagree, {err} > "
                                  f"{REL_TOL} x {scale}")
 
@@ -463,6 +509,7 @@ def phase_forward(model, clouds: np.ndarray, label: str = "forward",
     profile(lambda: fwd(x), label, 3)
     # a request's device part: how much of the batch-1 forward is FPS
     profile(lambda: fwd(x[:1]), f"{label} batch 1", 10, also=("fps",))
+    return launches
 
 
 def profile(fn, what: str, reps: int, also: tuple = ()) -> None:
@@ -509,16 +556,18 @@ def write_box_obj(path: str, dims, center) -> None:
 
 
 def serve_request(run_dir: str, label: str, reps: int,
-                  expect: dict = FORWARD_LAUNCHES) -> None:
-    """A Predictor on the card answers program requests for a box mesh,
-    launching ``expect`` each."""
+                  expect: dict = FORWARD_LAUNCHES,
+                  compute_dtype: str | None = None) -> None:
+    """A Predictor on the card (in ``compute_dtype``) answers program
+    requests for a box mesh, launching ``expect`` each."""
     from maskplanner_tpu_torch.serve import Predictor
 
     mesh = os.path.join(run_dir, "window.obj")
     # a window-sized box in millimetres, off the origin
     write_box_obj(mesh, dims=(900.0, 120.0, 1100.0),
                   center=(400.0, 1500.0, 900.0))
-    pred = Predictor(run_dir, model="last", device="cuda")
+    pred = Predictor(run_dir, model="last", device="cuda",
+                     compute_dtype=compute_dtype)
     reset_counts()
     rows = pred.predict_program(mesh, cover_all=True)
     launches = read_counts()
@@ -550,14 +599,16 @@ def serve_request(run_dir: str, label: str, reps: int,
 
 
 def phase_serve(cfg, model, label: str = "serve", reps: int = 3,
-                expect: dict = FORWARD_LAUNCHES) -> None:
+                expect: dict = FORWARD_LAUNCHES,
+                compute_dtype: str | None = None) -> None:
     from maskplanner_tpu_torch.convert import save_checkpoint
     from maskplanner_tpu_torch.utils.config import save_config
 
     with tempfile.TemporaryDirectory() as run_dir:
         save_config(cfg, run_dir)
         save_checkpoint(run_dir, "last_checkpoint", model)
-        serve_request(run_dir, label, reps=reps, expect=expect)
+        serve_request(run_dir, label, reps=reps, expect=expect,
+                      compute_dtype=compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -1229,6 +1280,177 @@ def phase_bn_kernels(model, batch, res: dict) -> dict:
     return own
 
 
+# ---------------------------------------------------------------------------
+# bf16 serving (model.bf16=true)
+# ---------------------------------------------------------------------------
+
+def bf16_twin(cfg, model):
+    """The bf16 model of the f32 ``cfg`` on ``model``'s weights, in eval on
+    the card."""
+    from maskplanner_tpu_torch.models import get_model
+
+    bf16_cfg = copy.deepcopy(cfg)
+    bf16_cfg["model"]["bf16"] = True
+    twin = get_model(bf16_cfg, device="cuda")
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def phase_bf16_kernels(model, xyz: torch.Tensor, res: dict) -> None:
+    """The fused SA forward's bf16 mode against the plain bf16 level at the
+    flagship sa1/sa2 shapes (batch 64). Kernel and plain round the same
+    operands but sum in other orders, and a one-ulp float32 difference can
+    flip the bf16 rounding of the next layer's input: so the plain level's
+    own spread, max|float32 − float64 sums of the same bf16 operands|, is
+    measured, and the kernel held within 3x that of the float64 level."""
+    from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_bf16_cuda
+    from maskplanner_tpu_torch.ops.fused_sa import fused_sa_forward_plain
+    from maskplanner_tpu_torch.ops.sampling import (farthest_point_sample,
+                                                    index_points)
+
+    r = res["fused_sa_fwd_bf16"]
+    r["spread"] = {}
+    ops = products = nbytes = 0.0
+    pts, feats = xyz, None
+    for name, sa in (("sa1", model.sa1), ("sa2", model.sa2)):
+        B, N, _ = pts.shape
+        S, K = sa.npoint, sa.nsample
+        new_xyz = index_points(pts, farthest_point_sample(pts, S))
+        params = [tuple(t.detach() for t in layer)
+                  for layer in sa.layer_params()]
+        args = (sa.radius, K)
+        pooled, idx = fused_sa_bf16_cuda(*args, True, pts, new_xyz, feats,
+                                         params)
+        ref, ref_idx = fused_sa_forward_plain(*args, "layer", pts, new_xyz,
+                                              feats, params, "bf16")
+        ref64, _ = fused_sa_forward_plain(
+            *args, "layer", pts.double(), new_xyz.double(),
+            None if feats is None else feats.double(),
+            [tuple(t.double() for t in layer) for layer in params], "bf16")
+        torch.cuda.synchronize()
+        if not torch.equal(idx, ref_idx):
+            raise AssertionError(f"fused SA bf16 {name}: kernel neighbour "
+                                 f"indices differ from the plain version")
+        spread = float((ref.double() - ref64).abs().max())
+        err = float((pooled.double() - ref64).abs().max())
+        scale = float(ref64.abs().max())
+        rms_k = float((pooled.double() - ref64).norm() / ref64.norm())
+        rms_p = float((ref.double() - ref64).norm() / ref64.norm())
+        if not err <= 3.0 * spread:
+            raise AssertionError(f"fused SA bf16 {name}: max|kernel − "
+                                 f"float64| {err} > 3 x the plain level's "
+                                 f"{spread}")
+        ms = median_ms(lambda: fused_sa_bf16_cuda(*args, True, pts, new_xyz,
+                                                  feats, params), 20)
+        plain = median_ms(lambda: fused_sa_forward_plain(
+            *args, "layer", pts, new_xyz, feats, params, "bf16"), 5, 1)
+        log(f"[bf16-kernels] fused_sa_fwd_bf16 {name} N={N} S={S} K={K}: "
+            f"idx identical; from the float64 sums max|Δ| kernel {err:.3e}, "
+            f"plain {spread:.3e} (max|ref| {scale:.3e}; rel. rms kernel "
+            f"{rms_k:.2e}, plain {rms_p:.2e}); kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms")
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               float((pooled - ref).abs().max()))
+        r["spread"][name] = spread
+        r["ms"] += ms
+        r["plain_ms"] += plain
+        rows = B * S * K
+        acts = sum(c.out_features for c in sa.mlp_convs)
+        ops += rows * 8.0 * acts            # bias, LayerNorm, ReLU, max
+        products += rows * 2.0 * mlp_macs(sa)
+        # the clouds, the bf16 weights, the f32 vectors, pooled and idx
+        nbytes += (4.0 * (pts.numel() + new_xyz.numel()
+                          + (0 if feats is None else feats.numel()))
+                   + sum(2.0 * w.numel() + 4.0 * sum(t.numel() for t in v)
+                         for w, *v in params)
+                   + 4.0 * (pooled.numel() + idx.numel()))
+        pts, feats = new_xyz, pooled
+    r.update(bound(ops, nbytes, bf16_ops=products))
+    r["library_ms"] = None
+    log(f"[bf16-kernels] fused_sa_fwd_bf16: {r['ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {products / 1e9:.1f} "
+        f"GFLOP of bf16 products)")
+
+
+def phase_bf16_group(model, clouds: np.ndarray, res: dict) -> None:
+    """The single-pass ball-group gather against its plain version at the
+    BatchNorm recipe's serving shapes (batch 64; sa2's features from the
+    bf16 model's sa1): indices and values identical."""
+    from maskplanner_tpu_torch.ops.cuda.group_gather import \
+        ball_group_single_cuda
+    from maskplanner_tpu_torch.ops.group_gather import ball_group_plain
+    from maskplanner_tpu_torch.ops.sampling import (farthest_point_sample,
+                                                    index_points)
+
+    r = res["ball_group_single"]
+    ops = nbytes = 0.0
+    pc = torch.from_numpy(clouds).cuda()
+    for name, sa, pts, feats in (("sa1", model.sa1, pc, None),
+                                 ("sa2", model.sa2, *model.sa1(pc, None))):
+        B, N, _ = pts.shape
+        S, K, rad = sa.npoint, sa.nsample, sa.radius
+        new_xyz = index_points(pts, farthest_point_sample(pts, S))
+        got, idx = ball_group_single_cuda(rad, K, pts, new_xyz, feats)
+        ref, ref_idx = ball_group_plain(rad, K, pts, new_xyz, feats,
+                                        single_pass=True)
+        torch.cuda.synchronize()
+        if not torch.equal(idx, ref_idx) or not torch.equal(got, ref):
+            raise AssertionError(f"ball_group_single {name}: indices or "
+                                 f"values differ from the plain version")
+        ms = median_ms(lambda: ball_group_single_cuda(rad, K, pts, new_xyz,
+                                                      feats), 20)
+        plain = median_ms(lambda: ball_group_plain(
+            rad, K, pts, new_xyz, feats, single_pass=True), 5, 1)
+        log(f"[bf16-kernels] ball_group_single {name} B={B} N={N} S={S} "
+            f"K={K}: idx and values identical; kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms")
+        r["ms"] += ms
+        r["plain_ms"] += plain
+        ops += scan_ops(rad, K, pts, new_xyz) + B * S * K * 6.0
+        nbytes += (4.0 * (pts.numel() + new_xyz.numel()
+                          + (0 if feats is None else feats.numel()))
+                   + 2.0 * got.numel() + 4.0 * idx.numel())
+    r.update(bound(ops, nbytes))
+    r["library_ms"] = None
+    log(f"[bf16-kernels] ball_group_single: {r['ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def phase_bf16_gap(f32_model, bf16_model, clouds: np.ndarray,
+                   label: str) -> None:
+    """The bf16 forward against the f32 one on the same weights and the 64
+    clouds: relative errors of the segments, the stroke-mask logits and
+    the mask scores, and the share of mask logits whose sign (a segment's
+    membership) agrees."""
+    x = torch.from_numpy(clouds).cuda()
+    with torch.inference_mode():
+        ref, got = f32_model(x), bf16_model(x)
+    parts = []
+    for field in ("traj", "stroke_masks", "mask_scores"):
+        a, b = getattr(ref, field).double(), getattr(got, field).double()
+        l2 = float((b - a).norm() / a.norm())
+        mx = float((b - a).abs().max() / a.abs().max())
+        parts.append(f"{field} rel. L2 {l2:.3e}, max {mx:.3e}")
+        if field == "traj" and not l2 <= 5e-2:
+            raise AssertionError(f"{label}: bf16 traj lies {l2} (relative "
+                                 f"L2) from f32")
+    agree = float(((got.stroke_masks > 0) == (ref.stroke_masks > 0))
+                  .double().mean())
+    log(f"[{label}] bf16 − f32 at batch {BATCH}: {'; '.join(parts)}; "
+        f"mask-logit signs agree {agree:.5f}")
+
+
+def phase_bf16(cfg, model, clouds: np.ndarray, label: str, expect: dict):
+    """A recipe's bf16 serving on ``model``'s weights: its forward (launch
+    counts, card against CPU, times, profiles), its gap from f32, and a
+    Predictor request -> (the forward's launches, the bf16 model)."""
+    twin = bf16_twin(cfg, model)
+    launches = phase_forward(twin, clouds, label, expect, bf16=True)
+    phase_bf16_gap(model, twin, clouds, label)
+    phase_serve(cfg, model, f"{label}-serve", 1, expect, "bf16")
+    return launches, twin
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1252,6 +1474,11 @@ def main() -> int:
         phase_kernels(model, torch.from_numpy(clouds).cuda(), res)
     phase_forward(model, clouds)
     phase_serve(cfg, model)
+    with torch.inference_mode():
+        phase_bf16_kernels(model, torch.from_numpy(clouds).cuda(), res)
+    # the bf16 forward's path: counts set to 0 just before, read just after
+    bf16_launches, _ = phase_bf16(cfg, model, clouds, "bf16-forward",
+                                  BF16_FORWARD_LAUNCHES)
     log(f"[time] serving phases done at {time.perf_counter() - t0:.1f} s")
 
     train_items = load_items(cfg, "train")
@@ -1266,6 +1493,10 @@ def main() -> int:
         own = phase_bn_kernels(bn, to_batch(train_items, "cuda"), res)
     phase_forward(bn, clouds, "bn-forward", BN_FORWARD_LAUNCHES)
     phase_serve(bn_cfg, bn, "bn-serve", 1, BN_FORWARD_LAUNCHES)
+    bn_bf16_launches, bn16 = phase_bf16(bn_cfg, bn, clouds, "bn-bf16-forward",
+                                        BN_BF16_FORWARD_LAUNCHES)
+    with torch.inference_mode():
+        phase_bf16_group(bn16, clouds, res)
     # on 2 samples the heads' BatchNorms normalise 2 rows, which turns the
     # encoder's float32 rounding into an O(1) difference (PERF.md §6)
     bn_launches = phase_train_step(bn_cfg, train_items, "bn-train",
@@ -1283,6 +1514,10 @@ def main() -> int:
                              bn_launches["ball_group"])
     for name in ("ball_query", "fused_sa_folded"):
         counted[name] = ("own check, through its entry point", own[name])
+    counted["fused_sa_fwd_bf16"] = ("bf16 forward",
+                                    bf16_launches["fused_sa_fwd_bf16"])
+    counted["ball_group_single"] = ("model.norm=batch bf16 forward",
+                                    bn_bf16_launches["ball_group_single"])
     for name, (path, n) in counted.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on {path}")

@@ -123,7 +123,7 @@ def main() -> None:
             for key, path in fwd_paths.items():
                 lib = ctypes.CDLL(path)
                 fn = cuda_sa.fwd_signature(lib.fused_sa_forward)
-                cuda_sa._bind = lambda fn=fn: fn
+                cuda_sa._bind = lambda bf16, fn=fn: fn
                 with torch.no_grad():
                     ms = median_ms(lambda: cuda_sa.fused_sa_cuda(
                         sa.radius, K, True, pts, new_xyz, feats, params))

@@ -56,6 +56,19 @@
 //   the A fragments' loads (8 rows x 4 columns) hit distinct banks; the
 //   LayerNorm takes 4 rows a warp at a time, in place.
 // wgmma, TMA and clusters are later work.
+//
+// The bf16 mode (fused_sa_forward_bf16) replaces the same kernel's
+// precision="default" (bf16 models serve with it): every layer product
+// takes both operands rounded to bf16 and sums in float32, one m16n8k16
+// bf16 mma a k-step of 16 (fused_sa_common.cuh::mma_product_bf16); the
+// offsets x - q, the bias, the LayerNorm, the ReLU and the max stay float32,
+// as the feature rows do until their product rounds them. Its products are
+// a third of the 3xTF32 passes, on a unit twice as fast a pass (989 TFLOP/s
+// dense bf16: 0.1 ms at the flagship batch of 64). Channels pad to 16, the
+// activation rows sit at a stride of 8 mod 16 (float2 A loads, no bank
+// conflict), and the weights are staged as bf16, half the bytes: sa1's stay
+// resident as in float32; sa2's (143 KB) do not fit beside a group's rows,
+// so they stream in k-tiles, one query at a time. It has no backward.
 
 #include <cuda_runtime.h>
 
@@ -77,15 +90,17 @@ constexpr int kMaxLayers = 4;
 constexpr size_t kSmemPerBlock = 232448;  // bytes a block may have on Hopper
 
 struct Layer {
-  const float* wt;     // (ci8, co8): the Dense weight transposed, padded
+  // f32: (ci8, co8) float, the Dense weight transposed and padded;
+  // bf16: (co8, ci8) bf16, the Dense weight padded (mma_product_bf16)
+  const void* wt;
   const float* bias;   // (co,)
   const float* gamma;  // (co,) or null without LayerNorm
   const float* beta;   // (co,) or null without LayerNorm
-  int ci8;             // input channels, rounded up to 8
+  int ci8;             // input channels, rounded up to the mma's k: 8 (16)
   int co;
-  int co8;   // output channels, rounded up to 8
-  int ldw;   // row stride of the weight in shared memory (8 mod 32)
-  int tile;  // rows of a streamed weight tile (a multiple of 8)
+  int co8;   // output channels, rounded up to 8 (bf16: 16)
+  int ldw;   // f32: row stride of the weight in shared memory (8 mod 32)
+  int tile;  // weight rows (bf16: columns) of a streamed tile
   int res;   // resident: the offset of this layer's weight in the buffer
   int vec;   // offset of its bias (co8, zero past co), gamma, beta (co)
 };
@@ -112,7 +127,7 @@ __host__ __device__ int head_floats(const Mlp& mlp, int k_nb) {
   return (mlp.qs * k_nb + 3) & ~3;
 }
 
-template <bool kResident>
+template <bool kResident, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_sa_fwd_kernel(const float* __restrict__ xyz,
                         const float* __restrict__ new_xyz,
@@ -164,8 +179,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     const Threads block{static_cast<int>(threadIdx.x), kThreads, 0};
     for (int l = 0; l < mlp.n_layers; ++l) {
       const Layer& L = mlp.layer[l];
-      fused_sa::stage_rows(block, L.wt, L.co8, 0, L.ci8, wbuf + L.res, L.ldw,
-                           true);
+      if (kBf16) {
+        fused_sa::stage_cols_bf16(
+            block, static_cast<const __nv_bfloat16*>(L.wt), L.ci8, L.co8, 0,
+            L.ci8, reinterpret_cast<__nv_bfloat16*>(wbuf + L.res),
+            L.ci8 + 8);
+      } else {
+        fused_sa::stage_rows(block, static_cast<const float*>(L.wt), L.co8,
+                             0, L.ci8, wbuf + L.res, L.ldw, true);
+      }
     }
     tf32::cp_async_wait<0>();
   }
@@ -233,11 +255,22 @@ __global__ void __launch_bounds__(kThreads, 1)
       int ld_nxt = mlp.ld_b;
       for (int l = 0; l < mlp.n_layers; ++l) {
         const Layer& L = mlp.layer[l];
-        fused_sa::mma_product(
-            th, mlp.layer_norm ? fused_sa::kStorePlain : fused_sa::kStoreRelu,
-            own + cur, ld_cur, rows, L.wt, vec + L.vec, L.ci8, L.co, L.co8,
-            own + nxt, ld_nxt, resident ? wbuf + L.res : wbuf, L.ldw,
-            L.tile, mlp.stages, resident);
+        const int store =
+            mlp.layer_norm ? fused_sa::kStorePlain : fused_sa::kStoreRelu;
+        float* w_at = resident ? wbuf + L.res : wbuf;
+        if (kBf16) {
+          fused_sa::mma_product_bf16(
+              th, store, own + cur, ld_cur, rows,
+              static_cast<const __nv_bfloat16*>(L.wt), vec + L.vec, L.ci8,
+              L.co, L.co8, own + nxt, ld_nxt,
+              reinterpret_cast<__nv_bfloat16*>(w_at), L.tile, mlp.stages,
+              resident);
+        } else {
+          fused_sa::mma_product(th, store, own + cur, ld_cur, rows,
+                                static_cast<const float*>(L.wt), vec + L.vec,
+                                L.ci8, L.co, L.co8, own + nxt, ld_nxt, w_at,
+                                L.ldw, L.tile, mlp.stages, resident);
+        }
         th.sync();
         if (mlp.layer_norm && !(SA_BWD_SKIP & 256)) {
           fused_sa::layer_norm_rows(
@@ -270,55 +303,59 @@ __global__ void __launch_bounds__(kThreads, 1)
 // The least stride of at least n floats that is r modulo `mod`.
 int stride(int n, int r, int mod) { return (n - r + mod - 1) / mod * mod + r; }
 
-}  // namespace
-
-// xyz (b, n, 3), new_xyz (b, s, 3), feats (b, n, f) or null when f == 0, all
-// f32 contiguous. Layer l reads layer_ptrs[4l .. 4l+3] = (wt, bias, gamma,
-// beta) with chans[l] = ci, chans[l + 1] = co: wt is (ci8, co8) row-major,
-// the Dense weight transposed and zero-padded to multiples of 8 (16-byte
-// aligned); gamma/beta are null when layer_norm == 0. Every co is a
-// multiple of 4. Writes pooled (b, s, chans[n_layers]) f32 and idx (b, s, k)
-// int32. Returns a cudaError_t as int (0 = launched).
-extern "C" int fused_sa_forward(const float* xyz, const float* new_xyz,
-                                const float* feats, int b, int n, int s,
-                                int f, int k_nb, float radius2, int n_layers,
-                                const int* chans, const void* const* layer_ptrs,
-                                int layer_norm, float* pooled, int* idx,
-                                void* stream) {
+template <bool kBf16>
+int launch(const float* xyz, const float* new_xyz, const float* feats, int b,
+           int n, int s, int f, int k_nb, float radius2, int n_layers,
+           const int* chans, const void* const* layer_ptrs, int layer_norm,
+           float* pooled, int* idx, void* stream) {
   if (b <= 0 || n <= 0 || s <= 0 || k_nb <= 0 || n_layers <= 0 ||
       n_layers > kMaxLayers || chans[0] != 3 + f) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // the mma's k: channels pad to it, inputs and outputs alike
+  constexpr int kPad = kBf16 ? 16 : 8;
+  auto pad = [](int c) { return (c + kPad - 1) / kPad * kPad; };
+  // floats of a weight tile of k rows (f32) or k columns (bf16, at row
+  // stride k + 8: fused_sa_common.cuh), and the widest tile that fits in
+  // `floats`
+  auto tile_floats = [](const Layer& L, int k) {
+    return kBf16 ? L.co8 * (k + 8) / 2 : k * L.ldw;
+  };
+  auto tile_of = [](const Layer& L, int floats) {
+    return kBf16 ? (2 * floats / L.co8 - 8) & ~15 : (floats / L.ldw) & ~7;
+  };
   Mlp mlp;
   mlp.n_layers = n_layers;
   mlp.layer_norm = layer_norm;
   // buffer a holds the inputs of even layers, buffer b those of odd ones
-  int width_a = (chans[0] + 7) & ~7;
+  int width_a = pad(chans[0]);
   int width_b = 0;
   int w_resident = 0;  // floats of every layer's weight, resident
   mlp.n_vec = 0;
-  int ldw_max = 0;
+  int tile_max = 0;  // floats of the largest tile of kPad rows or columns
   for (int l = 0; l < n_layers; ++l) {
     Layer& L = mlp.layer[l];
-    L.wt = static_cast<const float*>(layer_ptrs[4 * l]);
+    L.wt = layer_ptrs[4 * l];
     L.bias = static_cast<const float*>(layer_ptrs[4 * l + 1]);
     L.gamma = static_cast<const float*>(layer_ptrs[4 * l + 2]);
     L.beta = static_cast<const float*>(layer_ptrs[4 * l + 3]);
-    L.ci8 = (chans[l] + 7) & ~7;
+    L.ci8 = pad(chans[l]);
     L.co = chans[l + 1];
-    L.co8 = (L.co + 7) & ~7;
+    L.co8 = pad(L.co);
     if (L.co % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
     L.ldw = stride(L.co8, 8, 32);
     L.res = w_resident;
-    w_resident += L.ci8 * L.ldw;
+    w_resident += tile_floats(L, L.ci8);
     L.vec = mlp.n_vec;
     mlp.n_vec += L.co8 + (layer_norm ? 2 * L.co : 0);
-    ldw_max = std::max(ldw_max, L.ldw);
+    tile_max = std::max(tile_max, tile_floats(L, kPad));
     int& width = l % 2 == 0 ? width_b : width_a;
     width = std::max(width, L.co8);
   }
-  mlp.ld_a = stride(width_a, 4, 8);
-  mlp.ld_b = stride(width_b, 4, 8);
+  // the A fragments' loads hit distinct banks: 8 rows x 4 floats (f32), a
+  // half-warp's 4 rows x 4 float2 (bf16)
+  mlp.ld_a = kBf16 ? stride(width_a, 8, 16) : stride(width_a, 4, 8);
+  mlp.ld_b = kBf16 ? stride(width_b, 8, 16) : stride(width_b, 4, 8);
   auto state_floats = [&](int q, int qs) {
     mlp.q = q;
     mlp.qs = qs;
@@ -342,7 +379,7 @@ extern "C" int fused_sa_forward(const float* xyz, const float* new_xyz,
   // The shape: the weights resident for as many groups as fit beside them
   // (one query a group at a time through the MLP, up to one a warp
   // selected at a time), else one group that streams them and takes as
-  // many queries at a time as fit beside two tiles of 8 rows.
+  // many queries at a time as fit beside two tiles of kPad rows.
   mlp.n_vec = (mlp.n_vec + 3) & ~3;
   const int limit =
       static_cast<int>(kSmemPerBlock / sizeof(float)) - mlp.n_vec;
@@ -361,39 +398,39 @@ extern "C" int fused_sa_forward(const float* xyz, const float* new_xyz,
   for (int q = std::min(kMaxQueries, per_group); q >= 1 && !found; --q) {
     mlp.groups = 1;
     mlp.state = state_floats(q, q);
-    if (mlp.state + 2 * 8 * ldw_max <= limit) {
+    if (mlp.state + 2 * tile_max <= limit) {
       mlp.resident = 0;
       mlp.n_wbuf = limit - mlp.state;
       found = true;
     }
   }
   if (!found) return static_cast<int>(cudaErrorInvalidValue);
-  // streamed: three tiles of at least 8 rows in flight where they fit
-  mlp.stages = mlp.n_wbuf >= 3 * 8 * ldw_max ? 3 : 2;
+  // streamed: three tiles of at least kPad rows in flight where they fit
+  mlp.stages = mlp.n_wbuf >= 3 * tile_max ? 3 : 2;
   for (int l = 0; l < n_layers; ++l) {
     Layer& L = mlp.layer[l];
     L.tile = mlp.resident
                  ? L.ci8
-                 : std::min(L.ci8, (mlp.n_wbuf / (mlp.stages * L.ldw)) & ~7);
+                 : std::min(L.ci8, tile_of(L, mlp.n_wbuf / mlp.stages));
   }
   if (!mlp.resident) {  // the weight buffer as large as its largest use
     int used = 0;
     for (int l = 0; l < n_layers; ++l) {
-      used = std::max(used,
-                      mlp.stages * mlp.layer[l].tile * mlp.layer[l].ldw);
+      const Layer& L = mlp.layer[l];
+      used = std::max(used, mlp.stages * tile_floats(L, L.tile));
     }
     mlp.n_wbuf = used;
   }
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(mlp.n_wbuf) + mlp.n_vec +
                        mlp.groups * mlp.state);
-  auto kernel = mlp.resident ? fused_sa_fwd_kernel<true>
-                             : fused_sa_fwd_kernel<false>;
+  auto kernel = mlp.resident ? fused_sa_fwd_kernel<true, kBf16>
+                             : fused_sa_fwd_kernel<false, kBf16>;
   // no more shared memory than the block needs: the rest stays L1, which
   // holds the cloud that the groups' scans read again and again (set when
   // it changes: a call costs host time at small batches)
   constexpr int kDevices = 16;  // devices whose setting is remembered
-  static size_t smem_set[kDevices][2] = {};
+  static size_t smem_set[kDevices][2] = {};  // each kBf16 has its own
   size_t unknown = 0;
   size_t& set =
       device < kDevices ? smem_set[device][mlp.resident] : unknown;
@@ -417,5 +454,39 @@ extern "C" int fused_sa_forward(const float* xyz, const float* new_xyz,
       xyz, new_xyz, feats, n, s, f, k_nb, radius2, n_queries, mlp, pooled,
       idx);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// xyz (b, n, 3), new_xyz (b, s, 3), feats (b, n, f) or null when f == 0, all
+// f32 contiguous. Layer l reads layer_ptrs[4l .. 4l+3] = (wt, bias, gamma,
+// beta) with chans[l] = ci, chans[l + 1] = co: wt is (ci8, co8) row-major,
+// the Dense weight transposed and zero-padded to multiples of 8 (16-byte
+// aligned); gamma/beta are null when layer_norm == 0. Every co is a
+// multiple of 4. Writes pooled (b, s, chans[n_layers]) f32 and idx (b, s, k)
+// int32. Returns a cudaError_t as int (0 = launched).
+extern "C" int fused_sa_forward(const float* xyz, const float* new_xyz,
+                                const float* feats, int b, int n, int s,
+                                int f, int k_nb, float radius2, int n_layers,
+                                const int* chans, const void* const* layer_ptrs,
+                                int layer_norm, float* pooled, int* idx,
+                                void* stream) {
+  return launch<false>(xyz, new_xyz, feats, b, n, s, f, k_nb, radius2,
+                       n_layers, chans, layer_ptrs, layer_norm, pooled, idx,
+                       stream);
+}
+
+// The bf16 mode: as fused_sa_forward, but wt is (co16, ci16) bf16
+// row-major, the Dense weight itself zero-padded to multiples of 16.
+extern "C" int fused_sa_forward_bf16(const float* xyz, const float* new_xyz,
+                                     const float* feats, int b, int n, int s,
+                                     int f, int k_nb, float radius2,
+                                     int n_layers, const int* chans,
+                                     const void* const* layer_ptrs,
+                                     int layer_norm, float* pooled, int* idx,
+                                     void* stream) {
+  return launch<true>(xyz, new_xyz, feats, b, n, s, f, k_nb, radius2,
+                      n_layers, chans, layer_ptrs, layer_norm, pooled, idx,
+                      stream);
 }
 

@@ -29,8 +29,19 @@
 // (offsets: one float subtraction, as in the plain version). Several
 // queries a block, and staging the cloud in shared memory for sa1's scan,
 // are later work.
+//
+// The single-pass variant (ball_group_single_forward) replaces the same
+// kernel's single_pass=True, which bf16 models group with: every gathered
+// channel lands rounded to bf16, the offsets as bf16(x) - q in float32,
+// and the consumer, a bf16 MLP, rounds the row to bf16. Here the kernel
+// writes that row itself, as bf16: bf16(bf16(x) - q) and bf16(f), each
+// rounded to nearest even, which halves the bytes written (sa2: 138 MB
+// at batch 64), the bound of this kernel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "ball_select.cuh"
 #include "fused_sa_common.cuh"
@@ -39,12 +50,13 @@ namespace {
 
 using fused_sa::kThreads;
 
-template <bool kGather>
+// Out: float (the values) or __nv_bfloat16 (the single-pass row).
+template <bool kGather, typename Out>
 __global__ void __launch_bounds__(kThreads)
     ball_group_kernel(const float* __restrict__ xyz,
                       const float* __restrict__ new_xyz,
                       const float* __restrict__ feats, int n, int s, int f,
-                      int k_nb, float radius2, float* __restrict__ grouped,
+                      int k_nb, float radius2, Out* __restrict__ grouped,
                       int* __restrict__ idx_out) {
   extern __shared__ int smem[];
   int* sel = smem;                                             // k_nb
@@ -63,8 +75,9 @@ __global__ void __launch_bounds__(kThreads)
   if (!kGather) return;
 
   // -- the query's K x cin output values, channel-last -------------------
+  constexpr bool kSingle = !std::is_same<Out, float>::value;
   const int cin = 3 + f;
-  float* out = grouped + static_cast<size_t>(query) * k_nb * cin;
+  Out* out = grouped + static_cast<size_t>(query) * k_nb * cin;
   const float* fb = feats + static_cast<size_t>(b) * n * f;
   for (int e = threadIdx.x; e < k_nb * cin; e += blockDim.x) {
     const int k = e / cin;
@@ -73,17 +86,23 @@ __global__ void __launch_bounds__(kThreads)
     float v;
     if (c < 3) {
       const float qc = c == 0 ? qx : (c == 1 ? qy : qz);
-      v = pts[3 * j + c] - qc;
+      float x = pts[3 * j + c];
+      if (kSingle) x = __bfloat162float(__float2bfloat16_rn(x));
+      v = __fsub_rn(x, qc);
     } else {
       v = fb[static_cast<size_t>(j) * f + (c - 3)];
     }
-    out[e] = v;
+    if constexpr (kSingle) {
+      out[e] = __float2bfloat16_rn(v);
+    } else {
+      out[e] = v;
+    }
   }
 }
 
-template <bool kGather>
+template <bool kGather, typename Out = float>
 int launch(const float* xyz, const float* new_xyz, const float* feats, int b,
-           int n, int s, int f, int k_nb, float radius2, float* grouped,
+           int n, int s, int f, int k_nb, float radius2, Out* grouped,
            int* idx, void* stream) {
   if (b <= 0 || n <= 0 || s <= 0 || k_nb <= 0 || f < 0 ||
       (f > 0 && feats == nullptr)) {
@@ -91,7 +110,7 @@ int launch(const float* xyz, const float* new_xyz, const float* feats, int b,
   }
   const size_t smem = sizeof(int) * k_nb + sizeof(unsigned) * 32;
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  ball_group_kernel<kGather>
+  ball_group_kernel<kGather, Out>
       <<<b * s, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           xyz, new_xyz, feats, n, s, f, k_nb, radius2, grouped, idx);
   return static_cast<int>(cudaGetLastError());
@@ -111,10 +130,22 @@ extern "C" int ball_group_forward(const float* xyz, const float* new_xyz,
                       idx, stream);
 }
 
+// The single-pass variant: as ball_group_forward, but grouped (b, s, k_nb,
+// 3 + f) bf16, bf16(bf16(x) - q) and bf16(f) of each neighbour.
+extern "C" int ball_group_single_forward(const float* xyz,
+                                         const float* new_xyz,
+                                         const float* feats, int b, int n,
+                                         int s, int f, int k_nb,
+                                         float radius2, void* grouped,
+                                         int* idx, void* stream) {
+  return launch<true>(xyz, new_xyz, feats, b, n, s, f, k_nb, radius2,
+                      static_cast<__nv_bfloat16*>(grouped), idx, stream);
+}
+
 // The indices alone: idx (b, s, k_nb) int32, as ball_group_forward's.
 extern "C" int ball_query_forward(const float* xyz, const float* new_xyz,
                                   int b, int n, int s, int k_nb,
                                   float radius2, int* idx, void* stream) {
   return launch<false>(xyz, new_xyz, nullptr, b, n, s, 0, k_nb, radius2,
-                       nullptr, idx, stream);
+                       static_cast<float*>(nullptr), idx, stream);
 }

@@ -74,16 +74,15 @@ def get_model(config, *, device: str | torch.device,
               dropout: float = 0.3) -> nn.Module:
     """Build the backbone named by ``config.model.backbone`` in eval mode on
     ``device``, its weights drawn from ``generator`` (default: seeded from
-    ``config.seed``). ``dropout``: the heads' rate in train mode."""
+    ``config.seed``). ``dropout``: the heads' rate in train mode. Under
+    ``model.bf16`` it computes in bf16 (eval only; the parameters stay
+    f32)."""
     which = config["model"]["backbone"]
     if which == "pointnet2_strokemasks_retrocompatible":
         which = "pointnet2_strokemasks"   # differs only in a layer name
     if which != "pointnet2_strokemasks":
         raise NotImplementedError(
             f"backbone {which!r} is not ported yet (ROADMAP.md, Queue 1)")
-    if config["model"].get("bf16"):
-        raise NotImplementedError(
-            "bf16 compute is not ported yet (ROADMAP.md, port queue)")
     info = get_io_info("MaskPlanner", config)
     model = PointNet2StrokeMasks(
         out_vectors=info["out_vectors"],
@@ -96,6 +95,8 @@ def get_model(config, *, device: str | torch.device,
         segment_confidence_scores=bool(config.get("per_segment_confidence")),
         encoder_norm=config["model"].get("norm") or "batch",
         dropout=dropout,
+        dtype=torch.bfloat16 if config["model"].get("bf16")
+        else torch.float32,
     )
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.get("seed") or 0))

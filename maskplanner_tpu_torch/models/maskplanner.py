@@ -3,16 +3,37 @@
 The SSG encoder gives a 1024-d global feature; parallel heads regress the
 unordered segment set with per-pose orientations, the stroke masks, the
 mask confidence scores and, optionally, per-segment confidences.
+
+In bf16 (eval only) the heads follow the JAX package's: each Dense gives
+bf16, each BatchNorm f32, the pose assembly runs in bf16, and every output
+is cast to f32 at the model's boundary. The bf16 products on the card sum
+in f32 throughout, as the JAX reference does
+(:func:`f32_accumulation`).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Sequence
 
 import torch
 from torch import nn
 
 from .pointnet2 import (BATCH_NORM_EPS, FlaxBatchNorm1d, PointNet2Encoder,
-                        assemble_pose_output, regression_head)
+                        assemble_pose_output, dense, regression_head)
+
+
+@contextlib.contextmanager
+def f32_accumulation():
+    """bf16 matrix products on the card sum in f32 throughout: cuBLAS may
+    otherwise reduce split-K partial sums in bf16
+    (``allow_bf16_reduced_precision_reduction``, on by default)."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
 
 
 class MaskPlannerOutput(NamedTuple):
@@ -28,7 +49,9 @@ class PointNet2StrokeMasks(PointNet2Encoder):
     The encoder levels are this module's own ``sa1``..``sa3`` and the heads
     carry the original repo's names, so the ``state_dict`` reads like the
     original model's. ``dropout``: the heads' dropout rate in train mode
-    (0.3 as in the JAX package's ``RegressionHead``)."""
+    (0.3 as in the JAX package's ``RegressionHead``). ``dtype``: the
+    compute dtype, float32 or bfloat16 (eval only); the parameters are
+    float32 either way."""
 
     def __init__(self, out_vectors: int, outdim: int = 3,
                  outdim_orient: int = 3, weight_orient: float = 1.0,
@@ -36,8 +59,9 @@ class PointNet2StrokeMasks(PointNet2Encoder):
                  hidden_size: Sequence[int] = (1024, 1024),
                  n_stroke_masks: int = 1,
                  segment_confidence_scores: bool = False,
-                 encoder_norm: str = "batch", dropout: float = 0.3):
-        super().__init__(encoder_norm)
+                 encoder_norm: str = "batch", dropout: float = 0.3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(encoder_norm, dtype)
         self.dropout = dropout
         self.out_vectors = out_vectors
         self.outdim_orient = outdim_orient
@@ -67,16 +91,27 @@ class PointNet2StrokeMasks(PointNet2Encoder):
     def forward(self, xyz: torch.Tensor,
                 generator: torch.Generator | None = None) -> MaskPlannerOutput:
         """xyz: (B, N, 3) normalized point clouds. ``generator``: in train
-        mode, the random FPS starts and the dropout masks."""
+        mode, the random FPS starts and the dropout masks. The outputs are
+        float32."""
+        if self.dtype == torch.float32:
+            return self._forward(xyz, generator)
+        with f32_accumulation():
+            out = self._forward(xyz, generator)
+        return MaskPlannerOutput(*(None if t is None else t.float()
+                                   for t in out))
+
+    def _forward(self, xyz, generator):
         feat = super().forward(xyz, generator)
         B = feat.shape[0]
+        dt = self.dtype
         drop = dict(rate=self.dropout, training=self.training,
-                    generator=generator)
+                    generator=generator, dtype=dt)
         trunk = regression_head(feat, [(self.fc1, self.bn1),
                                        (self.fc2, self.bn2)], **drop)
-        positions = self.fc3(trunk)
+        positions = dense(self.fc3, trunk, dt)
         if self.outdim_orient > 0:
-            traj = assemble_pose_output(positions, self.fc_normals(trunk),
+            traj = assemble_pose_output(positions,
+                                        dense(self.fc_normals, trunk, dt),
                                         self.out_vectors, self.weight_orient)
         else:
             traj = positions.reshape(B, self.out_vectors, -1)
@@ -85,11 +120,11 @@ class PointNet2StrokeMasks(PointNet2Encoder):
         if self.segment_confidence_scores:
             sc = regression_head(feat, [(self.seg_conf_fc1, None),
                                         (self.seg_conf_fc2, None)], **drop)
-            seg_conf = torch.sigmoid(self.seg_conf_out(sc))
+            seg_conf = torch.sigmoid(dense(self.seg_conf_out, sc, dt))
 
         sm = regression_head(feat, [(self.sm_fc1, self.sm_bn1),
                                     (self.sm_fc2, self.sm_bn2)], **drop)
-        stroke_masks = self.sm_fc3(sm).reshape(B, self.n_stroke_masks,
-                                               self.out_vectors)
-        return MaskPlannerOutput(traj, stroke_masks, self.mask_conf_out(sm),
-                                 seg_conf)
+        stroke_masks = dense(self.sm_fc3, sm, dt).reshape(
+            B, self.n_stroke_masks, self.out_vectors)
+        return MaskPlannerOutput(traj, stroke_masks,
+                                 dense(self.mask_conf_out, sm, dt), seg_conf)

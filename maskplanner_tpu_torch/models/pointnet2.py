@@ -10,6 +10,22 @@ variance and moves its running statistics as ``0.9 running + 0.1 batch``
 (:class:`FlaxBatchNorm1d`), FPS starts each cloud at a random index drawn
 from an explicit ``torch.Generator`` (index 0 without one), and the heads'
 dropout draws its mask from that generator.
+
+``dtype=torch.bfloat16`` is the JAX package's bf16 model in eval, under the
+dtype rules of its accelerator path (the parameters stay f32 and are
+rounded where they are used):
+
+- a ``layer``/``none`` level runs the fused level's bf16 mode
+  (``ops.fused_sa``: bf16 products, f32 sums, f32 LayerNorm);
+- a grouped ``batch`` level, sa1 included, groups single-pass
+  (``ops.group_gather``) and runs the Dense/ReLU chain on the folded
+  weights in bf16 (bf16 products with a bf16 output, a bf16 bias), then
+  the max in f32;
+- the ``group_all`` level runs in f32;
+- a head's Dense takes bf16 inputs and weights and gives bf16
+  (:func:`dense`), its BatchNorm f32.
+
+A bf16 model has no train mode: bf16 training is not ported.
 """
 from __future__ import annotations
 
@@ -17,6 +33,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional
 
 from ..ops.fused_sa import (LAYER_NORM_EPS, fold_pointmlp_params,
                             fused_sa_forward)
@@ -72,16 +89,31 @@ def random_starts(xyz: torch.Tensor,
                          device=generator.device).to(xyz.device)
 
 
+def dense(linear: nn.Linear, x: torch.Tensor,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``linear(x)`` computed in ``dtype``, as Flax's ``nn.Dense(dtype=...)``:
+    in bf16 the input and the weight are rounded to bf16, the product (f32
+    sums) gives bf16, and the bias is added in bf16."""
+    if dtype == torch.float32:
+        return linear(x)
+    return functional.linear(x.to(dtype), linear.weight.to(dtype)) \
+        + linear.bias.to(dtype)
+
+
 class PointMLP(nn.Module):
     """Shared per-point MLP: Linear -> norm -> ReLU per layer, over the last
     axis. ``norm``: "batch" (:class:`FlaxBatchNorm1d` over all rows),
-    "layer" (LayerNorm over channels, eps 1e-6 as in Flax) or "none"."""
+    "layer" (LayerNorm over channels, eps 1e-6 as in Flax) or "none".
+    ``dtype``: the compute dtype of the folded chain (:meth:`run_folded`)
+    and of a set-abstraction level's own path."""
 
-    def __init__(self, in_channel: int, channels: Sequence[int], norm: str):
+    def __init__(self, in_channel: int, channels: Sequence[int], norm: str,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if norm not in ("batch", "layer", "none"):
             raise ValueError(f"unknown norm: {norm!r}")
         self.norm = norm
+        self.dtype = dtype
         widths = [in_channel, *channels]
         self.mlp_convs = nn.ModuleList(
             nn.Linear(ci, co) for ci, co in zip(widths[:-1], widths[1:]))
@@ -103,6 +135,19 @@ class PointMLP(nn.Module):
         return x
 
     forward = run_mlp
+
+    def run_folded(self, h: torch.Tensor) -> torch.Tensor:
+        """The eval-mode BatchNorm MLP on grouped rows h (B, S, K, C) as a
+        Dense/ReLU chain on the folded weights
+        (``ops.fused_sa.fold_pointmlp_params``, f32) in ``dtype`` (bf16:
+        bf16 products with a bf16 output, a bf16 bias), then the max over K
+        -> (B, S, C_last) f32 (the max of bf16 values is exact, so it is
+        taken before the cast)."""
+        h = h.to(self.dtype)
+        for w, b in fold_pointmlp_params(self):
+            h = torch.relu(torch.matmul(h, w.t().to(self.dtype))
+                           + b.to(self.dtype))
+        return h.amax(dim=2).float()
 
     def layer_params(self):
         """Per-layer ``(w (C_out, C_in), b[, gamma, beta])`` for the fused
@@ -128,12 +173,14 @@ class SetAbstraction(PointMLP):
     the Dense/ReLU chain with the BatchNorm folded into its weights
     (``ops.fused_sa.fold_pointmlp_params``) and the max; in eval without
     features (sa1), the MLP with running statistics and the max. The
-    ``group_all`` level runs as plain ops."""
+    ``group_all`` level runs as plain ops. In bf16 (eval only) see the
+    module's docstring."""
 
     def __init__(self, npoint: int | None, radius: float | None,
                  nsample: int | None, in_channel: int,
-                 mlp: Sequence[int], group_all: bool, norm: str):
-        super().__init__(in_channel, mlp, norm)
+                 mlp: Sequence[int], group_all: bool, norm: str,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channel, mlp, norm, dtype)
         self.npoint = npoint
         self.radius = radius
         self.nsample = nsample
@@ -142,6 +189,11 @@ class SetAbstraction(PointMLP):
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None,
                 generator: torch.Generator | None = None):
         """``generator``: the random FPS starts in train mode."""
+        bf16 = self.dtype == torch.bfloat16
+        if bf16 and self.training:
+            raise NotImplementedError("a bf16 model has no train mode: bf16 "
+                                      "training is not ported yet "
+                                      "(ROADMAP.md, Queue 1)")
         if self.group_all:
             new_xyz = xyz.new_zeros((xyz.shape[0], 1, 3))
             grouped = xyz[:, None]                              # (B, 1, N, 3)
@@ -154,16 +206,13 @@ class SetAbstraction(PointMLP):
         if self.norm in ("layer", "none"):
             pooled, _ = fused_sa_forward(
                 self.radius, self.nsample, self.norm, xyz, new_xyz, features,
-                self.layer_params())
+                self.layer_params(), "bf16" if bf16 else "f32")
             return new_xyz, pooled
         grouped, _ = ball_group(self.radius, self.nsample, xyz, new_xyz,
-                                features)                       # (B, S, K, C)
-        if self.training or features is None:
+                                features, single_pass=bf16)  # (B, S, K, C)
+        if self.training or (features is None and not bf16):
             return new_xyz, self.run_mlp(grouped).amax(dim=2)
-        h = grouped
-        for w, b in fold_pointmlp_params(self):
-            h = torch.relu(torch.matmul(h, w.t()) + b)
-        return new_xyz, h.amax(dim=2)
+        return new_xyz, self.run_folded(grouped)
 
 
 def level_norms(norm: str) -> list[str]:
@@ -178,14 +227,19 @@ def level_norms(norm: str) -> list[str]:
 
 
 class PointNet2Encoder(nn.Module):
-    """sa1 -> sa2 -> sa3 (group_all) -> (B, 1024) global feature."""
+    """sa1 -> sa2 -> sa3 (group_all) -> (B, 1024) global feature, f32.
+    ``dtype``: the levels' compute dtype (bf16: eval only)."""
 
-    def __init__(self, norm: str = "batch"):
+    def __init__(self, norm: str = "batch",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         n1, n2, n3 = level_norms(norm)
-        self.sa1 = SetAbstraction(512, 0.2, 32, 3, (64, 64, 128), False, n1)
+        self.dtype = dtype
+        self.sa1 = SetAbstraction(512, 0.2, 32, 3, (64, 64, 128), False, n1,
+                                  dtype)
         self.sa2 = SetAbstraction(128, 0.4, 64, 128 + 3, (128, 128, 256),
-                                  False, n2)
+                                  False, n2, dtype)
+        # the group_all level runs in f32 in a bf16 model's eval too
         self.sa3 = SetAbstraction(None, None, None, 256 + 3, (256, 512, 1024),
                                   True, n3)
 
@@ -199,15 +253,17 @@ class PointNet2Encoder(nn.Module):
 
 def regression_head(x: torch.Tensor, layers, rate: float = 0.0,
                     training: bool = False,
-                    generator: torch.Generator | None = None) -> torch.Tensor:
+                    generator: torch.Generator | None = None,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The fc -> BatchNorm -> ReLU -> dropout trunk of every regressor head;
     ``layers`` is ``[(linear, batchnorm or None)]``. A function, so that the
     layers keep the original repo's names on the model (``fc1``, ``bn1``,
-    ``sm_fc1``, ...)."""
+    ``sm_fc1``, ...). ``dtype``: each fc's (:func:`dense`); a BatchNorm
+    runs in f32."""
     for linear, bn in layers:
-        x = linear(x)
+        x = dense(linear, x, dtype)
         if bn is not None:
-            x = bn(x)
+            x = bn(x.float())
         x = dropout(torch.relu(x), rate, training, generator)
     return x
 

@@ -4,8 +4,9 @@
 of the weight gradient) and K2 (``csrc/sa_weight_grad.cu``: the weight
 gradients as fixed-order split-K products).
 
-``fused_sa_cuda.launches``, ``folded_sa_cuda.launches`` (the forward on
-BatchNorm-folded weights), ``fused_sa_bwd_cuda.launches`` (K1) and
+``fused_sa_cuda.launches``, ``fused_sa_bf16_cuda.launches`` (the forward's
+bf16 mode), ``folded_sa_cuda.launches`` (the forward on BatchNorm-folded
+weights), ``fused_sa_bwd_cuda.launches`` (K1) and
 ``sa_weight_grad_cuda.launches`` (K2) count the kernels' launches (a run
 that should go through a kernel reads its count after resetting it to 0).
 """
@@ -62,8 +63,10 @@ def fwd_signature(fn):
 
 
 @functools.cache
-def _bind():
-    return fwd_signature(build.library("fused_sa_fwd").fused_sa_forward)
+def _bind(bf16: bool):
+    lib = build.library("fused_sa_fwd")
+    return fwd_signature(lib.fused_sa_forward_bf16 if bf16
+                         else lib.fused_sa_forward)
 
 
 def _f32(t: torch.Tensor, device: torch.device, what: str) -> torch.Tensor:
@@ -249,18 +252,29 @@ def fused_sa_backward_cuda(nsample: int, layer_norm: bool, xyz, new_xyz,
     return d_xyz, d_new, d_feat, grads
 
 
+def padded_bf16(w: torch.Tensor) -> torch.Tensor:
+    """A Dense weight (C_out, C_in) -> rounded to bf16 (to nearest even)
+    and zero-padded to multiples of 16: the layout of the bf16 product
+    (the mma's k of 16; a B fragment is two consecutive k of one row)."""
+    co, ci = w.shape
+    return torch.nn.functional.pad(w, (0, -ci % 16, 0, -co % 16)) \
+        .to(torch.bfloat16).contiguous()
+
+
 def _forward(radius: float, nsample: int, layer_norm: bool,
              xyz: torch.Tensor, new_xyz: torch.Tensor,
-             features: torch.Tensor | None, params):
-    """Launch ``csrc/fused_sa_fwd.cu`` -> (pooled, idx)."""
+             features: torch.Tensor | None, params, bf16: bool = False):
+    """Launch ``csrc/fused_sa_fwd.cu`` (its bf16 mode with ``bf16``) ->
+    (pooled, idx)."""
     xyz, new_xyz, features, F, chans = _check_level(xyz, new_xyz, features,
                                                     params, layer_norm)
     device = xyz.device
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
+    layout = padded_bf16 if bf16 else padded_transpose
     ptrs, keep = [], []  # keep: the operands stay alive through the launch
     for layer in params:
-        wt = padded_transpose(_f32(layer[0], device, "weight"))  # (ci8, co8)
+        wt = layout(_f32(layer[0], device, "weight"))
         rest = [_f32(a, device, "bias/gamma/beta") for a in layer[1:]]
         keep += [wt, *rest]
         ptrs += [wt.data_ptr(), *(a.data_ptr() for a in rest)]
@@ -271,7 +285,7 @@ def _forward(radius: float, nsample: int, layer_norm: bool,
     idx = torch.empty((B, S, nsample), dtype=torch.int32, device=device)
     c_chans = (ctypes.c_int * len(chans))(*chans)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    err = _bind()(xyz.data_ptr(), new_xyz.data_ptr(),
+    err = _bind(bf16)(xyz.data_ptr(), new_xyz.data_ptr(),
                   None if features is None else features.data_ptr(),
                   B, N, S, F, nsample, float(radius) ** 2, len(params),
                   c_chans, c_ptrs, int(layer_norm), pooled.data_ptr(),
@@ -293,6 +307,23 @@ def fused_sa_cuda(radius: float, nsample: int, layer_norm: bool,
 
 
 fused_sa_cuda.launches = 0
+
+
+def fused_sa_bf16_cuda(radius: float, nsample: int, layer_norm: bool,
+                       xyz: torch.Tensor, new_xyz: torch.Tensor,
+                       features: torch.Tensor | None, params):
+    """The level's bf16 mode on the card (forward only) -> (pooled
+    (B, S, C_last) f32, idx (B, S, nsample) int32): every layer product on
+    operands rounded to bf16, summed in f32
+    (``ops.fused_sa.fused_sa_forward_plain(..., precision="bf16")``).
+    Arguments as :func:`fused_sa_cuda`; counted apart from it."""
+    out = _forward(radius, nsample, layer_norm, xyz, new_xyz, features,
+                   params, bf16=True)
+    fused_sa_bf16_cuda.launches += 1
+    return out
+
+
+fused_sa_bf16_cuda.launches = 0
 
 
 def folded_sa_cuda(radius: float, nsample: int, xyz: torch.Tensor,

@@ -1,9 +1,10 @@
 """Wrappers of the ball-group gather and the ball query
 (``csrc/group_gather.cu``).
 
-``ball_group_cuda.launches`` and ``ball_query_cuda.launches`` count the
-kernels' launches (a run that should go through a kernel reads its count
-after resetting it to 0).
+``ball_group_cuda.launches``, ``ball_group_single_cuda.launches`` (the
+single-pass variant) and ``ball_query_cuda.launches`` count the kernels'
+launches (a run that should go through a kernel reads its count after
+resetting it to 0).
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ from . import build
 
 
 @functools.cache
-def _bind_group():
-    fn = build.library("group_gather").ball_group_forward
+def _bind_group(single: bool):
+    lib = build.library("group_gather")
+    fn = lib.ball_group_single_forward if single else lib.ball_group_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
@@ -52,12 +54,11 @@ def _check_points(xyz: torch.Tensor, new_xyz: torch.Tensor, nsample: int):
     return xyz.contiguous(), new_xyz.contiguous()
 
 
-def ball_group_cuda(radius: float, nsample: int, xyz: torch.Tensor,
-                    new_xyz: torch.Tensor,
-                    features: torch.Tensor | None = None):
-    """First-``nsample`` in-radius grouping on the card -> (grouped
-    (B, S, nsample, 3 + F) f32 rows ``[x − q ; f]``, idx (B, S, nsample)
-    int32). Arguments as ``ops.group_gather.ball_group``."""
+def _group(radius: float, nsample: int, xyz: torch.Tensor,
+           new_xyz: torch.Tensor, features: torch.Tensor | None,
+           single: bool):
+    """Launch the ball-group gather (its single-pass variant with
+    ``single``) -> (grouped, idx)."""
     xyz, new_xyz = _check_points(xyz, new_xyz, nsample)
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
@@ -70,20 +71,45 @@ def ball_group_cuda(radius: float, nsample: int, xyz: torch.Tensor,
                              f"{features.dtype} on {features.device}")
         features = features.contiguous()
         F = features.shape[-1]
-    grouped = torch.empty((B, S, nsample, 3 + F), dtype=torch.float32,
+    grouped = torch.empty((B, S, nsample, 3 + F),
+                          dtype=torch.bfloat16 if single else torch.float32,
                           device=xyz.device)
     idx = torch.empty((B, S, nsample), dtype=torch.int32, device=xyz.device)
-    err = _bind_group()(xyz.data_ptr(), new_xyz.data_ptr(),
-                        None if features is None else features.data_ptr(),
-                        B, N, S, F, nsample, float(radius) ** 2,
-                        grouped.data_ptr(), idx.data_ptr(),
-                        build.stream_ptr(xyz.device))
+    err = _bind_group(single)(
+        xyz.data_ptr(), new_xyz.data_ptr(),
+        None if features is None else features.data_ptr(), B, N, S, F,
+        nsample, float(radius) ** 2, grouped.data_ptr(), idx.data_ptr(),
+        build.stream_ptr(xyz.device))
     build.check(err, "ball_group_forward")
-    ball_group_cuda.launches += 1
     return grouped, idx
 
 
+def ball_group_cuda(radius: float, nsample: int, xyz: torch.Tensor,
+                    new_xyz: torch.Tensor,
+                    features: torch.Tensor | None = None):
+    """First-``nsample`` in-radius grouping on the card -> (grouped
+    (B, S, nsample, 3 + F) f32 rows ``[x − q ; f]``, idx (B, S, nsample)
+    int32). Arguments as ``ops.group_gather.ball_group``."""
+    out = _group(radius, nsample, xyz, new_xyz, features, False)
+    ball_group_cuda.launches += 1
+    return out
+
+
 ball_group_cuda.launches = 0
+
+
+def ball_group_single_cuda(radius: float, nsample: int, xyz: torch.Tensor,
+                           new_xyz: torch.Tensor,
+                           features: torch.Tensor | None = None):
+    """The single-pass grouping on the card -> (grouped (B, S, nsample,
+    3 + F) bf16 rows ``[bf16(x) − q ; f]`` rounded to bf16, idx as
+    :func:`ball_group_cuda`'s); counted apart from it."""
+    out = _group(radius, nsample, xyz, new_xyz, features, True)
+    ball_group_single_cuda.launches += 1
+    return out
+
+
+ball_group_single_cuda.launches = 0
 
 
 def ball_query_cuda(radius: float, nsample: int, xyz: torch.Tensor,

@@ -11,6 +11,13 @@ decomposition, and :func:`tf32_split` / :func:`matmul_3xtf32` emulate
 the 3xTF32 tensor-core products of both directions' kernels; the tests
 hold both against the JAX package and against autograd.
 
+``precision="bf16"`` is the JAX package's ``precision="default"`` mode,
+which bf16 models serve with: the feature rows are gathered rounded to
+bf16, and every layer product takes both operands rounded to bf16 (round
+to nearest even) with f32 sums (:func:`matmul_bf16`); the offsets
+``x − q``, the bias, the LayerNorm, the ReLU and the max stay f32. It is
+forward only: bf16 training is not ported.
+
 :func:`fused_set_abstraction` is the counterpart of
 ``maskplanner_tpu/ops/pallas/fused_sa.py``: a grouped BatchNorm level in
 eval, its norm folded into the Dense weights (:func:`fold_pointmlp_params`).
@@ -25,6 +32,21 @@ import torch
 from .sampling import ball_query_plain, index_points
 
 LAYER_NORM_EPS = 1e-6
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest even), kept in its own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the bf16 tensor cores form it: both operands rounded to
+    bf16, the exact products summed in the inputs' dtype (f32 for the
+    kernel's f32 accumulators)."""
+    return bf16_round(a) @ bf16_round(b)
+
+
+PRODUCTS = {"f32": torch.matmul, "bf16": matmul_bf16}
 
 
 def _gather_plain(xyz, new_xyz, features, idx):
@@ -59,11 +81,16 @@ def _mlp_plain(h, params, norm: str, product=torch.matmul) -> list:
 
 def fused_sa_forward_plain(radius: float, nsample: int, norm: str,
                            xyz: torch.Tensor, new_xyz: torch.Tensor,
-                           features: torch.Tensor | None, params):
-    """Plain version: the same level as separate PyTorch ops."""
+                           features: torch.Tensor | None, params,
+                           precision: str = "f32"):
+    """Plain version: the same level as separate PyTorch ops. In bf16 the
+    feature rows are gathered rounded to bf16 and every product is
+    :func:`matmul_bf16`."""
     idx = ball_query_plain(radius, nsample, xyz, new_xyz)        # (B, S, K)
+    if precision == "bf16" and features is not None:
+        features = bf16_round(features)
     layers = _mlp_plain(_gather_plain(xyz, new_xyz, features, idx), params,
-                        norm)
+                        norm, PRODUCTS[precision])
     return layers[-1][3].amax(dim=2), idx
 
 
@@ -219,28 +246,45 @@ class FusedSALevel(torch.autograd.Function):
 
 def fused_sa_forward(radius: float, nsample: int, norm: str,
                      xyz: torch.Tensor, new_xyz: torch.Tensor,
-                     features: torch.Tensor | None, params):
+                     features: torch.Tensor | None, params,
+                     precision: str = "f32"):
     """One SA level -> (pooled (B, S, C_last) f32, idx (B, S, K) int32),
     differentiable in xyz, new_xyz, features and params (the neighbour
     selection is piecewise constant, like every ball query).
 
     xyz (B, N, 3); new_xyz (B, S, 3), the FPS centroids; features (B, N, F)
     or None; params: per layer ``(w (C_out, C_in), b)``, plus
-    ``(gamma, beta)`` when ``norm == "layer"``."""
+    ``(gamma, beta)`` when ``norm == "layer"``. ``precision``: "f32" or
+    "bf16" (the bf16 models' serving mode: on the card forward only, and a
+    call that would need a gradient raises)."""
     if norm not in ("layer", "none"):
         raise ValueError(f"the fused level takes norm 'layer' or 'none', "
                          f"got {norm!r}")
+    if precision not in PRODUCTS:
+        raise ValueError(f"precision must be 'f32' or 'bf16', got "
+                         f"{precision!r}")
     if xyz.device.type == "cuda":
         n_per = 4 if norm == "layer" else 2
         flat = [a for layer in params for a in layer]
         if any(len(layer) != n_per for layer in params):
             raise ValueError("a layer is (w, b, gamma, beta) with LayerNorm, "
                              "(w, b) without")
-        return FusedSALevel.apply(radius, nsample, norm == "layer", xyz,
-                                  new_xyz, features, n_per, *flat)
+        if precision == "f32":
+            return FusedSALevel.apply(radius, nsample, norm == "layer", xyz,
+                                      new_xyz, features, n_per, *flat)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (xyz, new_xyz, features, *flat)):
+            raise NotImplementedError(
+                "the bf16 fused SA level has no backward: bf16 training is "
+                "not ported yet (ROADMAP.md, Queue 1)")
+        from .cuda.fused_sa import fused_sa_bf16_cuda
+
+        return fused_sa_bf16_cuda(radius, nsample, norm == "layer", xyz,
+                                  new_xyz, features, params)
     if xyz.device.type == "cpu":
         return fused_sa_forward_plain(radius, nsample, norm, xyz, new_xyz,
-                                      features, params)
+                                      features, params, precision)
     raise ValueError(f"no fused SA level for device {xyz.device}")
 
 

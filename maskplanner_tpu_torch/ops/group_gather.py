@@ -12,24 +12,35 @@ The backward is a scatter-add over the neighbour indices. The JAX package
 computes it outside any Pallas kernel (``_ball_group_bwd``, a one-hot
 contraction because XLA's scatter serialises on a TPU); here it is
 PyTorch's ``index_add_``, the card's own scatter.
+
+``single_pass=True`` is the JAX kernel's single-pass mode, which bf16
+models group with: the row ``[bf16(x) − q ; bf16(f)]`` (the offsets
+formed in f32), returned rounded to bf16, as the bf16 MLP that consumes
+it rounds it. It is forward only: bf16 training is not ported.
 """
 from __future__ import annotations
 
 import torch
 
+from .fused_sa import bf16_round
 from .sampling import ball_query_plain, index_points
 
 
 def ball_group_plain(radius: float, nsample: int, xyz: torch.Tensor,
                      new_xyz: torch.Tensor,
-                     features: torch.Tensor | None = None):
+                     features: torch.Tensor | None = None,
+                     single_pass: bool = False):
     """Plain version: the ball query, then the gathers -> (grouped
-    (B, S, K, 3 + F), idx (B, S, K) int32)."""
+    (B, S, K, 3 + F), idx (B, S, K) int32); single-pass: bf16 rows
+    ``bf16(bf16(x) − q)`` and ``bf16(f)``."""
     idx = ball_query_plain(radius, nsample, xyz, new_xyz)
-    grouped = index_points(xyz, idx) - new_xyz[:, :, None, :]
+    x = index_points(xyz, idx)
+    if single_pass:
+        x = bf16_round(x)
+    grouped = x - new_xyz[:, :, None, :]
     if features is not None:
         grouped = torch.cat([grouped, index_points(features, idx)], dim=-1)
-    return grouped, idx
+    return (grouped.to(torch.bfloat16) if single_pass else grouped), idx
 
 
 def ball_group_backward(idx: torch.Tensor, d_grouped: torch.Tensor, n: int,
@@ -82,15 +93,30 @@ class BallGroup(torch.autograd.Function):
 
 
 def ball_group(radius: float, nsample: int, xyz: torch.Tensor,
-               new_xyz: torch.Tensor, features: torch.Tensor | None = None):
+               new_xyz: torch.Tensor, features: torch.Tensor | None = None,
+               single_pass: bool = False):
     """First-K in-radius grouping -> (grouped (B, S, K, 3 + F) f32 rows
     ``[x − q ; f]``, idx (B, S, K) int32), differentiable in xyz, new_xyz
     and features (the selection is piecewise constant).
 
     xyz (B, N, 3); new_xyz (B, S, 3), the FPS centroids; features
-    (B, N, F) or None."""
+    (B, N, F) or None. ``single_pass``: bf16 rows for a bf16 consumer
+    (see the module's docstring); on the card it refuses a call that
+    would need a gradient."""
     if xyz.device.type == "cuda":
-        return BallGroup.apply(radius, nsample, xyz, new_xyz, features)
+        if not single_pass:
+            return BallGroup.apply(radius, nsample, xyz, new_xyz, features)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (xyz, new_xyz, features)):
+            raise NotImplementedError(
+                "the single-pass grouping has no backward: bf16 training "
+                "is not ported yet (ROADMAP.md, Queue 1)")
+        from .cuda.group_gather import ball_group_single_cuda
+
+        return ball_group_single_cuda(radius, nsample, xyz, new_xyz,
+                                      features)
     if xyz.device.type == "cpu":
-        return ball_group_plain(radius, nsample, xyz, new_xyz, features)
+        return ball_group_plain(radius, nsample, xyz, new_xyz, features,
+                                single_pass)
     raise ValueError(f"no ball grouping for device {xyz.device}")

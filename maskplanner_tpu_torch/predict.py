@@ -4,7 +4,9 @@ robot programs, from a run directory holding a port checkpoint.
     python -m maskplanner_tpu_torch.predict --run RUN_DIR --model last \\
         --meshes a.obj b.obj --out predicted_programs
 
-It runs on the card unless ``--device cpu`` is given.
+It runs on the card unless ``--device cpu`` is given, in bf16 unless
+``--dtype f32`` (or ``train``: the run's own dtype) is given, as the JAX
+package's CLI.
 """
 from __future__ import annotations
 
@@ -28,8 +30,10 @@ def parse_args(argv=None):
                    help="dump raw predicted segments instead of the "
                         "concatenated/resampled strokes")
     p.add_argument("--data_scale_factor", type=float, default=None)
-    p.add_argument("--dtype", choices=["f32", "bf16"], default="f32",
-                   help="forward compute dtype (only f32 is ported)")
+    p.add_argument("--dtype", choices=["bf16", "f32", "train"],
+                   default="bf16",
+                   help="forward compute dtype: bf16 (the serving default), "
+                        "f32, or 'train' for the run's training dtype")
     p.add_argument("--export", default=None,
                    help="not ported: ahead-of-time export of the forward")
     p.add_argument("--from_export", default=None,
@@ -39,18 +43,18 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.dtype != "f32":
-        raise NotImplementedError("bf16 serving is not ported yet "
-                                  "(ROADMAP.md, port queue)")
     if args.export or args.from_export:
         raise NotImplementedError("--export/--from_export are not ported yet "
                                   "(ROADMAP.md, port queue)")
     from .serve import Predictor
 
     pred = Predictor(args.run, model=args.model, device=args.device,
-                     data_scale_factor=args.data_scale_factor)
-    print(f"Loaded {args.model} (epoch {pred.epoch}) on {pred.device} | "
-          f"pc_points={pred.pc_points} scale={pred.scale:.4f}")
+                     data_scale_factor=args.data_scale_factor,
+                     compute_dtype=None if args.dtype == "train"
+                     else args.dtype)
+    dtype = "bf16" if pred.config["model"].get("bf16") else "f32"
+    print(f"Loaded {args.model} (epoch {pred.epoch}) on {pred.device} in "
+          f"{dtype} | pc_points={pred.pc_points} scale={pred.scale:.4f}")
     for mesh in args.meshes:
         name = os.path.splitext(os.path.basename(mesh))[0]
         out_path = os.path.join(args.out, f"{name}.txt")

@@ -5,8 +5,9 @@ The host steps are the port's own copies of the JAX package's numpy-only
 modules: mesh sampling and normalization (``data.io``), the stroke-mask
 postprocess (``postprocess``), denormalization and the orientnorm -> Euler
 export (``data.pointcloud``, ``data.io``), and ``resolve_scale``. The
-forward is the port's model on an explicit device; ``device="cuda"``
-without a card raises, and nothing falls back to the CPU.
+forward is the port's model on the card unless the caller asks for the
+CPU; ``device="cuda"`` without a card raises, and nothing falls back to the
+CPU.
 """
 from __future__ import annotations
 
@@ -67,16 +68,25 @@ class Predictor:
     """A loaded run: frozen config + port checkpoint + the model on
     ``device``.
 
-    >>> pred = Predictor(run_dir, model="last", device="cuda")
+    >>> pred = Predictor(run_dir, model="last", compute_dtype="bf16")
     >>> rows = pred.predict_program("window_031.obj")  # (N, 7) X..C+strokeId
-    """
+
+    ``compute_dtype``: None keeps the run's dtype (``model.bf16``); "bf16"
+    or "f32" sets the forward's. The parameters are f32 either way, so
+    every checkpoint loads under either."""
 
     def __init__(self, run_dir: str, model: str = "last", *,
-                 device: str | torch.device,
-                 data_scale_factor: float | None = None):
+                 device: str | torch.device = "cuda",
+                 data_scale_factor: float | None = None,
+                 compute_dtype: str | None = None):
         self.device = resolve_device(device)
         self.run_dir = run_dir
         self.config = apply_retrocompat_defaults(load_config(run_dir))
+        if compute_dtype is not None:
+            if compute_dtype not in ("bf16", "f32"):
+                raise ValueError(f"compute_dtype must be None, 'bf16' or "
+                                 f"'f32', got {compute_dtype!r}")
+            self.config["model"]["bf16"] = compute_dtype == "bf16"
         self.pc_points = int(self.config["pc_points"])
         self.extra_data = list(self.config["extra_data"])
         self.outdim = get_dim_traj_points(self.extra_data)

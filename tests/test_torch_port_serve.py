@@ -121,19 +121,53 @@ def test_preprocess_and_epoch_match(serve_run, predictors):
 
 
 def test_cli_writes_the_program(serve_run, tmp_path, capsys):
+    """The CLI serves in bf16 by default, as the JAX CLI does, and in the
+    run's own dtype (f32 here) with ``--dtype train``; ``--export`` is not
+    ported."""
     from maskplanner_tpu_torch import predict
 
     run_dir, mesh = serve_run
-    predict.main(["--run", run_dir, "--meshes", mesh, "--out",
-                  str(tmp_path), "--device", "cpu"])
     name = os.path.splitext(os.path.basename(mesh))[0]
-    rows = np.genfromtxt(tmp_path / f"{name}.txt", delimiter=";",
-                         skip_header=1)
-    assert rows.shape[1] == 7 and np.isfinite(rows).all()
-    assert "poses" in capsys.readouterr().out
-    for extra in (["--dtype", "bf16"], ["--export", "f.pt"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            predict.main(["--run", run_dir, "--device", "cpu", *extra])
+    for extra, dtype in (([], "bf16"), (["--dtype", "bf16"], "bf16"),
+                         (["--dtype", "train"], "f32")):
+        out = tmp_path / dtype / str(len(extra))
+        predict.main(["--run", run_dir, "--meshes", mesh, "--out", str(out),
+                      "--device", "cpu", *extra])
+        rows = np.genfromtxt(out / f"{name}.txt", delimiter=";",
+                             skip_header=1)
+        assert rows.shape[1] == 7 and np.isfinite(rows).all()
+        said = capsys.readouterr().out
+        assert "poses" in said and f"in {dtype}" in said
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        predict.main(["--run", run_dir, "--device", "cpu", "--export",
+                      "f.pt"])
+
+
+def test_bf16_predictor_rows_near_f32(serve_run, predictors):
+    """A bf16 Predictor on the f32 run's checkpoint: the raw program's
+    positions (every predicted pose, in order) within 3e-2 of the f32
+    Predictor's largest coordinate, as tests/test_torch_port_bf16.py holds
+    the model's outputs (the stroke ids may differ where a mask logit lies
+    near its threshold); the postprocessed program has rows, finite."""
+    from maskplanner_tpu_torch.serve import Predictor
+
+    run_dir, mesh = serve_run
+    _, f32 = predictors
+    bf16 = Predictor(run_dir, model="last", device="cpu",
+                     compute_dtype="bf16")
+    assert f32.model.dtype == torch.float32
+    assert bf16.model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in bf16.model.parameters())
+    ref = f32.predict_program(mesh, postprocess=False)
+    got = bf16.predict_program(mesh, postprocess=False)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got[:, :3], ref[:, :3],
+                               atol=3e-2 * np.abs(ref[:, :3]).max())
+    rows = bf16.predict_program(mesh, cover_all=True)
+    assert rows.shape[0] > 0 and rows.shape[1] == 7
+    assert np.isfinite(rows).all()
+    with pytest.raises(ValueError, match="compute_dtype"):
+        Predictor(run_dir, device="cpu", compute_dtype="fp16")
 
 
 def test_cuda_without_a_card_raises(serve_run):
@@ -143,6 +177,17 @@ def test_cuda_without_a_card_raises(serve_run):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Predictor(serve_run[0], device="cuda")
+
+
+def test_predictor_defaults_to_the_card(serve_run):
+    """``Predictor(run_dir)`` takes the JAX signature: its device defaults
+    to the card, which raises without one."""
+    from maskplanner_tpu_torch.serve import Predictor
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(serve_run[0])
 
 
 def test_port_never_imports_jax(serve_run):
