@@ -87,7 +87,28 @@ result line:
     samples on the CPU within a relative L2 error of 2e-2 (the JAX
     package's bf16 tolerance), the bf16 − f32 gap at batch 64, forward
     times and device time by kernel; a bf16 ``Predictor`` request each;
-16. the card line, a ``kernels`` JSON line, and the result line last.
+16. bf16 training (``model.bf16=true``), both recipes, on the same weights:
+    the fused SA backward's bf16 mode (K1 ``fused_sa_bwd_bf16``, K2
+    ``sa_weight_grad_bf16``) at sa1 and sa2 (batch 64, on the bf16
+    forward's pooled output) against the plain bf16 backward, each
+    gradient's rms error from the float64 plain level within 3 x the
+    float32 plain level's (``check_against_exact``), every positive max
+    routed, dW bitwise equal across two launches, times and bounds (bf16
+    products at the tensor cores' bf16 rate, the function's own bytes;
+    beside them ``design_bound_ms`` with the scratch rows this design
+    writes and reads); each recipe's bf16 step
+    (exactly fps 2, fused_sa_fwd_bf16 2, fused_sa_bwd_bf16 2,
+    sa_weight_grad_bf16 2, nn_argmin 3, lap 1; or fps 2, ball_group_single
+    2, nn_argmin 3, lap 1), 30 Adam steps with falling loss, the step time
+    and device time by kernel, the card against the CPU on 16 samples (the
+    step's loss within 2e-2 relative, which catches gross faults only;
+    the train-mode outputs and the encoder levels' gradients for a fixed
+    cotangent, by relative L2 error, within 0.6 of the CPU's own bf16 −
+    f32 gap, where the card's f32 model, the control, must fail; see
+    ``phase_bf16_card_vs_cpu``), the bf16 − f32 step gap at batch 64;
+    ``train_maskplanner`` with ``model.bf16=true`` for 2 epochs, then a
+    bf16 ``Predictor`` request on what it wrote;
+17. the card line, a ``kernels`` JSON line, and the result line last.
 
 It needs one CUDA card and the repository around it; without either it
 exits non-zero.
@@ -120,6 +141,10 @@ PEAK_BF16_OPS = 989e12    # H100 SXM, dense bf16 on the tensor cores (op/s)
 # orientations, where one flipped bf16 rounding moves a single element by
 # percents of max|ref| (the bf16 − f32 gap itself does so)
 BF16_REL_TOL = 2e-2
+# bf16 step, card against CPU: each output's and encoder level's relative
+# L2 error within this share of the CPU's own bf16 − f32 gap (sound runs
+# read at most 0.41 of it, the card's f32 model about 1)
+BF16_GAP_SHARE = 0.6
 F32_LANES = 128           # f32 add, multiply or compare lanes of an SM
 KERNELS = {
     "fps": dict(source="maskplanner_tpu_torch/csrc/fps.cu",
@@ -156,6 +181,15 @@ KERNELS = {
         source="maskplanner_tpu_torch/csrc/group_gather.cu",
         replaces="maskplanner_tpu/ops/pallas/group_gather.py:175",
         mode="single_pass=True"),
+    # the bf16 mode of #3 (bf16 training): K1 and K2
+    "fused_sa_bwd_bf16": dict(
+        source="maskplanner_tpu_torch/csrc/fused_sa_bwd.cu",
+        replaces="maskplanner_tpu/ops/pallas/fused_sa_train.py:589",
+        mode='precision="default"'),
+    "sa_weight_grad_bf16": dict(
+        source="maskplanner_tpu_torch/csrc/sa_weight_grad.cu",
+        replaces="maskplanner_tpu/ops/pallas/fused_sa_train.py:589",
+        mode='precision="default"'),
 }
 
 
@@ -171,6 +205,11 @@ BN_FORWARD_LAUNCHES = launches_of(fps=2, ball_group=2)
 BN_STEP_LAUNCHES = launches_of(fps=2, ball_group=2, nn_argmin=3, lap=1)
 BF16_FORWARD_LAUNCHES = launches_of(fps=2, fused_sa_fwd_bf16=2)
 BN_BF16_FORWARD_LAUNCHES = launches_of(fps=2, ball_group_single=2)
+BF16_STEP_LAUNCHES = launches_of(fps=2, fused_sa_fwd_bf16=2,
+                                 fused_sa_bwd_bf16=2, sa_weight_grad_bf16=2,
+                                 nn_argmin=3, lap=1)
+BN_BF16_STEP_LAUNCHES = launches_of(fps=2, ball_group_single=2, nn_argmin=3,
+                                    lap=1)
 
 
 def log(msg: str) -> None:
@@ -180,11 +219,10 @@ def log(msg: str) -> None:
 def counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from maskplanner_tpu_torch.ops.cuda.fps import fps_cuda
-    from maskplanner_tpu_torch.ops.cuda.fused_sa import (fused_sa_bf16_cuda,
-                                                         fused_sa_bwd_cuda,
-                                                         fused_sa_cuda,
-                                                         folded_sa_cuda,
-                                                         sa_weight_grad_cuda)
+    from maskplanner_tpu_torch.ops.cuda.fused_sa import (
+        fused_sa_bf16_cuda, fused_sa_bwd_bf16_cuda, fused_sa_bwd_cuda,
+        fused_sa_cuda, folded_sa_cuda, sa_weight_grad_bf16_cuda,
+        sa_weight_grad_cuda)
     from maskplanner_tpu_torch.ops.cuda.group_gather import (
         ball_group_cuda, ball_group_single_cuda, ball_query_cuda)
     from maskplanner_tpu_torch.ops.cuda.lap import lap_cuda
@@ -196,7 +234,9 @@ def counters() -> dict:
             "lap": lap_cuda, "ball_group": ball_group_cuda,
             "ball_query": ball_query_cuda, "fused_sa_folded": folded_sa_cuda,
             "fused_sa_fwd_bf16": fused_sa_bf16_cuda,
-            "ball_group_single": ball_group_single_cuda}
+            "ball_group_single": ball_group_single_cuda,
+            "fused_sa_bwd_bf16": fused_sa_bwd_bf16_cuda,
+            "sa_weight_grad_bf16": sa_weight_grad_bf16_cuda}
 
 
 def reset_counts() -> None:
@@ -292,6 +332,42 @@ def load_items(cfg, split: str) -> list[dict]:
 def mlp_macs(level) -> int:
     """Multiply-adds of one neighbour row through a level's MLP."""
     return sum(c.in_features * c.out_features for c in level.mlp_convs)
+
+
+def sa_backward_work(k1: dict, k2: dict, product: str, sa, pts, new_xyz,
+                     feats, idx, pooled, scratch_bytes: float) -> None:
+    """Add one fused level's backward to K1's and K2's work: operations,
+    ``product`` operations (the tensor-core products), ``bytes`` (what the
+    function must move) and ``design_bytes`` (what this design moves).
+
+    Operations: K1 the recompute and the input-gradient products, the
+    LayerNorms and sums (about 20 f32 operations an activation); K2 the
+    weight-gradient products. The function reads the points, centroids,
+    features, indices, pooled output, its gradient and the weights once,
+    and writes the features' gradient and the weights' gradients once:
+    those bytes are split between K1 and K2 by their products. In this
+    design K1 reads the inputs and writes the features' gradient, the
+    scratch rows (``scratch_bytes``) and the per-query sums; K2 reads those
+    two and writes the weights' gradients."""
+    acts = sum(c.out_features for c in sa.mlp_convs)
+    macs = mlp_macs(sa)
+    din = macs - (0 if feats is not None else
+                  sa.mlp_convs[0].in_features * sa.mlp_convs[0].out_features)
+    R = idx.numel()
+    k1["ops"] += R * 20.0 * acts
+    k1[product] += R * 2.0 * (macs + din)
+    k2[product] += R * 2.0 * macs
+    w_bytes = 4.0 * sum(p.numel() for p in sa.parameters())
+    fn_bytes = (4.0 * (pts.numel() + new_xyz.numel() + idx.numel()
+                       + 2 * pooled.numel()
+                       + 2 * (0 if feats is None else feats.numel()))
+                + 2 * w_bytes)
+    share = (macs + din) / (2 * macs + din)
+    k1["bytes"] += share * fn_bytes
+    k2["bytes"] += (1 - share) * fn_bytes
+    side = scratch_bytes + 4.0 * pooled.shape[0] * pooled.shape[1] * 3 * acts
+    k1["design_bytes"] += fn_bytes - w_bytes + side
+    k2["design_bytes"] += side + w_bytes
 
 
 def phase_kernels(model, xyz: torch.Tensor, res: dict) -> None:
@@ -662,12 +738,14 @@ def check_against_exact(name: str, got, plain, exact) -> float:
     return float((got - plain).abs().max())
 
 
-def check_routing(name, sa, leaves, params, idx, pooled) -> None:
+def check_routing(name, sa, leaves, params, idx, pooled,
+                  bf16: bool = False) -> None:
     """The max-pool backward finds the forward's winner for every (query,
     channel): with d_pooled = 1 the last LayerNorm's beta gradient counts
     the routed pairs that pass the ReLU, which must be every pair with a
     positive maximum (a recompute that differed from the forward in one bit
-    would lose the pair)."""
+    would lose the pair). ``bf16``: the kernels' bf16 modes, on the bf16
+    forward's ``pooled``."""
     from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_backward_cuda
 
     det = [None if t is None else t.detach() for t in leaves]
@@ -675,7 +753,8 @@ def check_routing(name, sa, leaves, params, idx, pooled) -> None:
     pooled = pooled.detach()
     _, _, _, grads = fused_sa_backward_cuda(sa.nsample, True, *det, dparams,
                                             idx, pooled,
-                                            torch.ones_like(pooled))
+                                            torch.ones_like(pooled),
+                                            bf16=bf16)
     routed = float(grads[-1][3].double().sum())
     want = int((pooled > 0).sum())
     log(f"[train-kernels]   routing: {routed:.0f} of {want} (query, channel) "
@@ -685,14 +764,14 @@ def check_routing(name, sa, leaves, params, idx, pooled) -> None:
                              f"max-pool gradients, expected {want}")
 
 
-def check_deterministic(name, args) -> None:
-    """Two launches of the level's backward (K1 then K2) give the same
-    weight gradients, bit for bit: no atomic and a summation order fixed by
-    the shapes."""
+def check_deterministic(name, args, bf16: bool = False) -> None:
+    """Two launches of the level's backward (K1 then K2; their bf16 modes
+    with ``bf16``) give the same weight gradients, bit for bit: no atomic
+    and a summation order fixed by the shapes."""
     from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_backward_cuda
 
-    first = fused_sa_backward_cuda(*args)[3]
-    second = fused_sa_backward_cuda(*args)[3]
+    first = fused_sa_backward_cuda(*args, bf16=bf16)[3]
+    second = fused_sa_backward_cuda(*args, bf16=bf16)[3]
     for j, (a, b) in enumerate(zip(first, second)):
         for n, x, y in zip(("dW", "db", "dgamma", "dbeta"), a, b):
             if not torch.equal(x, y):
@@ -744,7 +823,7 @@ def phase_train_kernels(cfg, model, batch, res: dict, card: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1)
     # -- fused SA backward (K1 + K2) at sa1 and sa2 -----------------------------
     k1, k2 = res["fused_sa_bwd"], res["sa_weight_grad"]
-    work = {name: dict(ops=0.0, tf32=0.0, bytes=0.0)
+    work = {name: dict(ops=0.0, tf32=0.0, bytes=0.0, design_bytes=0.0)
             for name in ("fused_sa_bwd", "sa_weight_grad")}
     pts, feats = batch["point_cloud"], None
     for name, sa in (("sa1", model.sa1), ("sa2", model.sa2)):
@@ -825,41 +904,27 @@ def phase_train_kernels(cfg, model, batch, res: dict, card: dict) -> None:
         # every layer the step asks it of, the input-gradient product; K2:
         # the weight-gradient products. Together the 6x MAC + 20x acts of
         # the whole backward. Every product runs on the tensor cores.
-        acts = sum(c.out_features for c in sa.mlp_convs)
-        macs = mlp_macs(sa)
-        din = macs - (0 if feats is not None else
-                      sa.mlp_convs[0].in_features
-                      * sa.mlp_convs[0].out_features)
-        R = B * S * K
-        work["fused_sa_bwd"]["ops"] += R * 20.0 * acts
-        work["fused_sa_bwd"]["tf32"] += R * 2.0 * (macs + din)
-        work["sa_weight_grad"]["tf32"] += R * 2.0 * macs
-        # K1 reads the points, features, indices, pooled output, its
-        # gradient and the weights, and writes the scratch rows and the
-        # per-query sums (and d_features); K2 reads those and writes the
-        # weight gradients
-        pts_bytes = 4.0 * (pts.numel() + new_xyz.numel()
-                           + 2 * (0 if feats is None else feats.numel()))
-        w_bytes = 4.0 * sum(p.numel() for p in sa.parameters())
-        side = 4.0 * (scratch_floats(chans, R)
-                      + B * S * 3 * acts)
-        work["fused_sa_bwd"]["bytes"] += (pts_bytes + w_bytes + side
-                                          + 4.0 * (idx.numel()
-                                                   + 2 * pooled.numel()))
-        work["sa_weight_grad"]["bytes"] += side + w_bytes
+        sa_backward_work(work["fused_sa_bwd"], work["sa_weight_grad"],
+                         "tf32", sa, pts, new_xyz, feats, idx, pooled,
+                         4.0 * scratch_floats(chans, idx.numel()))
         pts, feats = new_xyz.detach(), pooled.detach()
     for kname, wk in work.items():
         # the f32 rule of earlier rows: every operation at the CUDA cores'
-        # rate; beside it, this design's mix (products on the tensor cores)
+        # rate; beside it, this design's mix (products on the tensor cores),
+        # and the mix with the scratch rows this design moves
         res[kname].update(bound(wk["ops"] + wk["tf32"], wk["bytes"]))
         res[kname].update(bound(wk["ops"], wk["bytes"], wk["tf32"], "mix_"))
+        res[kname].update(bound(wk["ops"], wk["design_bytes"], wk["tf32"],
+                                "design_"))
         res[kname]["library_ms"] = None
     log(f"[train-kernels] fused SA backward bound (f32 rule) "
         f"{k1['bound_ms'] + k2['bound_ms']:.4f} ms; K1 "
         f"{k1['bound_ms']:.4f} ({k1['bound_by']}), K2 {k2['bound_ms']:.4f} "
         f"({k2['bound_by']}); this design's mix: K1 {k1['mix_bound_ms']:.4f} "
         f"({k1['mix_bound_by']}), K2 {k2['mix_bound_ms']:.4f} "
-        f"({k2['mix_bound_by']})")
+        f"({k2['mix_bound_by']}); with its scratch rows: K1 "
+        f"{k1['design_bound_ms']:.4f} ({k1['design_bound_by']}), K2 "
+        f"{k2['design_bound_ms']:.4f} ({k2['design_bound_by']})")
 
     # -- the step's nearest-neighbour and LAP inputs --------------------------
     model.train()
@@ -976,8 +1041,8 @@ def phase_train_step(cfg, items, label: str = "train",
                      expect: dict = STEP_LAUNCHES, steps: int = 30,
                      compare: int = 2) -> dict:
     """Launch counts of one training step at batch 64, the card against the
-    CPU on ``compare`` samples, a ``steps``-step health check and the step
-    time."""
+    CPU on ``compare`` samples (none at 0), a ``steps``-step health check
+    and the step time."""
     from maskplanner_tpu_torch.losses import LossHandler
     from maskplanner_tpu_torch.models import get_model
     from maskplanner_tpu_torch.train import make_optimizer, train_step
@@ -1000,7 +1065,8 @@ def phase_train_step(cfg, items, label: str = "train",
     if not bool(torch.isfinite(loss)):
         raise AssertionError(f"non-finite training loss {float(loss)}")
 
-    phase_card_vs_cpu(cfg, items[:compare], handler, label)
+    if compare:
+        phase_card_vs_cpu(cfg, items[:compare], handler, label)
 
     # health: Adam steps on the batch
     model = get_model(cfg, device="cuda",
@@ -1081,27 +1147,33 @@ def phase_card_vs_cpu(cfg, items, handler, label: str = "train") -> None:
         f"card-vs-CPU max|Δ| {worst[0]:.2e} of max|ref| ({worst[1]})")
 
 
-def phase_train_then_serve() -> None:
-    """The training entry point in-process, then a Predictor serves what it
-    wrote."""
+def phase_train_then_serve(extra=(), expect: dict = STEP_LAUNCHES,
+                           serve: dict = FORWARD_LAUNCHES,
+                           label: str = "train-then-serve") -> None:
+    """The training entry point in-process (with the ``extra`` config
+    arguments) for 2 epochs of one step, each step launching the fused SA
+    backward's kernels as ``expect`` says; then a Predictor serves what it
+    wrote in the run's own dtype, launching ``serve``."""
     from maskplanner_tpu_torch import train_maskplanner
 
     with tempfile.TemporaryDirectory() as out:
         reset_counts()
         run_dir, _ = train_maskplanner.main([
-            FLAGSHIP, "device=cuda", "epochs=2", "eval_freq=1",
+            FLAGSHIP, *extra, "device=cuda", "epochs=2", "eval_freq=1",
             f"dataset_size={BATCH}", "test_dataset_size=8", "seed=1",
             f"output_dir={out}"])
         launches = read_counts()
-        if launches["fused_sa_bwd"] != 2 * STEP_LAUNCHES["fused_sa_bwd"] \
-                or launches["sa_weight_grad"] != 2 * STEP_LAUNCHES[
-                    "sa_weight_grad"]:
+        backward = [k for k in ("fused_sa_bwd", "sa_weight_grad",
+                                "fused_sa_bwd_bf16", "sa_weight_grad_bf16")
+                    if expect[k]]
+        if not backward or any(launches[k] != 2 * expect[k]
+                               for k in backward):
             raise AssertionError(f"2 epochs of one step launched {launches}")
         if not os.path.isfile(os.path.join(run_dir,
                                            "last_checkpoint.torch.pt")):
             raise AssertionError("train_maskplanner wrote no "
                                  "last_checkpoint")
-        serve_request(run_dir, "train-then-serve", reps=0)
+        serve_request(run_dir, label, reps=0, expect=serve)
 
 
 # ---------------------------------------------------------------------------
@@ -1451,6 +1523,299 @@ def phase_bf16(cfg, model, clouds: np.ndarray, label: str, expect: dict):
     return launches, twin
 
 
+# ---------------------------------------------------------------------------
+# bf16 training (model.bf16=true)
+# ---------------------------------------------------------------------------
+
+def phase_bf16_train_kernels(model, batch, res: dict) -> None:
+    """The fused SA backward's bf16 mode (K1 ``fused_sa_bwd_bf16`` then K2
+    ``sa_weight_grad_bf16``) at the step's sa1 and sa2 shapes (a batch of
+    64 of the train split, sa2's features from the bf16 forward of sa1),
+    against the plain bf16 backward (``fused_sa_backward_plain(...,
+    precision="bf16")`` on the plain forward's own pooled output).
+
+    Each gradient is held against the plain level with float64 sums of the
+    same bf16 operands (``check_against_exact``): kernel and plain round
+    the same operands but sum in other orders, and one float32 ulp can
+    flip the bf16 rounding of a later operand or a max-pool near-tie, so
+    the kernel is allowed 3x the plain float32 level's own rms error from
+    the float64 one (the bf16 forward's rule, ``phase_bf16_kernels``).
+    Every positive max-pool output routed (``check_routing`` on the bf16 forward's
+    pooled), the weight gradients bitwise equal across two launches; K1
+    and K2 timed apart, the plain backward beside them; the bound by this
+    design's mix (bf16 products at the tensor cores' bf16 rate, the rest at
+    the f32 rate)."""
+    from maskplanner_tpu_torch.ops.cuda.fused_sa import (
+        fused_sa_backward_cuda, fused_sa_bf16_cuda, fused_sa_bwd_bf16_cuda,
+        sa_weight_grad_bf16_cuda, scratch_floats)
+    from maskplanner_tpu_torch.ops.fused_sa import (fused_sa_backward_plain,
+                                                    fused_sa_forward_plain)
+    from maskplanner_tpu_torch.ops.sampling import (farthest_point_sample,
+                                                    index_points)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    k1, k2 = res["fused_sa_bwd_bf16"], res["sa_weight_grad_bf16"]
+    work = {name: dict(ops=0.0, bf16=0.0, bytes=0.0, design_bytes=0.0)
+            for name in ("fused_sa_bwd_bf16", "sa_weight_grad_bf16")}
+    pts, feats = batch["point_cloud"], None
+    for name, sa in (("sa1", model.sa1), ("sa2", model.sa2)):
+        B, N, _ = pts.shape
+        S, K = sa.npoint, sa.nsample
+        new_xyz = index_points(pts, farthest_point_sample(pts, S))
+        params = [tuple(t.detach() for t in layer)
+                  for layer in sa.layer_params()]
+        leaves = [pts, new_xyz, feats]
+        pooled, idx = fused_sa_bf16_cuda(sa.radius, K, True, *leaves, params)
+        ct = torch.randn(pooled.shape, generator=gen, device="cuda")
+        reset_counts()
+        d_xyz, d_new, d_feat, grads = fused_sa_backward_cuda(
+            K, True, *leaves, params, idx, pooled, ct, bf16=True)
+        counts = read_counts()
+        if (counts["fused_sa_bwd_bf16"], counts["sa_weight_grad_bf16"]) \
+                != (1, 1):
+            raise AssertionError("the bf16 backward did not run K1 and K2 "
+                                 "once each")
+        got = [d_xyz, d_new] + ([] if feats is None else [d_feat]) + [
+            g for layer in grads for g in layer]
+
+        def plain(ls, ps):
+            out, i = fused_sa_forward_plain(sa.radius, K, "layer", *ls, ps,
+                                            "bf16")
+            dx, dn, df, gs = fused_sa_backward_plain(
+                K, "layer", *ls, ps, i, out, ct.to(out.dtype),
+                precision="bf16")
+            return i, [dx, dn] + ([] if df is None else [df]) + [
+                g for layer in gs for g in layer]
+
+        ridx, ref = plain(leaves, params)
+        if not torch.equal(idx, ridx):
+            raise AssertionError(f"fused SA bf16 {name}: neighbour indices "
+                                 f"differ")
+        _, ref64 = plain([None if t is None else t.double() for t in leaves],
+                         [tuple(t.double() for t in l) for l in params])
+        names = ["d_xyz", "d_new_xyz"] + ([] if feats is None
+                                          else ["d_features"])
+        names += [f"L{j}.{n}" for j in range(len(params))
+                  for n in ("dW", "db", "dgamma", "dbeta")]
+        log(f"[bf16-train-kernels] fused_sa_bwd_bf16 {name} B={B} N={N} "
+            f"S={S} K={K}:")
+        check_routing(name, sa, leaves, params, idx, pooled, bf16=True)
+        for n, a, b, c in zip(names, got, ref, ref64):
+            err = check_against_exact(n, a, b, c)
+            r = k2 if n.startswith("L") else k1
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+        # times: K1 with the step's flags (sa2's features alone carry a
+        # gradient), K2 on its rows, and the plain bf16 backward
+        needs = (False, False, feats is not None)
+        args = (K, True, *leaves, params, idx, pooled, ct)
+        check_deterministic(name, args, bf16=True)
+        _, _, _, scratch, vec, chans = fused_sa_bwd_bf16_cuda(*args, needs)
+        rows = idx.numel()
+        ms1 = median_ms(lambda: fused_sa_bwd_bf16_cuda(*args, needs), 5)
+        ms2 = median_ms(lambda: sa_weight_grad_bf16_cuda(scratch, vec, chans,
+                                                         True, rows), 5)
+        del scratch, vec
+        ref_pooled, _ = fused_sa_forward_plain(sa.radius, K, "layer",
+                                               *leaves, params, "bf16")
+        plain_ms = median_ms(lambda: fused_sa_backward_plain(
+            K, "layer", *leaves, params, idx, ref_pooled, ct, needs=needs,
+            precision="bf16"), 3, 1)
+        log(f"[bf16-train-kernels] fused_sa_bwd_bf16 {name}: K1 {ms1:.3f} ms "
+            f"+ K2 {ms2:.3f} ms = {ms1 + ms2:.3f} ms, plain {plain_ms:.3f} "
+            f"ms")
+        k1["ms"] += ms1
+        k2["ms"] += ms2
+        k1.setdefault("level_ms", {})[name] = ms1
+        k2.setdefault("level_ms", {})[name] = ms2
+        # the plain version computes both kernels' function at once
+        k1["plain_ms"] += plain_ms
+        k2["plain_ms"] += plain_ms
+        # the scratch rows are bf16 here, two to a 32-bit word
+        sa_backward_work(work["fused_sa_bwd_bf16"],
+                         work["sa_weight_grad_bf16"], "bf16", sa, pts,
+                         new_xyz, feats, idx, pooled,
+                         2.0 * scratch_floats(chans, rows + rows % 2))
+        pts, feats = new_xyz, pooled
+    for kname, wk in work.items():
+        res[kname].update(bound(wk["ops"], wk["bytes"], bf16_ops=wk["bf16"]))
+        res[kname].update(bound(wk["ops"], wk["design_bytes"],
+                                prefix="design_", bf16_ops=wk["bf16"]))
+        res[kname]["library_ms"] = None
+    log(f"[bf16-train-kernels] fused SA backward bf16: K1 {k1['ms']:.4f} ms "
+        f"(bound {k1['bound_ms']:.4f}, {k1['bound_by']}; with its scratch "
+        f"rows {k1['design_bound_ms']:.4f}, {k1['design_bound_by']}), K2 "
+        f"{k2['ms']:.4f} ms (bound {k2['bound_ms']:.4f}, {k2['bound_by']}; "
+        f"with its scratch rows {k2['design_bound_ms']:.4f}, "
+        f"{k2['design_bound_by']})")
+
+
+def group_of(param: str) -> str:
+    """A parameter's group: its level (sa1..sa3) or head module."""
+    return param.split(".")[0]
+
+
+def group_rel_l2(got: dict, ref: dict) -> dict:
+    """Relative L2 error of each parameter group's gradients."""
+    num, den = {}, {}
+    for n, r in ref.items():
+        g = group_of(n)
+        num[g] = num.get(g, 0.0) + float(((got[n] - r) ** 2).sum())
+        den[g] = den.get(g, 0.0) + float((r ** 2).sum())
+    return {g: (num[g] / max(den[g], 1e-300)) ** 0.5 for g in num}
+
+
+def bf16_step_models(cfg, dev: str):
+    """The seeded f32 model of ``cfg`` and its bf16 twin on ``dev``, head
+    dropout 0."""
+    from maskplanner_tpu_torch.models import get_model
+
+    out = []
+    for bf16 in (False, True):
+        c = copy.deepcopy(cfg)
+        c["model"]["bf16"] = bf16
+        out.append(get_model(c, device=dev, dropout=0.0,
+                             generator=torch.Generator().manual_seed(0)))
+    return out
+
+
+def encoder_grads(model, x: torch.Tensor) -> dict:
+    """The train-mode encoder's (sa1..sa3) parameter gradients of
+    ⟨global feature, ct⟩, ct fixed (numpy, seed 3): its backward alone
+    (FPS from index 0, the bf16 products summed in f32 as in a step)."""
+    from maskplanner_tpu_torch.models.maskplanner import f32_accumulation
+    from maskplanner_tpu_torch.models.pointnet2 import PointNet2Encoder
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with f32_accumulation():
+        feat = PointNet2Encoder.forward(model, x)
+        ct = np.random.default_rng(3).standard_normal(feat.shape)
+        (feat * torch.from_numpy(ct.astype(np.float32)).to(feat.device)) \
+            .sum().backward()
+    return {n: p.grad.detach().cpu().double()
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def train_outputs(model, x: torch.Tensor) -> dict:
+    """The train-mode forward's outputs (FPS from index 0, dropout 0)."""
+    model.train()
+    with torch.no_grad():
+        out = model(x)
+    return {f: getattr(out, f).detach().cpu().double()
+            for f in ("traj", "stroke_masks", "mask_scores")}
+
+
+def rel_l2(got: dict, ref: dict) -> dict:
+    return {k: float((got[k] - r).norm() / r.norm()) for k, r in ref.items()}
+
+
+def phase_bf16_card_vs_cpu(cfg, items, handler, label: str) -> None:
+    """A bf16 step on the card against the CPU (plain versions with the
+    same roundings), the same weights, FPS from index 0, head dropout 0,
+    on 16 samples: the train-mode outputs and the encoder's gradients for
+    a fixed cotangent on its global feature (``encoder_grads``, per level),
+    each by relative L2 error within ``BF16_GAP_SHARE`` of the distance
+    from the CPU's bf16 step to its f32 step (the gap bf16 itself makes:
+    a port with another precision or other rounding places lands near
+    it). A control holds the card's f32 model to the same rule against
+    the CPU's bf16 step, and the phase fails unless the control fails.
+    The step's loss is held within ``BF16_REL_TOL`` relative, which
+    catches gross faults only: bf16 moves the loss far less than that.
+
+    Not a fixed tolerance on those, and not the step's own gradients: at
+    random init the clouds' global features nearly coincide, so a train-mode
+    BatchNorm of the heads divides their differences by a small batch
+    deviation, and a bf16 rounding that falls the other way upstream moves
+    the normalised outputs by percents (bf16 against f32: 26-45% relative
+    L2 on the card and on the CPU alike, where eval moves them by 4e-3;
+    the JAX package's bf16 step does the same, tests/test_torch_port_bf16_
+    train.py); the loss's matchings (the LAP, the nearest-neighbour
+    argmins) then reassign segments, which moves the step's gradients by
+    O(1) (so does a 1e-4 relative perturbation of the weights in float32).
+    On 2 samples those BatchNorms normalise 2 rows, and the card's loss
+    moved 1.2e-2 from the CPU's where bf16 moved it by 5e-4 (PERF.md §6)."""
+    weights = active_weights(cfg, handler)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        f32, bf16 = bf16_step_models(cfg, dev)
+        b = to_batch(items, dev)
+        x = b["point_cloud"]
+        res[dev] = (step_grads(bf16, handler, b, weights)[0],
+                    train_outputs(bf16, x), encoder_grads(bf16, x))
+        res[dev + " f32"] = (step_grads(f32, handler, b, weights)[0],
+                             train_outputs(f32, x), encoder_grads(f32, x))
+    (l_gpu, o_gpu, e_gpu), (l_cpu, o_cpu, e_cpu), (l_f32, o_f32, e_f32), \
+        (l_ctl, o_ctl, e_ctl) = (res[k] for k in ("cuda", "cpu", "cpu f32",
+                                                  "cuda f32"))
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    gaps = {**rel_l2(o_cpu, o_f32), **group_rel_l2(e_cpu, e_f32)}
+    share = {k: e / gaps[k] for k, e in
+             {**rel_l2(o_gpu, o_cpu), **group_rel_l2(e_gpu, e_cpu)}.items()}
+    control = {k: e / gaps[k] for k, e in
+               {**rel_l2(o_ctl, o_cpu), **group_rel_l2(e_ctl, e_cpu)}.items()}
+    log(f"[{label}] card vs CPU on {len(items)} samples: step loss card "
+        f"{l_gpu:.6f} cpu {l_cpu:.6f}: rel Δ {rel:.2e} (the CPU's bf16 − "
+        f"f32 {abs(l_cpu - l_f32) / abs(l_f32):.2e}; the card's f32 model "
+        f"{abs(l_ctl - l_cpu) / abs(l_cpu):.2e}); rel. L2 of the outputs and "
+        f"the encoder levels' gradients as a share of the CPU's bf16 − f32 "
+        f"gap (limit {BF16_GAP_SHARE}), card bf16 / card f32 (control): "
+        + ", ".join(f"{k} {share[k]:.3f} / {control[k]:.3f} (gap "
+                    f"{gaps[k]:.2e})" for k in gaps))
+    if not rel <= BF16_REL_TOL:
+        raise AssertionError(f"{label}: the card's bf16 loss differs from "
+                             f"the CPU's by {rel} relative")
+    bad = {k: v for k, v in share.items() if not v <= BF16_GAP_SHARE}
+    if bad:
+        raise AssertionError(f"{label}: card vs CPU (relative L2) beyond "
+                             f"{BF16_GAP_SHARE} of the CPU's bf16 − f32 "
+                             f"gap: {bad}")
+    if all(v <= BF16_GAP_SHARE for v in control.values()):
+        raise AssertionError(f"{label}: the card's f32 model passes the bf16 "
+                             f"check too (shares {control}): it does not "
+                             f"tell the precisions apart")
+
+
+def phase_bf16_step_gap(cfg, items, label: str) -> None:
+    """The bf16 step against the f32 step on the card, the same weights and
+    the batch of 64: the loss, the train-mode outputs, and each parameter
+    group's gradients (the step's and the encoder's for a fixed cotangent)
+    by relative L2 error (what bf16 training costs; logged, not held)."""
+    from maskplanner_tpu_torch.losses import LossHandler
+
+    handler = LossHandler(cfg["loss"], cfg)
+    weights = active_weights(cfg, handler)
+    batch = to_batch(items, "cuda")
+    x = batch["point_cloud"]
+    (l32, g32, o32, e32), (l16, g16, o16, e16) = (
+        (*step_grads(m, handler, batch, weights), train_outputs(m, x),
+         encoder_grads(m, x)) for m in bf16_step_models(cfg, "cuda"))
+    log(f"[{label}] bf16 − f32 at batch {BATCH}: step loss {l16:.6f} vs "
+        f"{l32:.6f} (rel {abs(l16 - l32) / abs(l32):.2e}); outputs' rel. "
+        f"L2 " + ", ".join(f"{k} {e:.2e}" for k, e in rel_l2(o16, o32).items())
+        + "; encoder gradients' rel. L2 " + ", ".join(
+            f"{g} {e:.2e}" for g, e in group_rel_l2(e16, e32).items())
+        + "; the step's gradients' rel. L2 " + ", ".join(
+            f"{g} {e:.2e}" for g, e in group_rel_l2(g16, g32).items()))
+
+
+def phase_bf16_train(cfg, items, label: str, expect: dict,
+                     compare: int) -> dict:
+    """A recipe's bf16 training: the step's launches, the card against the
+    CPU on ``compare`` samples, 30 Adam steps, the step time and device
+    time by kernel (``phase_train_step``), then the bf16 − f32 step gap ->
+    the step's launches."""
+    from maskplanner_tpu_torch.losses import LossHandler
+
+    bf16_cfg = copy.deepcopy(cfg)
+    bf16_cfg["model"]["bf16"] = True
+    launches = phase_train_step(bf16_cfg, items, label, expect, 30,
+                                compare=0)
+    phase_bf16_card_vs_cpu(cfg, items[:compare],
+                           LossHandler(cfg["loss"], cfg), label)
+    phase_bf16_step_gap(cfg, items, label)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1501,6 +1866,25 @@ def main() -> int:
     # encoder's float32 rounding into an O(1) difference (PERF.md §6)
     bn_launches = phase_train_step(bn_cfg, train_items, "bn-train",
                                    BN_STEP_LAUNCHES, 12, compare=16)
+    log(f"[time] f32 and bf16-serving phases done at "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # bf16 training, both recipes; each step's counts set to 0 just before
+    # it and read just after
+    bf16_model = bf16_twin(cfg, model)
+    with torch.no_grad():
+        phase_bf16_train_kernels(bf16_model, to_batch(train_items, "cuda"),
+                                 res)
+    del bf16_model
+    # 16 samples: on 2 the heads' BatchNorms normalise 2 rows (see
+    # phase_bf16_card_vs_cpu)
+    bf16_step_launches = phase_bf16_train(cfg, train_items, "bf16-train",
+                                          BF16_STEP_LAUNCHES, compare=16)
+    phase_train_then_serve(["model.bf16=true"], BF16_STEP_LAUNCHES,
+                           BF16_FORWARD_LAUNCHES, "bf16-train-then-serve")
+    bn_bf16_step_launches = phase_bf16_train(
+        bn_cfg, train_items, "bn-bf16-train", BN_BF16_STEP_LAUNCHES,
+        compare=16)
     log(f"[time] all phases done at {time.perf_counter() - t0:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -1518,6 +1902,11 @@ def main() -> int:
                                     bf16_launches["fused_sa_fwd_bf16"])
     counted["ball_group_single"] = ("model.norm=batch bf16 forward",
                                     bn_bf16_launches["ball_group_single"])
+    for name in ("fused_sa_bwd_bf16", "sa_weight_grad_bf16"):
+        counted[name] = ("bf16 training step", bf16_step_launches[name])
+    if bn_bf16_step_launches["ball_group_single"] == 0:
+        raise AssertionError("the model.norm=batch bf16 step launched no "
+                             "single-pass gather")
     for name, (path, n) in counted.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on {path}")

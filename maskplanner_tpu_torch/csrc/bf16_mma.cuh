@@ -1,5 +1,7 @@
-// bf16 tensor-core products with mma.sync, for the bf16 mode of the fused
-// set-abstraction forward (fused_sa_common.cuh::mma_product_bf16).
+// bf16 tensor-core products with mma.sync, for the bf16 modes of the fused
+// set-abstraction kernels: the forward's and K1's layer products
+// (fused_sa_common.cuh::mma_product_bf16) and K2's weight gradients
+// (sa_weight_grad.cu::dw_partial_bf16).
 //
 // The TPU kernel's precision="default" product
 // (maskplanner_tpu/ops/pallas/fused_sa_train.py, `_dot`) is one MXU pass

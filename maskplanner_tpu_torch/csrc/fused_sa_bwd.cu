@@ -61,6 +61,26 @@
 // ReLU. No weight gradient is summed here and no f64 atomic remains: the
 // per-query sums go to their own slot and K2 reduces every sum in a fixed
 // order, so the weight gradients are the same bits from run to run.
+//
+// The bf16 mode (fused_sa_backward_bf16) replaces the same Pallas kernel's
+// precision="default" (bf16 models train with it; `_bwd_kernel` with
+// `_Gather(single=True)`). Its recompute is the forward's bf16 mode
+// (fused_sa_fwd.cu) step for step: mma_product_bf16 on the weight as bf16 in
+// the Dense layout, the A operand read from the float32 rows and rounded in
+// registers, channels padded to 16 with zero pad rows and bias, the same
+// layer_norm_rows; so the routing by bit equality holds against the bf16
+// forward's pooled output too. The input gradient bf16(d_pre) · bf16(W) is
+// the same product on the transposed weight (ci16, co16) bf16, with no bias,
+// stored through the ReLU mask in place: one m16n8k16 mma a k-step of 16
+// where the float32 mode splits d_pre into TF32 parts and runs three. Its
+// sums stay float32, unrounded, as do the LayerNorm backward, db, dgamma and
+// dbeta. The rows scattered to the source points are rounded to bf16 before
+// the float32 atomics; d_new_xyz sums the unrounded offsets' gradient. The
+// scratch rows are stored rounded to bf16 (K2's bf16 mode rounds them
+// anyway): half the bytes, two neighbouring rows interleaved so that one
+// 32-bit word holds K2's mma fragment (sa_weight_grad.cu). Weights resident
+// where both orientations fit beside the groups (sa1: 58 KB), else streamed
+// in k-tiles through a double buffer by one group (sa2).
 
 #include <cuda_runtime.h>
 
@@ -123,11 +143,21 @@ constexpr int kNeedFeats = 4;
 struct Layer {
   const float* wt;     // (ci8, co8): the Dense weight transposed, padded
   const float* w_pad;  // (co, ci_pad): the Dense weight, zero-padded
+  const __nv_bfloat16* w16;   // bf16: (cop, cip), the Dense weight, padded
+  const __nv_bfloat16* wt16;  // bf16: (cip, cop), its transpose, padded
   const float* bias;   // (co,)
   const float* gamma;  // (co,) or null without LayerNorm
   const float* beta;   // (co,) or null without LayerNorm
   float* d_rows;       // scratch (rows, co): d_pre
   float* in_rows;      // scratch (rows, ci_pad): the layer's input
+  __nv_bfloat16* d16;   // bf16: d_pre's scratch rows, in pairs
+  __nv_bfloat16* in16;  // bf16: the input's scratch rows, in pairs
+  int cip;     // bf16: ci rounded up to 16 (the mma's k)
+  int cop;     // bf16: co rounded up to 16
+  int tile16;  // bf16 streamed: columns of a w16 tile (the recompute)
+  int tilet;   // bf16 streamed: columns of a wt16 tile (the input gradient)
+  int res16;   // bf16 resident: offset of w16 in the weight buffer (floats)
+  int res16t;  // bf16 resident: offset of wt16
   int ci;
   int co;
   int ci_pad;  // ci rounded up to a multiple of 4
@@ -371,6 +401,38 @@ __device__ void write_rows(const Threads& th, const float* src, int ld,
   }
 }
 
+// As write_rows, rounded to bf16, the chunk's rows being rows row0.. of the
+// scratch: rows 2p and 2p + 1 interleave, element (r, c) at
+// (r / 2) 2 n_pad + 2 c + r % 2, so that a 32-bit word holds the two rows
+// of one column (K2's bf16 fragments). Two rows a warp.
+__device__ void write_rows_bf16(const Threads& th, const float* src, int ld,
+                                int n, int n_pad, int rows, size_t row0,
+                                __nv_bfloat16* __restrict__ dst) {
+  for (int k = 2 * (th.tid >> 5); k < rows; k += 2 * (th.n >> 5)) {
+    for (int c = th.tid & 31; c < n_pad; c += 32) {
+      for (int j = 0; j < 2 && k + j < rows; ++j) {
+        const size_t r = row0 + k + j;
+        const float v = c < n ? src[(k + j) * ld + c] : 0.f;
+        dst[(r >> 1) * 2 * n_pad + 2 * c + (r & 1)] = __float2bfloat16_rn(v);
+      }
+    }
+  }
+}
+
+// The bf16 product on a weight resident at wbuf + res or streamed through
+// wbuf (k-tiles of `tile` columns, a double buffer).
+__device__ void product_bf16(const Threads& th, int store, const float* in,
+                             int ld_in, int rows, const __nv_bfloat16* w,
+                             const float* bias, int cip, int co, int cop,
+                             float* out, int ld_out, float* wbuf, int res,
+                             int tile, bool resident) {
+  fused_sa::mma_product_bf16(
+      th, store, in, ld_in, rows, w, bias, cip, co, cop, out, ld_out,
+      reinterpret_cast<__nv_bfloat16*>(resident ? wbuf + res : wbuf), tile,
+      2, resident);
+}
+
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_sa_bwd_kernel(const float* __restrict__ xyz,
                         const float* __restrict__ new_xyz,
@@ -439,8 +501,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     const Threads block{static_cast<int>(threadIdx.x), kThreads, 0};
     for (int l = 0; l < n_layers; ++l) {
       const Layer& L = mlp.layer[l];
-      fused_sa::stage_rows(block, L.wt, L.co8, 0, L.ci8, wbuf + L.res_wt,
-                           L.ld_wt, true);
+      if constexpr (kBf16) {
+        fused_sa::stage_cols_bf16(
+            block, L.w16, L.cip, L.cop, 0, L.cip,
+            reinterpret_cast<__nv_bfloat16*>(wbuf + L.res16), L.cip + 8);
+        fused_sa::stage_cols_bf16(
+            block, L.wt16, L.cop, L.cip, 0, L.cop,
+            reinterpret_cast<__nv_bfloat16*>(wbuf + L.res16t), L.cop + 8);
+      } else {
+        fused_sa::stage_rows(block, L.wt, L.co8, 0, L.ci8, wbuf + L.res_wt,
+                             L.ld_wt, true);
+      }
     }
     tf32::cp_async_wait<0>();
   }
@@ -486,9 +557,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int ld_in = l == 0 ? mlp.ld_x : mlp.layer[l - 1].ld;
         if (!(SA_BWD_SKIP & 1)) {
           // with LayerNorm the pre-norm h, else the activation
-          recompute(th, mlp.layer_norm ? kStorePlain : kStoreRelu, in, ld_in,
-                    rows, L, own + (mlp.layer_norm ? h_off[l] : a_off[l]),
-                    wbuf, resident);
+          const int store = mlp.layer_norm ? kStorePlain : kStoreRelu;
+          float* out = own + (mlp.layer_norm ? h_off[l] : a_off[l]);
+          if constexpr (kBf16) {
+            product_bf16(th, store, in, ld_in, rows, L.w16, L.bias, L.cip,
+                         L.co, L.cop, out, L.ld, wbuf, L.res16, L.tile16,
+                         resident);
+          } else {
+            recompute(th, store, in, ld_in, rows, L, out, wbuf, resident);
+          }
         }
         th.sync();
         PHASE(1);
@@ -611,18 +688,33 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float* in = l == 0 ? x_buf : own + a_off[l - 1];
         const int ld_in = l == 0 ? mlp.ld_x : mlp.layer[l - 1].ld;
         if (!(SA_BWD_SKIP & 2)) {
-          write_rows(th, d, L.ld, L.co, L.co, rows, L.d_rows + row0 * L.co);
-          write_rows(th, in, ld_in, L.ci, L.ci_pad, rows,
-                     L.in_rows + row0 * L.ci_pad);
+          if constexpr (kBf16) {
+            write_rows_bf16(th, d, L.ld, L.co, L.co, rows, row0, L.d16);
+            write_rows_bf16(th, in, ld_in, L.ci, L.ci_pad, rows, row0,
+                            L.in16);
+          } else {
+            write_rows(th, d, L.ld, L.co, L.co, rows,
+                       L.d_rows + row0 * L.co);
+            write_rows(th, in, ld_in, L.ci, L.ci_pad, rows,
+                       L.in_rows + row0 * L.ci_pad);
+          }
         }
         th.sync();
         PHASE(5);
         if ((SA_BWD_SKIP & 4) || (l == 0 && !need_in)) continue;
-        split_rows(th, d, own + lo_off[l], L.ld, L.co, rows);
-        th.sync();
-        input_grad(th, l > 0, resident, d, own + lo_off[l], L.ld, rows, L,
-                   l > 0 ? own + a_off[l - 1] : x_buf, ld_in,
-                   resident ? wbuf + L.res_wt : wbuf);
+        float* d_in = l > 0 ? own + a_off[l - 1] : x_buf;
+        if constexpr (kBf16) {
+          // d_pre (rows, cop) · W: the transposed weight as a (cip, cop)
+          // layer without bias
+          product_bf16(th, l > 0 ? fused_sa::kStoreMask : kStorePlain, d,
+                       L.ld, rows, L.wt16, nullptr, L.cop, 0, L.cip, d_in,
+                       ld_in, wbuf, L.res16t, L.tilet, resident);
+        } else {
+          split_rows(th, d, own + lo_off[l], L.ld, L.co, rows);
+          th.sync();
+          input_grad(th, l > 0, resident, d, own + lo_off[l], L.ld, rows, L,
+                     d_in, ld_in, resident ? wbuf + L.res_wt : wbuf);
+        }
         th.sync();
         PHASE(6);
       }
@@ -631,7 +723,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = tid; e < rows * cin; e += th.n) {
         const int k = e / cin;
         const int c = e - k * cin;
-        const float g = x_buf[k * mlp.ld_x + c];
+        float g = x_buf[k * mlp.ld_x + c];
+        // bf16: the row rounded, summed in float32
+        if constexpr (kBf16) g = __bfloat162float(__float2bfloat16_rn(g));
         const size_t row = static_cast<size_t>(b) * n + sel[k];
         if (c < 3) {
           if (need & kNeedXyz) atomicAdd(d_xyz + row * 3 + c, g);
@@ -659,35 +753,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 #endif
 }
 
-}  // namespace
+// The least row stride of at least n floats that is 8 modulo 16 (the bf16
+// product's float2 A loads: a half-warp's 4 rows x 4 float2 hit 32 banks).
+int stride16(int n) { return ((n - 8 + 15) & ~15) + 8; }
 
-// Inputs as fused_sa_forward, plus idx (b, s, k) int32 and pooled (b, s, C)
-// from it and d_pooled (b, s, C), all contiguous. Layer l reads
-// layer_ptrs[5l .. 5l+4] = (wt (ci8, co8), w_pad (co, ci_pad), bias, gamma,
-// beta), with chans[l] = ci, chans[l + 1] = co, wt the Dense weight
-// transposed and zero-padded to multiples of 8 as the forward takes it,
-// ci_pad = ci rounded up to a multiple of 4 (w_pad's columns past ci
-// zero); gamma and beta are null when
-// layer_norm == 0. Every co is a multiple of 4 and at most 512; wt and w_pad
-// are 16-byte aligned. need: bit 0 d_xyz, bit 1 d_new_xyz, bit 2 d_feats;
-// what is not asked may be null. The caller zeroes d_xyz (b, n, 3) and
-// d_feats (b, n, f); d_new_xyz (b, s, 3) is written. Writes, with R = b s k
-// rows:
-//   scratch: per layer l in order, d_pre (R, co) then the layer's input
-//     (R, ci_pad), pad zero;
-//   vec (b s, n_vec): per query, per layer in order, db (co) then, with
-//     LayerNorm, dgamma (co) and dbeta (co), each summed over the query's
-//     rows.
-// Returns a cudaError_t as int (0 = launched).
-extern "C" int fused_sa_backward(const float* xyz, const float* new_xyz,
-                                 const float* feats, const int* idx,
-                                 const float* pooled, const float* d_pooled,
-                                 int b, int n, int s, int f, int k_nb,
-                                 int n_layers, const int* chans,
-                                 const void* const* layer_ptrs, int layer_norm,
-                                 int need, float* d_xyz, float* d_feats,
-                                 float* d_new_xyz, float* scratch, float* vec,
-                                 void* stream) {
+template <bool kBf16>
+int launch(const float* xyz, const float* new_xyz, const float* feats,
+           const int* idx, const float* pooled, const float* d_pooled, int b,
+           int n, int s, int f, int k_nb, int n_layers, const int* chans,
+           const void* const* layer_ptrs, int layer_norm, int need,
+           float* d_xyz, float* d_feats, float* d_new_xyz, void* scratch,
+           float* vec, void* stream) {
   if (b <= 0 || n <= 0 || s <= 0 || k_nb <= 0 || n_layers <= 0 ||
       n_layers > kMaxLayers || chans[0] != 3 + f) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -695,21 +771,35 @@ extern "C" int fused_sa_backward(const float* xyz, const float* new_xyz,
   Mlp mlp;
   mlp.n_layers = n_layers;
   mlp.layer_norm = layer_norm;
-  // the gathered rows' channels zero-padded to 8 (the recompute's k), at
-  // a stride of 4 mod 8, which keeps its A fragments conflict-free too
-  mlp.ld_x = (((chans[0] + 7) & ~7) + 3) / 8 * 8 + 4;
+  // the gathered rows' channels zero-padded to the recompute's k (8; bf16:
+  // 16), at a stride of 4 mod 8 (bf16: 8 mod 16), which keeps its A
+  // fragments conflict-free too
+  mlp.ld_x = kBf16 ? stride16((chans[0] + 15) & ~15)
+                   : (((chans[0] + 7) & ~7) + 3) / 8 * 8 + 4;
   mlp.n_vec = 0;
   mlp.ld_max = 0;
   const size_t rows_all = static_cast<size_t>(b) * s * k_nb;
-  float* p = scratch;
+  // bf16 scratch rows go in pairs: an odd last row has a (zero) partner
+  const size_t rows_pad = kBf16 ? (rows_all + 1) & ~size_t{1} : rows_all;
+  float* p = static_cast<float*>(scratch);
+  __nv_bfloat16* p16 = static_cast<__nv_bfloat16*>(scratch);
   int row_floats = mlp.ld_x;  // shared floats per neighbour row
-  int w_resident = 0;         // floats of every layer's wt, resident
+  int w_resident = 0;         // floats of every layer's weights, resident
   int w_full = 0;             // floats of the largest layer, streamed
   int w_min = 0;              // floats of the smallest streamed tiles
   for (int l = 0; l < n_layers; ++l) {
     Layer& L = mlp.layer[l];
-    L.wt = static_cast<const float*>(layer_ptrs[5 * l]);
-    L.w_pad = static_cast<const float*>(layer_ptrs[5 * l + 1]);
+    L.wt = nullptr;
+    L.w_pad = nullptr;
+    L.w16 = nullptr;
+    L.wt16 = nullptr;
+    if (kBf16) {
+      L.w16 = static_cast<const __nv_bfloat16*>(layer_ptrs[5 * l]);
+      L.wt16 = static_cast<const __nv_bfloat16*>(layer_ptrs[5 * l + 1]);
+    } else {
+      L.wt = static_cast<const float*>(layer_ptrs[5 * l]);
+      L.w_pad = static_cast<const float*>(layer_ptrs[5 * l + 1]);
+    }
     L.bias = static_cast<const float*>(layer_ptrs[5 * l + 2]);
     L.gamma = static_cast<const float*>(layer_ptrs[5 * l + 3]);
     L.beta = static_cast<const float*>(layer_ptrs[5 * l + 4]);
@@ -721,26 +811,41 @@ extern "C" int fused_sa_backward(const float* xyz, const float* new_xyz,
     L.ci_pad = (L.ci + 3) & ~3;
     L.ci8 = (L.ci + 7) & ~7;
     L.co8 = (L.co + 7) & ~7;
-    L.ld = row_stride(L.co8);
+    L.cip = (L.ci + 15) & ~15;
+    L.cop = (L.co + 15) & ~15;
+    L.ld = kBf16 ? stride16(L.cop) : row_stride(L.co8);
     L.ld_wt = row_stride(L.co8, 8);
     L.ld_w = row_stride(L.ci_pad, 8);
     L.vec = mlp.n_vec;
     L.d_rows = p;
-    p += rows_all * L.co;
-    L.in_rows = p;
-    p += rows_all * L.ci_pad;
-    L.res_wt = w_resident;
-    w_resident += L.ci8 * L.ld_wt;
-    w_full = std::max({w_full, 2 * L.ci8 * L.ld_wt, 2 * L.co8 * L.ld_w});
-    w_min = std::max({w_min, 2 * 8 * L.ld_wt, 2 * 8 * L.ld_w});
+    L.in_rows = p + rows_all * L.co;
+    p += rows_all * (L.co + L.ci_pad);
+    L.d16 = p16;
+    L.in16 = p16 + rows_pad * L.co;
+    p16 += rows_pad * (L.co + L.ci_pad);
+    if (kBf16) {
+      // both orientations, rows at a stride of k + 8 bf16 values
+      L.res16 = w_resident;
+      w_resident += L.cop * (L.cip + 8) / 2;
+      L.res16t = w_resident;
+      w_resident += L.cip * (L.cop + 8) / 2;
+      w_full = std::max({w_full, L.cop * (L.cip + 8), L.cip * (L.cop + 8)});
+      w_min = std::max({w_min, L.cop * 24, L.cip * 24});
+    } else {
+      L.res_wt = w_resident;
+      w_resident += L.ci8 * L.ld_wt;
+      w_full = std::max({w_full, 2 * L.ci8 * L.ld_wt, 2 * L.co8 * L.ld_w});
+      w_min = std::max({w_min, 2 * 8 * L.ld_wt, 2 * 8 * L.ld_w});
+    }
     mlp.n_vec += L.co * (layer_norm ? 3 : 1);
     mlp.ld_max = std::max(mlp.ld_max, L.ld);
     row_floats += L.ld * (layer_norm ? 2 : 1);
   }
-  if (!layer_norm) row_floats += mlp.ld_max;  // the lo parts of d_pre
+  // the lo parts of d_pre (float32 only; with LayerNorm they take h's place)
+  if (!layer_norm && !kBf16) row_floats += mlp.ld_max;
   // The shape: chunks of up to 32 rows; the weights resident (every
-  // layer's wt) for as many thread groups as fit beside them, else one
-  // group that streams them through the rest.
+  // layer's) for as many thread groups as fit beside them, else one group
+  // that streams them through the rest.
   const int limit = static_cast<int>(kSmemPerBlock / sizeof(float));
   const int chunk_max =
       std::min(kMaxChunk, std::max(kMinChunk, (k_nb + 15) & ~15));
@@ -770,10 +875,14 @@ extern "C" int fused_sa_backward(const float* xyz, const float* new_xyz,
     Layer& L = mlp.layer[l];
     L.tile = std::min(L.ci8, (mlp.n_wbuf / (2 * L.ld_wt)) & ~7);
     L.tk = std::min((L.co + 7) & ~7, (mlp.n_wbuf / (2 * L.ld_w)) & ~7);
+    // bf16: a stage of the double buffer holds n_wbuf bf16 values
+    L.tile16 = std::min(L.cip, (mlp.n_wbuf / L.cop - 8) & ~15);
+    L.tilet = std::min(L.cop, (mlp.n_wbuf / L.cip - 8) & ~15);
   }
   const size_t smem = sizeof(float) * (mlp.groups * mlp.state + mlp.n_wbuf);
+  auto kernel = fused_sa_bwd_kernel<kBf16>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_sa_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // persistent blocks, one an SM
@@ -788,11 +897,63 @@ extern "C" int fused_sa_backward(const float* xyz, const float* new_xyz,
   const int n_queries = b * s;
   const int grid = std::max(
       1, std::min((n_queries + mlp.groups - 1) / mlp.groups, n_sm));
-  fused_sa_bwd_kernel<<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       xyz, new_xyz, feats, idx, pooled, d_pooled, n, s, f, k_nb, n_queries,
       mlp, need, d_xyz, d_feats, d_new_xyz, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Inputs as fused_sa_forward, plus idx (b, s, k) int32 and pooled (b, s, C)
+// from it and d_pooled (b, s, C), all contiguous. Layer l reads
+// layer_ptrs[5l .. 5l+4] = (wt (ci8, co8), w_pad (co, ci_pad), bias, gamma,
+// beta), with chans[l] = ci, chans[l + 1] = co, wt the Dense weight
+// transposed and zero-padded to multiples of 8 as the forward takes it,
+// ci_pad = ci rounded up to a multiple of 4 (w_pad's columns past ci
+// zero); gamma and beta are null when
+// layer_norm == 0. Every co is a multiple of 4 and at most 256; wt and w_pad
+// are 16-byte aligned. need: bit 0 d_xyz, bit 1 d_new_xyz, bit 2 d_feats;
+// what is not asked may be null. The caller zeroes d_xyz (b, n, 3) and
+// d_feats (b, n, f); d_new_xyz (b, s, 3) is written. Writes, with R = b s k
+// rows:
+//   scratch (float32): per layer l in order, d_pre (R, co) then the layer's
+//     input (R, ci_pad), pad zero;
+//   vec (b s, n_vec): per query, per layer in order, db (co) then, with
+//     LayerNorm, dgamma (co) and dbeta (co), each summed over the query's
+//     rows.
+// Returns a cudaError_t as int (0 = launched).
+extern "C" int fused_sa_backward(const float* xyz, const float* new_xyz,
+                                 const float* feats, const int* idx,
+                                 const float* pooled, const float* d_pooled,
+                                 int b, int n, int s, int f, int k_nb,
+                                 int n_layers, const int* chans,
+                                 const void* const* layer_ptrs, int layer_norm,
+                                 int need, float* d_xyz, float* d_feats,
+                                 float* d_new_xyz, void* scratch, float* vec,
+                                 void* stream) {
+  return launch<false>(xyz, new_xyz, feats, idx, pooled, d_pooled, b, n, s, f,
+                       k_nb, n_layers, chans, layer_ptrs, layer_norm, need,
+                       d_xyz, d_feats, d_new_xyz, scratch, vec, stream);
+}
+
+// The bf16 mode: as fused_sa_backward, but layer_ptrs[5l], [5l + 1] are the
+// Dense weight (cop, cip) and its transpose (cip, cop), bf16 row-major,
+// zero-padded to multiples of 16 (cip, cop: ci and co rounded up to 16),
+// and scratch is bf16: per layer l in order, d_pre then the layer's input,
+// each over R' = R rounded up to even rows, element (r, c) of a (R', w)
+// block at (r / 2) 2 w + 2 c + r % 2 (w = co, then ci_pad); the caller
+// zeroes it when R is odd. pooled is the bf16 forward's.
+extern "C" int fused_sa_backward_bf16(
+    const float* xyz, const float* new_xyz, const float* feats,
+    const int* idx, const float* pooled, const float* d_pooled, int b, int n,
+    int s, int f, int k_nb, int n_layers, const int* chans,
+    const void* const* layer_ptrs, int layer_norm, int need, float* d_xyz,
+    float* d_feats, float* d_new_xyz, void* scratch, float* vec,
+    void* stream) {
+  return launch<true>(xyz, new_xyz, feats, idx, pooled, d_pooled, b, n, s, f,
+                      k_nb, n_layers, chans, layer_ptrs, layer_norm, need,
+                      d_xyz, d_feats, d_new_xyz, scratch, vec, stream);
 }
 
 #ifdef SA_BWD_PHASES

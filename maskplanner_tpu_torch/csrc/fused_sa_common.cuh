@@ -1,7 +1,8 @@
 // Device functions shared by the fused set-abstraction forward
 // (fused_sa_fwd.cu) and backward (fused_sa_bwd.cu); mma_product_bf16 is
-// the forward's bf16 mode alone (bf16 models serve with it; it has no
-// backward).
+// the product of both kernels' bf16 modes (bf16 models serve and train with
+// them): the forward's layers, the backward's recompute and its input
+// gradients.
 //
 // The backward recomputes the forward's activations and routes the
 // max-pool gradient to the first neighbour whose activation EQUALS the
@@ -35,8 +36,10 @@ constexpr float kLayerNormEps = 1e-6f;
 constexpr int kMaxMT = 2;
 constexpr int kMaxNT = 4;
 
-// What mma_product stores: the sum, or max(sum, 0).
-enum Store { kStorePlain, kStoreRelu };
+// What mma_product stores: the sum, or max(sum, 0); kStoreMask (bf16 only)
+// the sum where the value already there is > 0 and 0 elsewhere, in place (a
+// ReLU's backward).
+enum Store { kStorePlain, kStoreRelu, kStoreMask };
 
 __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
                                          float x, float y, float z) {
@@ -463,7 +466,10 @@ __device__ __forceinline__ void mma_tiles_bf16(
           const int o = (n0 + j) * 8 + 2 * t + (e & 1);
           if (m < rows && o < cop) {
             const float v = acc[i][j][e];
-            out[m * ld_out + o] = store == kStoreRelu ? fmaxf(v, 0.f) : v;
+            float* p = out + m * ld_out + o;
+            *p = store == kStoreRelu   ? fmaxf(v, 0.f)
+                 : store == kStoreMask ? (*p > 0.f ? v : 0.f)
+                                       : v;
           }
         }
       }
@@ -471,14 +477,19 @@ __device__ __forceinline__ void mma_tiles_bf16(
   }
 }
 
-// The layer product of the forward's bf16 mode: out[m][o] = bias[o] +
-// sum_i bf16(in[m][i]) * bf16(w[o][i]) for m < rows and o < cop, summed in
+// The layer product of the bf16 modes: out[m][o] = bias[o] + sum_i
+// bf16(in[m][i]) * bf16(w[o][i]) for m < rows and o < cop, summed in
 // float32 on the tensor cores, by the warps of `th`. As mma_product, with
 // the weight w (cop, cip) bf16 (see above), cip and cop the layer's widths
 // rounded up to 16 (zero pad), staged whole (resident, at wbuf) or in
 // k-tiles of `tile` columns through a ring of `stages` buffers; `in` at a
-// row stride of 8 mod 16, its columns ci..cip zero. Every thread of `th`
-// must call it; the caller synchronises afterwards.
+// row stride of 8 mod 16, its columns ci..cip zero. The bias covers the
+// columns below co and is 0 past them (co = 0: no bias, bias may be null).
+// Exactness as mma_product's: an output is one accumulator from its bias
+// over the k-steps of 16 in ascending order, whatever the tiling, so the
+// backward's recompute gives the forward's bits. The backward's input
+// gradient is this product too, on the transposed weight with no bias.
+// Every thread of `th` must call it; the caller synchronises afterwards.
 __device__ void mma_product_bf16(const Threads& th, int store,
                                  const float* in, int ld_in, int rows,
                                  const __nv_bfloat16* __restrict__ w,

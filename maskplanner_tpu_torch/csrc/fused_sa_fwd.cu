@@ -68,7 +68,8 @@
 // activation rows sit at a stride of 8 mod 16 (float2 A loads, no bank
 // conflict), and the weights are staged as bf16, half the bytes: sa1's stay
 // resident as in float32; sa2's (143 KB) do not fit beside a group's rows,
-// so they stream in k-tiles, one query at a time. It has no backward.
+// so they stream in k-tiles, one query at a time. Its backward is
+// fused_sa_bwd.cu's bf16 mode.
 
 #include <cuda_runtime.h>
 

@@ -75,8 +75,8 @@ def get_model(config, *, device: str | torch.device,
     """Build the backbone named by ``config.model.backbone`` in eval mode on
     ``device``, its weights drawn from ``generator`` (default: seeded from
     ``config.seed``). ``dropout``: the heads' rate in train mode. Under
-    ``model.bf16`` it computes in bf16 (eval only; the parameters stay
-    f32)."""
+    ``model.bf16`` it computes in bf16, in train and in eval (the
+    parameters stay f32)."""
     which = config["model"]["backbone"]
     if which == "pointnet2_strokemasks_retrocompatible":
         which = "pointnet2_strokemasks"   # differs only in a layer name

@@ -4,11 +4,13 @@ The SSG encoder gives a 1024-d global feature; parallel heads regress the
 unordered segment set with per-pose orientations, the stroke masks, the
 mask confidence scores and, optionally, per-segment confidences.
 
-In bf16 (eval only) the heads follow the JAX package's: each Dense gives
-bf16, each BatchNorm f32, the pose assembly runs in bf16, and every output
-is cast to f32 at the model's boundary. The bf16 products on the card sum
-in f32 throughout, as the JAX reference does
-(:func:`f32_accumulation`).
+In bf16 the heads follow the JAX package's, in train and in eval: each
+Dense gives bf16, each BatchNorm f32, the dropout of the BatchNorm-less
+segment-confidence head runs on bf16 activations, the pose assembly runs
+in bf16, and every output is cast to f32 at the model's boundary. The
+bf16 products on the card sum in f32 throughout, as the JAX reference does
+(:func:`f32_accumulation`; ``train.train_step`` runs the backward under
+it too).
 """
 from __future__ import annotations
 
@@ -50,8 +52,8 @@ class PointNet2StrokeMasks(PointNet2Encoder):
     carry the original repo's names, so the ``state_dict`` reads like the
     original model's. ``dropout``: the heads' dropout rate in train mode
     (0.3 as in the JAX package's ``RegressionHead``). ``dtype``: the
-    compute dtype, float32 or bfloat16 (eval only); the parameters are
-    float32 either way."""
+    compute dtype, float32 or bfloat16; the parameters are float32 either
+    way."""
 
     def __init__(self, out_vectors: int, outdim: int = 3,
                  outdim_orient: int = 3, weight_orient: float = 1.0,
@@ -92,12 +94,13 @@ class PointNet2StrokeMasks(PointNet2Encoder):
                 generator: torch.Generator | None = None) -> MaskPlannerOutput:
         """xyz: (B, N, 3) normalized point clouds. ``generator``: in train
         mode, the random FPS starts and the dropout masks. The outputs are
-        float32."""
+        in the parameters' dtype (float32)."""
         if self.dtype == torch.float32:
             return self._forward(xyz, generator)
         with f32_accumulation():
             out = self._forward(xyz, generator)
-        return MaskPlannerOutput(*(None if t is None else t.float()
+        return MaskPlannerOutput(*(None if t is None
+                                   else t.to(self.fc1.weight.dtype)
                                    for t in out))
 
     def _forward(self, xyz, generator):

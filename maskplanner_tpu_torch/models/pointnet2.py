@@ -11,21 +11,22 @@ variance and moves its running statistics as ``0.9 running + 0.1 batch``
 from an explicit ``torch.Generator`` (index 0 without one), and the heads'
 dropout draws its mask from that generator.
 
-``dtype=torch.bfloat16`` is the JAX package's bf16 model in eval, under the
-dtype rules of its accelerator path (the parameters stay f32 and are
-rounded where they are used):
+``dtype=torch.bfloat16`` is the JAX package's bf16 model, under the dtype
+rules of its accelerator path (the parameters stay f32 and are rounded
+where they are used):
 
 - a ``layer``/``none`` level runs the fused level's bf16 mode
-  (``ops.fused_sa``: bf16 products, f32 sums, f32 LayerNorm);
+  (``ops.fused_sa``: bf16 products, f32 sums, f32 LayerNorm), with its
+  own backward in train;
 - a grouped ``batch`` level, sa1 included, groups single-pass
-  (``ops.group_gather``) and runs the Dense/ReLU chain on the folded
-  weights in bf16 (bf16 products with a bf16 output, a bf16 bias), then
-  the max in f32;
-- the ``group_all`` level runs in f32;
+  (``ops.group_gather``); in train it runs each Dense in bf16
+  (:func:`dense`) and each BatchNorm in f32, then the max in f32; in eval
+  the Dense/ReLU chain on the folded weights in bf16 (bf16 products with a
+  bf16 output, a bf16 bias), then the max in f32;
+- the ``group_all`` level runs in bf16 (Dense) and f32 (BatchNorm) in
+  train, in f32 in eval;
 - a head's Dense takes bf16 inputs and weights and gives bf16
   (:func:`dense`), its BatchNorm f32.
-
-A bf16 model has no train mode: bf16 training is not ported.
 """
 from __future__ import annotations
 
@@ -51,31 +52,40 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     ``(x − mean) · (rsqrt(var + eps) · scale) + bias``, and the running
     statistics moved with momentum 0.9 by the biased variance
     (``nn.BatchNorm1d`` would use the unbiased one). Eval mode is
-    ``nn.BatchNorm1d``'s: the running statistics."""
+    ``nn.BatchNorm1d``'s: the running statistics.
+
+    It computes in its parameters' dtype (f32). An input of another dtype
+    (a bf16 Dense's output) is cast to it twice, for the statistics and for
+    the normalisation, as Flax's ``BatchNorm`` casts it: in train mode its
+    gradient then arrives as two parts, each rounded to the input's dtype,
+    summed in that dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.weight.dtype
         if not self.training:
-            return super().forward(x)
-        mean = x.mean(0)
-        var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+            return super().forward(x.to(dtype))
+        stats = x.to(dtype)
+        mean = stats.mean(0)
+        var = torch.clamp((stats * stats).mean(0) - mean * mean, min=0.0)
         with torch.no_grad():
             m = BATCH_NORM_MOMENTUM
             self.running_mean.mul_(m).add_((1.0 - m) * mean)
             self.running_var.mul_(m).add_((1.0 - m) * var)
             self.num_batches_tracked += 1
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
-            + self.bias
+        return (x.to(dtype) - mean) * (torch.rsqrt(var + self.eps)
+                                       * self.weight) + self.bias
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout whose keep mask comes from ``generator`` (the
-    global generator when None); the identity in eval or at rate 0."""
+    global generator when None), drawn in f32 whatever ``x``'s dtype; the
+    identity in eval or at rate 0."""
     if not training or rate == 0.0:
         return x
-    keep = torch.bernoulli(torch.full_like(x, 1.0 - rate),
-                           generator=generator)
-    return x * keep / (1.0 - rate)
+    keep = torch.bernoulli(torch.full(x.shape, 1.0 - rate,
+                                      device=x.device), generator=generator)
+    return x * keep.to(x.dtype) / (1.0 - rate)
 
 
 def random_starts(xyz: torch.Tensor,
@@ -104,8 +114,9 @@ class PointMLP(nn.Module):
     """Shared per-point MLP: Linear -> norm -> ReLU per layer, over the last
     axis. ``norm``: "batch" (:class:`FlaxBatchNorm1d` over all rows),
     "layer" (LayerNorm over channels, eps 1e-6 as in Flax) or "none".
-    ``dtype``: the compute dtype of the folded chain (:meth:`run_folded`)
-    and of a set-abstraction level's own path."""
+    ``dtype``: the compute dtype of the Dense layers (:meth:`run_mlp`), of
+    the folded chain (:meth:`run_folded`) and of a set-abstraction level's
+    own path."""
 
     def __init__(self, in_channel: int, channels: Sequence[int], norm: str,
                  dtype: torch.dtype = torch.float32):
@@ -124,15 +135,27 @@ class PointMLP(nn.Module):
             self.mlp_lns = nn.ModuleList(
                 nn.LayerNorm(c, eps=LAYER_NORM_EPS) for c in channels)
 
-    def run_mlp(self, x: torch.Tensor) -> torch.Tensor:
+    def run_mlp(self, x: torch.Tensor,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Each layer's Dense in ``dtype`` (default: the module's;
+        :func:`dense`), its norm in the parameters' dtype (f32), then the
+        ReLU."""
+        dtype = self.dtype if dtype is None else dtype
         for j, conv in enumerate(self.mlp_convs):
-            x = conv(x)
+            x = dense(conv, x, dtype)
             if self.norm == "batch":
-                x = self.mlp_bns[j](x.reshape(-1, x.shape[-1])).reshape(x.shape)
+                x = self.mlp_bns[j](x.reshape(-1, x.shape[-1])) \
+                    .reshape(x.shape)
             elif self.norm == "layer":
-                x = self.mlp_lns[j](x)
+                ln = self.mlp_lns[j]
+                x = ln(x.to(ln.weight.dtype))
             x = torch.relu(x)
         return x
+
+    def pool(self, h: torch.Tensor) -> torch.Tensor:
+        """The max over K of grouped rows, in the parameters' dtype (f32;
+        the max of bf16 values is exact, so it is taken before the cast)."""
+        return h.amax(dim=2).to(self.mlp_convs[0].weight.dtype)
 
     forward = run_mlp
 
@@ -147,7 +170,7 @@ class PointMLP(nn.Module):
         for w, b in fold_pointmlp_params(self):
             h = torch.relu(torch.matmul(h, w.t().to(self.dtype))
                            + b.to(self.dtype))
-        return h.amax(dim=2).float()
+        return self.pool(h)
 
     def layer_params(self):
         """Per-layer ``(w (C_out, C_in), b[, gamma, beta])`` for the fused
@@ -173,8 +196,8 @@ class SetAbstraction(PointMLP):
     the Dense/ReLU chain with the BatchNorm folded into its weights
     (``ops.fused_sa.fold_pointmlp_params``) and the max; in eval without
     features (sa1), the MLP with running statistics and the max. The
-    ``group_all`` level runs as plain ops. In bf16 (eval only) see the
-    module's docstring."""
+    ``group_all`` level runs as plain ops. In bf16 see the module's
+    docstring."""
 
     def __init__(self, npoint: int | None, radius: float | None,
                  nsample: int | None, in_channel: int,
@@ -190,16 +213,14 @@ class SetAbstraction(PointMLP):
                 generator: torch.Generator | None = None):
         """``generator``: the random FPS starts in train mode."""
         bf16 = self.dtype == torch.bfloat16
-        if bf16 and self.training:
-            raise NotImplementedError("a bf16 model has no train mode: bf16 "
-                                      "training is not ported yet "
-                                      "(ROADMAP.md, Queue 1)")
         if self.group_all:
             new_xyz = xyz.new_zeros((xyz.shape[0], 1, 3))
             grouped = xyz[:, None]                              # (B, 1, N, 3)
             if features is not None:
                 grouped = torch.cat([grouped, features[:, None]], dim=-1)
-            return new_xyz, self.run_mlp(grouped).amax(dim=2)
+            # a bf16 model's global level computes in f32 in eval
+            dtype = self.dtype if self.training else torch.float32
+            return new_xyz, self.pool(self.run_mlp(grouped, dtype))
         start = random_starts(xyz, generator) if self.training else None
         fps_idx = farthest_point_sample(xyz, self.npoint, start)
         new_xyz = index_points(xyz, fps_idx)                    # (B, S, 3)
@@ -211,7 +232,7 @@ class SetAbstraction(PointMLP):
         grouped, _ = ball_group(self.radius, self.nsample, xyz, new_xyz,
                                 features, single_pass=bf16)  # (B, S, K, C)
         if self.training or (features is None and not bf16):
-            return new_xyz, self.run_mlp(grouped).amax(dim=2)
+            return new_xyz, self.pool(self.run_mlp(grouped))
         return new_xyz, self.run_folded(grouped)
 
 
@@ -228,7 +249,7 @@ def level_norms(norm: str) -> list[str]:
 
 class PointNet2Encoder(nn.Module):
     """sa1 -> sa2 -> sa3 (group_all) -> (B, 1024) global feature, f32.
-    ``dtype``: the levels' compute dtype (bf16: eval only)."""
+    ``dtype``: the levels' compute dtype (sa3's in train only)."""
 
     def __init__(self, norm: str = "batch",
                  dtype: torch.dtype = torch.float32):
@@ -239,9 +260,8 @@ class PointNet2Encoder(nn.Module):
                                   dtype)
         self.sa2 = SetAbstraction(128, 0.4, 64, 128 + 3, (128, 128, 256),
                                   False, n2, dtype)
-        # the group_all level runs in f32 in a bf16 model's eval too
         self.sa3 = SetAbstraction(None, None, None, 256 + 3, (256, 512, 1024),
-                                  True, n3)
+                                  True, n3, dtype)
 
     def forward(self, xyz: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -259,11 +279,11 @@ def regression_head(x: torch.Tensor, layers, rate: float = 0.0,
     ``layers`` is ``[(linear, batchnorm or None)]``. A function, so that the
     layers keep the original repo's names on the model (``fc1``, ``bn1``,
     ``sm_fc1``, ...). ``dtype``: each fc's (:func:`dense`); a BatchNorm
-    runs in f32."""
+    runs in its parameters' dtype (f32)."""
     for linear, bn in layers:
         x = dense(linear, x, dtype)
         if bn is not None:
-            x = bn(x.float())
+            x = bn(x)
         x = dropout(torch.relu(x), rate, training, generator)
     return x
 

@@ -2,13 +2,16 @@
 (``csrc/fused_sa_fwd.cu``) and the backward in two kernels, K1
 (``csrc/fused_sa_bwd.cu``: recompute, routing, input gradients, the rows
 of the weight gradient) and K2 (``csrc/sa_weight_grad.cu``: the weight
-gradients as fixed-order split-K products).
+gradients as fixed-order split-K products), each also in a bf16 mode.
 
 ``fused_sa_cuda.launches``, ``fused_sa_bf16_cuda.launches`` (the forward's
 bf16 mode), ``folded_sa_cuda.launches`` (the forward on BatchNorm-folded
-weights), ``fused_sa_bwd_cuda.launches`` (K1) and
-``sa_weight_grad_cuda.launches`` (K2) count the kernels' launches (a run
-that should go through a kernel reads its count after resetting it to 0).
+weights), ``fused_sa_bwd_cuda.launches`` (K1),
+``fused_sa_bwd_bf16_cuda.launches`` (K1's bf16 mode),
+``sa_weight_grad_cuda.launches`` (K2) and
+``sa_weight_grad_bf16_cuda.launches`` (K2's bf16 mode) count the kernels'
+launches (a run that should go through a kernel reads its count after
+resetting it to 0).
 """
 from __future__ import annotations
 
@@ -35,13 +38,16 @@ def bwd_signature(fn):
 
 
 @functools.cache
-def _bind_bwd():
-    return bwd_signature(build.library("fused_sa_bwd").fused_sa_backward)
+def _bind_bwd(bf16: bool):
+    lib = build.library("fused_sa_bwd")
+    return bwd_signature(lib.fused_sa_backward_bf16 if bf16
+                         else lib.fused_sa_backward)
 
 
 @functools.cache
-def _bind_wgrad():
-    fn = build.library("sa_weight_grad").sa_weight_grad
+def _bind_wgrad(bf16: bool):
+    lib = build.library("sa_weight_grad")
+    fn = lib.sa_weight_grad_bf16 if bf16 else lib.sa_weight_grad
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
@@ -126,21 +132,16 @@ def padded_transpose(w: torch.Tensor) -> torch.Tensor:
 
 def scratch_floats(chans, rows: int) -> int:
     """Floats of K1's scratch: per layer, d_pre (rows, C_out) and the
-    layer's input (rows, C_in rounded up to a multiple of 4)."""
+    layer's input (rows, C_in rounded up to a multiple of 4). The bf16 mode
+    holds as many bf16 values, its rows rounded up to even."""
     return rows * sum(co + (ci + 3) // 4 * 4
                       for ci, co in zip(chans[:-1], chans[1:]))
 
 
-def fused_sa_bwd_cuda(nsample: int, layer_norm: bool, xyz: torch.Tensor,
-                      new_xyz: torch.Tensor, features: torch.Tensor | None,
-                      params, idx: torch.Tensor, pooled: torch.Tensor,
-                      d_pooled: torch.Tensor, needs=(True, True, True)):
-    """K1: the backward of :func:`fused_sa_cuda` on the card up to the
-    weight gradients, from its ``idx`` (which carries the neighbour
-    selection) and ``pooled`` -> (d_xyz (B, N, 3), d_new_xyz (B, S, 3),
-    d_features (B, N, F), each None unless ``needs`` (xyz, new_xyz,
-    features) asks for it; scratch, vec: the rows and per-query sums
-    :func:`sa_weight_grad_cuda` takes; chans)."""
+def _bwd(nsample: int, layer_norm: bool, xyz, new_xyz, features, params,
+         idx, pooled, d_pooled, needs, bf16: bool):
+    """Launch K1 (its bf16 mode with ``bf16``) -> (d_xyz, d_new_xyz,
+    d_features, scratch, vec, chans)."""
     xyz, new_xyz, features, F, chans = _check_level(xyz, new_xyz, features,
                                                     params, layer_norm)
     device = xyz.device
@@ -160,14 +161,18 @@ def fused_sa_bwd_cuda(nsample: int, layer_norm: bool, xyz: torch.Tensor,
     for layer in params:
         w = _f32(layer[0], device, "weight")
         co, ci = w.shape
-        wt = padded_transpose(w)                   # (ci8, co8), the recompute
-        w_pad = torch.zeros((co, (ci + 3) // 4 * 4), dtype=torch.float32,
-                            device=device)
-        w_pad[:, :ci] = w                          # (co, ci_pad), d_in
+        if bf16:
+            # the recompute's (co16, ci16) and the input gradient's (ci16,
+            # co16), both bf16
+            ws = [padded_bf16(w), padded_bf16(w.t())]
+        else:
+            w_pad = torch.zeros((co, (ci + 3) // 4 * 4), dtype=torch.float32,
+                                device=device)
+            w_pad[:, :ci] = w                      # (co, ci_pad), d_in
+            ws = [padded_transpose(w), w_pad]      # (ci8, co8), the recompute
         rest = [_f32(a, device, "bias/gamma/beta") for a in layer[1:]]
-        keep += [wt, w_pad, *rest]
-        ptrs += [wt.data_ptr(), w_pad.data_ptr(),
-                 *(a.data_ptr() for a in rest)]
+        keep += [*ws, *rest]
+        ptrs += [*(a.data_ptr() for a in ws), *(a.data_ptr() for a in rest)]
         if not layer_norm:
             ptrs += [None, None]
 
@@ -177,41 +182,81 @@ def fused_sa_bwd_cuda(nsample: int, layer_norm: bool, xyz: torch.Tensor,
     d_feat = torch.zeros_like(features) if need_feat else None
     d_new = torch.empty_like(new_xyz) if need_new else None
     rows = B * S * nsample
-    scratch = torch.empty(scratch_floats(chans, rows), dtype=torch.float32,
-                          device=device)
+    if bf16:
+        # rows in pairs: an odd last row's partner must read zero
+        alloc = torch.zeros if rows % 2 else torch.empty
+        scratch = alloc(scratch_floats(chans, rows + rows % 2),
+                        dtype=torch.bfloat16, device=device)
+    else:
+        scratch = torch.empty(scratch_floats(chans, rows),
+                              dtype=torch.float32, device=device)
     n_vec = sum(chans[1:]) * (3 if layer_norm else 1)
     vec = torch.empty((B * S, n_vec), dtype=torch.float32, device=device)
     c_chans = (ctypes.c_int * len(chans))(*chans)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     need = int(need_xyz) | 2 * int(need_new) | 4 * int(need_feat)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = _bind_bwd()(xyz.data_ptr(), new_xyz.data_ptr(), ptr(features),
-                      idx.data_ptr(), pooled.data_ptr(), d_pooled.data_ptr(),
-                      B, N, S, F, nsample, len(params), c_chans, c_ptrs,
-                      int(layer_norm), need, ptr(d_xyz), ptr(d_feat),
-                      ptr(d_new), scratch.data_ptr(), vec.data_ptr(),
-                      build.stream_ptr(device))
+    err = _bind_bwd(bf16)(xyz.data_ptr(), new_xyz.data_ptr(), ptr(features),
+                          idx.data_ptr(), pooled.data_ptr(),
+                          d_pooled.data_ptr(), B, N, S, F, nsample,
+                          len(params), c_chans, c_ptrs, int(layer_norm), need,
+                          ptr(d_xyz), ptr(d_feat), ptr(d_new),
+                          scratch.data_ptr(), vec.data_ptr(),
+                          build.stream_ptr(device))
     build.check(err, "fused_sa_backward")
-    fused_sa_bwd_cuda.launches += 1
     return d_xyz, d_new, d_feat, scratch, vec, chans
+
+
+def fused_sa_bwd_cuda(nsample: int, layer_norm: bool, xyz: torch.Tensor,
+                      new_xyz: torch.Tensor, features: torch.Tensor | None,
+                      params, idx: torch.Tensor, pooled: torch.Tensor,
+                      d_pooled: torch.Tensor, needs=(True, True, True)):
+    """K1: the backward of :func:`fused_sa_cuda` on the card up to the
+    weight gradients, from its ``idx`` (which carries the neighbour
+    selection) and ``pooled`` -> (d_xyz (B, N, 3), d_new_xyz (B, S, 3),
+    d_features (B, N, F), each None unless ``needs`` (xyz, new_xyz,
+    features) asks for it; scratch, vec: the rows and per-query sums
+    :func:`sa_weight_grad_cuda` takes; chans)."""
+    out = _bwd(nsample, layer_norm, xyz, new_xyz, features, params, idx,
+               pooled, d_pooled, needs, False)
+    fused_sa_bwd_cuda.launches += 1
+    return out
 
 
 fused_sa_bwd_cuda.launches = 0
 
 
-def sa_weight_grad_cuda(scratch: torch.Tensor, vec: torch.Tensor, chans,
-                        layer_norm: bool, rows: int):
-    """K2: the level's weight gradients from K1's ``scratch`` rows and
-    ``vec`` sums -> per layer (dW (C_out, C_in), db) plus (dgamma, dbeta)
-    with LayerNorm, the same bits from run to run."""
+def fused_sa_bwd_bf16_cuda(nsample: int, layer_norm: bool,
+                           xyz: torch.Tensor, new_xyz: torch.Tensor,
+                           features: torch.Tensor | None, params,
+                           idx: torch.Tensor, pooled: torch.Tensor,
+                           d_pooled: torch.Tensor, needs=(True, True, True)):
+    """K1's bf16 mode: the backward of :func:`fused_sa_bf16_cuda` from its
+    ``idx`` and ``pooled`` (``ops.fused_sa.fused_sa_backward_plain(...,
+    precision="bf16")``) -> as :func:`fused_sa_bwd_cuda`, its scratch rows
+    bf16 (for :func:`sa_weight_grad_bf16_cuda`). Counted apart."""
+    out = _bwd(nsample, layer_norm, xyz, new_xyz, features, params, idx,
+               pooled, d_pooled, needs, True)
+    fused_sa_bwd_bf16_cuda.launches += 1
+    return out
+
+
+fused_sa_bwd_bf16_cuda.launches = 0
+
+
+def _wgrad(scratch: torch.Tensor, vec: torch.Tensor, chans,
+           layer_norm: bool, rows: int, bf16: bool):
     device = scratch.device
     n_layers = len(chans) - 1
     queries = vec.shape[0]
-    for t, what in ((scratch, "scratch"), (vec, "vec")):
-        if t.device.type != "cuda" or t.dtype != torch.float32 \
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    for t, what, want in ((scratch, "scratch", dtype),
+                          (vec, "vec", torch.float32)):
+        if t.device.type != "cuda" or t.dtype != want \
                 or not t.is_contiguous():
-            raise ValueError(f"{what} must be contiguous float32 on the card")
-    if scratch.numel() != scratch_floats(chans, rows) or \
+            raise ValueError(f"{what} must be contiguous {want} on the card")
+    if scratch.numel() != scratch_floats(chans, rows + (rows % 2 if bf16
+                                                        else 0)) or \
             vec.shape[1] != sum(chans[1:]) * (3 if layer_norm else 1):
         raise ValueError("scratch and vec do not follow the level's widths")
     splits = max(1, -(-rows // SPLIT_ROWS))
@@ -222,12 +267,11 @@ def sa_weight_grad_cuda(scratch: torch.Tensor, vec: torch.Tensor, chans,
     part = torch.empty((splits, slot), dtype=torch.float32, device=device)
     out = torch.empty(slot, dtype=torch.float32, device=device)
     c_chans = (ctypes.c_int * len(chans))(*chans)
-    err = _bind_wgrad()(scratch.data_ptr(), vec.data_ptr(), rows, queries,
-                        n_layers, c_chans, int(layer_norm), splits,
-                        part.data_ptr(), out.data_ptr(),
-                        build.stream_ptr(device))
+    err = _bind_wgrad(bf16)(scratch.data_ptr(), vec.data_ptr(), rows,
+                            queries, n_layers, c_chans, int(layer_norm),
+                            splits, part.data_ptr(), out.data_ptr(),
+                            build.stream_ptr(device))
     build.check(err, "sa_weight_grad")
-    sa_weight_grad_cuda.launches += 1
     pieces = iter(torch.split(out, sizes + vec_sizes))
     dws = [next(pieces).view(co, ci)
            for ci, co in zip(chans[:-1], chans[1:])]
@@ -235,20 +279,44 @@ def sa_weight_grad_cuda(scratch: torch.Tensor, vec: torch.Tensor, chans,
             for dw in dws]
 
 
+def sa_weight_grad_cuda(scratch: torch.Tensor, vec: torch.Tensor, chans,
+                        layer_norm: bool, rows: int):
+    """K2: the level's weight gradients from K1's ``scratch`` rows and
+    ``vec`` sums -> per layer (dW (C_out, C_in), db) plus (dgamma, dbeta)
+    with LayerNorm, the same bits from run to run."""
+    out = _wgrad(scratch, vec, chans, layer_norm, rows, False)
+    sa_weight_grad_cuda.launches += 1
+    return out
+
+
 sa_weight_grad_cuda.launches = 0
+
+
+def sa_weight_grad_bf16_cuda(scratch: torch.Tensor, vec: torch.Tensor,
+                             chans, layer_norm: bool, rows: int):
+    """K2's bf16 mode, on the bf16 scratch of :func:`fused_sa_bwd_bf16_cuda`:
+    dW = Σ bf16(d_pre)ᵀ · bf16(in) summed in f32, the rest as
+    :func:`sa_weight_grad_cuda`. Counted apart."""
+    out = _wgrad(scratch, vec, chans, layer_norm, rows, True)
+    sa_weight_grad_bf16_cuda.launches += 1
+    return out
+
+
+sa_weight_grad_bf16_cuda.launches = 0
 
 
 def fused_sa_backward_cuda(nsample: int, layer_norm: bool, xyz, new_xyz,
                            features, params, idx, pooled, d_pooled,
-                           needs=(True, True, True)):
-    """The level's whole backward on the card, K1 then K2 -> (d_xyz,
-    d_new_xyz, d_features, each None where not asked; per-layer gradients
-    shaped like ``params``)."""
-    d_xyz, d_new, d_feat, scratch, vec, chans = fused_sa_bwd_cuda(
+                           needs=(True, True, True), bf16: bool = False):
+    """The level's whole backward on the card, K1 then K2 (their bf16 modes
+    with ``bf16``) -> (d_xyz, d_new_xyz, d_features, each None where not
+    asked; per-layer gradients shaped like ``params``)."""
+    k1, k2 = ((fused_sa_bwd_bf16_cuda, sa_weight_grad_bf16_cuda) if bf16
+              else (fused_sa_bwd_cuda, sa_weight_grad_cuda))
+    d_xyz, d_new, d_feat, scratch, vec, chans = k1(
         nsample, layer_norm, xyz, new_xyz, features, params, idx, pooled,
         d_pooled, needs)
-    grads = sa_weight_grad_cuda(scratch, vec, chans, layer_norm,
-                                idx.numel())
+    grads = k2(scratch, vec, chans, layer_norm, idx.numel())
     return d_xyz, d_new, d_feat, grads
 
 
@@ -312,7 +380,8 @@ fused_sa_cuda.launches = 0
 def fused_sa_bf16_cuda(radius: float, nsample: int, layer_norm: bool,
                        xyz: torch.Tensor, new_xyz: torch.Tensor,
                        features: torch.Tensor | None, params):
-    """The level's bf16 mode on the card (forward only) -> (pooled
+    """The level's bf16 mode on the card (its backward:
+    :func:`fused_sa_bwd_bf16_cuda`) -> (pooled
     (B, S, C_last) f32, idx (B, S, nsample) int32): every layer product on
     operands rounded to bf16, summed in f32
     (``ops.fused_sa.fused_sa_forward_plain(..., precision="bf16")``).

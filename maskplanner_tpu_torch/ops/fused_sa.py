@@ -5,18 +5,22 @@ ball query -> gather ``[x - q ; f]`` (offsets first) -> per-point MLP
 (Dense, LayerNorm with eps 1e-6 or no norm, ReLU) -> max over K. A CUDA
 tensor goes through :class:`FusedSALevel`, whose forward and backward are
 the kernels of ``ops/cuda/fused_sa.py``; a CPU tensor goes to
-:func:`fused_sa_forward_plain`, and autograd through it gives the gradient.
+:func:`fused_sa_forward_plain`, and in f32 autograd through it gives the
+gradient.
 :func:`fused_sa_backward_plain` is the backward in the kernels'
 decomposition, and :func:`tf32_split` / :func:`matmul_3xtf32` emulate
 the 3xTF32 tensor-core products of both directions' kernels; the tests
 hold both against the JAX package and against autograd.
 
 ``precision="bf16"`` is the JAX package's ``precision="default"`` mode,
-which bf16 models serve with: the feature rows are gathered rounded to
-bf16, and every layer product takes both operands rounded to bf16 (round
-to nearest even) with f32 sums (:func:`matmul_bf16`); the offsets
-``x − q``, the bias, the LayerNorm, the ReLU and the max stay f32. It is
-forward only: bf16 training is not ported.
+which bf16 models serve and train with: the feature rows are gathered
+rounded to bf16, and every layer product takes both operands rounded to
+bf16 (round to nearest even) with f32 sums (:func:`matmul_bf16`); the
+offsets ``x − q``, the bias, the LayerNorm, the ReLU and the max stay f32.
+Its gradient is :func:`fused_sa_backward_plain` with ``precision="bf16"``
+(the JAX kernel's rounding places, not autograd's through
+:func:`matmul_bf16`): :class:`FusedSALevel` on the card, with the bf16
+modes of the kernels, :class:`PlainBf16Level` on the CPU.
 
 :func:`fused_set_abstraction` is the counterpart of
 ``maskplanner_tpu/ops/pallas/fused_sa.py``: a grouped BatchNorm level in
@@ -131,7 +135,8 @@ def fused_sa_backward_plain(nsample: int, norm: str, xyz: torch.Tensor,
                             features: torch.Tensor | None, params,
                             idx: torch.Tensor, pooled: torch.Tensor,
                             d_pooled: torch.Tensor,
-                            needs=(True, True, True), splits: int = 1):
+                            needs=(True, True, True), splits: int = 1,
+                            precision: str = "f32"):
     """The level's backward in the kernels' decomposition
     (``csrc/fused_sa_bwd.cu`` then ``csrc/sa_weight_grad.cu``), from the
     forward's ``idx`` and ``pooled``:
@@ -149,12 +154,26 @@ def fused_sa_backward_plain(nsample: int, norm: str, xyz: torch.Tensor,
     5. d_xyz, d_new_xyz and d_features from layer 0's input gradient, each
        only where ``needs`` (xyz, new_xyz, features) asks for it.
 
+    ``precision="bf16"`` is the backward of the JAX kernel's
+    ``precision="default"`` (``_bwd_kernel`` with ``_Gather(single=True)``):
+    the feature rows gathered rounded to bf16 and every layer recomputed
+    with :func:`matmul_bf16`, as the bf16 forward; each weight gradient
+    ``bf16(d_pre)ᵀ · bf16(in)`` and each input gradient
+    ``bf16(d_pre) · bf16(W)``, both summed in f32 and not rounded after;
+    db, dgamma, dbeta and the LayerNorm backward in f32 from the unrounded
+    gradient; the scattered rows (offsets and features) rounded to bf16 and
+    summed in f32; d_new_xyz from the unrounded offsets' gradient.
+
     -> (d_xyz or None, d_new_xyz or None, d_features or None, per-layer
     gradients shaped like ``params``). ``nsample`` is the K of ``idx``."""
     if idx.shape[-1] != nsample:
         raise ValueError(f"idx must hold {nsample} neighbours a query")
+    bf16 = precision == "bf16"
+    product = PRODUCTS[precision]
+    if bf16 and features is not None:
+        features = bf16_round(features)
     x = _gather_plain(xyz, new_xyz, features, idx)
-    layers = _mlp_plain(x, params, norm)
+    layers = _mlp_plain(x, params, norm, product)
     act = layers[-1][3]
     hit = act >= pooled[:, :, None, :]
     first = hit & (hit.int().cumsum(2) == 1)
@@ -179,29 +198,34 @@ def fused_sa_backward_plain(nsample: int, norm: str, xyz: torch.Tensor,
             dx = d * params[l][2]
             d = inv * (dx - dx.mean(-1, keepdim=True)
                        - xhat * (dx * xhat).mean(-1, keepdim=True))
-        grads[l] = (fixed_order(lambda a, b: a.t() @ b, d, inp),
+        grads[l] = (fixed_order(lambda a, b: product(a.t(), b), d, inp),
                     fixed_order(lambda a: a.sum(0), d), *extra)
         if l > 0:
-            d = torch.where(layers[l - 1][3] > 0, d @ w, 0.0)
+            d = torch.where(layers[l - 1][3] > 0, product(d, w), 0.0)
         elif need_in:
-            d = d @ w
+            d = product(d, w)
     d_xyz = d_new = d_feat = None
     if need_in:
         B, N, _ = xyz.shape
         flat = (idx.long() + N * torch.arange(B, device=idx.device)
                 [:, None, None]).reshape(-1)
+        rows_out = bf16_round(d) if bf16 else d
         if needs[0]:
             d_xyz = torch.zeros(B * N, 3, dtype=d.dtype, device=d.device) \
-                .index_add_(0, flat, d[..., :3].reshape(-1, 3)) \
+                .index_add_(0, flat, rows_out[..., :3].reshape(-1, 3)) \
                 .view(B, N, 3)
         if needs[1]:
             d_new = -d[..., :3].sum(2)
         if needs[2] and features is not None:
             F = features.shape[-1]
             d_feat = torch.zeros(B * N, F, dtype=d.dtype, device=d.device) \
-                .index_add_(0, flat, d[..., 3:].reshape(-1, F)) \
+                .index_add_(0, flat, rows_out[..., 3:].reshape(-1, F)) \
                 .view(B, N, F)
     return d_xyz, d_new, d_feat, [tuple(g) for g in grads]
+
+
+def _layers(flat, n_per: int) -> list:
+    return [flat[i:i + n_per] for i in range(0, len(flat), n_per)]
 
 
 class FusedSALevel(torch.autograd.Function):
@@ -209,21 +233,22 @@ class FusedSALevel(torch.autograd.Function):
     saves the neighbour indices and the pooled output; the backward
     recomputes the activations from them (``csrc/fused_sa_bwd.cu``) and
     forms the weight gradients from the rows it writes
-    (``csrc/sa_weight_grad.cu``).
+    (``csrc/sa_weight_grad.cu``). ``bf16``: the kernels' bf16 modes
+    (``precision="bf16"``).
 
-    ``apply(radius, nsample, layer_norm, xyz, new_xyz, features, n_per,
-    *flat_params)``: ``flat_params`` holds the layers' tensors in order,
-    ``n_per`` of them a layer."""
+    ``apply(radius, nsample, layer_norm, bf16, xyz, new_xyz, features,
+    n_per, *flat_params)``: ``flat_params`` holds the layers' tensors in
+    order, ``n_per`` of them a layer."""
 
     @staticmethod
-    def forward(ctx, radius, nsample, layer_norm, xyz, new_xyz, features,
-                n_per, *flat):
-        from .cuda.fused_sa import fused_sa_cuda
+    def forward(ctx, radius, nsample, layer_norm, bf16, xyz, new_xyz,
+                features, n_per, *flat):
+        from .cuda.fused_sa import fused_sa_bf16_cuda, fused_sa_cuda
 
-        params = [flat[i:i + n_per] for i in range(0, len(flat), n_per)]
-        pooled, idx = fused_sa_cuda(radius, nsample, layer_norm, xyz,
-                                    new_xyz, features, params)
-        ctx.level = (nsample, layer_norm, n_per)
+        forward = fused_sa_bf16_cuda if bf16 else fused_sa_cuda
+        pooled, idx = forward(radius, nsample, layer_norm, xyz, new_xyz,
+                              features, _layers(flat, n_per))
+        ctx.level = (nsample, layer_norm, bf16, n_per)
         ctx.save_for_backward(xyz, new_xyz, features, idx, pooled, *flat)
         ctx.mark_non_differentiable(idx)
         return pooled, idx
@@ -232,14 +257,47 @@ class FusedSALevel(torch.autograd.Function):
     def backward(ctx, d_pooled, _d_idx):
         from .cuda.fused_sa import fused_sa_backward_cuda
 
-        nsample, layer_norm, n_per = ctx.level
+        nsample, layer_norm, bf16, n_per = ctx.level
         xyz, new_xyz, features, idx, pooled, *flat = ctx.saved_tensors
-        params = [flat[i:i + n_per] for i in range(0, len(flat), n_per)]
         # only the input gradients autograd asks for (the points and the
         # FPS centroids of a step carry none)
         d_xyz, d_new, d_feat, d_params = fused_sa_backward_cuda(
-            nsample, layer_norm, xyz, new_xyz, features, params, idx, pooled,
-            d_pooled.contiguous(), needs=ctx.needs_input_grad[3:6])
+            nsample, layer_norm, xyz, new_xyz, features, _layers(flat, n_per),
+            idx, pooled, d_pooled.contiguous(),
+            needs=ctx.needs_input_grad[4:7], bf16=bf16)
+        return (None, None, None, None, d_xyz, d_new, d_feat, None,
+                *(g for layer in d_params for g in layer))
+
+
+class PlainBf16Level(torch.autograd.Function):
+    """The bf16 level as plain PyTorch ops in both directions:
+    :func:`fused_sa_forward_plain` and :func:`fused_sa_backward_plain` with
+    ``precision="bf16"``. Autograd through the plain forward would round
+    each input gradient's result to bf16 (the backward of
+    :func:`bf16_round`) and leave ``d_pre`` unrounded, where the JAX level
+    does the reverse. The CPU's bf16 level; on the card the tests' plain
+    reference. ``apply(radius, nsample, norm, xyz, new_xyz, features,
+    n_per, *flat_params)``."""
+
+    @staticmethod
+    def forward(ctx, radius, nsample, norm, xyz, new_xyz, features, n_per,
+                *flat):
+        pooled, idx = fused_sa_forward_plain(radius, nsample, norm, xyz,
+                                             new_xyz, features,
+                                             _layers(flat, n_per), "bf16")
+        ctx.level = (nsample, norm, n_per)
+        ctx.save_for_backward(xyz, new_xyz, features, idx, pooled, *flat)
+        ctx.mark_non_differentiable(idx)
+        return pooled, idx
+
+    @staticmethod
+    def backward(ctx, d_pooled, _d_idx):
+        nsample, norm, n_per = ctx.level
+        xyz, new_xyz, features, idx, pooled, *flat = ctx.saved_tensors
+        d_xyz, d_new, d_feat, d_params = fused_sa_backward_plain(
+            nsample, norm, xyz, new_xyz, features, _layers(flat, n_per), idx,
+            pooled, d_pooled, needs=ctx.needs_input_grad[3:6],
+            precision="bf16")
         return (None, None, None, d_xyz, d_new, d_feat, None,
                 *(g for layer in d_params for g in layer))
 
@@ -255,36 +313,28 @@ def fused_sa_forward(radius: float, nsample: int, norm: str,
     xyz (B, N, 3); new_xyz (B, S, 3), the FPS centroids; features (B, N, F)
     or None; params: per layer ``(w (C_out, C_in), b)``, plus
     ``(gamma, beta)`` when ``norm == "layer"``. ``precision``: "f32" or
-    "bf16" (the bf16 models' serving mode: on the card forward only, and a
-    call that would need a gradient raises)."""
+    "bf16" (the bf16 models' mode, in serving and in training)."""
     if norm not in ("layer", "none"):
         raise ValueError(f"the fused level takes norm 'layer' or 'none', "
                          f"got {norm!r}")
     if precision not in PRODUCTS:
         raise ValueError(f"precision must be 'f32' or 'bf16', got "
                          f"{precision!r}")
+    n_per = 4 if norm == "layer" else 2
+    if any(len(layer) != n_per for layer in params):
+        raise ValueError("a layer is (w, b, gamma, beta) with LayerNorm, "
+                         "(w, b) without")
+    flat = [a for layer in params for a in layer]
     if xyz.device.type == "cuda":
-        n_per = 4 if norm == "layer" else 2
-        flat = [a for layer in params for a in layer]
-        if any(len(layer) != n_per for layer in params):
-            raise ValueError("a layer is (w, b, gamma, beta) with LayerNorm, "
-                             "(w, b) without")
-        if precision == "f32":
-            return FusedSALevel.apply(radius, nsample, norm == "layer", xyz,
-                                      new_xyz, features, n_per, *flat)
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad
-                for t in (xyz, new_xyz, features, *flat)):
-            raise NotImplementedError(
-                "the bf16 fused SA level has no backward: bf16 training is "
-                "not ported yet (ROADMAP.md, Queue 1)")
-        from .cuda.fused_sa import fused_sa_bf16_cuda
-
-        return fused_sa_bf16_cuda(radius, nsample, norm == "layer", xyz,
-                                  new_xyz, features, params)
+        return FusedSALevel.apply(radius, nsample, norm == "layer",
+                                  precision == "bf16", xyz, new_xyz,
+                                  features, n_per, *flat)
     if xyz.device.type == "cpu":
+        if precision == "bf16":
+            return PlainBf16Level.apply(radius, nsample, norm, xyz, new_xyz,
+                                        features, n_per, *flat)
         return fused_sa_forward_plain(radius, nsample, norm, xyz, new_xyz,
-                                      features, params, precision)
+                                      features, params)
     raise ValueError(f"no fused SA level for device {xyz.device}")
 
 

@@ -16,7 +16,8 @@ PyTorch's ``index_add_``, the card's own scatter.
 ``single_pass=True`` is the JAX kernel's single-pass mode, which bf16
 models group with: the row ``[bf16(x) − q ; bf16(f)]`` (the offsets
 formed in f32), returned rounded to bf16, as the bf16 MLP that consumes
-it rounds it. It is forward only: bf16 training is not ported.
+it rounds it. Its cotangent then arrives in bf16; the backward sums it in
+f32, as the JAX package sums the same bf16 values.
 """
 from __future__ import annotations
 
@@ -49,10 +50,14 @@ def ball_group_backward(idx: torch.Tensor, d_grouped: torch.Tensor, n: int,
     cotangent d_grouped (B, S, K, 3 + F) -> (d_xyz (B, n, 3), d_new_xyz
     (B, S, 3), d_features (B, n, F)), each None unless asked for: the
     offsets' and features' cotangents scatter-added over the flattened
-    (B·n) source rows, and d_new_xyz = −Σ_K d_offsets."""
+    (B·n) source rows, and d_new_xyz = −Σ_K d_offsets; sums in f32 at
+    least."""
     B, S, K, C = d_grouped.shape
     rows = (idx.long() + n * torch.arange(B, device=idx.device)[:, None, None])
     rows = rows.reshape(-1)
+    # a bf16 cotangent (the single pass's) is summed in f32
+    d_grouped = d_grouped.to(torch.promote_types(d_grouped.dtype,
+                                                 torch.float32))
 
     def scatter(values: torch.Tensor) -> torch.Tensor:
         width = values.shape[-1]
@@ -68,16 +73,18 @@ def ball_group_backward(idx: torch.Tensor, d_grouped: torch.Tensor, n: int,
 
 
 class BallGroup(torch.autograd.Function):
-    """The grouping on the card: the kernel forward saves the indices, the
-    backward scatters from them. ``apply(radius, nsample, xyz, new_xyz,
-    features)`` -> (grouped, idx)."""
+    """The grouping on the card: the kernel forward (its single pass with
+    ``single_pass``) saves the indices, the backward scatters from them.
+    ``apply(radius, nsample, xyz, new_xyz, features[, single_pass])`` ->
+    (grouped, idx)."""
 
     @staticmethod
-    def forward(ctx, radius, nsample, xyz, new_xyz, features):
-        from .cuda.group_gather import ball_group_cuda
+    def forward(ctx, radius, nsample, xyz, new_xyz, features,
+                single_pass=False):
+        from .cuda.group_gather import ball_group_cuda, ball_group_single_cuda
 
-        grouped, idx = ball_group_cuda(radius, nsample, xyz, new_xyz,
-                                       features)
+        group = ball_group_single_cuda if single_pass else ball_group_cuda
+        grouped, idx = group(radius, nsample, xyz, new_xyz, features)
         ctx.n = xyz.shape[1]
         ctx.save_for_backward(idx)
         ctx.mark_non_differentiable(idx)
@@ -86,10 +93,10 @@ class BallGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_grouped, _d_idx):
         (idx,) = ctx.saved_tensors
-        _, _, need_xyz, need_new, need_feat = ctx.needs_input_grad
+        need_xyz, need_new, need_feat = ctx.needs_input_grad[2:5]
         d_xyz, d_new, d_feat = ball_group_backward(
             idx, d_grouped, ctx.n, need_xyz, need_new, need_feat)
-        return None, None, d_xyz, d_new, d_feat
+        return None, None, d_xyz, d_new, d_feat, None
 
 
 def ball_group(radius: float, nsample: int, xyz: torch.Tensor,
@@ -101,21 +108,10 @@ def ball_group(radius: float, nsample: int, xyz: torch.Tensor,
 
     xyz (B, N, 3); new_xyz (B, S, 3), the FPS centroids; features
     (B, N, F) or None. ``single_pass``: bf16 rows for a bf16 consumer
-    (see the module's docstring); on the card it refuses a call that
-    would need a gradient."""
+    (see the module's docstring)."""
     if xyz.device.type == "cuda":
-        if not single_pass:
-            return BallGroup.apply(radius, nsample, xyz, new_xyz, features)
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad
-                for t in (xyz, new_xyz, features)):
-            raise NotImplementedError(
-                "the single-pass grouping has no backward: bf16 training "
-                "is not ported yet (ROADMAP.md, Queue 1)")
-        from .cuda.group_gather import ball_group_single_cuda
-
-        return ball_group_single_cuda(radius, nsample, xyz, new_xyz,
-                                      features)
+        return BallGroup.apply(radius, nsample, xyz, new_xyz, features,
+                               single_pass)
     if xyz.device.type == "cpu":
         return ball_group_plain(radius, nsample, xyz, new_xyz, features,
                                 single_pass)

@@ -2,8 +2,10 @@
 
 One step: the train forward (random FPS starts and dropout masks from an
 explicit generator), the loss, the backward, ``torch.optim.Adam`` (β 0.9 /
-0.999, eps 1e-8, as ``optax.adam``), and the BatchNorm running statistics,
-which the forward moves in place.
+0.999, eps 1e-8, as ``optax.adam``) on the f32 parameters, and the
+BatchNorm running statistics, which the forward moves in place. A bf16
+model's forward and backward both sum their bf16 products in f32
+(``models.maskplanner.f32_accumulation``), as the JAX reference does.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 from ..losses import LossHandler
 from ..losses.common import at_least_f32
 from ..models import MaskPlannerOutput
+from ..models.maskplanner import f32_accumulation
 
 
 def make_optimizer(model: torch.nn.Module, config) -> torch.optim.Adam:
@@ -52,9 +55,10 @@ def train_step(model, optimizer, handler: LossHandler, batch, weights,
     detached tensors (no host sync)."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    out = model(batch["point_cloud"], generator=generator)
-    total, terms = handler.compute(weights, **build_loss_batch(out, batch))
-    total.backward()
+    with f32_accumulation():
+        out = model(batch["point_cloud"], generator=generator)
+        total, terms = handler.compute(weights, **build_loss_batch(out, batch))
+        total.backward()
     optimizer.step()
     return total.detach(), {k: v.detach() for k, v in terms.items()}
 

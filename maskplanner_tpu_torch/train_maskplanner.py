@@ -15,11 +15,14 @@ and the delayed loss activations. At every eval it writes
 any of them. ``no_save`` writes none. It runs on the card unless ``device=cpu`` is given;
 ``device=cuda`` without a card raises. With ``model.pretrained`` (the
 default) and ``model.norm=batch`` it warm-starts the encoder from the
-original repository's ShapeNet checkpoint when the file is there.
+original repository's ShapeNet checkpoint when the file is there. Under
+``model.bf16=true`` the model trains in bf16 (the JAX package's dtype
+rules; ``models.pointnet2``) on f32 parameters: the frozen config keeps the
+flag, the checkpoints hold the f32 parameters, and a ``Predictor`` of the
+run serves it in bf16.
 
-Not ported yet (each raises when its config asks for it): bf16 training
-(``model.bf16``; bf16 serves), resume, the adversarial losses, the
-device-resident epoch (``device_dataset=true``),
+Not ported yet (each raises when its config asks for it): resume, the
+adversarial losses, the device-resident epoch (``device_dataset=true``),
 warm starts from a pretrained run (``model.pretrained_custom``). The eval
 metrics and the final ``.npy`` prediction dumps are skipped, with a
 notice.
@@ -51,9 +54,6 @@ def get_output_dir(config):
 
 
 def _refuse_unported(config) -> None:
-    if config["model"].get("bf16"):
-        raise NotImplementedError("bf16 training (model.bf16=true) is not "
-                                  "ported yet (ROADMAP.md, Queue 1)")
     if config.get("resume"):
         raise NotImplementedError("resume is not ported yet (ROADMAP.md, "
                                   "port queue)")

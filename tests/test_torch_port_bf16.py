@@ -244,22 +244,6 @@ def test_bf16_model_loads_the_f32_parameters(bf16_models):
     assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
-def test_bf16_model_has_no_train_mode():
-    model = get_model(_model_config("layer+layer+batch", True, False),
-                      device="cpu").train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(2, 256, 3))
-
-
-def test_train_maskplanner_refuses_bf16(tmp_path):
-    from maskplanner_tpu_torch import train_maskplanner
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_maskplanner.main([FLAGSHIP, "model.bf16=true", "device=cpu",
-                                f"output_dir={tmp_path}"])
-    assert not any(tmp_path.iterdir())
-
-
 @pytest.mark.cuda
 class TestKernelsOnCard:
     """The bf16 kernel modes against their plain versions on the card, as
@@ -297,15 +281,6 @@ class TestKernelsOnCard:
         assert torch.equal(idx, ref_idx)
         spread = float((ref.double() - ref64).abs().max())
         assert float((got.double() - ref64).abs().max()) <= 3.0 * spread
-
-    def test_bf16_level_refuses_a_gradient(self, cuda_device):
-        xyz, new_xyz, feats, params = _sa_case("layer", True)
-        args = [_t(a).to(cuda_device) for a in (xyz, new_xyz, feats)]
-        tparams = [tuple(_t(a).to(cuda_device).requires_grad_(True)
-                         for a in layer) for layer in params]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fused_sa_forward(RADIUS, K, "layer", *args, tparams,
-                             precision="bf16")
 
     @pytest.mark.parametrize("case", sorted(GROUP_CASES))
     def test_single_pass_kernel_matches_plain(self, case, cuda_device):
