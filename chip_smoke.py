@@ -41,9 +41,13 @@ result line:
    identical; each call timed, and a second bound, this design's f32
    instruction floor; the LAP on the
    step's real 64 x 22 x 22 costs, permutations of equal total cost
-   (1e-5 relative); median times, bounds (for K1 and K2 also by the
-   design's mix), the library yardstick
-   ``torch.cdist(x, y).argmin(-1)`` for the argmin;
+   (1e-5 relative), its chain floor (the longest problem's dependent
+   steps x the cycles a step of ``csrc/lap.cu``'s note, at the SM clock)
+   and ns a dependent step, and on both of its paths' edges (n in {1, 2,
+   21, 31, 32, 33, 64, 128} at batch 1 and 64, random and integer costs,
+   permutations within 1e-5 relative of the plain version's total cost);
+   median times, bounds (for K1 and K2 also by the design's mix), the
+   library yardstick ``torch.cdist(x, y).argmin(-1)`` for the argmin;
 7. one training step at batch 64: every kernel's launches counted, exactly
    fps 2, fused_sa_fwd 2, fused_sa_bwd 2, sa_weight_grad 2, nn_argmin 3,
    lap 1;
@@ -55,8 +59,9 @@ result line:
    first;
 10. step time at batch 64 (host clock, median of 10) and device time by
     kernel for one step (torch.profiler);
-11. ``train_maskplanner.main`` for 2 epochs of one step, then a
-    ``Predictor`` serves the checkpoint it wrote;
+11. ``train_maskplanner.main`` for 2 epochs of one step with
+    ``profile=true``: a chrome trace of the second epoch that holds the
+    card's kernels; then a ``Predictor`` serves the checkpoint it wrote;
 12. the reference BatchNorm recipe (``model.norm=batch``, seeded weights,
     BatchNorm running statistics away from 0/1), its kernels against their
     plain versions at the step's sa1 and sa2 shapes (a batch of 64 of the
@@ -64,8 +69,14 @@ result line:
     gather indices identical and values within 1e-6 · max|ref|, its
     backward within 1e-5 · max|ref| of autograd through the plain grouping,
     the ball query indices identical, the folded level pooled within
-    1e-4 · max|ref|; times and bounds (the folded level also by the
-   design's mix);
+    1e-4 · max|ref|; times (the ball kernels' per level) and bounds (the
+    folded level also by the design's mix); the ball-group gather, its
+    single pass and the ball query on edge inputs (``ball_edge_cases``:
+    batch 1, S off a block's queries, N below a warp and off the scan
+    step, duplicated points, balls with fewer than K points and empty
+    ones, K above N, rows off 16 bytes, one feature channel, a cloud past
+    the staging limit): indices identical, values within 1e-6 · max|ref|,
+    the single pass bit-equal;
 13. the BatchNorm recipe's forward at batch 64: exactly fps 2 and
     ball_group 2 launches, finite outputs, 2 samples on the CPU within
     1e-4 · max|ref|, forward time at batch 64 and 1, one ``Predictor``
@@ -811,7 +822,7 @@ def phase_train_kernels(cfg, model, batch, res: dict, card: dict) -> None:
     from maskplanner_tpu_torch.ops.cuda.fused_sa import (fused_sa_bwd_cuda,
                                                          sa_weight_grad_cuda,
                                                          scratch_floats)
-    from maskplanner_tpu_torch.ops.cuda.lap import lap_cuda
+    from maskplanner_tpu_torch.ops.cuda.lap import lap_cuda, lap_step_cycles
     from maskplanner_tpu_torch.ops.cuda.nn_argmin import nn_argmin_cuda
     from maskplanner_tpu_torch.ops.fused_sa import (fused_sa_forward,
                                                     fused_sa_forward_plain)
@@ -1004,17 +1015,8 @@ def phase_train_kernels(cfg, model, batch, res: dict, card: dict) -> None:
     stats = {}
     got = lap_cuda(cost)
     ref = hung.lap_plain(cost, stats)
-    rows = torch.arange(22, device="cuda")
-    for b in range(BATCH):
-        if sorted(got[b].tolist()) != list(range(22)):
-            raise AssertionError(f"lap problem {b}: not a permutation")
-    c_got = cost.double().gather(2, got.long()[..., None]).sum((1, 2))
-    c_ref = cost.double().gather(2, ref.long()[..., None]).sum((1, 2))
-    rel = float(((c_got - c_ref).abs() / c_ref.abs().clamp(min=1e-30)).max())
+    rel, gap = check_assignment("lap", cost, got, ref)
     agree = float((got == ref).float().mean())
-    if not rel <= 1e-5:
-        raise AssertionError(f"lap: total cost differs by {rel} relative")
-    del rows
     ms = median_ms(lambda: lap_cuda(cost), 20)
     plain = median_ms(lambda: hung.lap_plain(cost), 3, 1)
     log(f"[train-kernels] lap {tuple(cost.shape)}: permutations, total cost "
@@ -1023,11 +1025,75 @@ def phase_train_kernels(cfg, model, batch, res: dict, card: dict) -> None:
         f"{plain:.4f} ms")
     n = cost.shape[1]
     res["lap"].update(ms=ms, plain_ms=plain, library_ms=None,
-                      max_abs_err=float((c_got - c_ref).abs().max()),
+                      max_abs_err=gap,
                       # per step and column: 3 add/sub, 2 compares, a select
                       **bound(6.0 * stats["steps"] * n,
                               4.0 * (cost.numel() + BATCH * n)))
+    # the chain floor: the longest problem's dependent steps at the cycles
+    # one step needs (csrc/lap.cu's note), at the SM clock right after the
+    # timing
+    mhz = sm_clock_mhz()
+    cycles = lap_step_cycles()
+    res["lap"].update(
+        chain_bound_ms=stats["max_steps"] * cycles / (mhz * 1e6) * 1e3,
+        chain_bound_by=f"{stats['max_steps']} dependent steps x {cycles} "
+                       f"cycles at {mhz:.0f} MHz",
+        ns_per_step=ms * 1e6 / stats["max_steps"])
+    log(f"[train-kernels] lap chain: longest problem {stats['max_steps']} of "
+        f"{stats['steps']} steps; floor {res['lap']['chain_bound_ms']:.4f} ms "
+        f"({cycles} cycles a step at {mhz:.0f} MHz); kernel "
+        f"{res['lap']['ns_per_step']:.1f} ns a dependent step (launch gap "
+        f"included)")
+    check_lap_edges()
     model.eval()
+
+
+def check_assignment(what: str, cost, got, ref) -> tuple[float, float]:
+    """``got`` (B, n) must be a permutation per problem whose total cost lies
+    within 1e-5 relative of ``ref``'s -> (the largest relative and absolute
+    total-cost gaps)."""
+    B, n = got.shape
+    perm = torch.sort(got.long(), dim=1).values
+    if not torch.equal(perm, torch.arange(n, device=got.device).expand(B, n)):
+        raise AssertionError(f"{what}: not a permutation")
+    c_got = cost.double().gather(2, got.long()[..., None]).sum((1, 2))
+    c_ref = cost.double().gather(2, ref.long()[..., None]).sum((1, 2))
+    gap = (c_got - c_ref).abs()
+    rel = float((gap / c_ref.abs().clamp(min=1e-30)).max())
+    if not rel <= 1e-5:
+        raise AssertionError(f"{what}: total cost differs by {rel} relative")
+    return rel, float(gap.max())
+
+
+def sm_clock_mhz() -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+
+
+def check_lap_edges() -> None:
+    """The LAP kernel on both of its paths and their edges: n in {1, 2, 21,
+    31, 32, 33, 64, 128} at batch 1 and 64, on random costs and on small
+    integers (many exact ties): every result a permutation whose total
+    cost lies within 1e-5 relative of the plain version's (run on the
+    CPU)."""
+    from maskplanner_tpu_torch.ops.cuda.lap import lap_cuda
+    from maskplanner_tpu_torch.ops.hungarian import lap_plain
+
+    gen = torch.Generator().manual_seed(4)
+    for n in (1, 2, 21, 31, 32, 33, 64, 128):
+        for batch in (1, BATCH):
+            for kind in ("random", "integer"):
+                cost = torch.randn((batch, n, n), generator=gen)
+                if kind == "integer":
+                    cost = torch.randint(0, 4, (batch, n, n),
+                                         generator=gen).float()
+                check_assignment(f"lap n={n} b={batch} {kind}", cost,
+                                 lap_cuda(cost.cuda()).cpu(), lap_plain(cost))
+        log(f"[train-kernels] lap edges n={n}: batch 1 and {BATCH}, random "
+            f"and integer costs: permutations of the plain version's total "
+            f"cost")
 
 
 def to_batch(items: list[dict], device) -> dict:
@@ -1149,11 +1215,14 @@ def phase_card_vs_cpu(cfg, items, handler, label: str = "train") -> None:
 
 def phase_train_then_serve(extra=(), expect: dict = STEP_LAUNCHES,
                            serve: dict = FORWARD_LAUNCHES,
-                           label: str = "train-then-serve") -> None:
+                           label: str = "train-then-serve",
+                           profile: bool = False) -> None:
     """The training entry point in-process (with the ``extra`` config
     arguments) for 2 epochs of one step, each step launching the fused SA
     backward's kernels as ``expect`` says; then a Predictor serves what it
-    wrote in the run's own dtype, launching ``serve``."""
+    wrote in the run's own dtype, launching ``serve``. With ``profile``,
+    the run has ``profile=true`` and must leave a trace of its second
+    epoch that holds the card's kernels."""
     from maskplanner_tpu_torch import train_maskplanner
 
     with tempfile.TemporaryDirectory() as out:
@@ -1161,8 +1230,19 @@ def phase_train_then_serve(extra=(), expect: dict = STEP_LAUNCHES,
         run_dir, _ = train_maskplanner.main([
             FLAGSHIP, *extra, "device=cuda", "epochs=2", "eval_freq=1",
             f"dataset_size={BATCH}", "test_dataset_size=8", "seed=1",
-            f"output_dir={out}"])
+            f"profile={str(profile).lower()}", f"output_dir={out}"])
         launches = read_counts()
+        if profile:
+            path = os.path.join(run_dir, "profile", "trace.json")
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            if not kernels:
+                raise AssertionError(f"{path} holds no kernel of the card")
+            busy = sum(float(e.get("dur", 0)) for e in kernels) / 1e3
+            log(f"[{label}] profile=true: {path} holds the second epoch's "
+                f"step, {len(kernels)} kernels on the card, {busy:.3f} ms "
+                f"of kernel time")
         backward = [k for k in ("fused_sa_bwd", "sa_weight_grad",
                                 "fused_sa_bwd_bf16", "sa_weight_grad_bf16")
                     if expect[k]]
@@ -1270,6 +1350,7 @@ def phase_bn_kernels(model, batch, res: dict) -> dict:
         rb = res["ball_group"]
         rb["max_abs_err"] = max(rb["max_abs_err"], err)
         rb["ms"] += ms
+        rb.setdefault("level_ms", {})[name] = ms
         rb["plain_ms"] += plain
         ops["ball_group"] += scan + B * S * K * 3.0
         nbytes["ball_group"] += in_bytes + 4.0 * got.numel() + idx_bytes
@@ -1307,6 +1388,7 @@ def phase_bn_kernels(model, batch, res: dict) -> dict:
         log(f"[bn-kernels] ball_query {name}: identical; kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms")
         res["ball_query"]["ms"] += ms
+        res["ball_query"].setdefault("level_ms", {})[name] = ms
         res["ball_query"]["plain_ms"] += plain
         ops["ball_query"] += scan
         nbytes["ball_query"] += 4.0 * (pts.numel() + new_xyz.numel()) \
@@ -1350,6 +1432,78 @@ def phase_bn_kernels(model, batch, res: dict) -> dict:
         f"ms, this design's mix {rf['mix_bound_ms']:.4f} ms "
         f"({rf['mix_bound_by']})")
     return own
+
+
+def ball_edge_cases() -> dict:
+    """Inputs at the edges of the ball kernels' design (name: radius, K,
+    xyz, new_xyz, features), on the card: the queries are points of the
+    cloud (as FPS picks them) unless moved away on purpose."""
+    gen = torch.Generator().manual_seed(5)
+
+    def case(B, N, S, K, F, r, cloud=None, far=0):
+        xyz = (torch.rand((B, N, 3), generator=gen) * 2 - 1
+               if cloud is None else cloud)
+        pick = torch.stack([torch.randperm(N, generator=gen)[:S]
+                            for _ in range(B)])
+        q = torch.gather(xyz, 1, pick[..., None].expand(B, S, 3)).clone()
+        q[:, :far] += 100.0          # empty balls
+        f = torch.randn((B, N, F), generator=gen) if F else None
+        return tuple(None if t is None else t.cuda()
+                     for t in (xyz, q, f)), (r, K)
+
+    dup = (torch.rand((2, 40, 3), generator=gen) * 2 - 1).repeat(1, 16, 1)
+    cases = {
+        "batch 1, sa1 widths": case(1, 5120, 512, 32, 0, 0.2),
+        "batch 1, sa2 widths": case(1, 512, 128, 64, 128, 0.4),
+        # 140 clouds: enough blocks that a staged block takes 32 queries
+        "S off a block's queries (staged, 32 a block)": case(140, 5120, 37,
+                                                             32, 0, 0.3),
+        "S off a block's queries (8 a block)": case(3, 512, 13, 16, 7, 0.5),
+        "N below a warp": case(2, 20, 7, 8, 5, 0.8),
+        "N off the scan step": case(2, 300, 50, 16, 3, 0.5),
+        "duplicated points": case(2, 640, 64, 32, 4, 0.6, cloud=dup),
+        "sparse and empty balls": case(2, 1000, 64, 16, 2, 0.05, far=20),
+        "K above N": case(2, 20, 9, 48, 6, 1.0),
+        "odd K, rows off 16 bytes": case(2, 512, 30, 7, 128, 0.5),
+        "one feature channel": case(2, 256, 33, 5, 1, 0.4),
+        "cloud past the staging limit": case(2, 13000, 40, 32, 0, 0.1),
+    }
+    return cases
+
+
+def check_ball_edges() -> None:
+    """The ball-group gather (#6), its single pass (6b) and the ball query
+    (#7) against their plain versions on ``ball_edge_cases``: indices
+    identical, f32 values within 1e-6 · max|ref|, the single pass
+    bit-equal."""
+    from maskplanner_tpu_torch.ops.cuda.group_gather import (
+        ball_group_cuda, ball_group_single_cuda, ball_query_cuda)
+    from maskplanner_tpu_torch.ops.distance import square_distance
+    from maskplanner_tpu_torch.ops.group_gather import ball_group_plain
+
+    for what, ((xyz, q, f), (r, K)) in ball_edge_cases().items():
+        got, idx = ball_group_cuda(r, K, xyz, q, f)
+        ref, ref_idx = ball_group_plain(r, K, xyz, q, f)
+        one, one_idx = ball_group_single_cuda(r, K, xyz, q, f)
+        one_ref, _ = ball_group_plain(r, K, xyz, q, f, single_pass=True)
+        q_idx = ball_query_cuda(r, K, xyz, q)
+        torch.cuda.synchronize()
+        for name, a in (("ball_group", idx), ("ball_group_single", one_idx),
+                        ("ball_query", q_idx)):
+            if not torch.equal(a, ref_idx):
+                raise AssertionError(f"{name} {what}: indices differ at "
+                                     f"{int((a != ref_idx).sum())} places")
+        err = check_close(f"ball_group {what}", got, ref, 1e-6)
+        if not torch.equal(one, one_ref):
+            raise AssertionError(f"ball_group_single {what}: values differ")
+        found = (square_distance(q, xyz) <= r ** 2).sum(-1)
+        log(f"[bn-kernels] ball edges, {what}: B={xyz.shape[0]} "
+            f"N={xyz.shape[1]} S={q.shape[1]} K={K} "
+            f"F={0 if f is None else f.shape[-1]}: indices identical (#6, "
+            f"6b, #7), max|Δ| {err:.3e}, single pass bit-equal; "
+            f"{float((found < K).double().mean()):.2f} of the balls hold "
+            f"fewer than K points, {float((found == 0).double().mean()):.2f} "
+            f"none")
 
 
 # ---------------------------------------------------------------------------
@@ -1477,6 +1631,7 @@ def phase_bf16_group(model, clouds: np.ndarray, res: dict) -> None:
             f"K={K}: idx and values identical; kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms")
         r["ms"] += ms
+        r.setdefault("level_ms", {})[name] = ms
         r["plain_ms"] += plain
         ops += scan_ops(rad, K, pts, new_xyz) + B * S * K * 6.0
         nbytes += (4.0 * (pts.numel() + new_xyz.numel()
@@ -1849,13 +2004,14 @@ def main() -> int:
     train_items = load_items(cfg, "train")
     phase_train_kernels(cfg, model, to_batch(train_items, "cuda"), res, card)
     launches = phase_train_step(cfg, train_items)
-    phase_train_then_serve()
+    phase_train_then_serve(profile=True)
     log(f"[time] flagship phases done at {time.perf_counter() - t0:.1f} s")
 
     bn_cfg = load_args(argv=[FLAGSHIP, BATCH_NORM])
     bn = bn_model(bn_cfg)
     with torch.no_grad():   # the backward check turns autograd on itself
         own = phase_bn_kernels(bn, to_batch(train_items, "cuda"), res)
+        check_ball_edges()
     phase_forward(bn, clouds, "bn-forward", BN_FORWARD_LAUNCHES)
     phase_serve(bn_cfg, bn, "bn-serve", 1, BN_FORWARD_LAUNCHES)
     bn_bf16_launches, bn16 = phase_bf16(bn_cfg, bn, clouds, "bn-bf16-forward",

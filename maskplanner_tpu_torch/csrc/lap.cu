@@ -10,18 +10,39 @@
 // What bounds it on this card: latency. A problem of size n makes n
 // augmentations of up to n dependent Dijkstra steps, each ending in an
 // argmin over the columns; there is no bulk arithmetic and the bytes are
-// the n x n costs (1.9 KB at the flagship's 22 x 22).
+// the n x n costs (1.9 KB at the flagship's 22 x 22). The problems run side
+// by side, so a launch takes as long as its longest problem's chain of
+// steps. The chain floor of one step of the warp path, counted from the
+// instructions it cannot overlap (latencies on sm_90, in cycles):
+//   the row's potential (shuffle, 24) in parallel with its cost (shared
+//   load, 24) -> three dependent f32 adds (3 x 4) -> the compare and two
+//   selects of the shortest distance (3 x 4) -> the order-preserving key
+//   (2 x 4) -> redux.sync min (32) -> the compare with the minimum and
+//   __ballot_sync (4 + 8) -> __ffs (8) -> the winner's row4col by shuffle
+//   (24) -> the loop's test (4)
+// = kStepCycles (136). chip_smoke.py reads it through lap_step_cycles() and
+// bounds the launch below by the longest problem's steps x kStepCycles at
+// the SM clock.
 //
-// What the design does about it: one block per problem, so the 64 problems
-// of a training step run side by side on 64 SMs. The whole cost matrix
-// sits in shared memory (dynamic: 64 KB at n = 128). One thread per column
-// keeps that column's shortest distance, its path row, its potential v and
-// its scanned flag in registers; the row potentials u, col4row, row4col
-// and the scanned rows sit in shared memory. A Dijkstra step's argmin is a warp-shuffle reduction,
-// plus one round through shared memory over the warps when n > 32; ties go
-// to the lowest column, as torch.argmin does in the plain version. One
-// thread walks the augmenting path. Every value is f32, formed in the
-// plain version's order, so the two normally agree index for index.
+// What the design does about it:
+// - n <= 32 (the flagship's 22), the warp path: a problem a warp, several
+//   warps a block, and no __syncthreads. Lane j keeps column j's shortest
+//   distance, path row, potential v and scanned flag, and row j's
+//   potential u, col4row and row4col, all in registers: a row's u and a
+//   column's row4col are read by __shfl_sync. The warp stages its costs in
+//   shared memory once. A step's argmin is __reduce_min_sync (redux.sync)
+//   on an order-preserving 32-bit key of each unscanned column's distance,
+//   then __ballot_sync + __ffs for the lowest column among equal values:
+//   ties go to the lowest column, as torch.argmin does in the plain
+//   version. The path walk runs in registers and shuffles.
+// - 33 <= n <= 128, the block path: one block a problem, one thread a
+//   column; the costs in shared memory (64 KB at n = 128, its limit raised
+//   once per device); the row potentials, col4row, row4col and the
+//   scanned rows in shared memory; the argmin a warp-shuffle reduction and
+//   one round through shared memory over the warps; one thread walks the
+//   augmenting path.
+// Every value is f32, formed in the plain version's order
+// (ops/hungarian.py::lap_plain), so the two normally agree index for index.
 
 #include <cuda_runtime.h>
 
@@ -29,6 +50,97 @@ namespace {
 
 constexpr int kMaxN = 128;
 constexpr float kInf = 1e18f;
+constexpr int kStepCycles = 136;
+constexpr int kWarpProblems = 4;  // problems a block of the warp path
+constexpr int kDevices = 16;      // devices whose attribute is set
+
+// -- the warp path (n <= 32) -------------------------------------------------
+
+// An unsigned key that orders as the float does (-0 and +0 alike).
+__device__ __forceinline__ unsigned order_key(float x) {
+  const unsigned b = __float_as_uint(__fadd_rn(x, 0.f));  // -0 -> +0
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__global__ void __launch_bounds__(32 * kWarpProblems)
+    lap_warp_kernel(const float* __restrict__ cost, int b, int n,
+                    int* __restrict__ col4row_out) {
+  extern __shared__ float c_all[];  // kWarpProblems x n x n costs
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int problem = blockIdx.x * kWarpProblems + warp;
+  if (problem >= b) return;  // whole warps leave: no block barrier follows
+  float* c = c_all + warp * n * n;
+  const float* cb = cost + static_cast<size_t>(problem) * n * n;
+  for (int e = lane; e < n * n; e += 32) c[e] = __ldg(cb + e);
+  __syncwarp();
+
+  const bool col = lane < n;  // lane j: column j and row j
+  float u = 0.f, v = 0.f;
+  int col4row = -1, row4col = -1;
+  for (int cur = 0; cur < n; ++cur) {
+    float shortest = kInf;
+    int path = -1;
+    bool scanned = false;
+    bool scanned_row = false;
+    int i = cur;  // the same in every lane
+    int sink = 0;
+    float minval = 0.f;
+    // at most n steps: each scans a new column, and a free one ends the
+    // search (the bound keeps non-finite costs from looping forever)
+    for (int step = 0; step < n; ++step) {
+      if (lane == i) scanned_row = true;
+      const float ui = __shfl_sync(0xffffffffu, u, i);
+      if (col && !scanned) {
+        const float d =
+            __fsub_rn(__fsub_rn(__fadd_rn(minval, c[i * n + lane]), ui), v);
+        if (d < shortest) {
+          shortest = d;
+          path = i;
+        }
+      }
+      // argmin over the columns: scanned ones count as kInf (the plain
+      // version's mask), lanes past n never win
+      const float cand = scanned ? kInf : shortest;
+      const unsigned key = col ? order_key(cand) : 0xffffffffu;
+      const unsigned best = __reduce_min_sync(0xffffffffu, key);
+      const int jj = __ffs(__ballot_sync(0xffffffffu, key == best)) - 1;
+      minval = __shfl_sync(0xffffffffu, cand, jj);
+      if (lane == jj) scanned = true;
+      const int nxt = __shfl_sync(0xffffffffu, row4col, jj);
+      if (nxt < 0) {
+        sink = jj;
+        break;
+      }
+      i = nxt;
+    }
+    // potentials (scipy rectangular_lsap): lane j updates row j's, then
+    // column j's
+    const float short_cj =
+        __shfl_sync(0xffffffffu, shortest, col4row < 0 ? 0 : col4row);
+    if (col) {
+      if (lane == cur) {
+        u = __fadd_rn(u, minval);
+      } else if (scanned_row) {
+        u = __fadd_rn(u, __fsub_rn(minval, short_cj));
+      }
+      if (scanned) v = __fsub_rn(__fadd_rn(v, shortest), minval);
+    }
+    // augment along the alternating path that ends at the sink
+    int j = sink;
+    for (int t = 0; t < n; ++t) {
+      const int r = __shfl_sync(0xffffffffu, path, j);
+      const int prev = __shfl_sync(0xffffffffu, col4row, r);
+      if (lane == j) row4col = r;
+      if (lane == r) col4row = j;
+      if (r == cur) break;
+      j = prev;
+    }
+  }
+  if (col) col4row_out[static_cast<size_t>(problem) * n + lane] = col4row;
+}
+
+// -- the block path (33 <= n <= 128) -----------------------------------------
 
 // (v, j) beats (best_v, best_j) when smaller, or equal at a lower column.
 __device__ __forceinline__ void arg_min_merge(float v, int j, float& best_v,
@@ -40,8 +152,8 @@ __device__ __forceinline__ void arg_min_merge(float v, int j, float& best_v,
 }
 
 __global__ void __launch_bounds__(kMaxN)
-    lap_kernel(const float* __restrict__ cost, int n,
-               int* __restrict__ col4row_out) {
+    lap_block_kernel(const float* __restrict__ cost, int n,
+                     int* __restrict__ col4row_out) {
   extern __shared__ float c[];  // n * n costs
   __shared__ float u[kMaxN];
   __shared__ float sh_short[kMaxN];
@@ -76,7 +188,7 @@ __global__ void __launch_bounds__(kMaxN)
     int i = cur;        // identical in every thread
     int sink = -1;
     float minval = 0.f;
-    while (sink < 0) {
+    for (int step = 0; sink < 0 && step < n; ++step) {
       if (j == 0) s_rows[i] = 1;
       if (col && !scanned) {
         const float d = ((minval + c[i * n + j]) - u[i]) - v;
@@ -136,7 +248,7 @@ __global__ void __launch_bounds__(kMaxN)
     // augment along the alternating path that ends at the sink
     if (j == 0) {
       int jj = sink;
-      while (true) {
+      for (int t = 0; t < n && jj >= 0; ++t) {
         const int r = sh_path[jj];
         row4col[jj] = r;
         const int prev = col4row[r];
@@ -159,13 +271,34 @@ extern "C" int lap_forward(const float* cost, int b, int n, int* col4row,
   if (b <= 0 || n <= 0 || n > kMaxN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 32) {
+    const size_t smem = sizeof(float) * kWarpProblems * n * n;  // <= 16 KB
+    lap_warp_kernel<<<(b + kWarpProblems - 1) / kWarpProblems,
+                      32 * kWarpProblems, smem, st>>>(cost, b, n, col4row);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the block path's costs pass 48 KB above n = 110: the limit is raised to
+  // n = 128's once per device
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool raised[kDevices] = {};
+  bool unknown = false;
+  bool& set = device < kDevices ? raised[device] : unknown;
+  if (!set) {
+    err = cudaFuncSetAttribute(lap_block_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(sizeof(float) * kMaxN * kMaxN));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set = true;
+  }
   const int threads = ((n + 31) / 32) * 32;
   const size_t smem = sizeof(float) * static_cast<size_t>(n) * n;
-  cudaError_t err = cudaFuncSetAttribute(
-      lap_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lap_kernel<<<b, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      cost, n, col4row);
+  lap_block_kernel<<<b, threads, smem, st>>>(cost, n, col4row);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Cycles of one dependent Dijkstra step of the warp path (the chain floor
+// in this file's note).
+extern "C" int lap_step_cycles() { return kStepCycles; }

@@ -24,6 +24,15 @@ def _bind():
     return fn
 
 
+def lap_step_cycles() -> int:
+    """Cycles of one dependent Dijkstra step of the kernel's warp path, the
+    chain floor stated in ``csrc/lap.cu``'s note."""
+    fn = build.library("lap").lap_step_cycles
+    fn.restype = ctypes.c_int
+    fn.argtypes = []
+    return int(fn())
+
+
 def lap_cuda(cost: torch.Tensor) -> torch.Tensor:
     """(B, n, n) float32 CUDA costs, n <= 128 -> col4row (B, n) int32, a
     cost-optimal permutation per problem."""

@@ -22,7 +22,10 @@ _INF = 1e18
 def lap_plain(cost: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
     """(B, n, n) float32 costs -> col4row (B, n) int32, the column assigned
     to each row. ``stats``: if given, ``stats["steps"]`` counts the Dijkstra
-    steps the problems took (the work this data needs)."""
+    steps the problems took (the work this data needs) and
+    ``stats["max_steps"]`` those of the longest problem (the chain of
+    dependent steps that a solver running the problems side by side waits
+    for)."""
     B, n, _ = cost.shape
     dev = cost.device
     cost = cost.detach().float()
@@ -32,6 +35,7 @@ def lap_plain(cost: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
     v = torch.zeros(B, n, device=dev)
     col4row = torch.full((B, n), -1, dtype=torch.long, device=dev)
     row4col = torch.full((B, n), -1, dtype=torch.long, device=dev)
+    steps = torch.zeros(B, dtype=torch.long, device=dev)
     for cur in range(n):
         shortest = torch.full((B, n), _INF, device=dev)
         path = torch.full((B, n), -1, dtype=torch.long, device=dev)
@@ -46,8 +50,7 @@ def lap_plain(cost: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
             n_live = int(live.sum())
             if n_live == 0:
                 break
-            if stats is not None:
-                stats["steps"] = stats.get("steps", 0) + n_live
+            steps += live
             s_rows[rows, i] |= live
             d = ((minval[:, None] + cost[rows, i]) - u[rows, i][:, None]) - v
             better = (d < shortest) & ~s_cols & live[:, None]
@@ -79,6 +82,10 @@ def lap_plain(cost: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
             if bool(done.all()):
                 break
             j = torch.where(done, j, prev)
+    if stats is not None:
+        stats["steps"] = stats.get("steps", 0) + int(steps.sum())
+        stats["max_steps"] = max(stats.get("max_steps", 0),
+                                 int(steps.max()))
     return col4row.to(torch.int32)
 
 

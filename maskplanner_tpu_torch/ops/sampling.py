@@ -84,11 +84,15 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
 def ball_query_plain(radius: float, nsample: int, xyz: torch.Tensor,
                      new_xyz: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`query_ball_point`: the (B, S, N) distances,
-    then the ``nsample`` smallest in-radius indices."""
+    then the ``nsample`` smallest in-radius indices (with ``nsample`` > N,
+    the slots past the N points repeat the first, as every missing slot
+    does)."""
     N = xyz.shape[1]
     within = square_distance(new_xyz, xyz) <= radius ** 2       # (B, S, N)
     idx = torch.arange(N, device=xyz.device)
     masked = torch.where(within, idx, N)
+    if nsample > N:
+        masked = torch.nn.functional.pad(masked, (0, nsample - N), value=N)
     group = torch.topk(masked, nsample, dim=-1, largest=False,
                        sorted=True).values
     group = torch.where(group == N, group[..., :1], group)

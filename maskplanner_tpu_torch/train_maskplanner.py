@@ -19,7 +19,12 @@ original repository's ShapeNet checkpoint when the file is there. Under
 ``model.bf16=true`` the model trains in bf16 (the JAX package's dtype
 rules; ``models.pointnet2``) on f32 parameters: the frozen config keeps the
 flag, the checkpoints hold the f32 parameters, and a ``Predictor`` of the
-run serves it in bf16.
+run serves it in bf16. Under ``profile=true`` it records the second
+epoch's training steps with ``torch.profiler`` (``utils/profiling.py``:
+the host, and the card's kernels on the card) into
+``<run_dir>/profile/trace.json``, as the JAX package's entry point
+traces that epoch; a run of fewer than 2 epochs has no second epoch and
+raises.
 
 Not ported yet (each raises when its config asks for it): resume, the
 adversarial losses, the device-resident epoch (``device_dataset=true``),
@@ -46,6 +51,7 @@ from .train import (PSACDScheduler, apply_delayed_activations,
 from .utils import create_dirs, get_run_name, set_seed
 from .utils.args import load_args
 from .utils.config import save_config
+from .utils.profiling import profile_trace
 
 
 def get_output_dir(config):
@@ -67,6 +73,9 @@ def _refuse_unported(config) -> None:
     if config["model"].get("pretrained_custom"):
         raise NotImplementedError("model.pretrained_custom warm starts are "
                                   "not ported yet (ROADMAP.md, port queue)")
+    if config.get("profile") and int(config["epochs"]) < 2:
+        raise ValueError(f"profile=true traces the second epoch, but "
+                         f"epochs={config['epochs']}")
 
 
 def warm_start_encoder(model, config) -> list[str] | None:
@@ -160,12 +169,14 @@ def main(argv=None):
         for epoch in range(epochs):
             t0 = time.time()
             losses, term_acc = [], []
-            for batch in tr_loader.epoch(epoch):
-                loss, terms = train_step(model, optimizer, handler,
-                                         batch_to_device(batch, device),
-                                         weights, generator)
-                losses.append(loss)
-                term_acc.append(terms)
+            with profile_trace(run_dir, bool(config.get("profile"))
+                               and epoch == 1, device):
+                for batch in tr_loader.epoch(epoch):
+                    loss, terms = train_step(model, optimizer, handler,
+                                             batch_to_device(batch, device),
+                                             weights, generator)
+                    losses.append(loss)
+                    term_acc.append(terms)
             # one host sync per epoch
             epoch_loss = float(torch.stack(losses).mean())
             log = {"train_loss": epoch_loss, "epoch": epoch + 1,

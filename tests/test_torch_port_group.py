@@ -57,11 +57,16 @@ def fixed_order(monkeypatch):
     monkeypatch.setenv("MASKPLANNER_DETERMINISTIC_NN", "1")
 
 
-# name: (N, S, K, F, radius)
+# name: (N, S, K, F, radius). "ragged": N and S multiples of no warp, scan
+# step or block of queries; "f128": sa2's feature width, whose 131-float
+# rows start off 16 bytes; "few": most balls hold fewer than K points
 GROUP_CASES = {"xyz-only": (384, 64, 8, 0, 0.5),
                "f5": (256, 64, 8, 5, 0.5),
                "f29": (256, 32, 4, 29, 0.5),
-               "sparse": (256, 64, 8, 5, 0.15)}
+               "sparse": (256, 64, 8, 5, 0.15),
+               "ragged": (100, 37, 16, 0, 0.3),
+               "f128": (256, 40, 8, 128, 0.5),
+               "few": (256, 48, 32, 5, 0.25)}
 
 
 def _group_case(name, B=2, seed=0):

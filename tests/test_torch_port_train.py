@@ -437,6 +437,36 @@ def test_driver_writes_best_and_intermediate_checkpoints(tmp_path):
     assert not [f for f in os.listdir(run_dir) if f.endswith(".torch.pt")]
 
 
+@pytest.mark.parametrize("profile", [True, False],
+                         ids=["profile", "no-profile"])
+def test_profile_traces_the_second_epoch(profile, tmp_path):
+    """``profile=true`` leaves a chrome trace of the second epoch's steps
+    under ``<run_dir>/profile/`` (the JAX package's ``profile_trace``);
+    without it the run leaves none; with one epoch there is no second to
+    trace, and the run raises rather than ignore the flag."""
+    import json
+
+    from maskplanner_tpu_torch import train_maskplanner
+
+    args = [*SMALL, "batch_size=2", "device=cpu", "eval_freq=1",
+            "dataset_size=4", "test_dataset_size=2", "seed=3",
+            "no_save=true", f"profile={str(profile).lower()}",
+            f"output_dir={tmp_path}"]
+    run_dir, _ = train_maskplanner.main([*args, "epochs=2"])
+    trace_dir = os.path.join(run_dir, "profile")
+    if not profile:
+        assert not os.path.exists(trace_dir)
+        return
+    assert os.listdir(trace_dir) == ["trace.json"]
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    # the second epoch's two steps: forward, loss and Adam's ops
+    names = {e.get("name", "") for e in events}
+    assert any("Optimizer.step" in n for n in names), sorted(names)[:20]
+    with pytest.raises(ValueError, match="second epoch"):
+        train_maskplanner.main([*args, "epochs=1"])
+
+
 def test_driver_refuses_what_is_not_ported(tmp_path):
     from maskplanner_tpu_torch import train_maskplanner
 

@@ -241,7 +241,11 @@ def test_hungarian_rectangular():
         np.testing.assert_allclose(got[b], cost[b][r, c].sum(), rtol=1e-5)
 
 
-@pytest.mark.parametrize("n", [1, 6, 22])
+# the LAP kernel's warp path takes n <= 32, its block path 33..128
+LAP_SIZES = [1, 6, 22, 31, 32, 33, 64, 128]
+
+
+@pytest.mark.parametrize("n", LAP_SIZES)
 def test_plain_lap_matches_pallas_interpret(n):
     from maskplanner_tpu.ops.pallas.lap import lap_jv_pallas
 
@@ -256,6 +260,23 @@ def test_plain_lap_matches_pallas_interpret(n):
         np.testing.assert_allclose(cost[b][rows, got[b]].sum(),
                                    cost[b][rows, ref[b]].sum(), rtol=1e-5,
                                    atol=1e-5)
+
+
+def test_plain_lap_counts_its_longest_chain():
+    """``stats["max_steps"]``, the longest problem's Dijkstra steps (the
+    chain the kernel waits for), lies between n (an augmentation takes at
+    least one step) and the steps of all problems."""
+    rng = np.random.default_rng(3)
+    for n in (1, 7, 22):
+        cost = rng.normal(size=(6, n, n)).astype(np.float32)
+        cost[2] = np.round(cost[2])
+        stats = {}
+        lap_plain(torch.from_numpy(cost), stats)
+        assert n <= stats["max_steps"] <= stats["steps"]
+        assert stats["steps"] <= 6 * stats["max_steps"]
+        one = {}
+        lap_plain(torch.from_numpy(cost[:1]), one)
+        assert one["max_steps"] == one["steps"]
 
 
 def _sa_case(norm, with_features, B=2, N=256, S=64, chans=(16, 24)):
@@ -354,6 +375,23 @@ class TestKernelsOnCard:
             got = nn_argmin(x, y, mask)
             assert nn_argmin_cuda.launches == before + 1
             assert torch.equal(got, nn_argmin_plain(x, y, mask))
+
+    @pytest.mark.parametrize("n", LAP_SIZES)
+    def test_lap_kernel_paths_match_plain(self, cuda_device, n):
+        """Both of the kernel's paths (warp: n <= 32, block: above), on
+        random and on tied integer costs: permutations of the plain
+        version's total cost."""
+        rng = np.random.default_rng(n)
+        for cost in (rng.normal(size=(64, n, n)),
+                     rng.integers(0, 4, size=(64, n, n))):
+            cost = torch.from_numpy(cost.astype(np.float32))
+            got = lap(cost.to(cuda_device)).cpu().long()
+            ref = lap_plain(cost).long()
+            assert torch.equal(got.sort(1).values,
+                               torch.arange(n).expand(64, n))
+            c_got = cost.double().gather(2, got[..., None]).sum((1, 2))
+            c_ref = cost.double().gather(2, ref[..., None]).sum((1, 2))
+            assert torch.allclose(c_got, c_ref, rtol=1e-5, atol=0)
 
     def test_lap_kernel_matches_plain(self, cuda_device):
         cost = torch.from_numpy(_cost_case()[0]).to(cuda_device)
