@@ -61,8 +61,33 @@ result line:
     kernel for one step (torch.profiler);
 11. ``train_maskplanner.main`` for 2 epochs of one step with
     ``profile=true``: a chrome trace of the second epoch that holds the
-    card's kernels; then a ``Predictor`` serves the checkpoint it wrote;
-12. the reference BatchNorm recipe (``model.norm=batch``, seeded weights,
+    card's kernels; its final eval's ``results/*.npy`` with the JAX
+    dumps' keys (numpy, float32 outputs) and ``summary.json`` with
+    ``last_eval_loss``, ``final_test_loss``, ``final_test_point-wise
+    chamfer distance`` and ``test_inference_ms``; the eval CLI
+    (``python -m maskplanner_tpu_torch.test_maskplanner --run RUN --model
+    last --save``) in a child process exits 0 with the final eval's test
+    loss within 1e-5 relative; then a ``Predictor`` serves the checkpoint
+    it wrote;
+12. the eval (``train.loop.evaluate``) at full width on 64 test clouds at
+    batch 64 with ``pcd`` and ``stroke_masks_metrics`` and the
+    single-sample latency, in f32 and in bf16 on the same weights: exactly
+    fps 6, fused_sa_fwd (bf16: fused_sa_fwd_bf16) 6, nn_argmin 5 (the
+    loss's 3, the pcd metric's 2) and lap 1 launches; finite results; the
+    card's outputs scored on the CPU (the plain argmin) give the pcd
+    within 1e-5 relative and the same stroke counts; the host time of an
+    eval batch with its metrics and of the metrics alone, and
+    ``test_inference_ms``; in f32 the nearest-neighbour argmin at the pcd
+    metric's two searches (the predicted poses against the GT poses with
+    the batch's real mask, the −100-padded GT poses against the predicted
+    poses) with indices identical to the plain version, CUDA-event
+    medians, bound, instruction floor and ``torch.cdist(x, y).argmin(-1)``;
+13. resume on the card: two uninterrupted 2-epoch runs of the flagship
+    and one stopped by SIGTERM after epoch 1 and resumed with
+    ``resume=<run_dir>``; each parameter group's relative L2 distance
+    from the first run, the resumed run's at most 2x the second
+    uninterrupted run's plus 1e-6;
+14. the reference BatchNorm recipe (``model.norm=batch``, seeded weights,
     BatchNorm running statistics away from 0/1), its kernels against their
     plain versions at the step's sa1 and sa2 shapes (a batch of 64 of the
     train split, sa2's features from the model's sa1): the ball-group
@@ -77,16 +102,16 @@ result line:
     ones, K above N, rows off 16 bytes, one feature channel, a cloud past
     the staging limit): indices identical, values within 1e-6 · max|ref|,
     the single pass bit-equal;
-13. the BatchNorm recipe's forward at batch 64: exactly fps 2 and
+15. the BatchNorm recipe's forward at batch 64: exactly fps 2 and
     ball_group 2 launches, finite outputs, 2 samples on the CPU within
     1e-4 · max|ref|, forward time at batch 64 and 1, one ``Predictor``
     request on a checkpoint of the model;
-14. its training step at batch 64: exactly fps 2, ball_group 2, nn_argmin 3,
+16. its training step at batch 64: exactly fps 2, ball_group 2, nn_argmin 3,
     lap 1 launches, the card against the CPU by phase 8's rule on 16
     samples (on 2, the heads' BatchNorms normalise 2 rows and amplify the
     encoder's float32 rounding past any fixed tolerance), 12 Adam steps
     with falling loss, step time and device time by kernel;
-15. bf16 serving (``model.bf16=true``, the JAX CLI's default), both
+17. bf16 serving (``model.bf16=true``, the JAX CLI's default), both
     recipes, on the same weights as their f32 phases: the fused SA
     forward's bf16 mode at sa1 and sa2 (batch 64) against the plain bf16
     level, indices identical, pooled within 3 x the plain level's own
@@ -98,7 +123,7 @@ result line:
     samples on the CPU within a relative L2 error of 2e-2 (the JAX
     package's bf16 tolerance), the bf16 − f32 gap at batch 64, forward
     times and device time by kernel; a bf16 ``Predictor`` request each;
-16. bf16 training (``model.bf16=true``), both recipes, on the same weights:
+18. bf16 training (``model.bf16=true``), both recipes, on the same weights:
     the fused SA backward's bf16 mode (K1 ``fused_sa_bwd_bf16``, K2
     ``sa_weight_grad_bf16``) at sa1 and sa2 (batch 64, on the bf16
     forward's pooled output) against the plain bf16 backward, each
@@ -118,8 +143,16 @@ result line:
     f32 gap, where the card's f32 model, the control, must fail; see
     ``phase_bf16_card_vs_cpu``), the bf16 − f32 step gap at batch 64;
     ``train_maskplanner`` with ``model.bf16=true`` for 2 epochs, then a
-    bf16 ``Predictor`` request on what it wrote;
-17. the card line, a ``kernels`` JSON line, and the result line last.
+    bf16 ``Predictor`` request on what it wrote, with phase 11's checks
+    of its final eval and the eval CLI;
+19. the health check on the fixture corpus, as ``bench.py`` runs it: the
+    port's ``data/fixture_category.py`` writes cuboids-v2 (8 train, 2
+    test, seed 7, deterministic) under a temporary ``PAINTNET_ROOT`` and
+    ``train_maskplanner`` trains ``config=[maskplanner,cuboids_v2,
+    longx_v2,debug]`` at pc_points 1024, batch 8 for 80 epochs, eval every
+    40; every loss finite and the last 10 epochs' mean train loss below
+    the first epoch's; both evals' pcd printed;
+20. the card line, a ``kernels`` JSON line, and the result line last.
 
 It needs one CUDA card and the repository around it; without either it
 exits non-zero.
@@ -221,6 +254,28 @@ BF16_STEP_LAUNCHES = launches_of(fps=2, fused_sa_fwd_bf16=2,
                                  nn_argmin=3, lap=1)
 BN_BF16_STEP_LAUNCHES = launches_of(fps=2, ball_group_single=2, nn_argmin=3,
                                     lap=1)
+# an eval batch with its single-sample latency: the batch's forward and the
+# latency's two batch-1 forwards, the loss's 3 argmin searches and LAP, the
+# pcd metric's 2 searches
+EVAL_LAUNCHES = launches_of(fps=6, fused_sa_fwd=6, nn_argmin=5, lap=1)
+BF16_EVAL_LAUNCHES = launches_of(fps=6, fused_sa_fwd_bf16=6, nn_argmin=5,
+                                 lap=1)
+EVAL_METRICS = ["pcd", "stroke_masks_metrics"]
+# the keys of the JAX eval loop's .npy dumps (maskplanner_tpu/train/loop.py),
+# which render_results.py and standalone/ read
+DUMP_KEYS = {"dirnames", "traj", "stroke_ids", "stroke_ids_as_pc",
+             "traj_as_pc", "traj_pred", "pred_stroke_masks",
+             "stroke_masks_scores", "seg_logits", "n_strokes", "point_cloud",
+             "batch", "suffix"}
+SUMMARY_KEYS = ("last_eval_loss", "final_test_loss",
+                "final_test_point-wise chamfer distance", "test_inference_ms")
+# the health check on the fixture corpus (bench.py's recipe)
+HEALTH = ["config=[maskplanner,cuboids_v2,longx_v2,debug]",
+          "dataset=cuboids-v2", "pc_points=1024", "traj_points=512",
+          "n_pred_traj_points=256", "max_n_strokes=12",
+          "traj_with_equally_spaced_points=false", "data_scale_factor=800.0",
+          "batch_size=8", "epochs=80", "eval_freq=40", "no_save=false",
+          "skip_rendering=true", "seed=7"]
 
 
 def log(msg: str) -> None:
@@ -814,6 +869,50 @@ def nn_argmin_edges(x, y, mask) -> dict:
             f"odd sizes d={D}": odd}
 
 
+def hold_argmin(calls, card: dict, tag: str) -> dict:
+    """The nearest-neighbour argmin at each ``(what, x, y, mask)`` call:
+    indices identical to the plain version, and the calls' summed kernel
+    time (CUDA-event medians), plain time, ``torch.cdist(x, y).argmin(-1)``
+    time, bound and this design's instruction floor."""
+    from maskplanner_tpu_torch.ops.cuda.nn_argmin import nn_argmin_cuda
+    from maskplanner_tpu_torch.ops.nn_argmin import nn_argmin_plain
+
+    out = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, call_ms={})
+    ops = nbytes = instr = 0.0
+    for what, x, y, mask in calls:
+        got = nn_argmin_cuda(x, y, mask)
+        ref = nn_argmin_plain(x, y, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"nn_argmin {what}: indices differ at "
+                                 f"{int((got != ref).sum())} places")
+        ms = median_ms(lambda: nn_argmin_cuda(x, y, mask), 20)
+        plain = median_ms(lambda: nn_argmin_plain(x, y, mask), 5, 1)
+        cd = median_ms(lambda: torch.cdist(x, y).argmin(-1), 10)
+        Bx, P1, D = x.shape
+        P2 = y.shape[1]
+        log(f"[{tag}] nn_argmin {what} {tuple(x.shape)} x "
+            f"{tuple(y.shape)} mask={mask is not None}: identical; kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, torch.cdist+argmin "
+            f"{cd:.4f} ms")
+        out["ms"] += ms
+        out["call_ms"][what] = ms
+        out["plain_ms"] += plain
+        out["library_ms"] += cd
+        ops += Bx * P1 * P2 * (3.0 * D + 1.0)
+        # this design: d subtracts, d multiplies, d - 1 adds (no FMA), a
+        # compare and two selects a pair, each an instruction of a lane
+        instr += Bx * P1 * P2 * (3.0 * D + 2.0)
+        nbytes += 4.0 * (Bx * P1 * D + Bx * P2 * D + Bx * P1) + (
+            0 if mask is None else Bx * P2)
+    out.update(bound(ops, nbytes))
+    # the f32 lanes of every SM at the card's largest clock
+    out["instr_bound_ms"] = instr / (F32_LANES * card["sms"]
+                                     * card["clock_hz"]) * 1e3
+    out["instr_bound_by"] = "f32 instruction issue"
+    return out
+
+
 def phase_train_kernels(cfg, model, batch, res: dict, card: dict) -> None:
     """The training kernels against their plain versions at the step's
     shapes and inputs."""
@@ -951,35 +1050,7 @@ def phase_train_kernels(cfg, model, batch, res: dict, card: dict) -> None:
              ("reverse segments", lb["y"], lb["y_pred"], None),
              ("reverse points", lb["traj_as_pc"], poses, None)]
     r = res["nn_argmin"]
-    r["call_ms"] = {}
-    ops = nbytes = lib = instr = 0.0
-    for what, x, y, mask in calls:
-        reset_counts()
-        got = nn_argmin_cuda(x, y, mask)
-        ref = nn_argmin_plain(x, y, mask)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            raise AssertionError(f"nn_argmin {what}: indices differ at "
-                                 f"{int((got != ref).sum())} places")
-        ms = median_ms(lambda: nn_argmin_cuda(x, y, mask), 20)
-        plain = median_ms(lambda: nn_argmin_plain(x, y, mask), 5, 1)
-        cd = median_ms(lambda: torch.cdist(x, y).argmin(-1), 10)
-        Bx, P1, D = x.shape
-        P2 = y.shape[1]
-        log(f"[train-kernels] nn_argmin {what} {tuple(x.shape)} x "
-            f"{tuple(y.shape)} mask={mask is not None}: identical; kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, torch.cdist+argmin "
-            f"{cd:.4f} ms")
-        r["ms"] += ms
-        r["call_ms"][what] = ms
-        r["plain_ms"] += plain
-        lib += cd
-        ops += Bx * P1 * P2 * (3.0 * D + 1.0)
-        # this design: d subtracts, d multiplies, d - 1 adds (no FMA), a
-        # compare and two selects a pair, each an instruction of a lane
-        instr += Bx * P1 * P2 * (3.0 * D + 2.0)
-        nbytes += 4.0 * (Bx * P1 * D + Bx * P2 * D + Bx * P1) + (
-            0 if mask is None else Bx * P2)
+    r.update(hold_argmin(calls, card, "train-kernels"))
     for what, x, y, mask in calls[::2]:        # d = 24 and d = 6
         for edge, (ex, ey, em) in nn_argmin_edges(x, y, mask).items():
             got = nn_argmin_cuda(ex, ey, em)
@@ -989,12 +1060,6 @@ def phase_train_kernels(cfg, model, batch, res: dict, card: dict) -> None:
                                      f"{int((got != ref).sum())} places")
             log(f"[train-kernels] nn_argmin {edge} {tuple(ex.shape)} x "
                 f"{tuple(ey.shape)} mask={em is not None}: identical")
-    r.update(bound(ops, nbytes))
-    # the f32 lanes of every SM at the card's largest clock
-    r["instr_bound_ms"] = instr / (F32_LANES * card["sms"]
-                                   * card["clock_hz"]) * 1e3
-    r["instr_bound_by"] = "f32 instruction issue"
-    r["library_ms"] = lib
     log(f"[train-kernels] nn_argmin: {len(calls)} calls {r['ms']:.4f} ms; "
         f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), this design's "
         f"instruction floor {r['instr_bound_ms']:.4f} ms")
@@ -1253,7 +1318,222 @@ def phase_train_then_serve(extra=(), expect: dict = STEP_LAUNCHES,
                                            "last_checkpoint.torch.pt")):
             raise AssertionError("train_maskplanner wrote no "
                                  "last_checkpoint")
+        check_final_eval(run_dir, label)
         serve_request(run_dir, label, reps=0, expect=serve)
+
+
+# ---------------------------------------------------------------------------
+# the eval: metrics, the eval loop, the final eval, the eval CLI, resume
+# ---------------------------------------------------------------------------
+
+def phase_eval(cfg, model, res: dict, card: dict, label: str,
+               expect: dict) -> dict:
+    """``train.loop.evaluate`` at full width on 64 test clouds at batch 64,
+    with ``pcd`` and ``stroke_masks_metrics`` and the single-sample latency:
+    every kernel's launches (``expect``), finite results; the card's
+    outputs scored on the CPU (the plain argmin), pcd within 1e-5 relative
+    and the stroke counts equal; the host time of an eval batch with its
+    metrics and of the metrics alone. In f32 also the argmin at the pcd
+    metric's two searches with the batch's real mask (into ``res``) ->
+    the eval's results."""
+    from maskplanner_tpu_torch.data import DataLoader, PaintDataset
+    from maskplanner_tpu_torch.losses import LossHandler
+    from maskplanner_tpu_torch.metrics import MetricsHandler
+    from maskplanner_tpu_torch.train import batch_to_device, eval_step, forward
+    from maskplanner_tpu_torch.train.loop import evaluate
+
+    loader = DataLoader(PaintDataset(cfg, split="test", size=BATCH), BATCH,
+                        shuffle=False, drop_last=False)
+    handler = LossHandler(cfg["loss"], cfg)
+    weights = handler.init_weights()
+    metrics = MetricsHandler(cfg, EVAL_METRICS)
+    reset_counts()
+    loss, _, values, ms = evaluate(model, loader, handler, weights,
+                                   metrics, "cuda", forward=forward)
+    launches = read_counts()
+    log(f"[{label}] launches in an eval batch with its latency: {launches}")
+    if launches != expect:
+        raise AssertionError(f"an eval batch launched {launches}, expected "
+                             f"{expect}")
+    if not all(np.isfinite([loss, ms, *values.values()])):
+        raise AssertionError(f"non-finite eval results {loss} {values} {ms}")
+    log(f"[{label}] loss {loss:.6f}, " + ", ".join(
+        f"{k} {v:.6g}" for k, v in values.items())
+        + f"; test_inference_ms {ms:.3f}")
+
+    batch = next(loader.epoch(0))
+    b = batch_to_device(batch, "cuda")
+    _, _, out = eval_step(model, handler, b, weights)
+    kw = dict(y_pred=out.traj, traj_as_pc=b["traj_as_pc"],
+              pc_mask=b["stroke_ids_as_pc"] >= 0, n_strokes=batch["n_strokes"],
+              pred_stroke_masks=out.stroke_masks, mask_scores=out.mask_scores)
+    on_card = metrics.compute(**kw)
+    on_cpu = metrics.compute(**{k: v.cpu() if isinstance(v, torch.Tensor)
+                                else v for k, v in kw.items()})
+    pcd = "point-wise chamfer distance"
+    rel = abs(on_card[pcd] - on_cpu[pcd]) / abs(on_cpu[pcd])
+    if not rel <= 1e-5 or any(on_card[k] != on_cpu[k] for k in on_cpu
+                              if k != pcd):
+        raise AssertionError(f"the card's metrics {on_card} differ from its "
+                             f"outputs scored on the CPU {on_cpu}")
+    if abs(on_card[pcd] - values[pcd]) > 1e-6 * abs(values[pcd]):
+        raise AssertionError("evaluate's pcd is not the batch's")
+    log(f"[{label}] the card's outputs scored on the CPU: pcd rel Δ "
+        f"{rel:.2e}, stroke counts equal")
+
+    def batch_with_metrics():
+        _, _, o = eval_step(model, handler, b, weights)
+        metrics.compute(**dict(kw, y_pred=o.traj, pred_stroke_masks=o
+                               .stroke_masks, mask_scores=o.mask_scores))
+
+    t_batch = median_host_s(batch_with_metrics, 5)
+    t_metrics = median_host_s(lambda: metrics.compute(**kw), 5)
+    log(f"[{label}] host time at batch {BATCH}: an eval batch with its "
+        f"metrics {t_batch * 1e3:.3f} ms, the metrics alone "
+        f"{t_metrics * 1e3:.3f} ms")
+
+    if label == "eval":
+        poses = out.traj.reshape(BATCH, -1, 6)
+        calls = [("pcd predicted poses", poses, b["traj_as_pc"], kw["pc_mask"]),
+                 ("pcd GT poses", b["traj_as_pc"], poses, None)]
+        r = hold_argmin(calls, card, label)
+        r["launches"] = launches["nn_argmin"] - 3
+        res["nn_argmin"]["eval_pcd"] = r
+        log(f"[{label}] nn_argmin at the pcd metric: {len(calls)} calls "
+            f"{r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), instruction floor {r['instr_bound_ms']:.4f} "
+            f"ms, torch.cdist+argmin {r['library_ms']:.4f} ms")
+    return dict(launches=launches, loss=loss, metrics=values)
+
+
+def check_final_eval(run_dir: str, label: str) -> None:
+    """The final eval of a training run: its dumps load as the JAX tools
+    load them, with the JAX dump's keys and numpy arrays; its summary holds
+    the final keys; the eval CLI, in a child process, reproduces its test
+    loss within 1e-5 relative."""
+    results = os.path.join(run_dir, "results")
+    names = sorted(os.listdir(results))
+    if "last_train_batch0.npy" not in names or not any(
+            n.startswith("last_test_batch") for n in names):
+        raise AssertionError(f"the final eval wrote {names}")
+    for name in names:
+        dump = np.load(os.path.join(results, name), allow_pickle=True).item()
+        if set(dump) != DUMP_KEYS:
+            raise AssertionError(f"{name} holds {sorted(dump)}")
+        if not all(dump[k] is None or isinstance(dump[k], np.ndarray)
+                   for k in DUMP_KEYS - {"dirnames", "batch", "suffix"}) \
+                or dump["traj_pred"].dtype != np.float32:
+            raise AssertionError(f"{name}: not numpy float32 on the host")
+    with open(os.path.join(run_dir, "summary.json")) as fh:
+        summary = json.load(fh)
+    missing = [k for k in SUMMARY_KEYS if k not in summary]
+    if missing:
+        raise AssertionError(f"summary.json lacks {missing}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "maskplanner_tpu_torch.test_maskplanner",
+         "--run", run_dir, "--model", "last", "--save"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the eval CLI exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    line = [l for l in proc.stdout.splitlines() if l.startswith("test loss:")]
+    loss = float(line[0].split(":")[1])
+    rel = abs(loss - summary["final_test_loss"]) / abs(
+        summary["final_test_loss"])
+    if not rel <= 1e-5:
+        raise AssertionError(f"the eval CLI's test loss {loss} differs from "
+                             f"the final eval's {summary['final_test_loss']}")
+    log(f"[{label}] final eval: {names}; summary final_test_loss "
+        f"{summary['final_test_loss']:.6f}, pcd "
+        f"{summary['final_test_point-wise chamfer distance']:.6g}, "
+        f"test_inference_ms {summary['test_inference_ms']:.3f}; the eval "
+        f"CLI's test loss {loss} (rel Δ {rel:.1e})")
+
+
+def phase_resume() -> None:
+    """Two uninterrupted 2-epoch runs of the flagship and one stopped by
+    SIGTERM in epoch 1 and resumed: each parameter group's relative L2
+    distance from the first run, the resumed run's within 2x the second
+    uninterrupted run's plus 1e-6 (the card's scatters sum in launch-
+    dependent order, so no run is bitwise another)."""
+    import signal
+
+    from maskplanner_tpu_torch import train_maskplanner
+
+    args = [FLAGSHIP, "device=cuda", "epochs=2", "eval_freq=1",
+            f"dataset_size={BATCH}", "test_dataset_size=8", "seed=1"]
+
+    def params(run_dir):
+        blob = torch.load(os.path.join(run_dir, "last_checkpoint.torch.pt"),
+                          weights_only=True)
+        return {n: v.double() for n, v in blob["model"].items()
+                if v.is_floating_point()}
+
+    with tempfile.TemporaryDirectory() as out:
+        runs = [train_maskplanner.main([*args, f"output_dir={out}/{k}"])[0]
+                for k in ("a", "b")]
+        step, calls = train_maskplanner.train_step, []
+
+        def step_then_sigterm(*a, **k):
+            result = step(*a, **k)
+            calls.append(1)
+            if len(calls) == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return result
+
+        train_maskplanner.train_step = step_then_sigterm
+        try:
+            stopped, _ = train_maskplanner.main([*args, f"output_dir={out}/c"])
+        finally:
+            train_maskplanner.train_step = step
+        blob = torch.load(os.path.join(stopped, "last_checkpoint.torch.pt"),
+                          weights_only=True)
+        if blob["epoch"] != 1:
+            raise AssertionError(f"the stopped run saved epoch "
+                                 f"{blob['epoch']}")
+        train_maskplanner.main([f"resume={stopped}"])
+        ref = params(runs[0])
+        own = group_rel_l2(params(runs[1]), ref)
+        resumed = group_rel_l2(params(stopped), ref)
+    for g, d in resumed.items():
+        log(f"[resume] {g}: resumed {d:.3e}, uninterrupted {own[g]:.3e}")
+        if not d <= 2.0 * own[g] + 1e-6:
+            raise AssertionError(f"the resumed run's {g} lies {d} from the "
+                                 f"first run, the second's {own[g]}")
+
+
+def phase_health() -> None:
+    """bench.py's health check on the fixture corpus: 80 epochs of the
+    cuboids-v2 debug recipe at batch 8 on the card; every loss finite and
+    the last 10 epochs' mean train loss below the first epoch's."""
+    from maskplanner_tpu_torch import train_maskplanner
+    from maskplanner_tpu_torch.data.fixture_category import write_category
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "paintnet")
+        write_category(root, "cuboids-v2", n_train=8, n_test=2, seed=7,
+                       deterministic=True)
+        os.environ["PAINTNET_ROOT"] = root
+        try:
+            run_dir, _ = train_maskplanner.main(
+                [*HEALTH, "device=cuda", f"output_dir={tmp}"])
+        finally:
+            os.environ.pop("PAINTNET_ROOT", None)
+        with open(os.path.join(run_dir, "logs.jsonl")) as fh:
+            logs = [json.loads(line) for line in fh]
+    train = [log_["train_loss"] for log_ in logs]
+    evals = [(log_["epoch"], log_["eval_loss"],
+              log_["point-wise chamfer distance"])
+             for log_ in logs if "eval_loss" in log_]
+    finite = all(np.isfinite(train)) and all(
+        np.isfinite(v) for e in evals for v in e)
+    tail = float(np.mean(train[-10:]))
+    log(f"[health] {len(train)} epochs in {time.perf_counter() - t:.1f} s: "
+        f"train loss epoch 1 {train[0]:.2f}, last 10 epochs' mean "
+        f"{tail:.2f}; evals (epoch, loss, pcd): {evals}")
+    if len(train) != 80 or not finite or not tail < train[0]:
+        raise AssertionError("the fixture health check failed")
 
 
 # ---------------------------------------------------------------------------
@@ -2005,6 +2285,13 @@ def main() -> int:
     phase_train_kernels(cfg, model, to_batch(train_items, "cuda"), res, card)
     launches = phase_train_step(cfg, train_items)
     phase_train_then_serve(profile=True)
+    # the eval's path, f32 then bf16: counts set to 0 just before each and
+    # read just after
+    eval_launches = phase_eval(cfg, model, res, card, "eval",
+                               EVAL_LAUNCHES)["launches"]
+    phase_eval(cfg, bf16_twin(cfg, model), res, card, "bf16-eval",
+               BF16_EVAL_LAUNCHES)
+    phase_resume()
     log(f"[time] flagship phases done at {time.perf_counter() - t0:.1f} s")
 
     bn_cfg = load_args(argv=[FLAGSHIP, BATCH_NORM])
@@ -2041,6 +2328,7 @@ def main() -> int:
     bn_bf16_step_launches = phase_bf16_train(
         bn_cfg, train_items, "bn-bf16-train", BN_BF16_STEP_LAUNCHES,
         compare=16)
+    phase_health()
     log(f"[time] all phases done at {time.perf_counter() - t0:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -2060,6 +2348,8 @@ def main() -> int:
                                     bn_bf16_launches["ball_group_single"])
     for name in ("fused_sa_bwd_bf16", "sa_weight_grad_bf16"):
         counted[name] = ("bf16 training step", bf16_step_launches[name])
+    if eval_launches["nn_argmin"] == 0:
+        raise AssertionError("the eval launched no nn_argmin")
     if bn_bf16_step_launches["ball_group_single"] == 0:
         raise AssertionError("the model.norm=batch bf16 step launched no "
                              "single-pass gather")

@@ -191,11 +191,26 @@ def checkpoint_path(run_dir: str, name: str) -> str:
 
 
 def save_checkpoint(run_dir: str, name: str, model: nn.Module,
-                    epoch: int = 0) -> str:
-    """Write ``<run_dir>/<name>.torch.pt`` with the model's weights."""
+                    epoch: int = 0, *, optimizer=None, lr_sched=None,
+                    step: int | None = None,
+                    generator: torch.Generator | None = None) -> str:
+    """Write ``<run_dir>/<name>.torch.pt`` with the model's weights and,
+    where given, what a resumed run needs to continue as the uninterrupted
+    one would (the JAX checkpoint's ``opt_state`` and ``step``): the Adam
+    and LR scheduler ``state_dict``s, the optimizer step count and the
+    training generator's state (the FPS starts and dropout masks)."""
     path = checkpoint_path(run_dir, name)
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    torch.save({"model": state, "epoch": int(epoch)}, path)
+    blob = {"model": state, "epoch": int(epoch)}
+    if optimizer is not None:
+        blob["optimizer"] = optimizer.state_dict()
+    if lr_sched is not None:
+        blob["lr_sched"] = lr_sched.state_dict()
+    if step is not None:
+        blob["step"] = int(step)
+    if generator is not None:
+        blob["generator"] = generator.get_state()
+    torch.save(blob, path)
     return path
 
 
@@ -206,12 +221,38 @@ def copy_checkpoint(run_dir: str, src: str, dst: str) -> str:
     return path
 
 
-def load_checkpoint(run_dir: str, name: str, model: nn.Module) -> int:
-    """Load ``<run_dir>/<name>.torch.pt`` into ``model`` (strict); returns
-    the stored epoch."""
+def _read_checkpoint(run_dir: str, name: str) -> dict:
     path = checkpoint_path(run_dir, name)
     if not os.path.isfile(path):
         raise FileNotFoundError(f"checkpoint {path} not found")
-    blob = torch.load(path, map_location="cpu", weights_only=True)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_checkpoint(run_dir: str, name: str, model: nn.Module) -> int:
+    """Load ``<run_dir>/<name>.torch.pt`` into ``model`` (strict); returns
+    the stored epoch. Any checkpoint loads, with or without a training
+    state."""
+    blob = _read_checkpoint(run_dir, name)
     model.load_state_dict(blob["model"], strict=True)
     return int(blob["epoch"])
+
+
+def load_training_state(run_dir: str, name: str, model: nn.Module,
+                        optimizer, lr_sched,
+                        generator: torch.Generator) -> tuple[int, int]:
+    """Restore the model, Adam, the LR scheduler (None: the run has none)
+    and the training generator from a checkpoint that
+    :func:`save_checkpoint` wrote with them -> (epoch, step)."""
+    blob = _read_checkpoint(run_dir, name)
+    missing = [k for k in ("optimizer", "step", "generator")
+               + (("lr_sched",) if lr_sched is not None else ())
+               if k not in blob]
+    if missing:
+        raise ValueError(f"checkpoint {checkpoint_path(run_dir, name)} holds "
+                         f"no training state ({missing}): it cannot resume")
+    model.load_state_dict(blob["model"], strict=True)
+    optimizer.load_state_dict(blob["optimizer"])
+    if lr_sched is not None:
+        lr_sched.load_state_dict(blob["lr_sched"])
+    generator.set_state(blob["generator"])
+    return int(blob["epoch"]), int(blob["step"])

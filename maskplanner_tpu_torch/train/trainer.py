@@ -63,11 +63,18 @@ def train_step(model, optimizer, handler: LossHandler, batch, weights,
     return total.detach(), {k: v.detach() for k, v in terms.items()}
 
 
-def eval_step(model, handler: LossHandler, batch, weights):
-    """The loss in eval mode (running BatchNorm statistics, no dropout) ->
-    (loss, terms, outputs)."""
+def forward(model, point_cloud: torch.Tensor) -> MaskPlannerOutput:
+    """The eval forward (``make_forward``): eval mode (running BatchNorm
+    statistics, FPS from index 0, no dropout), no autograd, bf16 products
+    summed in f32."""
     model.eval()
+    with torch.no_grad(), f32_accumulation():
+        return model(point_cloud)
+
+
+def eval_step(model, handler: LossHandler, batch, weights):
+    """The loss on the eval forward -> (loss, terms, outputs)."""
+    out = forward(model, batch["point_cloud"])
     with torch.no_grad():
-        out = model(batch["point_cloud"])
         total, terms = handler.compute(weights, **build_loss_batch(out, batch))
     return total, terms, out

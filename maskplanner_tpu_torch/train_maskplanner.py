@@ -6,51 +6,73 @@
 
 The same ``config=[...] k=v`` contract: config -> seed -> run dir and frozen
 config -> data -> model -> Adam and the LR milestones -> the epoch loop,
-with the eval loss every ``eval_freq`` epochs, then the PSACD curriculum
-and the delayed loss activations. At every eval it writes
-``last_checkpoint`` (``convert.save_checkpoint``), copies it to
+with the eval loss and ``eval_metrics`` (``metrics.MetricsHandler``, logged
+under the JAX names) every ``eval_freq`` epochs, then the PSACD curriculum
+and the delayed loss activations -> the final eval. At every eval it writes
+``last_checkpoint`` (``convert.save_checkpoint``: the weights, Adam, the LR
+scheduler, the step count and the training generator), copies it to
 ``best_model`` when the eval loss improves and, under
 ``save_intermediate_models``, to ``intermediate_checkpoint_epoch{N}`` every
 ``save_intermediate_models_freq`` epochs; the port's ``Predictor`` serves
-any of them. ``no_save`` writes none. It runs on the card unless ``device=cpu`` is given;
-``device=cuda`` without a card raises. With ``model.pretrained`` (the
-default) and ``model.norm=batch`` it warm-starts the encoder from the
-original repository's ShapeNet checkpoint when the file is there. Under
+any of them. After training the final eval (``train.loop.evaluate``) scores
+``eval_ckpt`` (``best_model`` when asked for and present, else
+``last_checkpoint``) on the train and test splits, writes the ``.npy``
+dumps under ``<run_dir>/results/`` and the ``final_*`` and
+``*_inference_ms`` keys of ``summary.json``. ``no_save`` writes no
+checkpoint and runs no final eval.
+
+``resume=<run_dir>`` (or a run name under ``output_dir``) continues that
+run: the frozen config wins but for the keys typed on this command line,
+and model, Adam, the LR scheduler, the step count and the generator come
+from its ``last_checkpoint``, so that on the CPU the resumed run ends
+bitwise equal to an uninterrupted one. A bare ``resume=true`` starts a
+fresh run. SIGTERM or SIGINT ends the run at the end of the current epoch,
+with ``last_checkpoint`` saved (unless ``no_save``).
+
+It runs on the card unless ``device=cpu`` is given; ``device=cuda`` without
+a card raises. With ``model.pretrained`` (the default) and
+``model.norm=batch`` it warm-starts the encoder from the original
+repository's ShapeNet checkpoint when the file is there. Under
 ``model.bf16=true`` the model trains in bf16 (the JAX package's dtype
 rules; ``models.pointnet2``) on f32 parameters: the frozen config keeps the
 flag, the checkpoints hold the f32 parameters, and a ``Predictor`` of the
 run serves it in bf16. Under ``profile=true`` it records the second
 epoch's training steps with ``torch.profiler`` (``utils/profiling.py``:
 the host, and the card's kernels on the card) into
-``<run_dir>/profile/trace.json``, as the JAX package's entry point
-traces that epoch; a run of fewer than 2 epochs has no second epoch and
+``<run_dir>/profile/trace.json``, as the JAX package's entry point traces
+that epoch; a run with fewer than 2 epochs left has no second epoch and
 raises.
 
-Not ported yet (each raises when its config asks for it): resume, the
-adversarial losses, the device-resident epoch (``device_dataset=true``),
-warm starts from a pretrained run (``model.pretrained_custom``). The eval
-metrics and the final ``.npy`` prediction dumps are skipped, with a
-notice.
+Not ported yet (each raises when its config asks for it): the adversarial
+losses, the device-resident epoch (``device_dataset=true``), warm starts
+from a pretrained run (``model.pretrained_custom``). Rendering the final
+dumps (``render_results.py``) is not ported: the run prints a notice where
+the JAX driver would render.
 """
 from __future__ import annotations
 
 import json
 import os
+import signal
 import time
 
 import torch
 
-from .convert import copy_checkpoint, load_shapenet_encoder, save_checkpoint
+from .convert import (checkpoint_path, copy_checkpoint, load_checkpoint,
+                      load_shapenet_encoder, load_training_state,
+                      save_checkpoint)
 from .data.dataset import DataLoader, PaintDataset
 from .losses import LossHandler
+from .metrics import MetricsHandler
 from .models import get_model
 from .serve import resolve_device
 from .train import (PSACDScheduler, apply_delayed_activations,
-                    batch_to_device, eval_step, make_lr_scheduler,
+                    batch_to_device, forward, make_lr_scheduler,
                     make_optimizer, train_step)
+from .train.loop import evaluate
 from .utils import create_dirs, get_run_name, set_seed
 from .utils.args import load_args
-from .utils.config import save_config
+from .utils.config import load_config, save_config
 from .utils.profiling import profile_trace
 
 
@@ -59,10 +81,38 @@ def get_output_dir(config):
     return config.get("output_dir") or os.environ.get("WORKDIR") or "runs"
 
 
+def restore_frozen_config(config, run_dir):
+    """Resume-time config restore: the run's frozen ``config.yaml`` wins,
+    except for the keys typed on this command line (the merged config also
+    holds ``default.yaml``'s underlay, which must not shadow the frozen
+    values). The carried keys are saved back so that the run's record
+    stays true for the eval and serving entry points."""
+    frozen = load_config(os.path.join(run_dir, "config.yaml"))
+    carried = [k for k in getattr(config, "cli_overrides", [])
+               if k not in ("resume", "default")]
+    for key in carried:
+        frozen.set_dotted(key, config.select(key))
+    if carried:
+        save_config(frozen, run_dir)
+    frozen["resume"] = True
+    return frozen
+
+
+def _resume_dir(config) -> str | None:
+    """``resume=<run_dir>`` or a run name under the output dir -> that
+    directory; a missing one raises. A bare ``resume=true`` (or no resume)
+    -> None: a fresh run."""
+    arg = config.get("resume")
+    if not isinstance(arg, str) or arg.lower() in ("true", "false", "1",
+                                                   "0"):
+        return None
+    for cand in (arg, os.path.join(get_output_dir(config), arg)):
+        if os.path.isdir(cand):
+            return cand
+    raise ValueError(f"resume={arg!r}: no such run directory")
+
+
 def _refuse_unported(config) -> None:
-    if config.get("resume"):
-        raise NotImplementedError("resume is not ported yet (ROADMAP.md, "
-                                  "port queue)")
     if any(n in ("discriminator", "wdiscriminator") for n in config["loss"]):
         raise NotImplementedError("the adversarial losses are not ported yet "
                                   "(ROADMAP.md, Queue 1)")
@@ -73,9 +123,6 @@ def _refuse_unported(config) -> None:
     if config["model"].get("pretrained_custom"):
         raise NotImplementedError("model.pretrained_custom warm starts are "
                                   "not ported yet (ROADMAP.md, port queue)")
-    if config.get("profile") and int(config["epochs"]) < 2:
-        raise ValueError(f"profile=true traces the second epoch, but "
-                         f"epochs={config['epochs']}")
 
 
 def warm_start_encoder(model, config) -> list[str] | None:
@@ -100,30 +147,78 @@ def warm_start_encoder(model, config) -> list[str] | None:
     return loaded
 
 
-def evaluate(model, loader, handler, weights, device):
-    """Mean eval loss and per-term losses over the loader."""
-    tot, count, terms_sum = 0.0, 0, {}
-    for batch in loader.epoch(0):
-        b = batch_to_device(batch, device)
-        loss, terms, _ = eval_step(model, handler, b, weights)
-        n = batch["point_cloud"].shape[0]
-        tot += float(loss) * n
-        for k, v in terms.items():
-            terms_sum[k] = terms_sum.get(k, 0.0) + float(v) * n
-        count += n
-    return tot / count, {k: v / count for k, v in terms_sum.items()}
+class _Preemption:
+    """SIGTERM and SIGINT set ``flag`` while the block runs; the previous
+    handlers come back when it ends."""
+
+    def __init__(self):
+        self.flag = False
+        self._previous = {}
+
+    def _on_signal(self, signum, frame):
+        self.flag = True
+
+    def __enter__(self):
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._previous[sig] = signal.signal(sig, self._on_signal)
+            except ValueError:      # not the main thread: no handler
+                pass
+        return self
+
+    def __exit__(self, *exc):
+        for sig, handler in self._previous.items():
+            signal.signal(sig, handler)
+
+
+def _final_eval(config, run_dir, model, loaders, handler, weights,
+                metrics_handler, device) -> dict:
+    """Score ``eval_ckpt`` on each split with the ``.npy`` dumps under
+    ``<run_dir>/results/`` -> the summary's ``final_*`` and
+    ``*_inference_ms`` keys."""
+    eval_ckpt = config.get("eval_ckpt", "last")
+    name = ("best_model" if eval_ckpt == "best" and os.path.isfile(
+        checkpoint_path(run_dir, "best_model")) else "last_checkpoint")
+    if os.path.isfile(checkpoint_path(run_dir, name)):
+        load_checkpoint(run_dir, name, model)
+    results_dir = create_dirs(os.path.join(run_dir, "results"))
+    summary = {}
+    for split, loader in loaders:
+        loss, _, metrics, ms = evaluate(
+            model, loader, handler, weights, metrics_handler, device,
+            save=True, save_dir=results_dir, split=split,
+            eval_ckpt=eval_ckpt, forward=forward)
+        summary[f"final_{split}_loss"] = loss
+        for k, v in metrics.items():
+            summary[f"final_{split}_{k}"] = v
+        if ms is not None:
+            summary[f"{split}_inference_ms"] = ms
+    if not config.get("skip_rendering") and not config.get("debug"):
+        print(f"NOTE: rendering the dumps in {results_dir} is not ported yet "
+              f"(ROADMAP.md, Queue 1)")
+    return summary
 
 
 def main(argv=None):
-    """Train; returns (run_dir, model)."""
-    config = load_args(argv=argv)
+    """Train; returns (run_dir, model). SIGTERM and SIGINT stop the run at
+    the end of the current epoch; the previous handlers come back when it
+    returns."""
+    with _Preemption() as preempted:
+        return _train(load_args(argv=argv), preempted)
+
+
+def _train(config, preempted: _Preemption):
+    run_dir = _resume_dir(config)
+    if run_dir is not None:
+        config = restore_frozen_config(config, run_dir)
     device = resolve_device(config.get("device") or "cuda")
     _refuse_unported(config)
-
-    run_dir = create_dirs(os.path.join(get_output_dir(config),
-                                       get_run_name(config)))
-    save_config(config, run_dir)
+    if run_dir is None:
+        run_dir = create_dirs(os.path.join(get_output_dir(config),
+                                           get_run_name(config)))
+        save_config(config, run_dir)
     print(f"Run dir: {run_dir}")
+    # after the frozen config's restore: a resumed run keeps its own seed
     seed = set_seed(config.get("seed"))
     generator = torch.Generator(device=device).manual_seed(seed)
 
@@ -143,7 +238,7 @@ def main(argv=None):
             f"batch_size={batch_size} (drop_last loader yields no batches); "
             f"lower batch_size or raise dataset_size")
 
-    # ---- model, optimizer, loss -------------------------------------------
+    # ---- model, optimizer, loss, metrics ----------------------------------
     model = get_model(config, device=device,
                       generator=torch.Generator().manual_seed(seed))
     if config["model"].get("pretrained"):
@@ -155,28 +250,48 @@ def main(argv=None):
     lr_sched = make_lr_scheduler(optimizer, config)
     handler = LossHandler(config["loss"], config)
     weights = handler.init_weights()
+    metrics_handler = MetricsHandler(config, config.get("eval_metrics") or [])
     psacd = (PSACDScheduler(config["psacd_scheduler"])
              if config["psacd_scheduler"].get("active") else None)
-    if config.get("eval_metrics"):
-        print(f"NOTE: eval metrics {list(config['eval_metrics'])} are not "
-              f"ported yet; only the eval loss is logged")
 
     epochs = int(config["epochs"])
+    start_epoch, step = 0, 0
+    if config.get("resume") and os.path.isfile(
+            checkpoint_path(run_dir, "last_checkpoint")):
+        start_epoch, step = load_training_state(
+            run_dir, "last_checkpoint", model, optimizer, lr_sched, generator)
+        # PSACD steps are cumulative and the delayed activations gated by
+        # epoch: replay every epoch already done
+        for e in range(start_epoch):
+            if psacd is not None and psacd.is_time_to_step(e, epochs):
+                weights = psacd.step_loss_weights(weights)
+            weights = apply_delayed_activations(config, weights, e)
+        print(f"Resumed from epoch {start_epoch} (step {step})")
+    if config.get("profile") and epochs - start_epoch < 2:
+        raise ValueError(f"profile=true traces the second epoch, but "
+                         f"epochs={epochs} with {start_epoch} done")
+
+    def save(name: str, epoch: int) -> None:
+        save_checkpoint(run_dir, name, model, epoch, optimizer=optimizer,
+                        lr_sched=lr_sched, step=step, generator=generator)
+
     eval_freq = int(config["eval_freq"])
     best_eval_loss, best_epoch = float("inf"), -1
+    eval_loss = float("nan")
     t_train0 = time.time()
     with open(os.path.join(run_dir, "logs.jsonl"), "a") as log_fh:
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             t0 = time.time()
             losses, term_acc = [], []
             with profile_trace(run_dir, bool(config.get("profile"))
-                               and epoch == 1, device):
+                               and epoch == start_epoch + 1, device):
                 for batch in tr_loader.epoch(epoch):
                     loss, terms = train_step(model, optimizer, handler,
                                              batch_to_device(batch, device),
                                              weights, generator)
                     losses.append(loss)
                     term_acc.append(terms)
+                    step += 1
             # one host sync per epoch
             epoch_loss = float(torch.stack(losses).mean())
             log = {"train_loss": epoch_loss, "epoch": epoch + 1,
@@ -184,19 +299,23 @@ def main(argv=None):
             for k in term_acc[0]:
                 log[f"{k}_train_loss"] = float(
                     torch.stack([t[k] for t in term_acc]).mean())
+            # the schedule of the next epoch, before a checkpoint holds it
+            if lr_sched is not None:
+                lr_sched.step()
 
             if (epoch + 1) % eval_freq == 0 or (epoch + 1) == epochs:
-                eval_loss, eval_terms = evaluate(model, te_loader, handler,
-                                                 weights, device)
+                eval_loss, eval_terms, eval_metrics, _ = evaluate(
+                    model, te_loader, handler, weights, metrics_handler,
+                    device)
                 log["eval_loss"] = eval_loss
                 log.update({f"{k}_eval_loss": v
                             for k, v in eval_terms.items()})
+                log.update(eval_metrics)
                 is_best = eval_loss < best_eval_loss
                 if is_best:
                     best_eval_loss, best_epoch = eval_loss, epoch + 1
                 if not config.get("no_save"):
-                    save_checkpoint(run_dir, "last_checkpoint", model,
-                                    epoch=epoch + 1)
+                    save("last_checkpoint", epoch + 1)
                     if is_best:
                         copy_checkpoint(run_dir, "last_checkpoint",
                                         "best_model")
@@ -211,22 +330,29 @@ def main(argv=None):
             log_fh.write(json.dumps(log) + "\n")
             log_fh.flush()
 
-            if lr_sched is not None:
-                lr_sched.step()
             if psacd is not None and psacd.is_time_to_step(epoch, epochs):
                 weights = psacd.step_loss_weights(weights)
             weights = apply_delayed_activations(config, weights, epoch)
 
+            if preempted.flag:
+                if not config.get("no_save"):
+                    save("last_checkpoint", epoch + 1)
+                    print(f"Preempted at epoch {epoch + 1}; checkpoint saved "
+                          f"(resume with resume={run_dir})")
+                break
+
     tot = time.time() - t_train0
     summary = {"best_epoch": best_epoch, "best_eval_loss": best_eval_loss,
+               "last_eval_loss": eval_loss,
                "tot_train_seconds": round(tot, 2)}
-    with open(os.path.join(run_dir, "summary.json"), "w") as fh:
-        json.dump(summary, fh)
     print(f"Training finished in {tot:.1f}s | best epoch {best_epoch} "
           f"({best_eval_loss:.4f})")
     if not config.get("no_save"):
-        print("NOTE: the final-eval .npy prediction dumps are not ported "
-              "yet (ROADMAP.md, port queue)")
+        loaders = (("train", tr_loader), ("test", te_loader))
+        summary.update(_final_eval(config, run_dir, model, loaders, handler,
+                                   weights, metrics_handler, device))
+    with open(os.path.join(run_dir, "summary.json"), "w") as fh:
+        json.dump(summary, fh, indent=2)
     model.eval()
     return run_dir, model
 
