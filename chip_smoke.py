@@ -59,9 +59,15 @@ result line:
    first;
 10. step time at batch 64 (host clock, median of 10) and device time by
     kernel for one step (torch.profiler);
-11. ``train_maskplanner.main`` for 2 epochs of one step with
-    ``profile=true``: a chrome trace of the second epoch that holds the
-    card's kernels; its final eval's ``results/*.npy`` with the JAX
+11. ``train_maskplanner.main`` for 2 epochs of 2 steps with
+    ``profile=true``, on the driver's default path (the device-resident
+    epoch, the step a CUDA graph; the first step runs eagerly and is then
+    captured, every later step is a replay): the chrome trace of the second
+    epoch holds 2 CUDA graph replays whose kernels, by their symbols, are
+    phase 7's counts each (``trace_launches``, ``per_replay``), and the
+    wrappers count the fused SA backward's kernels twice those (the eager
+    step and the capture); its
+    final eval's ``results/*.npy`` with the JAX
     dumps' keys (numpy, float32 outputs) and ``summary.json`` with
     ``last_eval_loss``, ``final_test_loss``, ``final_test_point-wise
     chamfer distance`` and ``test_inference_ms``; the eval CLI
@@ -83,10 +89,12 @@ result line:
     poses) with indices identical to the plain version, CUDA-event
     medians, bound, instruction floor and ``torch.cdist(x, y).argmin(-1)``;
 13. resume on the card: two uninterrupted 2-epoch runs of the flagship
-    and one stopped by SIGTERM after epoch 1 and resumed with
-    ``resume=<run_dir>``; each parameter group's relative L2 distance
-    from the first run, the resumed run's at most 2x the second
-    uninterrupted run's plus 1e-6;
+    on the driver's default (graphed) path, one stopped by SIGTERM after
+    epoch 1 on the host loader's path (``device_dataset=false``) and
+    resumed with ``resume=<run_dir>`` on the graphed path, and one stopped
+    on the graphed path and resumed on the host loader's; each parameter
+    group's relative L2 distance from the first run, each resumed run's at
+    most 2x the second uninterrupted run's plus 1e-6;
 14. the reference BatchNorm recipe (``model.norm=batch``, seeded weights,
     BatchNorm running statistics away from 0/1), its kernels against their
     plain versions at the step's sa1 and sa2 shapes (a batch of 64 of the
@@ -150,9 +158,37 @@ result line:
     test, seed 7, deterministic) under a temporary ``PAINTNET_ROOT`` and
     ``train_maskplanner`` trains ``config=[maskplanner,cuboids_v2,
     longx_v2,debug]`` at pc_points 1024, batch 8 for 80 epochs, eval every
-    40; every loss finite and the last 10 epochs' mean train loss below
-    the first epoch's; both evals' pcd printed;
-20. the card line, a ``kernels`` JSON line, and the result line last.
+    40 (graphed); every loss finite and the last 10 epochs' mean train loss
+    below the first epoch's; both evals' pcd printed;
+20. the driver's default loop, both recipes in f32 and in bf16, on a
+    staged synthetic windows-v2 train split of 512 items (8 steps of 64
+    an epoch; its bytes printed) from the same seeded weights: (a) the host
+    loader through the ``Prefetcher``, (b) the device-resident epoch run
+    eagerly, three times, (c) the device-resident epoch as CUDA graph
+    replays; in the first two graphed epochs (the eager first step, the
+    capture, 15 replays) the wrappers count phase 7's, 16's or 18's
+    kernels twice (the eager step and the capture), and a
+    ``torch.profiler`` trace of a later epoch of 8 replays holds those a
+    replay (by their symbols, ``trace_launches``, ``per_replay``); the
+    graphed epochs
+    leave the generator in the eager runs' state, their losses are finite
+    and fall over 30 steps; after the capture an LR milestone, a PSACD step
+    and a delayed activation update the tensors the graph reads, and from
+    one state a graphed epoch's 8 losses lie within ``ONE_STATE_LOSS_TOL``
+    of an eager epoch's (their mean relative difference), its parameters
+    and BatchNorm statistics within ``ONE_STATE_PARAM_TOL`` and
+    ``ONE_STATE_BN_TOL`` of the eager epoch's move, its Adam step counts
+    and generator equal, where the control (the graph replayed with the LR
+    zeroed) must fail both the losses and the state (``one_state``); after 2 epochs each parameter group's
+    distance from the first eager run is logged, the graphed run's beside
+    the eager pairs' (``phase_device_epoch``); for each loop ms a step
+    (host clock, whole epochs ending in a synchronize), device busy ms a
+    step (the union of the kernel intervals in a ``torch.profiler`` trace
+    of one epoch; in the eager loops its wrapper counts must be the step's
+    a step) and the idle share, 1 - busy / wall; the graph's private pool
+    bytes;
+21. the card line, a ``kernels`` JSON line (launches: the kernels that ran
+    in the traced graphed epoch of 8 replays), and the result line last.
 
 It needs one CUDA card and the repository around it; without either it
 exits non-zero.
@@ -160,8 +196,10 @@ exits non-zero.
 from __future__ import annotations
 
 import copy
+import collections
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -269,6 +307,19 @@ DUMP_KEYS = {"dirnames", "traj", "stroke_ids", "stroke_ids_as_pc",
              "batch", "suffix"}
 SUMMARY_KEYS = ("last_eval_loss", "final_test_loss",
                 "final_test_point-wise chamfer distance", "test_inference_ms")
+# the device-resident epochs' split: 8 steps of 64 an epoch
+EPOCH_ITEMS = 512
+# the graphed epoch against the eager one from one state (``one_state``):
+# the mean of the 8 losses' relative differences, and the share of the
+# eager epoch's own move, over all groups, of the parameters and of the
+# BatchNorm statistics. Over 16 readings sound runs read at most 1.8e-4,
+# 0.162 and 0.05 (the scatters' summation order, amplified over 8 steps),
+# the control (the LR zeroed in the graph) at least 2.8e-3, 1.0 and 0.189;
+# each limit between the two (PERF.md §6). Adam's moments are not gated:
+# there the two overlap (sound up to 0.39, the control down to 0.33)
+ONE_STATE_LOSS_TOL = 7e-4
+ONE_STATE_PARAM_TOL = 0.4
+ONE_STATE_BN_TOL = 0.1
 # the health check on the fixture corpus (bench.py's recipe)
 HEALTH = ["config=[maskplanner,cuboids_v2,longx_v2,debug]",
           "dataset=cuboids-v2", "pc_points=1024", "traj_points=512",
@@ -284,25 +335,9 @@ def log(msg: str) -> None:
 
 def counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from maskplanner_tpu_torch.ops.cuda.fps import fps_cuda
-    from maskplanner_tpu_torch.ops.cuda.fused_sa import (
-        fused_sa_bf16_cuda, fused_sa_bwd_bf16_cuda, fused_sa_bwd_cuda,
-        fused_sa_cuda, folded_sa_cuda, sa_weight_grad_bf16_cuda,
-        sa_weight_grad_cuda)
-    from maskplanner_tpu_torch.ops.cuda.group_gather import (
-        ball_group_cuda, ball_group_single_cuda, ball_query_cuda)
-    from maskplanner_tpu_torch.ops.cuda.lap import lap_cuda
-    from maskplanner_tpu_torch.ops.cuda.nn_argmin import nn_argmin_cuda
+    from maskplanner_tpu_torch.ops.cuda import launch_counters
 
-    return {"fps": fps_cuda, "fused_sa_fwd": fused_sa_cuda,
-            "fused_sa_bwd": fused_sa_bwd_cuda,
-            "sa_weight_grad": sa_weight_grad_cuda, "nn_argmin": nn_argmin_cuda,
-            "lap": lap_cuda, "ball_group": ball_group_cuda,
-            "ball_query": ball_query_cuda, "fused_sa_folded": folded_sa_cuda,
-            "fused_sa_fwd_bf16": fused_sa_bf16_cuda,
-            "ball_group_single": ball_group_single_cuda,
-            "fused_sa_bwd_bf16": fused_sa_bwd_bf16_cuda,
-            "sa_weight_grad_bf16": sa_weight_grad_bf16_cuda}
+    return launch_counters()
 
 
 def reset_counts() -> None:
@@ -335,6 +370,116 @@ def median_host_s(fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
     return statistics.median(times)
+
+
+def busy_ms(kernels: list) -> float:
+    """The union of a chrome trace's kernel intervals, ms: the time the
+    card ran at least one kernel."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((float(e["ts"]), float(e["ts"]) + float(
+            e.get("dur", 0))) for e in kernels):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3
+
+
+def traced_kernels(fn) -> list:
+    """The card's kernels in a ``torch.profiler`` chrome trace of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel"]
+
+
+def per_replay(traced: dict, replays: int, expect: dict, what: str) -> None:
+    """Hold a trace of ``replays`` replays of a captured step against the
+    step's counts ``expect``: each kernel's traced count over the replays,
+    rounded, must be its count a step, and no count may exceed ``replays``
+    times it. A fault of the capture moves a count by a multiple of the
+    replays; the profiler's lost records (``trace_launches``) move it by
+    one or two, and are logged."""
+    want = {k: v * replays for k, v in expect.items()}
+    rounded = {k: int(v / replays + 0.5) for k, v in traced.items()}
+    if rounded != expect or any(v > want[k] for k, v in traced.items()):
+        raise AssertionError(f"{what}: {replays} replays launched {traced}, "
+                             f"{expect} a replay expected")
+    lost = {k: want[k] - v for k, v in traced.items() if v != want[k]}
+    if lost:
+        log(f"{what}: the trace lacks {lost} kernel record(s) of "
+            f"{sum(want.values())}")
+
+
+# the port's kernel symbols (``csrc/*.cu``), each in its source's anonymous
+# namespace
+KERNEL_SYMBOLS = ("fps_kernel", "fused_sa_fwd_kernel", "fused_sa_bwd_kernel",
+                  "dw_partial", "vec_partial", "::finish(", "nn_argmin_kernel",
+                  "lap_warp_kernel", "lap_block_kernel", "ball_group_kernel")
+
+
+def kernel_of(symbol: str) -> str | None:
+    """The ``KERNELS`` name of a kernel in a chrome trace, by its demangled
+    symbol in its source's anonymous namespace (a template's with its
+    return type, ``void``; a plain function's without), or None for any
+    other kernel. Where one symbol serves several modes its template
+    arguments
+    tell them apart; #8 runs #2's f32 kernel, so a trace counts it as
+    ``fused_sa_fwd`` (no training path runs #8). K2's two other kernels,
+    which each of its calls launches after ``dw_partial``, come back as
+    ``k2_vec_partial`` and ``k2_finish``."""
+    m = re.match(
+        r"(?:void )?\(anonymous namespace\)::(\w+)(?:<([^()]*)>)?\(", symbol)
+    if m is None:
+        return None
+    name = m.group(1)
+    args = [a.strip() for a in (m.group(2) or "").split(",")]
+    if name == "fused_sa_fwd_kernel":     # <kResident, kBf16>
+        return "fused_sa_fwd_bf16" if args[1] == "true" else "fused_sa_fwd"
+    if name == "fused_sa_bwd_kernel":     # <kBf16>
+        return "fused_sa_bwd_bf16" if args[0] == "true" else "fused_sa_bwd"
+    if name == "ball_group_kernel":       # <kGather, kStaged, Out>
+        if args[0] == "false":
+            return "ball_query"
+        return "ball_group_single" if "bfloat16" in args[2] else "ball_group"
+    return {"fps_kernel": "fps", "dw_partial": "sa_weight_grad",
+            "dw_partial_bf16": "sa_weight_grad_bf16",
+            "vec_partial": "k2_vec_partial", "finish": "k2_finish",
+            "nn_argmin_kernel": "nn_argmin", "lap_warp_kernel": "lap",
+            "lap_block_kernel": "lap"}.get(name)
+
+
+def trace_launches(kernels: list) -> dict:
+    """Each kernel's launches in a trace's kernel events (``kernel_of``),
+    every ``KERNELS`` name, 0 where none ran: what ran on the card, graph
+    replays included. Fails unless K2's two other kernels ran once for
+    each of its ``dw_partial`` launches. The profiler loses a kernel record
+    now and then (about one in ten traced epochs lacked one of its FPS or
+    forward launches, eager or replayed: PERF.md §6), so a trace's counts
+    are held by ``per_replay``."""
+    counts = collections.Counter(kernel_of(e.get("name", ""))
+                                 for e in kernels)
+    missed = {e.get("name", "") for e in kernels
+              if kernel_of(e.get("name", "")) is None} & {
+        e.get("name", "") for e in kernels if any(
+            sym in e.get("name", "") for sym in KERNEL_SYMBOLS)}
+    if missed:
+        raise AssertionError(f"kernels of the port's sources that "
+                             f"kernel_of does not know: {sorted(missed)}")
+    out = {name: counts[name] for name in KERNELS}
+    k2 = out["sa_weight_grad"] + out["sa_weight_grad_bf16"]
+    if counts["k2_vec_partial"] != k2 or counts["k2_finish"] != k2:
+        raise AssertionError(f"K2 ran dw_partial {k2} times, vec_partial "
+                             f"{counts['k2_vec_partial']}, finish "
+                             f"{counts['k2_finish']}")
+    return out
 
 
 def bound(ops: float, nbytes: float, tf32_ops: float = 0.0,
@@ -1280,40 +1425,50 @@ def phase_card_vs_cpu(cfg, items, handler, label: str = "train") -> None:
 
 def phase_train_then_serve(extra=(), expect: dict = STEP_LAUNCHES,
                            serve: dict = FORWARD_LAUNCHES,
-                           label: str = "train-then-serve",
-                           profile: bool = False) -> None:
+                           label: str = "train-then-serve") -> None:
     """The training entry point in-process (with the ``extra`` config
-    arguments) for 2 epochs of one step, each step launching the fused SA
-    backward's kernels as ``expect`` says; then a Predictor serves what it
-    wrote in the run's own dtype, launching ``serve``. With ``profile``,
-    the run has ``profile=true`` and must leave a trace of its second
-    epoch that holds the card's kernels."""
+    arguments, ``profile=true``) for 2 epochs of 2 steps on the driver's
+    default loop: the first step runs eagerly and is then captured, every
+    later step is a replay. The trace of the second epoch must hold 2 CUDA
+    graph replays launching ``expect`` each (``trace_launches``,
+    ``per_replay``); the wrappers must count the fused SA backward's
+    kernels twice ``expect`` (the eager step and the capture; the run's
+    evals also launch the forward's). Then a Predictor serves what it wrote
+    in the run's own dtype, launching ``serve``."""
     from maskplanner_tpu_torch import train_maskplanner
 
     with tempfile.TemporaryDirectory() as out:
         reset_counts()
         run_dir, _ = train_maskplanner.main([
             FLAGSHIP, *extra, "device=cuda", "epochs=2", "eval_freq=1",
-            f"dataset_size={BATCH}", "test_dataset_size=8", "seed=1",
-            f"profile={str(profile).lower()}", f"output_dir={out}"])
+            f"dataset_size={2 * BATCH}", "test_dataset_size=8", "seed=1",
+            "profile=true", f"output_dir={out}"])
         launches = read_counts()
-        if profile:
-            path = os.path.join(run_dir, "profile", "trace.json")
-            with open(path) as fh:
-                events = json.load(fh)["traceEvents"]
-            kernels = [e for e in events if e.get("cat") == "kernel"]
-            if not kernels:
-                raise AssertionError(f"{path} holds no kernel of the card")
-            busy = sum(float(e.get("dur", 0)) for e in kernels) / 1e3
-            log(f"[{label}] profile=true: {path} holds the second epoch's "
-                f"step, {len(kernels)} kernels on the card, {busy:.3f} ms "
-                f"of kernel time")
+        path = os.path.join(run_dir, "profile", "trace.json")
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        if not kernels:
+            raise AssertionError(f"{path} holds no kernel of the card")
+        # the driver's default epoch replays the step's CUDA graph
+        replays = [e for e in events
+                   if e.get("name", "").startswith("cudaGraphLaunch")]
+        traced = trace_launches(kernels)
+        log(f"[{label}] profile=true: {path} holds the second epoch's "
+            f"step, {len(replays)} CUDA graph replay(s), {len(kernels)} "
+            f"kernels on the card, {busy_ms(kernels):.3f} ms busy; the "
+            f"replay's kernels {traced}")
+        if len(replays) != 2:
+            raise AssertionError(f"the second epoch's trace holds "
+                                 f"{len(replays)} CUDA graph replays")
+        per_replay(traced, 2, expect, f"[{label}] the second epoch")
         backward = [k for k in ("fused_sa_bwd", "sa_weight_grad",
                                 "fused_sa_bwd_bf16", "sa_weight_grad_bf16")
                     if expect[k]]
         if not backward or any(launches[k] != 2 * expect[k]
                                for k in backward):
-            raise AssertionError(f"2 epochs of one step launched {launches}")
+            raise AssertionError(f"the eager step and the capture counted "
+                                 f"{launches}")
         if not os.path.isfile(os.path.join(run_dir,
                                            "last_checkpoint.torch.pt")):
             raise AssertionError("train_maskplanner wrote no "
@@ -1451,9 +1606,12 @@ def check_final_eval(run_dir: str, label: str) -> None:
 
 
 def phase_resume() -> None:
-    """Two uninterrupted 2-epoch runs of the flagship and one stopped by
-    SIGTERM in epoch 1 and resumed: each parameter group's relative L2
-    distance from the first run, the resumed run's within 2x the second
+    """Two uninterrupted 2-epoch runs of the flagship on the driver's
+    default path (the CUDA-graphed device-resident epoch), one stopped by
+    SIGTERM in epoch 1 on the host loader's path (``device_dataset=false``)
+    and resumed on the graphed path, and one stopped on the graphed path
+    and resumed on the host loader's: each parameter group's relative L2
+    distance from the first run, each resumed run's within 2x the second
     uninterrupted run's plus 1e-6 (the card's scatters sum in launch-
     dependent order, so no run is bitwise another)."""
     import signal
@@ -1469,37 +1627,58 @@ def phase_resume() -> None:
         return {n: v.double() for n, v in blob["model"].items()
                 if v.is_floating_point()}
 
-    with tempfile.TemporaryDirectory() as out:
-        runs = [train_maskplanner.main([*args, f"output_dir={out}/{k}"])[0]
-                for k in ("a", "b")]
-        step, calls = train_maskplanner.train_step, []
+    def stopped_then_resumed(out, stop_on, patched, resume_on):
+        """A run on ``device_dataset=stop_on`` whose ``patched`` (module or
+        class, attribute) sends SIGTERM after its first call, resumed on
+        ``device_dataset=resume_on``."""
+        owner, name = patched
+        original, calls = getattr(owner, name), []
 
-        def step_then_sigterm(*a, **k):
-            result = step(*a, **k)
+        def then_sigterm(*a, **k):
+            result = original(*a, **k)
             calls.append(1)
             if len(calls) == 1:
                 os.kill(os.getpid(), signal.SIGTERM)
             return result
 
-        train_maskplanner.train_step = step_then_sigterm
+        setattr(owner, name, then_sigterm)
         try:
-            stopped, _ = train_maskplanner.main([*args, f"output_dir={out}/c"])
+            stopped, _ = train_maskplanner.main(
+                [*args, f"device_dataset={stop_on}", f"output_dir={out}"])
         finally:
-            train_maskplanner.train_step = step
+            setattr(owner, name, original)
         blob = torch.load(os.path.join(stopped, "last_checkpoint.torch.pt"),
                           weights_only=True)
         if blob["epoch"] != 1:
             raise AssertionError(f"the stopped run saved epoch "
                                  f"{blob['epoch']}")
-        train_maskplanner.main([f"resume={stopped}"])
+        train_maskplanner.main([f"resume={stopped}",
+                                f"device_dataset={resume_on}"])
+        return stopped
+
+    with tempfile.TemporaryDirectory() as out:
+        runs = [train_maskplanner.main([*args, f"output_dir={out}/{k}"])[0]
+                for k in ("a", "b")]
+        # the host path's step, the graphed path's epoch
+        resumed = {
+            "host then graphed": stopped_then_resumed(
+                f"{out}/c", "false", (train_maskplanner, "train_step"),
+                "auto"),
+            "graphed then host": stopped_then_resumed(
+                f"{out}/d", "auto", (train_maskplanner.DeviceEpoch, "run"),
+                "false")}
         ref = params(runs[0])
         own = group_rel_l2(params(runs[1]), ref)
-        resumed = group_rel_l2(params(stopped), ref)
-    for g, d in resumed.items():
-        log(f"[resume] {g}: resumed {d:.3e}, uninterrupted {own[g]:.3e}")
-        if not d <= 2.0 * own[g] + 1e-6:
-            raise AssertionError(f"the resumed run's {g} lies {d} from the "
-                                 f"first run, the second's {own[g]}")
+        dist = {k: group_rel_l2(params(r), ref) for k, r in resumed.items()}
+    for g in own:
+        log(f"[resume] {g}: " + ", ".join(f"{k} {d[g]:.3e}"
+                                          for k, d in dist.items())
+            + f", uninterrupted {own[g]:.3e}")
+        for k, d in dist.items():
+            if not d[g] <= 2.0 * own[g] + 1e-6:
+                raise AssertionError(f"the run stopped and resumed ({k}) "
+                                     f"lies {d[g]} from the first run in "
+                                     f"{g}, the second's {own[g]}")
 
 
 def phase_health() -> None:
@@ -1534,6 +1713,339 @@ def phase_health() -> None:
         f"{tail:.2f}; evals (epoch, loss, pcd): {evals}")
     if len(train) != 80 or not finite or not tail < train[0]:
         raise AssertionError("the fixture health check failed")
+
+
+# ---------------------------------------------------------------------------
+# the driver's default loop: the device-resident epoch, graphed
+# ---------------------------------------------------------------------------
+
+def epoch_split(cfg):
+    """The synthetic windows-v2 train split of ``EPOCH_ITEMS`` items,
+    materialised once (the dataset caches its items) and staged on the
+    card -> (dataset, staged split)."""
+    from maskplanner_tpu_torch.data import PaintDataset
+    from maskplanner_tpu_torch.data.device_dataset import (
+        stage_device_dataset, staged_bytes)
+
+    t = time.perf_counter()
+    dataset = PaintDataset(cfg, split="train", size=EPOCH_ITEMS)
+    data = stage_device_dataset(dataset, device="cuda")
+    if data is None:
+        raise AssertionError("the train split was not staged")
+    log(f"[epoch] {EPOCH_ITEMS} items materialised and staged in "
+        f"{time.perf_counter() - t:.1f} s: {staged_bytes(data)} bytes "
+        f"({staged_bytes(data) / 2**20:.1f} MiB) on the card")
+    return dataset, data
+
+
+def one_state(ep, perm, cfg, label: str) -> dict:
+    """The graphed epoch against the eager one from one state, after the
+    host's updates between epochs. Once ``ep``'s graph is captured: an LR
+    milestone (the driver's ``MultiStepLR``, milestone 1, gamma 0.5), a
+    PSACD step (factor 2) and a delayed stroke-mask activation to targets
+    other than the current weights (0.5 and 50), loaded into the loss
+    weights' tensors; they must change the LR tensor in place and the
+    weights the loss reads. Then from one state (the model's parameters and
+    BatchNorm statistics, Adam's moments and step counts, the generator):
+    an epoch of the graphed ``DeviceEpoch`` ``ep`` over ``perm``, one of an
+    eager ``DeviceEpoch`` on the same model, optimizer, weights and
+    generator, and the control, the graph replayed with the LR tensor
+    zeroed, which must fail the gate that the graphed epoch must pass
+    (``check_one_state``) -> for the graphed epoch and the control, against
+    the eager epoch: ``losses``, each loss's relative difference; for each
+    kind of state (parameters, BatchNorm statistics, Adam's two moments)
+    the L2 distance from the eager epoch's end over the eager epoch's own
+    move from the start, over all parameter groups (``whole``) and the
+    largest of the groups' (``share``); whether Adam's step counts and the
+    generator's state are equal."""
+    from maskplanner_tpu_torch.train import (PSACDScheduler,
+                                             apply_delayed_activations,
+                                             make_lr_scheduler)
+    from maskplanner_tpu_torch.train.trainer import DeviceEpoch
+
+    upd = copy.deepcopy(cfg)
+    upd["lr_sched"]["step_sizes"] = [1]
+    upd["psacd_scheduler"] = dict(active=True, factor=2.0, freq=None,
+                                  milestones=[1])
+    upd.update(delay_stroke_masks_loss=True, start_stroke_masks_loss_at=1,
+               target_explicit_weight_stroke_masks=0.5,
+               target_explicit_weight_stroke_masks_confidence=50.0)
+    group = ep.optimizer.param_groups[0]
+    lr = group["lr"]
+    old_lr = float(lr)
+    old = {k: float(v) for k, v in ep.weights.items()}
+    make_lr_scheduler(ep.optimizer, upd).step()
+    floats = PSACDScheduler(upd["psacd_scheduler"]).step_loss_weights(
+        dict(old))
+    ep.weights.load(apply_delayed_activations(upd, floats, 0))
+    moved = {k for k, v in ep.weights.items() if float(v) != old[k]}
+    read = {"weight_reverse_asymm_point_chamfer",
+            "weight_reverse_asymm_segment_chamfer",
+            "explicit_weight_stroke_masks",
+            "explicit_weight_stroke_masks_confidence"}
+    log(f"[{label}] after the capture: LR {old_lr:.3e} -> {float(lr):.3e} "
+        f"in place; loss weights moved: " + ", ".join(
+            f"{k} {old[k]:g} -> {float(ep.weights[k]):g}" for k in
+            sorted(moved)))
+    if group["lr"] is not lr or float(lr) != 0.5 * old_lr or not \
+            read <= moved:
+        raise AssertionError("the LR milestone, the PSACD step or the "
+                             "activation did not update the tensors the "
+                             "graph reads")
+
+    names = {p: n for n, p in ep.model.named_parameters()}
+    live = {("parameters", n): p for n, p in ep.model.named_parameters()}
+    live.update({("BatchNorm statistics", n): b
+                 for n, b in ep.model.named_buffers()
+                 if b.is_floating_point()})
+    for p, st in ep.optimizer.state.items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            live[(k, names[p])] = st[k]
+    counts = [st["step"] for st in ep.optimizer.state.values()]
+    start = {k: t.detach().clone() for k, t in live.items()}
+    start_cpu = {k: t.double().cpu() for k, t in start.items()}
+    start_counts = [t.clone() for t in counts]
+    gen = ep.generator.get_state()
+
+    def epoch(run) -> dict:
+        with torch.no_grad():
+            for k, t in live.items():
+                t.copy_(start[k])
+            for t, v in zip(counts, start_counts):
+                t.copy_(v)
+        ep.generator.set_state(gen)
+        losses = run(perm)[0].double().cpu()
+        return dict(losses=losses, gen=ep.generator.get_state(),
+                    counts=[t.clone() for t in counts],
+                    state={k: t.detach().double().cpu()
+                           for k, t in live.items()})
+
+    graphed = epoch(ep.run)
+    eager = epoch(DeviceEpoch(ep.model, ep.optimizer, ep.handler, ep.data,
+                              ep.weights, ep.generator, ep.pc_points,
+                              graphed=False).run)
+    saved = lr.clone()
+    lr.zero_()
+    try:
+        control = epoch(ep.run)
+    finally:
+        lr.copy_(saved)
+
+    def against(got: dict) -> dict:
+        num, den = {}, {}
+        for (kind, n), ref in eager["state"].items():
+            key = (kind, group_of(n))
+            num[key] = num.get(key, 0.0) + float(
+                ((got["state"][(kind, n)] - ref) ** 2).sum())
+            den[key] = den.get(key, 0.0) + float(
+                ((ref - start_cpu[(kind, n)]) ** 2).sum())
+        share, whole = {}, {}
+        for (kind, g), d in den.items():
+            v = ((num[kind, g] / d) ** 0.5 if d > 0
+                 else 0.0 if num[kind, g] == 0 else float("inf"))
+            share[kind] = max(share.get(kind, 0.0), v)
+            n0, d0 = whole.get(kind, (0.0, 0.0))
+            whole[kind] = (n0 + num[kind, g], d0 + d)
+        whole = {k: (n / d) ** 0.5 if d > 0 else float("inf")
+                 for k, (n, d) in whole.items()}
+        losses = ((got["losses"] - eager["losses"]).abs()
+                  / eager["losses"].abs()).tolist()
+        return dict(losses=losses, share=share, whole=whole,
+                    counts=all(torch.equal(a, b) for a, b in
+                               zip(got["counts"], eager["counts"])),
+                    gen=torch.equal(got["gen"], eager["gen"]))
+
+    out = {"graphed": against(graphed), "control": against(control)}
+    for name, r in out.items():
+        log(f"[{label}] from one state, the {name} epoch against the eager "
+            f"epoch: losses relative " + " ".join(
+                f"{v:.1e}" for v in r["losses"])
+            + f" (mean {statistics.mean(r['losses']):.2e})"
+            + "; share of the eager epoch's move, all groups / the largest "
+            "group's: " + ", ".join(f"{k} {r['whole'][k]:.2e} / {v:.2e}"
+                                    for k, v in r["share"].items())
+            + f"; Adam step counts equal {r['counts']}, generator equal "
+            f"{r['gen']}")
+    return out
+
+
+def check_one_state(readings: dict, label: str) -> None:
+    """``one_state``'s gate: the mean of the 8 losses' relative differences
+    within ``ONE_STATE_LOSS_TOL``, the parameters' and the BatchNorm
+    statistics' shares (all groups) within ``ONE_STATE_PARAM_TOL`` and
+    ``ONE_STATE_BN_TOL``, Adam's step counts and the generator equal. The
+    graphed epoch must pass it; the control must fail both its loss part
+    and its state part."""
+    def fails(r: dict) -> dict:
+        whole = r["whole"]
+        return dict(losses=not statistics.mean(r["losses"])
+                    <= ONE_STATE_LOSS_TOL,
+                    state=not (whole["parameters"] <= ONE_STATE_PARAM_TOL
+                               and whole["BatchNorm statistics"]
+                               <= ONE_STATE_BN_TOL),
+                    counts=not r["counts"], generator=not r["gen"])
+
+    graphed, control = fails(readings["graphed"]), fails(readings["control"])
+    if any(graphed.values()):
+        raise AssertionError(f"[{label}] from one state the graphed epoch "
+                             f"fails the gate: {graphed}")
+    if not (control["losses"] and control["state"]):
+        raise AssertionError(f"[{label}] the control (the graph replayed "
+                             f"with the LR zeroed) passes the gate: "
+                             f"{control}")
+
+
+def phase_device_epoch(cfg, dataset, data, label: str,
+                       expect: dict) -> dict:
+    """The driver's training loops at batch 64 over ``dataset`` (staged as
+    ``data``), each from the same seeded weights and generator seed: (a)
+    the host loader through the ``Prefetcher``, (b) the device-resident
+    epoch run eagerly, three times, (c) the device-resident epoch as CUDA
+    graph replays. In the first two graphed epochs (the eager first step,
+    the capture, 15 replays) the wrappers must count ``expect`` twice (the
+    eager step and the capture; a replay runs no Python). The graphed
+    epochs leave the generator in the eager runs' state, and their losses
+    are finite and fall over 30 steps. The gate from one state after the
+    host's updates, with its control (``one_state``, ``check_one_state``).
+    After 2 epochs each parameter group's relative L2 distance from the
+    first eager run is logged, the graphed run's beside the three eager
+    pairs'. For each loop: ms a step by the host clock (two epochs after
+    the first two, each ending in a synchronize, their mean), device busy
+    ms a step (the union of the kernel intervals in a ``torch.profiler``
+    trace of the next epoch) and the idle share, 1 - busy / wall. The
+    traced epoch's launches, with the counts set to 0 just before it: in
+    the eager loops the wrappers' counts, which must be ``expect`` a step;
+    in the graphed loop (8 replays) the trace's (``trace_launches``), which
+    must be ``expect`` a replay (``per_replay``), with the wrappers' 0 ->
+    the graphed traced epoch's launches, each loop's numbers and the
+    graph's pool bytes."""
+    from maskplanner_tpu_torch.data import DataLoader
+    from maskplanner_tpu_torch.data.device_dataset import epoch_perm
+    from maskplanner_tpu_torch.data.prefetch import Prefetcher
+    from maskplanner_tpu_torch.losses import DeviceWeights, LossHandler
+    from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.train import make_optimizer
+    from maskplanner_tpu_torch.train.trainer import DeviceEpoch, host_epoch
+
+    n = len(dataset)
+    steps = n // BATCH
+    handler = LossHandler(cfg["loss"], cfg)
+
+    def loop(kind: str):
+        """A fresh run -> (model, its epoch function, its DeviceEpoch)."""
+        model = get_model(cfg, device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+        opt = make_optimizer(model, cfg)
+        weights = DeviceWeights(active_weights(cfg, handler), "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        if kind == "host loader":
+            fetch = Prefetcher(DataLoader(dataset, BATCH, shuffle=True,
+                                          seed=0), "cuda")
+            return model, lambda e: host_epoch(
+                model, opt, handler, fetch.epoch(e), weights, gen), None
+        ep = DeviceEpoch(model, opt, handler, data, weights, gen,
+                         int(cfg["pc_points"]), graphed=kind == "graphed")
+        return model, lambda e: ep.run(epoch_perm(n, BATCH, 0, e)), ep
+
+    def params(model, gen):
+        return ({k: p.detach().double().cpu()
+                 for k, p in model.named_parameters()}, gen.get_state())
+
+    def measure(kind: str, run, first: int) -> dict:
+        walls = []
+        for e in range(first, first + 2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run(e)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3 / steps)
+        wall = statistics.mean(walls)
+        reset_counts()
+        kernels = traced_kernels(lambda: run(first + 2))
+        wrapped = read_counts()
+        busy = busy_ms(kernels) / steps
+        log(f"[{label}] {kind}: {wall:.3f} ms a step (host clock, epochs "
+            f"{first + 1}-{first + 2}: " + ", ".join(f"{w:.3f}"
+                                                    for w in walls)
+            + f"), device busy {busy:.3f} ms a step, idle share "
+            f"{1.0 - busy / wall:.3f}")
+        want = {k: v * steps for k, v in expect.items()}
+        res = dict(ms=wall, busy_ms=busy, idle=1.0 - busy / wall)
+        if "graphed" not in kind:
+            if wrapped != want:
+                raise AssertionError(f"an epoch of {kind} launched "
+                                     f"{wrapped}, expected {want}")
+            return res
+        # the main path: every step a replay, which runs no Python, so
+        # its kernels come from the trace, with the counts set to 0 just
+        # before it
+        res["launches"] = trace_launches(kernels)
+        log(f"[{label}] launches in a graphed epoch of {steps} replays, "
+            f"from its trace: {res['launches']}")
+        if any(wrapped.values()):
+            raise AssertionError(f"a graphed epoch's replays counted "
+                                 f"{wrapped} in the wrappers")
+        per_replay(res["launches"], steps, expect,
+                   f"[{label}] a graphed epoch")
+        return res
+
+    out = {}
+    # (b) three times, for the spread of the eager runs
+    eager = []
+    for i in range(3):
+        model, run, ep = loop("eager")
+        for e in range(2):
+            run(e)
+        eager.append(params(model, ep.generator))
+        if i == 0:
+            out["eager"] = measure("device-resident, eager", run, 2)
+        del model, run, ep
+    # (c)
+    model, run, ep = loop("graphed")
+    reset_counts()
+    curve = [run(e)[0] for e in range(2)]
+    wrapped = read_counts()
+    log(f"[{label}] launches in 2 graphed epochs of {steps} steps counted "
+        f"by the wrappers (the eager first step and the capture): "
+        f"{wrapped}; CUDA graph pool {ep.pool_bytes} bytes "
+        f"({ep.pool_bytes / 2**20:.1f} MiB)")
+    if wrapped != {k: v * 2 for k, v in expect.items()}:
+        raise AssertionError(f"the eager step and the capture counted "
+                             f"{wrapped}, {expect} each expected")
+    graphed, gen_state = params(model, ep.generator)
+    if not all(torch.equal(gen_state, g) for _, g in eager):
+        raise AssertionError("the graphed epochs left the generator "
+                             "elsewhere than the eager epochs")
+    curve += [run(e)[0] for e in range(2, 4)]
+    curve = torch.cat(curve).tolist()[:30]
+    log(f"[{label}] graphed 30-step loss curve: "
+        + " ".join(f"{v:.1f}" for v in curve))
+    first, last = np.mean(curve[:steps]), np.mean(curve[-steps:])
+    if not all(np.isfinite(curve)) or not last < first:
+        raise AssertionError(f"the graphed epochs' loss did not fall over 30 "
+                             f"steps ({first} -> {last}), or went "
+                             f"non-finite")
+    out["graphed"] = measure("device-resident, graphed", run, 4)
+    launches = out["graphed"].pop("launches")
+    out["pool_bytes"] = ep.pool_bytes
+    check_one_state(one_state(ep, epoch_perm(n, BATCH, 0, 7), cfg, label),
+                    label)
+    del model, run, ep
+    pairs = [group_rel_l2(eager[j][0], eager[i][0])
+             for i, j in ((0, 1), (0, 2), (1, 2))]
+    dist = group_rel_l2(graphed, eager[0][0])
+    log(f"[{label}] after 2 epochs, each group's relative L2 distance from "
+        f"the first eager run, graphed / the eager pairs (1-2, 1-3, 2-3): "
+        + ", ".join(f"{g} {dist[g]:.2e} / " + " ".join(
+            f"{p[g]:.2e}" for p in pairs) for g in dist))
+    # (a)
+    model, run, _ = loop("host loader")
+    for e in range(2):
+        run(e)
+    out["host loader"] = measure("host loader (Prefetcher)", run, 2)
+    del model, run
+    torch.cuda.empty_cache()
+    return dict(launches=launches, **out)
 
 
 # ---------------------------------------------------------------------------
@@ -2277,14 +2789,13 @@ def main() -> int:
     with torch.inference_mode():
         phase_bf16_kernels(model, torch.from_numpy(clouds).cuda(), res)
     # the bf16 forward's path: counts set to 0 just before, read just after
-    bf16_launches, _ = phase_bf16(cfg, model, clouds, "bf16-forward",
-                                  BF16_FORWARD_LAUNCHES)
+    phase_bf16(cfg, model, clouds, "bf16-forward", BF16_FORWARD_LAUNCHES)
     log(f"[time] serving phases done at {time.perf_counter() - t0:.1f} s")
 
     train_items = load_items(cfg, "train")
     phase_train_kernels(cfg, model, to_batch(train_items, "cuda"), res, card)
-    launches = phase_train_step(cfg, train_items)
-    phase_train_then_serve(profile=True)
+    phase_train_step(cfg, train_items)
+    phase_train_then_serve()
     # the eval's path, f32 then bf16: counts set to 0 just before each and
     # read just after
     eval_launches = phase_eval(cfg, model, res, card, "eval",
@@ -2301,14 +2812,14 @@ def main() -> int:
         check_ball_edges()
     phase_forward(bn, clouds, "bn-forward", BN_FORWARD_LAUNCHES)
     phase_serve(bn_cfg, bn, "bn-serve", 1, BN_FORWARD_LAUNCHES)
-    bn_bf16_launches, bn16 = phase_bf16(bn_cfg, bn, clouds, "bn-bf16-forward",
-                                        BN_BF16_FORWARD_LAUNCHES)
+    _, bn16 = phase_bf16(bn_cfg, bn, clouds, "bn-bf16-forward",
+                         BN_BF16_FORWARD_LAUNCHES)
     with torch.inference_mode():
         phase_bf16_group(bn16, clouds, res)
     # on 2 samples the heads' BatchNorms normalise 2 rows, which turns the
     # encoder's float32 rounding into an O(1) difference (PERF.md §6)
-    bn_launches = phase_train_step(bn_cfg, train_items, "bn-train",
-                                   BN_STEP_LAUNCHES, 12, compare=16)
+    phase_train_step(bn_cfg, train_items, "bn-train", BN_STEP_LAUNCHES, 12,
+                     compare=16)
     log(f"[time] f32 and bf16-serving phases done at "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -2321,38 +2832,59 @@ def main() -> int:
     del bf16_model
     # 16 samples: on 2 the heads' BatchNorms normalise 2 rows (see
     # phase_bf16_card_vs_cpu)
-    bf16_step_launches = phase_bf16_train(cfg, train_items, "bf16-train",
-                                          BF16_STEP_LAUNCHES, compare=16)
+    phase_bf16_train(cfg, train_items, "bf16-train", BF16_STEP_LAUNCHES,
+                     compare=16)
     phase_train_then_serve(["model.bf16=true"], BF16_STEP_LAUNCHES,
                            BF16_FORWARD_LAUNCHES, "bf16-train-then-serve")
-    bn_bf16_step_launches = phase_bf16_train(
-        bn_cfg, train_items, "bn-bf16-train", BN_BF16_STEP_LAUNCHES,
-        compare=16)
+    phase_bf16_train(bn_cfg, train_items, "bn-bf16-train",
+                     BN_BF16_STEP_LAUNCHES, compare=16)
     phase_health()
+    log(f"[time] bf16 and health phases done at "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the driver's default loop, both recipes in f32 and bf16; each graphed
+    # run's counts set to 0 just before it and read just after
+    dataset, data = epoch_split(cfg)
+    bf16_cfg, bn_bf16_cfg = copy.deepcopy(cfg), copy.deepcopy(bn_cfg)
+    bf16_cfg["model"]["bf16"] = bn_bf16_cfg["model"]["bf16"] = True
+    epochs = {label: phase_device_epoch(c, dataset, data, label, expect)
+              for label, c, expect in (
+                  ("epoch", cfg, STEP_LAUNCHES),
+                  ("bn-epoch", bn_cfg, BN_STEP_LAUNCHES),
+                  ("bf16-epoch", bf16_cfg, BF16_STEP_LAUNCHES),
+                  ("bn-bf16-epoch", bn_bf16_cfg, BN_BF16_STEP_LAUNCHES))}
+    del data
+    log("[epoch] ms a step / device busy ms a step / idle share: " + "; ".join(
+        f"{label} " + ", ".join(
+            f"{kind} {r[kind]['ms']:.3f} / {r[kind]['busy_ms']:.3f} / "
+            f"{r[kind]['idle']:.3f}"
+            for kind in ("host loader", "eager", "graphed"))
+        + f", pool {r['pool_bytes']} bytes"
+        for label, r in epochs.items()))
     log(f"[time] all phases done at {time.perf_counter() - t0:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
         "maskplanner_tpu", "jax", "flax"))
     if leaked:
         raise AssertionError(f"the JAX package or jax was imported: {leaked}")
-    # each kernel's launches on its path: the flagship training step, the
-    # BatchNorm recipe's step, or (no model path runs it) its own check
-    counted = {name: ("flagship step", launches[name]) for name in KERNELS}
-    counted["ball_group"] = ("model.norm=batch step",
-                             bn_launches["ball_group"])
+    # each kernel's launches on its path: the kernels that ran in a graphed
+    # epoch of 8 replays of the flagship (f32 or bf16, either recipe), from
+    # its trace, or (no model path runs it) its own check
+    paths = {"epoch": "flagship graphed epoch (trace)",
+             "bn-epoch": "model.norm=batch graphed epoch (trace)",
+             "bf16-epoch": "bf16 graphed epoch (trace)",
+             "bn-bf16-epoch": "model.norm=batch bf16 graphed epoch (trace)"}
+    counted = {}
+    for label, path in paths.items():
+        for name, n in epochs[label]["launches"].items():
+            if n and name not in counted:
+                counted[name] = (path, n)
     for name in ("ball_query", "fused_sa_folded"):
         counted[name] = ("own check, through its entry point", own[name])
-    counted["fused_sa_fwd_bf16"] = ("bf16 forward",
-                                    bf16_launches["fused_sa_fwd_bf16"])
-    counted["ball_group_single"] = ("model.norm=batch bf16 forward",
-                                    bn_bf16_launches["ball_group_single"])
-    for name in ("fused_sa_bwd_bf16", "sa_weight_grad_bf16"):
-        counted[name] = ("bf16 training step", bf16_step_launches[name])
     if eval_launches["nn_argmin"] == 0:
         raise AssertionError("the eval launched no nn_argmin")
-    if bn_bf16_step_launches["ball_group_single"] == 0:
-        raise AssertionError("the model.norm=batch bf16 step launched no "
-                             "single-pass gather")
+    for name in KERNELS:
+        counted.setdefault(name, ("no path", 0))
     for name, (path, n) in counted.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on {path}")

@@ -203,15 +203,65 @@ def save_checkpoint(run_dir: str, name: str, model: nn.Module,
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     blob = {"model": state, "epoch": int(epoch)}
     if optimizer is not None:
-        blob["optimizer"] = optimizer.state_dict()
+        blob["optimizer"] = optimizer_state(optimizer)
     if lr_sched is not None:
-        blob["lr_sched"] = lr_sched.state_dict()
+        blob["lr_sched"] = {k: _floats(v)
+                            for k, v in lr_sched.state_dict().items()}
     if step is not None:
         blob["step"] = int(step)
     if generator is not None:
         blob["generator"] = generator.get_state()
     torch.save(blob, path)
     return path
+
+
+def _floats(value):
+    """A 0-d tensor (a tensor LR) -> its float; lists elementwise."""
+    if isinstance(value, torch.Tensor) and value.dim() == 0:
+        return float(value)
+    if isinstance(value, list):
+        return [_floats(v) for v in value]
+    return value
+
+
+def optimizer_state(optimizer) -> dict:
+    """``optimizer.state_dict()`` in one form whichever the optimizer's
+    (``train.make_optimizer``: a float LR on the CPU, a capturable Adam with
+    a tensor LR on the card): LRs as floats, ``capturable`` off, the state's
+    tensors on the CPU. A checkpoint of either form resumes in either
+    (:func:`load_optimizer_state`)."""
+    sd = optimizer.state_dict()
+    groups = []
+    for group in sd["param_groups"]:
+        group = {k: _floats(v) for k, v in group.items()}
+        if "capturable" in group:
+            group["capturable"] = False
+        groups.append(group)
+    state = {i: {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v
+                 for k, v in s.items()} for i, s in sd["state"].items()}
+    return {"state": state, "param_groups": groups}
+
+
+def load_optimizer_state(optimizer, state: dict) -> None:
+    """Load a state that :func:`optimizer_state` wrote into ``optimizer``,
+    keeping the optimizer's form: its ``capturable`` flag, its LR tensor
+    (filled with the state's LR in place, so that a CUDA graph that reads
+    it sees the value) and, when capturable, the step counts on the
+    parameters' device."""
+    forms = [(group["lr"], group.get("capturable", False))
+             for group in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, (lr, capturable) in zip(optimizer.param_groups, forms):
+        if "capturable" in group:
+            group["capturable"] = capturable
+        if isinstance(lr, torch.Tensor):
+            lr.fill_(float(group["lr"]))
+            group["lr"] = lr
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = st["step"].to(
+                    p.device if capturable else "cpu", torch.float32)
 
 
 def copy_checkpoint(run_dir: str, src: str, dst: str) -> str:
@@ -251,7 +301,7 @@ def load_training_state(run_dir: str, name: str, model: nn.Module,
         raise ValueError(f"checkpoint {checkpoint_path(run_dir, name)} holds "
                          f"no training state ({missing}): it cannot resume")
     model.load_state_dict(blob["model"], strict=True)
-    optimizer.load_state_dict(blob["optimizer"])
+    load_optimizer_state(optimizer, blob["optimizer"])
     if lr_sched is not None:
         lr_sched.load_state_dict(blob["lr_sched"])
     generator.set_state(blob["generator"])

@@ -2,11 +2,16 @@
 
 The weighted sum of the configured terms, each ``weight_<name>`` times its
 value. Loss weights are a plain dict of floats that the PSACD curriculum and
-the delayed activations change between epochs. Only the flagship's term,
+the delayed activations change between epochs, or the same weights as 0-d
+tensors on the model's device (:class:`DeviceWeights`, the JAX step's
+"weights as a traced dict"), which a captured CUDA graph reads and the driver
+fills in place from the float dict after each change. Only the flagship's term,
 ``asymm_v6_chamfer_with_stroke_masks``, is ported; the other names of the
 JAX package's registry raise.
 """
 from __future__ import annotations
+
+import torch
 
 from ..data.pointcloud import get_dim_traj_points
 from . import mask_losses as M
@@ -31,6 +36,25 @@ _EXPLICIT_WEIGHT_KEYS = [
     "explicit_weight_point_confidence_loss",
     "explicit_weight_stroke_confidence_loss",
 ]
+
+
+class DeviceWeights(dict):
+    """The loss weights as 0-d float32 tensors on ``device``.
+
+    The loss uses a weight only as a factor, so a tensor weight gives the
+    float weight's result bit for bit. A CUDA graph captured on these
+    tensors reads whatever they hold at replay: :meth:`load` writes the
+    values of a dict of float weights into them in place (``fill_``)."""
+
+    def __init__(self, weights: dict, device):
+        super().__init__({k: torch.tensor(float(v), dtype=torch.float32,
+                                          device=device)
+                          for k, v in weights.items()})
+
+    def load(self, weights: dict) -> None:
+        """Each float weight of ``weights`` into its tensor, in place."""
+        for key, value in weights.items():
+            self[key].fill_(float(value))
 
 
 class LossHandler:

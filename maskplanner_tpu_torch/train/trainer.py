@@ -1,4 +1,5 @@
-"""The training and eval steps (``maskplanner_tpu/train/trainer.py``).
+"""The training and eval steps and the training epochs
+(``maskplanner_tpu/train/trainer.py``).
 
 One step: the train forward (random FPS starts and dropout masks from an
 explicit generator), the loss, the backward, ``torch.optim.Adam`` (β 0.9 /
@@ -6,9 +7,17 @@ explicit generator), the loss, the backward, ``torch.optim.Adam`` (β 0.9 /
 BatchNorm running statistics, which the forward moves in place. A bf16
 model's forward and backward both sum their bf16 products in f32
 (``models.maskplanner.f32_accumulation``), as the JAX reference does.
+
+An epoch runs the step over the host loader's batches (:func:`host_epoch`)
+or over a split staged on the device (:class:`DeviceEpoch`, the JAX
+package's ``make_scan_train_epoch``): there each step gathers its batch on
+the device, and on the card the whole step is one CUDA graph replay.
 """
 from __future__ import annotations
 
+import gc
+
+import numpy as np
 import torch
 
 from ..losses import LossHandler
@@ -18,8 +27,19 @@ from ..models.maskplanner import f32_accumulation
 
 
 def make_optimizer(model: torch.nn.Module, config) -> torch.optim.Adam:
-    return torch.optim.Adam(model.parameters(), lr=float(config["lr"]),
-                            betas=(0.9, 0.999), eps=1e-8)
+    """Adam on the model's parameters. On the card it is ``capturable``,
+    with the LR a 0-d tensor on the card, so that a CUDA graph of the step
+    reads the step count and the LR that the LR scheduler writes in place
+    between epochs; on the CPU the LR is a float."""
+    lr = float(config["lr"])
+    device = next(model.parameters()).device
+    if device.type == "cuda":
+        return torch.optim.Adam(model.parameters(),
+                                lr=torch.tensor(lr, device=device),
+                                betas=(0.9, 0.999), eps=1e-8,
+                                capturable=True)
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                            eps=1e-8)
 
 
 def build_loss_batch(out, batch, config=None) -> dict:
@@ -78,3 +98,152 @@ def eval_step(model, handler: LossHandler, batch, weights):
     with torch.no_grad():
         total, terms = handler.compute(weights, **build_loss_batch(out, batch))
     return total, terms, out
+
+
+def host_epoch(model, optimizer, handler: LossHandler, batches, weights,
+               generator: torch.Generator | None = None,
+               step_fn=train_step):
+    """One epoch over ``batches`` (on the model's device) -> (the per-step
+    losses (steps,), {term: per-step values (steps,)}), on the device."""
+    losses, terms = [], []
+    for batch in batches:
+        loss, t = step_fn(model, optimizer, handler, batch, weights,
+                          generator)
+        losses.append(loss)
+        terms.append(t)
+    return torch.stack(losses), {k: torch.stack([t[k] for t in terms])
+                                 for k in terms[0]}
+
+
+def subsample_points(pc: torch.Tensor, n: int,
+                     generator: torch.Generator | None) -> torch.Tensor:
+    """(B, N, 3) clouds -> (B, n, 3): a fresh subset of ``n`` points of each
+    cloud, without replacement, drawn on the clouds' device from
+    ``generator`` (the on-device ``pc_online_subsampling``)."""
+    keys = torch.rand(pc.shape[:2], generator=generator, device=pc.device)
+    pick = keys.argsort(dim=-1)[:, :n]
+    return torch.take_along_dim(pc, pick[..., None], dim=1)
+
+
+def gather_batch(data: dict, idx: torch.Tensor, pc_points: int,
+                 generator: torch.Generator | None) -> dict:
+    """The rows ``idx`` of the staged split; clouds staged wider than
+    ``pc_points`` are subsampled (:func:`subsample_points`)."""
+    batch = {k: v.index_select(0, idx) for k, v in data.items()}
+    if batch["point_cloud"].shape[1] > pc_points:
+        batch["point_cloud"] = subsample_points(batch["point_cloud"],
+                                                pc_points, generator)
+    return batch
+
+
+class DeviceEpoch:
+    """Epochs over a split staged on the model's device
+    (``data.device_dataset``): the JAX package's ``make_scan_train_epoch``.
+
+    :meth:`run` takes an epoch's (steps, batch) index matrix
+    (``data.device_dataset.epoch_perm``), copies it to the device once and
+    runs its steps; each step gathers its batch by a row of it on the
+    device (:func:`gather_batch`), runs ``step_fn`` (:func:`train_step`)
+    and writes its loss and terms into device buffers, so the host syncs
+    once an epoch, when it reads them.
+
+    On the CPU, or with ``graphed=False``, the steps run eagerly. On the
+    card they run as one CUDA graph: the first step ever runs eagerly on a
+    side stream (the warm-up, a real step), then the step is captured, with
+    the run's generator registered with the graph (a replay draws what the
+    eager step would draw from the generator's state, and advances it
+    alike), and every later step is a replay. The batch, the step index,
+    the loss weights (``losses.DeviceWeights``), Adam's step count and LR
+    (``make_optimizer``) are tensors that the graph reads at replay. A
+    capture that fails raises: there is no eager fallback. A replay runs
+    no Python, so the kernel wrappers' ``launches`` counts see the warm-up
+    and the capture and no replay."""
+
+    def __init__(self, model, optimizer, handler: LossHandler, data: dict,
+                 weights, generator: torch.Generator | None,
+                 pc_points: int, graphed: bool | None = None,
+                 step_fn=train_step):
+        device = data["point_cloud"].device
+        if graphed is None:
+            graphed = device.type == "cuda"
+        if graphed and device.type != "cuda":
+            raise ValueError("a CUDA graph needs the split on a card")
+        self.model, self.optimizer, self.handler = model, optimizer, handler
+        self.data, self.weights, self.generator = data, weights, generator
+        self.pc_points = int(pc_points)
+        self.graphed = graphed
+        self.step_fn = step_fn
+        self.device = device
+        self.perm = None
+        self.counter = torch.zeros((), dtype=torch.int64, device=device)
+        self.losses = self.terms = None
+        self.graph = None
+        self.pool_bytes = 0
+
+    def _step(self) -> None:
+        """The step at ``counter``, its loss and terms into the buffers."""
+        at = self.counter.view(1)
+        idx = self.perm.index_select(0, at).view(-1)
+        batch = gather_batch(self.data, idx, self.pc_points, self.generator)
+        loss, terms = self.step_fn(self.model, self.optimizer, self.handler,
+                                   batch, self.weights, self.generator)
+        if self.losses is None:
+            steps = self.perm.shape[0]
+            self.losses = torch.zeros(steps, device=self.device)
+            self.terms = {k: torch.zeros(steps, device=self.device)
+                          for k in terms}
+        self.losses.index_copy_(0, at, loss.view(1))
+        for k, v in terms.items():
+            self.terms[k].index_copy_(0, at, v.view(1))
+        self.counter += 1
+
+    def _warm_up_and_capture(self) -> None:
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._step()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
+
+        # what the capture allocates comes from the graph's private pool:
+        # its size is the memory reserved after less before, once the
+        # cache is emptied (as the capture itself empties it)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        try:
+            with torch.cuda.graph(graph):
+                self._step()
+        except Exception as exc:
+            raise RuntimeError("capturing the training step as a CUDA graph "
+                               "failed") from exc
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.graph = graph
+        print(f"training step captured as a CUDA graph: private pool "
+              f"{self.pool_bytes / 2**20:.1f} MiB")
+
+    def run(self, perm: np.ndarray):
+        """One epoch over the (steps, batch) index matrix ``perm`` -> (the
+        per-step losses (steps,), {term: per-step values (steps,)}), on
+        the device."""
+        perm = torch.from_numpy(np.asarray(perm, dtype=np.int64))
+        if self.perm is None:
+            self.perm = torch.empty(perm.shape, dtype=torch.int64,
+                                    device=self.device)
+        elif self.perm.shape != perm.shape:
+            raise ValueError(f"an epoch of {tuple(perm.shape)} steps x batch "
+                             f"after {tuple(self.perm.shape)}")
+        self.perm.copy_(perm)
+        self.counter.zero_()
+        for _ in range(perm.shape[0]):
+            if not self.graphed:
+                self._step()
+            elif self.graph is None:
+                self._warm_up_and_capture()
+            else:
+                self.graph.replay()
+        return self.losses.clone(), {k: v.clone()
+                                     for k, v in self.terms.items()}

@@ -29,6 +29,18 @@ bitwise equal to an uninterrupted one. A bare ``resume=true`` starts a
 fresh run. SIGTERM or SIGINT ends the run at the end of the current epoch,
 with ``last_checkpoint`` saved (unless ``no_save``).
 
+``device_dataset=auto`` (the default, as in the JAX driver) or ``true``
+stages the training split on the device (``data.device_dataset``) when the
+config is eligible and the split fits, and runs every epoch over it
+(``train.trainer.DeviceEpoch``): on the card each step is one replay of a
+CUDA graph of the whole step, on the CPU the same step runs eagerly, and
+the host syncs once an epoch. Otherwise (``device_dataset=false``, an
+ineligible config, a split over the limit) the host loader's batches come
+through a ``data.prefetch.Prefetcher``. On the CPU the two give bitwise the
+same run. The PSACD curriculum and the delayed activations update a dict
+of float loss weights, which the driver then loads in place into the 0-d
+tensors on the device that the step reads (``losses.DeviceWeights``).
+
 It runs on the card unless ``device=cpu`` is given; ``device=cuda`` without
 a card raises. With ``model.pretrained`` (the default) and
 ``model.norm=batch`` it warm-starts the encoder from the original
@@ -44,10 +56,9 @@ that epoch; a run with fewer than 2 epochs left has no second epoch and
 raises.
 
 Not ported yet (each raises when its config asks for it): the adversarial
-losses, the device-resident epoch (``device_dataset=true``), warm starts
-from a pretrained run (``model.pretrained_custom``). Rendering the final
-dumps (``render_results.py``) is not ported: the run prints a notice where
-the JAX driver would render.
+losses, warm starts from a pretrained run (``model.pretrained_custom``).
+Rendering the final dumps (``render_results.py``) is not ported: the run
+prints a notice where the JAX driver would render.
 """
 from __future__ import annotations
 
@@ -62,14 +73,17 @@ from .convert import (checkpoint_path, copy_checkpoint, load_checkpoint,
                       load_shapenet_encoder, load_training_state,
                       save_checkpoint)
 from .data.dataset import DataLoader, PaintDataset
-from .losses import LossHandler
+from .data.device_dataset import (device_dataset_eligible, epoch_perm,
+                                  stage_device_dataset, staged_bytes)
+from .data.prefetch import Prefetcher
+from .losses import DeviceWeights, LossHandler
 from .metrics import MetricsHandler
 from .models import get_model
 from .serve import resolve_device
-from .train import (PSACDScheduler, apply_delayed_activations,
-                    batch_to_device, forward, make_lr_scheduler,
-                    make_optimizer, train_step)
+from .train import (PSACDScheduler, apply_delayed_activations, forward,
+                    make_lr_scheduler, make_optimizer, train_step)
 from .train.loop import evaluate
+from .train.trainer import DeviceEpoch, host_epoch
 from .utils import create_dirs, get_run_name, set_seed
 from .utils.args import load_args
 from .utils.config import load_config, save_config
@@ -116,10 +130,6 @@ def _refuse_unported(config) -> None:
     if any(n in ("discriminator", "wdiscriminator") for n in config["loss"]):
         raise NotImplementedError("the adversarial losses are not ported yet "
                                   "(ROADMAP.md, Queue 1)")
-    if str(config.get("device_dataset", "auto")).lower() == "true":
-        raise NotImplementedError("the device-resident epoch "
-                                  "(device_dataset=true) is not ported yet "
-                                  "(ROADMAP.md, port queue)")
     if config["model"].get("pretrained_custom"):
         raise NotImplementedError("model.pretrained_custom warm starts are "
                                   "not ported yet (ROADMAP.md, port queue)")
@@ -249,7 +259,8 @@ def _train(config, preempted: _Preemption):
     optimizer = make_optimizer(model, config)
     lr_sched = make_lr_scheduler(optimizer, config)
     handler = LossHandler(config["loss"], config)
-    weights = handler.init_weights()
+    floats = handler.init_weights()
+    weights = DeviceWeights(floats, device)
     metrics_handler = MetricsHandler(config, config.get("eval_metrics") or [])
     psacd = (PSACDScheduler(config["psacd_scheduler"])
              if config["psacd_scheduler"].get("active") else None)
@@ -264,12 +275,28 @@ def _train(config, preempted: _Preemption):
         # epoch: replay every epoch already done
         for e in range(start_epoch):
             if psacd is not None and psacd.is_time_to_step(e, epochs):
-                weights = psacd.step_loss_weights(weights)
-            weights = apply_delayed_activations(config, weights, e)
+                floats = psacd.step_loss_weights(floats)
+            floats = apply_delayed_activations(config, floats, e)
+        weights.load(floats)
         print(f"Resumed from epoch {start_epoch} (step {step})")
     if config.get("profile") and epochs - start_epoch < 2:
         raise ValueError(f"profile=true traces the second epoch, but "
                          f"epochs={epochs} with {start_epoch} done")
+
+    # the device-resident epoch where it applies, else the host loader
+    device_epoch = data = None
+    if device_dataset_eligible(config, 1, batch_size):
+        data = stage_device_dataset(tr_dataset, device=device)
+    if data is not None:
+        device_epoch = DeviceEpoch(model, optimizer, handler, data, weights,
+                                   generator, int(config["pc_points"]),
+                                   step_fn=train_step)
+        print(f"device-resident dataset: epoch-as-one-dispatch enabled "
+              f"(staged split {staged_bytes(data) / 2**20:.1f} MiB"
+              + (", the step as a CUDA graph)" if device_epoch.graphed
+                 else ")"))
+    else:
+        prefetcher = Prefetcher(tr_loader, device)
 
     def save(name: str, epoch: int) -> None:
         save_checkpoint(run_dir, name, model, epoch, optimizer=optimizer,
@@ -282,23 +309,23 @@ def _train(config, preempted: _Preemption):
     with open(os.path.join(run_dir, "logs.jsonl"), "a") as log_fh:
         for epoch in range(start_epoch, epochs):
             t0 = time.time()
-            losses, term_acc = [], []
             with profile_trace(run_dir, bool(config.get("profile"))
                                and epoch == start_epoch + 1, device):
-                for batch in tr_loader.epoch(epoch):
-                    loss, terms = train_step(model, optimizer, handler,
-                                             batch_to_device(batch, device),
-                                             weights, generator)
-                    losses.append(loss)
-                    term_acc.append(terms)
-                    step += 1
+                if device_epoch is not None:
+                    losses, terms = device_epoch.run(epoch_perm(
+                        len(tr_dataset), batch_size,
+                        int(config.get("seed") or 0), epoch))
+                else:
+                    losses, terms = host_epoch(
+                        model, optimizer, handler, prefetcher.epoch(epoch),
+                        weights, generator, step_fn=train_step)
+            step += len(losses)
             # one host sync per epoch
-            epoch_loss = float(torch.stack(losses).mean())
+            epoch_loss = float(losses.mean())
             log = {"train_loss": epoch_loss, "epoch": epoch + 1,
                    "epoch_seconds": time.time() - t0}
-            for k in term_acc[0]:
-                log[f"{k}_train_loss"] = float(
-                    torch.stack([t[k] for t in term_acc]).mean())
+            for k, v in terms.items():
+                log[f"{k}_train_loss"] = float(v.mean())
             # the schedule of the next epoch, before a checkpoint holds it
             if lr_sched is not None:
                 lr_sched.step()
@@ -331,8 +358,9 @@ def _train(config, preempted: _Preemption):
             log_fh.flush()
 
             if psacd is not None and psacd.is_time_to_step(epoch, epochs):
-                weights = psacd.step_loss_weights(weights)
-            weights = apply_delayed_activations(config, weights, epoch)
+                floats = psacd.step_loss_weights(floats)
+            floats = apply_delayed_activations(config, floats, epoch)
+            weights.load(floats)
 
             if preempted.flag:
                 if not config.get("no_save"):

@@ -470,7 +470,8 @@ def test_profile_traces_the_second_epoch(profile, tmp_path):
 def test_driver_refuses_what_is_not_ported(tmp_path):
     from maskplanner_tpu_torch import train_maskplanner
 
-    for extra in (["device_dataset=true"], ["loss=[chamfer]"]):
+    for extra in ([f"model.pretrained_custom={tmp_path}"],
+                  ["loss=[chamfer]"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_maskplanner.main([*SMALL, "device=cpu", "epochs=1",
                                     f"output_dir={tmp_path}", *extra])
