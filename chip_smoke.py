@@ -187,8 +187,37 @@ result line:
     of one epoch; in the eager loops its wrapper counts must be the step's
     a step) and the idle share, 1 - busy / wall; the graph's private pool
     bytes;
-21. the card line, a ``kernels`` JSON line (launches: the kernels that ran
-    in the traced graphed epoch of 8 replays), and the result line last.
+21. warm starts (``model.pretrained_custom``): on phase 11's run at the
+    flagship's width, a fresh model warm-started from it is bitwise its
+    checkpoint (``fc3`` and ``fc_normals`` at the fresh init's unless
+    ``model.load_strict``); on phase 19's run, 2 epochs of its recipe on
+    the graphed loop warm-started with ``load_strict=true`` begin within
+    ``WARM_START_SHARE`` of the source's fall from its last-10 mean, and
+    the control (no warm start) must not;
+22. coverage on phase 19's run, its test items: the eval CLI's ``--save``
+    dumps through the port's three tools (``standalone/``: programs, spray
+    thickness, coverage), the exported GT programs against the originals
+    at least 0.9 on average, the predicted coverage printed per item; a
+    ``Predictor`` on the card answers each test mesh, its program
+    simulated and scored against the original's, with request and scoring
+    ms;
+23. the exported forward: ``torch.library.opcheck`` of every custom op
+    (``ops/library.py``) on the card at sa1 and sa2; ``Predictor.
+    export_compiled`` of the default recipe in f32 and bf16 at batch 1
+    and 64 and of ``model.norm=batch`` in f32 and bf16 at batch 64,
+    served in a child process that imports only ``load_exported``:
+    launches exactly fps 2 and fused_sa_fwd 2 (bf16: fused_sa_fwd_bf16 2;
+    the BatchNorm recipe ball_group 2 or ball_group_single 2), outputs
+    within ``EXPORT_REL_TOL`` · max|ref| of the live ``Predictor.forward``
+    (bitwise expected); host ms, median of 10, exported against live;
+    beside that child, at once, ``predict --from_export`` in a child gives
+    the live request's rows, ``predict --export`` in another writes a
+    program bitwise the live forward, and a byte-flipped artifact's child
+    exits non-zero;
+24. the card line, a ``kernels`` JSON line (launches: the kernels that ran
+    in the traced graphed epoch of 8 replays; for the five kernels of the
+    exported forward their custom op and the child's launches), and the
+    result line last.
 
 It needs one CUDA card and the repository around it; without either it
 exits non-zero.
@@ -327,6 +356,7 @@ HEALTH = ["config=[maskplanner,cuboids_v2,longx_v2,debug]",
           "traj_with_equally_spaced_points=false", "data_scale_factor=800.0",
           "batch_size=8", "epochs=80", "eval_freq=40", "no_save=false",
           "skip_rendering=true", "seed=7"]
+HEALTH_CORPUS = dict(n_train=8, n_test=2, seed=7, deterministic=True)
 
 
 def log(msg: str) -> None:
@@ -1425,7 +1455,8 @@ def phase_card_vs_cpu(cfg, items, handler, label: str = "train") -> None:
 
 def phase_train_then_serve(extra=(), expect: dict = STEP_LAUNCHES,
                            serve: dict = FORWARD_LAUNCHES,
-                           label: str = "train-then-serve") -> None:
+                           label: str = "train-then-serve",
+                           then=None) -> None:
     """The training entry point in-process (with the ``extra`` config
     arguments, ``profile=true``) for 2 epochs of 2 steps on the driver's
     default loop: the first step runs eagerly and is then captured, every
@@ -1434,7 +1465,8 @@ def phase_train_then_serve(extra=(), expect: dict = STEP_LAUNCHES,
     ``per_replay``); the wrappers must count the fused SA backward's
     kernels twice ``expect`` (the eager step and the capture; the run's
     evals also launch the forward's). Then a Predictor serves what it wrote
-    in the run's own dtype, launching ``serve``."""
+    in the run's own dtype, launching ``serve``; ``then(run_dir)``, when
+    given, last."""
     from maskplanner_tpu_torch import train_maskplanner
 
     with tempfile.TemporaryDirectory() as out:
@@ -1475,6 +1507,8 @@ def phase_train_then_serve(extra=(), expect: dict = STEP_LAUNCHES,
                                  "last_checkpoint")
         check_final_eval(run_dir, label)
         serve_request(run_dir, label, reps=0, expect=serve)
+        if then is not None:
+            then(run_dir)
 
 
 # ---------------------------------------------------------------------------
@@ -1681,38 +1715,42 @@ def phase_resume() -> None:
                                      f"{g}, the second's {own[g]}")
 
 
-def phase_health() -> None:
+def phase_health(then=None) -> None:
     """bench.py's health check on the fixture corpus: 80 epochs of the
     cuboids-v2 debug recipe at batch 8 on the card; every loss finite and
-    the last 10 epochs' mean train loss below the first epoch's."""
+    the last 10 epochs' mean train loss below the first epoch's.
+    ``then(run_dir, root, train_losses)``, when given, runs after the
+    check on the run, with ``PAINTNET_ROOT`` at the corpus (``root``)."""
     from maskplanner_tpu_torch import train_maskplanner
     from maskplanner_tpu_torch.data.fixture_category import write_category
 
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "paintnet")
-        write_category(root, "cuboids-v2", n_train=8, n_test=2, seed=7,
-                       deterministic=True)
+        write_category(root, "cuboids-v2", **HEALTH_CORPUS)
         os.environ["PAINTNET_ROOT"] = root
         try:
             run_dir, _ = train_maskplanner.main(
                 [*HEALTH, "device=cuda", f"output_dir={tmp}"])
+            with open(os.path.join(run_dir, "logs.jsonl")) as fh:
+                logs = [json.loads(line) for line in fh]
+            train = [log_["train_loss"] for log_ in logs]
+            evals = [(log_["epoch"], log_["eval_loss"],
+                      log_["point-wise chamfer distance"])
+                     for log_ in logs if "eval_loss" in log_]
+            finite = all(np.isfinite(train)) and all(
+                np.isfinite(v) for e in evals for v in e)
+            tail = float(np.mean(train[-10:]))
+            log(f"[health] {len(train)} epochs in "
+                f"{time.perf_counter() - t:.1f} s: train loss epoch 1 "
+                f"{train[0]:.2f}, last 10 epochs' mean {tail:.2f}; evals "
+                f"(epoch, loss, pcd): {evals}")
+            if len(train) != 80 or not finite or not tail < train[0]:
+                raise AssertionError("the fixture health check failed")
+            if then is not None:
+                then(run_dir, root, train)
         finally:
             os.environ.pop("PAINTNET_ROOT", None)
-        with open(os.path.join(run_dir, "logs.jsonl")) as fh:
-            logs = [json.loads(line) for line in fh]
-    train = [log_["train_loss"] for log_ in logs]
-    evals = [(log_["epoch"], log_["eval_loss"],
-              log_["point-wise chamfer distance"])
-             for log_ in logs if "eval_loss" in log_]
-    finite = all(np.isfinite(train)) and all(
-        np.isfinite(v) for e in evals for v in e)
-    tail = float(np.mean(train[-10:]))
-    log(f"[health] {len(train)} epochs in {time.perf_counter() - t:.1f} s: "
-        f"train loss epoch 1 {train[0]:.2f}, last 10 epochs' mean "
-        f"{tail:.2f}; evals (epoch, loss, pcd): {evals}")
-    if len(train) != 80 or not finite or not tail < train[0]:
-        raise AssertionError("the fixture health check failed")
 
 
 # ---------------------------------------------------------------------------
@@ -2763,6 +2801,405 @@ def phase_bf16_train(cfg, items, label: str, expect: dict,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the exported serving forward, warm starts, coverage
+# ---------------------------------------------------------------------------
+
+# the custom op of each kernel that the exported forward carries
+CUSTOM_OPS = {"fps": "maskplanner::fps",
+              "fused_sa_fwd": "maskplanner::fused_sa_fwd",
+              "fused_sa_fwd_bf16": "maskplanner::fused_sa_fwd_bf16",
+              "ball_group": "maskplanner::ball_group",
+              "ball_group_single": "maskplanner::ball_group_single"}
+# the exported forward against the live one, on the same kernels: bitwise
+# expected, held within this share of max|ref|
+EXPORT_REL_TOL = 1e-6
+# serves exported programs with nothing but ``load_exported``: per job the
+# launches of one call and its outputs
+EXPORT_CHILD = """
+import json, sys
+import numpy as np
+import torch
+from maskplanner_tpu_torch.serve import load_exported
+from maskplanner_tpu_torch.ops.cuda import launch_counters
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+report = {}
+for job in json.loads(sys.argv[1]):
+    fn = load_exported(job["path"])
+    x = np.load(job["input"])
+    for f in launch_counters().values():
+        f.launches = 0
+    out = fn(x)
+    torch.cuda.synchronize()
+    report[job["path"]] = {k: f.launches
+                           for k, f in launch_counters().items()}
+    np.savez(job["output"], *[t.cpu().numpy() for t in out[:3]])
+print(json.dumps(report))
+"""
+# serves a (byte-flipped) artifact: it must exit non-zero
+FLIPPED_CHILD = """
+import sys
+import numpy as np
+from maskplanner_tpu_torch.serve import load_exported
+
+load_exported(sys.argv[1])(np.load(sys.argv[2]))
+"""
+# the warm-started health run's first epoch: its train loss's distance from
+# the source's last-10 mean over the source's own fall (first epoch − that
+# mean). Over five readings warm-started runs read 0.018-0.097 and the
+# control (no warm start) 1.0000 (PERF.md §6)
+WARM_START_SHARE = 0.3
+# the largest mesh edge (in the corpus's normalised units) of the copy of
+# the fixture corpus that coverage scores on (0.1 scores the same within
+# 0.01 and simulates 5x slower)
+COVERAGE_MESH_EDGE = 0.2
+
+
+def opcheck_ops(model, bn, xyz: torch.Tensor) -> None:
+    """``torch.library.opcheck`` of every custom op on CUDA inputs at the
+    flagship's sa1 and sa2 shapes (2 clouds): the fake kernels' shapes,
+    dtypes and strides against the CUDA kernels', the schemas, the
+    dispatch."""
+    from maskplanner_tpu_torch.ops import library
+    from maskplanner_tpu_torch.ops.sampling import index_points
+
+    t = time.perf_counter()
+    x = xyz[:2].contiguous()
+    start = torch.zeros(2, dtype=torch.int32, device=x.device)
+    with torch.no_grad():
+        l1 = index_points(x, library.fps(x, 512, start))
+        f1, _ = library.fused_sa_fwd(
+            x, l1, None, [a.detach() for layer in model.sa1.layer_params()
+                          for a in layer], 0.2, 32, True)
+        l2 = index_points(l1, library.fps(l1, 128, start))
+    checks = [(library.fps, (x, 512, start)), (library.fps, (l1, 128, start))]
+    for level, pts, new, feats, radius, k in (
+            ("sa1", x, l1, None, 0.2, 32), ("sa2", l1, l2, f1, 0.4, 64)):
+        flat = [a.detach() for layer in getattr(model, level).layer_params()
+                for a in layer]
+        for op in (library.fused_sa_fwd, library.fused_sa_fwd_bf16):
+            checks.append((op, (pts, new, feats, flat, radius, k, True)))
+        for op in (library.ball_group, library.ball_group_single):
+            checks.append((op, (pts, new, feats, radius, k)))
+    for op, args in checks:
+        torch.library.opcheck(op, args)
+    log(f"[export] opcheck: {len(checks)} calls of "
+        f"{sorted(CUSTOM_OPS.values())} on the card pass, "
+        f"{time.perf_counter() - t:.1f} s")
+
+
+def phase_export(cases, clouds: np.ndarray) -> dict:
+    """The exported forward (``Predictor.export_compiled``, torch.export
+    through the custom ops) of each case ``(label, cfg, model,
+    compute_dtype, batches, expect)``: exported on the card, then served in
+    a child process that imports only ``load_exported``, on the same clouds
+    as the live ``Predictor.forward``: outputs within ``EXPORT_REL_TOL`` ·
+    max|ref| (bitwise expected), launches exactly ``expect``; host ms,
+    median of 10, exported against live in this process. Beside that child,
+    ``predict --from_export`` in a child gives the live request's rows,
+    ``predict --export`` in another writes a program bitwise the live
+    forward, and a byte-flipped artifact makes its child exit non-zero ->
+    the child's launches by case."""
+    from maskplanner_tpu_torch.convert import save_checkpoint
+    from maskplanner_tpu_torch.serve import Predictor, load_exported
+    from maskplanner_tpu_torch.utils.config import save_config
+
+    t0 = time.perf_counter()
+    counted = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs, refs = [], {}
+        for label, cfg, model, dtype, batches, expect in cases:
+            run_dir = os.path.join(tmp, label)
+            os.makedirs(run_dir)
+            save_config(cfg, run_dir)
+            save_checkpoint(run_dir, "last_checkpoint", model)
+            pred = Predictor(run_dir, device="cuda", compute_dtype=dtype)
+            for b in batches:
+                path = os.path.join(tmp, f"{label}-b{b}.pt2")
+                t = time.perf_counter()
+                blob = pred.export_compiled(path, batch=b)
+                t_export = time.perf_counter() - t
+                x = clouds[:b]
+                np.save(path + ".in.npy", x)
+                refs[path] = (label, b, expect,
+                              [o.cpu() for o in pred.forward(x)[:3]])
+                fn = load_exported(path)
+                t_live = median_host_s(lambda: pred.forward(x), 10)
+                t_exp = median_host_s(lambda: fn(x), 10)
+                t_live2 = median_host_s(lambda: pred.forward(x), 10)
+                log(f"[export] {label} batch {b}: {len(blob)} bytes, "
+                    f"exported in {t_export:.2f} s; host ms (median of 10) "
+                    f"live {t_live * 1e3:.3f} / {t_live2 * 1e3:.3f}, "
+                    f"exported {t_exp * 1e3:.3f}")
+                jobs.append(dict(path=path, input=path + ".in.npy",
+                                 output=path + ".out.npz"))
+        log(f"[export] exported and timed in {time.perf_counter() - t0:.1f} "
+            f"s")
+        # the children, all at once: the served programs, a flipped one,
+        # and the CLI's export and its serving from this process's bf16
+        # batch-1 program (the CLI's default dtype)
+        mesh = os.path.join(tmp, "window.obj")
+        write_box_obj(mesh, dims=(900.0, 120.0, 1100.0),
+                      center=(400.0, 1500.0, 900.0))
+        run_dir = os.path.join(tmp, cases[0][0])
+        cli = os.path.join(tmp, "cli.pt2")
+        bf16_b1 = os.path.join(tmp, f"{cases[1][0]}-b1.pt2")
+        predict = [sys.executable, "-m", "maskplanner_tpu_torch.predict",
+                   "--run", run_dir]
+        flipped_proc = spawn([sys.executable, "-c", FLIPPED_CHILD,
+                              flipped_copy(jobs[0]["path"], tmp),
+                              jobs[0]["input"]])
+        children = {
+            "the exported forward's child": spawn(
+                [sys.executable, "-c", EXPORT_CHILD, json.dumps(jobs)]),
+            "predict --export": spawn([*predict, "--export", cli]),
+            "predict --from_export": spawn(
+                [*predict, "--meshes", mesh, "--out", f"{tmp}/exported",
+                 "--from_export", bf16_b1])}
+        try:
+            live = Predictor(run_dir, device="cuda", compute_dtype="bf16")
+            live.save_program(mesh, f"{tmp}/live/window.txt")
+            said = flipped_proc.communicate(timeout=600)[1]
+            done = {what: finish(proc, what)
+                    for what, proc in children.items()}
+        finally:                 # a failure stops the children still running
+            for proc in [flipped_proc, *children.values()]:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        said = (said.strip().splitlines() or ["(nothing)"])[-1]
+        log(f"[export] a byte-flipped artifact: its child exits "
+            f"{flipped_proc.returncode}: {said}")
+        if flipped_proc.returncode == 0:
+            raise AssertionError("a byte-flipped artifact served")
+
+        rows = {how: np.genfromtxt(f"{tmp}/{how}/window.txt", delimiter=";",
+                                   skip_header=1)
+                for how in ("live", "exported")}
+        if rows["live"].shape[0] == 0 or not np.array_equal(
+                rows["live"], rows["exported"]):
+            raise AssertionError(f"predict --from_export gave "
+                                 f"{rows['exported'].shape} rows unlike the "
+                                 f"live request's {rows['live'].shape}")
+        x = clouds[:1]
+        want = [o.cpu() for o in live.forward(x)[:3]]
+        got = [o.cpu() for o in load_exported(cli)(x)[:3]]
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("predict --export wrote a program unlike "
+                                 "the live bf16 forward")
+        log(f"[export] predict --from_export (bf16, a child): "
+            f"{rows['live'].shape[0]} rows, equal to the live request's; "
+            f"predict --export's program (a child) bitwise the live forward")
+
+        report = json.loads(done["the exported forward's child"]
+                            .strip().splitlines()[-1])
+        for job in jobs:
+            label, b, expect, ref = refs[job["path"]]
+            launches = {k: report[job["path"]][k] for k in KERNELS}
+            if launches != expect:
+                raise AssertionError(f"[export] {label} batch {b}: the "
+                                     f"child launched {launches}, expected "
+                                     f"{expect}")
+            counted[f"{label}-b{b}"] = {k: n for k, n in launches.items()
+                                        if n}
+            with np.load(job["output"]) as out:
+                got = [torch.from_numpy(out[f"arr_{i}"]) for i in range(3)]
+            for field, a, r in zip(("traj", "stroke_masks", "mask_scores"),
+                                   got, ref):
+                err = float((a - r).abs().max())
+                scale = float(r.abs().max())
+                log(f"[export] {label} batch {b} {field}: exported (child) "
+                    f"vs live max|Δ| {err:.3e} (max|ref| {scale:.3e}), "
+                    f"bitwise {torch.equal(a, r)}")
+                if a.shape != r.shape or not err <= EXPORT_REL_TOL * scale:
+                    raise AssertionError(f"[export] {label} batch {b} "
+                                         f"{field}: {err} > "
+                                         f"{EXPORT_REL_TOL} x {scale}")
+        log(f"[export] the child's launches: {counted}")
+    log(f"[export] done in {time.perf_counter() - t0:.1f} s")
+    return counted
+
+
+def spawn(cmd: list) -> subprocess.Popen:
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish(proc: subprocess.Popen, what: str) -> str:
+    """Wait for a child that must succeed -> its standard output."""
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                             f"{err[-3000:]}")
+    return out
+
+
+def flipped_copy(path: str, tmp: str) -> str:
+    """A copy of the artifact with one byte flipped in its middle."""
+    with open(path, "rb") as fh:
+        bad = bytearray(fh.read())
+    bad[len(bad) // 2] ^= 0xFF
+    flipped = os.path.join(tmp, "flipped.pt2")
+    with open(flipped, "wb") as fh:
+        fh.write(bytes(bad))
+    return flipped
+
+
+def check_flagship_warm_start(run_dir: str) -> None:
+    """``model.pretrained_custom`` on phase 11's run at the flagship's
+    width: the warm-started model is bitwise the run's checkpoint, the
+    output layers at the fresh init's unless ``load_strict``."""
+    from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.train_maskplanner import warm_start_custom
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    saved = torch.load(os.path.join(run_dir, "last_checkpoint.torch.pt"),
+                       weights_only=True)["model"]
+    for strict in (False, True):
+        cfg = load_args(argv=[FLAGSHIP, f"model.pretrained_custom={run_dir}",
+                              f"model.load_strict={str(strict).lower()}"])
+        model = get_model(cfg, device="cuda",
+                          generator=torch.Generator().manual_seed(11))
+        fresh = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+        loaded = warm_start_custom(model, cfg)
+        got = model.state_dict()
+        heads = [k for k in got if k.startswith(("fc3.", "fc_normals."))]
+        for k in got:
+            want = fresh[k] if k in heads and not strict else saved[k]
+            if not torch.equal(got[k].cpu(), want):
+                raise AssertionError(f"warm start (load_strict={strict}): "
+                                     f"{k} is not what it should be")
+        log(f"[warm-start] flagship, load_strict={strict}: {len(loaded)} "
+            f"tensors loaded, the model bitwise the checkpoint, "
+            f"{len(heads)} head tensors at "
+            + ("the checkpoint's" if strict else "the fresh init's"))
+
+
+def phase_warm_start(run_dir: str, root: str, source: list) -> None:
+    """Phase 19's health run as the source: 2 epochs of its recipe on the
+    graphed default loop with ``model.pretrained_custom`` and
+    ``model.load_strict=true``, and the control without: the warm-started
+    first epoch's train loss must lie within ``WARM_START_SHARE`` of the
+    source's fall from its last-10 mean, the control's outside."""
+    from maskplanner_tpu_torch import train_maskplanner
+
+    tail = float(np.mean(source[-10:]))
+    fall = source[0] - tail
+    keep = [a for a in HEALTH if not a.startswith(("epochs=", "eval_freq=",
+                                                   "no_save="))]
+    shares = {}
+    for how, extra in (("warm start", [f"model.pretrained_custom={run_dir}",
+                                       "model.load_strict=true"]),
+                       ("control", [])):
+        with tempfile.TemporaryDirectory() as out:
+            t = time.perf_counter()
+            run, _ = train_maskplanner.main(
+                [*keep, "epochs=2", "eval_freq=2", "no_save=true",
+                 "device=cuda", *extra, f"output_dir={out}"])
+            with open(os.path.join(run, "logs.jsonl")) as fh:
+                first = json.loads(fh.readline())["train_loss"]
+        shares[how] = abs(first - tail) / fall
+        log(f"[warm-start] {how}: first epoch's train loss {first:.4f} "
+            f"(source: epoch 1 {source[0]:.4f}, last-10 mean {tail:.4f}), "
+            f"share of the source's fall {shares[how]:.4f}, "
+            f"{time.perf_counter() - t:.1f} s")
+    if not shares["warm start"] <= WARM_START_SHARE:
+        raise AssertionError(f"the warm-started run starts "
+                             f"{shares['warm start']} of the fall away")
+    if shares["control"] <= WARM_START_SHARE:
+        raise AssertionError(f"the control passes the warm-start gate "
+                             f"({shares['control']})")
+
+
+def phase_coverage(run_dir: str, root: str) -> None:
+    """Coverage on the fixture run's test items: the eval CLI's ``--save``
+    dumps through the port's three tools (programs, thickness, coverage):
+    the exported GT programs against the original ones (the round trip) at
+    least 0.9 on average, the predicted coverage printed per item; then a
+    ``Predictor`` on the card answers each test mesh, and its program is
+    simulated and scored against the original's, with the request and
+    scoring ms. The metric counts mesh faces, so it scores on a copy of the
+    corpus whose box faces are subdivided to edges of at most
+    ``COVERAGE_MESH_EDGE`` (the same boxes and programs): on the corpus's
+    12-triangle boxes a face is 1/9 of the painted ones."""
+    import shutil
+
+    from maskplanner_tpu_torch.data.fixture_category import write_category
+    from maskplanner_tpu_torch.data.io import save_traj_file
+    from maskplanner_tpu_torch.serve import Predictor
+    from maskplanner_tpu_torch.sim import (coverage_for_pair,
+                                           get_thicknesses_values_per_face,
+                                           simulate_program)
+    from maskplanner_tpu_torch.standalone import (
+        compute_paint_coverage_per_face, from_pred_to_offline_v2,
+        simulate_spray_thickness)
+
+    t0 = time.perf_counter()
+    cat_dir = write_category(os.path.join(run_dir, "fine"), "cuboids-v2",
+                             **HEALTH_CORPUS,
+                             mesh_max_edge=COVERAGE_MESH_EDGE)
+    proc = subprocess.run(
+        [sys.executable, "-m", "maskplanner_tpu_torch.test_maskplanner",
+         "--run", run_dir, "--model", "last", "--save"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the eval CLI exited {proc.returncode}:\n"
+                             f"{proc.stderr[-2000:]}")
+    progs = os.path.join(run_dir, "programs")
+    gt_dir, pred_dir = from_pred_to_offline_v2.main(
+        ["--run", run_dir, "--output_dir", progs, "--force_overwrite"])
+    names = sorted(os.path.splitext(f)[0] for f in os.listdir(gt_dir))
+    truth = os.path.join(progs, "truth")
+    os.makedirs(truth)
+    for name in names:
+        original = os.path.join(root, "cuboids-v2", name,
+                                f"{name}_trajectory.txt")
+        with open(original) as a, open(os.path.join(
+                cat_dir, name, f"{name}_trajectory.txt")) as b:
+            if a.read() != b.read():
+                raise AssertionError(f"the fine copy's {name} program "
+                                     f"differs from the corpus's")
+        shutil.copy(original, os.path.join(truth, f"{name}.txt"))
+    thick = os.path.join(run_dir, "thickness")
+    simulate_spray_thickness.main(["--programs", truth, gt_dir, pred_dir,
+                                   "--meshes", cat_dir, "--out", thick])
+    cov = compute_paint_coverage_per_face.main(
+        ["--gt-run", os.path.join(thick, "truth"), "--runs",
+         os.path.join(thick, os.path.basename(gt_dir)),
+         os.path.join(thick, os.path.basename(pred_dir)),
+         "--percentile", "10"])
+    log(f"[coverage] eval dumps -> programs -> thickness -> coverage on "
+        f"{names}: GT round trip {cov[0].tolist()}, predicted "
+        f"{cov[1].tolist()}, {time.perf_counter() - t0:.1f} s")
+    if not cov[0].mean() >= 0.9 or not ((cov[1] >= 0) & (cov[1] <= 1)).all():
+        raise AssertionError(f"coverage: GT round trip {cov[0]}, predicted "
+                             f"{cov[1]}")
+
+    pred = Predictor(run_dir, model="last", device="cuda")
+    for name in names:
+        mesh = os.path.join(cat_dir, name, f"{name}.obj")
+        t = time.perf_counter()
+        rows = pred.predict_program(os.path.join(root, "cuboids-v2", name,
+                                                 f"{name}.obj"),
+                                    keep_centroid=False)
+        t_request = time.perf_counter() - t
+        program = os.path.join(run_dir, f"served_{name}.txt")
+        save_traj_file(rows, program, kind="euler")
+        t = time.perf_counter()
+        faces = simulate_program(mesh, program).reshape(-1, 3).mean(1)
+        want = get_thicknesses_values_per_face(
+            os.path.join(thick, "truth", f"{name}.txt"))
+        c = coverage_for_pair(want, faces, percentile=10)
+        t_score = time.perf_counter() - t
+        log(f"[coverage] served {name}: {rows.shape[0]} poses, coverage "
+            f"{c:.4f}; request {t_request * 1e3:.1f} ms, simulate and score "
+            f"{t_score * 1e3:.1f} ms")
+        if not 0.0 <= c <= 1.0:
+            raise AssertionError(f"coverage of the served {name}: {c}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2795,7 +3232,8 @@ def main() -> int:
     train_items = load_items(cfg, "train")
     phase_train_kernels(cfg, model, to_batch(train_items, "cuda"), res, card)
     phase_train_step(cfg, train_items)
-    phase_train_then_serve()
+    # and the flagship warm start from its checkpoint
+    phase_train_then_serve(then=check_flagship_warm_start)
     # the eval's path, f32 then bf16: counts set to 0 just before each and
     # read just after
     eval_launches = phase_eval(cfg, model, res, card, "eval",
@@ -2838,7 +3276,10 @@ def main() -> int:
                            BF16_FORWARD_LAUNCHES, "bf16-train-then-serve")
     phase_bf16_train(bn_cfg, train_items, "bn-bf16-train",
                      BN_BF16_STEP_LAUNCHES, compare=16)
-    phase_health()
+    # and, on its run, the warm start of another run and the coverage
+    phase_health(then=lambda run_dir, root, train: (
+        phase_warm_start(run_dir, root, train),
+        phase_coverage(run_dir, root)))
     log(f"[time] bf16 and health phases done at "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -2861,6 +3302,17 @@ def main() -> int:
             for kind in ("host loader", "eager", "graphed"))
         + f", pool {r['pool_bytes']} bytes"
         for label, r in epochs.items()))
+
+    # the exported forward: each program's counts set to 0 in its child just
+    # before its call and read just after
+    opcheck_ops(model, bn, torch.from_numpy(clouds).cuda())
+    exported = phase_export(
+        [("export", cfg, model, "f32", (1, BATCH), FORWARD_LAUNCHES),
+         ("bf16-export", cfg, model, "bf16", (1, BATCH),
+          BF16_FORWARD_LAUNCHES),
+         ("bn-export", bn_cfg, bn, "f32", (BATCH,), BN_FORWARD_LAUNCHES),
+         ("bn-bf16-export", bn_cfg, bn, "bf16", (BATCH,),
+          BN_BF16_FORWARD_LAUNCHES)], clouds)
     log(f"[time] all phases done at {time.perf_counter() - t0:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -2888,9 +3340,14 @@ def main() -> int:
     for name, (path, n) in counted.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on {path}")
+    for name in CUSTOM_OPS:
+        if not any(name in c for c in exported.values()):
+            raise AssertionError(f"no exported forward launched {name}")
     kernels = [dict(name=name, route="cuda", **KERNELS[name],
                     launches=counted[name][1], launched_on=counted[name][0],
-                    **res[name])
+                    **res[name], custom_op=CUSTOM_OPS.get(name),
+                    exported_launches={c: n[name] for c, n in exported.items()
+                                       if name in n})
                for name in KERNELS]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -19,9 +19,15 @@ to the original PyTorch repo's names:
 Dense kernels (in, out) are transposed to (out, in). BatchNorm ``mean`` /
 ``var`` are copied as they are (eval reads only them).
 :func:`flax_tree_from_state_dict` maps back (numpy out), for a ``state_dict``
-or a dict of gradients by parameter name. :func:`load_shapenet_encoder`
-warm-starts the encoder from the original repository's ShapeNet
-checkpoint.
+or a dict of gradients by parameter name.
+
+Warm starts (``model.pretrained``, ``model.pretrained_custom``):
+:func:`load_torch_pretrained` loads a reference ``.pth`` (the original
+repository's ShapeNet classifier for the encoder, or a run's
+``last_checkpoint.pth`` whole), :func:`load_params_only` the weights and
+BatchNorm statistics of a port run's checkpoint. Both copy into the
+model's own tensors in place, so that an optimizer or a CUDA graph built
+later sees the loaded values in the same storages.
 """
 from __future__ import annotations
 
@@ -133,44 +139,132 @@ def flax_tree_from_state_dict(state) -> dict:
     return tree
 
 
-# The encoder tensors of the ShapeNet classifier checkpoint: everything
-# else (its head, fc1-fc3 and bn1-bn2, and num_batches_tracked) is left out
-# (``maskplanner_tpu/train/torch_convert.py::SHAPENET_HEAD_KEYS``).
-_ENCODER_KEY = re.compile(
-    r"sa[123]\.(mlp_convs|mlp_bns)\.\d+\."
-    r"(weight|bias|running_mean|running_var)$")
+# The classifier head of the ShapeNet checkpoint, dropped in an encoder warm
+# start (``maskplanner_tpu/train/torch_convert.py::SHAPENET_HEAD_KEYS``)
+SHAPENET_HEAD_KEYS = (
+    "fc1.weight", "fc1.bias",
+    "bn1.weight", "bn1.bias", "bn1.running_mean", "bn1.running_var",
+    "bn1.num_batches_tracked",
+    "fc2.weight", "fc2.bias",
+    "bn2.weight", "bn2.bias", "bn2.running_mean", "bn2.running_var",
+    "bn2.num_batches_tracked",
+    "fc3.weight", "fc3.bias",
+)
+# The output layers a non-strict custom warm start leaves at their fresh
+# init (``CUSTOM_FILTER_KEYS`` there)
+CUSTOM_FILTER_KEYS = ("fc3.weight", "fc3.bias", "fc_normals.weight",
+                      "fc_normals.bias")
+# The reference's modules in the JAX loader's order: (its name, the port's,
+# kind). The encoder's 1x1 convolutions and BatchNorms, then the heads;
+# ``out_confidence`` is the retro-compatible twin of ``mask_conf_out``.
+_ENCODER_MAP = [(f"sa{i}.{kind}.{j}", f"sa{i}.{kind}.{j}",
+                 "conv1x1" if kind == "mlp_convs" else "bn")
+                for i in (1, 2, 3) for j in range(3)
+                for kind in ("mlp_convs", "mlp_bns")]
+_HEAD_MAP = [(name, "mask_conf_out" if name == "out_confidence" else name,
+              "bn" if "bn" in name else "linear")
+             for name in ("fc1", "bn1", "fc2", "bn2", "fc3", "fc_normals",
+                          "sm_fc1", "sm_bn1", "sm_fc2", "sm_bn2", "sm_fc3",
+                          "mask_conf_out", "out_confidence", "seg_conf_fc1",
+                          "seg_conf_fc2", "seg_conf_out")]
+
+
+def load_torch_pretrained(model: nn.Module, path: str, mode: str = "full",
+                          load_strict: bool = False) -> list[str]:
+    """Warm-start ``model`` in place from a reference PyTorch ``.pth`` ->
+    the loaded keys, as ``maskplanner_tpu/train/torch_convert.py::
+    load_torch_pretrained`` loads them:
+
+    - ``mode="encoder"``: the ShapeNet classifier checkpoint
+      (``["model_state_dict"]``), sa1..sa3 only;
+    - ``mode="full"``: a reference run's checkpoint (``["model"]``), the
+      encoder and the heads; without ``load_strict`` the output layers
+      ``fc3`` and ``fc_normals`` keep their fresh init.
+
+    The 1x1 convolution weights (C_out, C_in, 1, 1) are squeezed to the
+    Linear layers' (C_out, C_in); a BatchNorm's weight, bias and running
+    statistics are copied (``num_batches_tracked`` is not: the Flax-
+    semantics BatchNorm does not read it). A module the model lacks (a
+    LayerNorm level has no ``mlp_bns``) is skipped; a shape that differs
+    raises, and so does a file from which nothing loads."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if mode == "encoder":
+        sd = blob.get("model_state_dict", blob)
+        mapping, dropped = _ENCODER_MAP, SHAPENET_HEAD_KEYS
+    elif mode == "full":
+        sd = blob.get("model", blob)
+        mapping = _ENCODER_MAP + _HEAD_MAP
+        dropped = () if load_strict else CUSTOM_FILTER_KEYS
+    else:
+        raise ValueError(f"mode must be 'encoder' or 'full', got {mode!r}")
+    sd = {k: v for k, v in sd.items() if k not in dropped}
+    own = model.state_dict()
+    loaded = []
+
+    def put(key: str, target: str, value: torch.Tensor) -> None:
+        if value.shape != own[target].shape:
+            raise ValueError(f"shape mismatch at {target}: model "
+                             f"{tuple(own[target].shape)} vs checkpoint "
+                             f"{tuple(value.shape)}")
+        own[target].copy_(value.to(own[target].dtype))
+        loaded.append(key)
+
+    with torch.no_grad():
+        for name, target, kind in mapping:
+            if f"{target}.weight" not in own or f"{name}.weight" not in sd:
+                continue
+            w = sd[f"{name}.weight"]
+            if kind == "conv1x1" and w.dim() == 4:
+                w = w[:, :, 0, 0]
+            put(f"{name}.weight", f"{target}.weight", w)
+            if kind != "bn":
+                if f"{name}.bias" in sd:
+                    put(f"{name}.bias", f"{target}.bias", sd[f"{name}.bias"])
+                continue
+            put(f"{name}.bias", f"{target}.bias", sd[f"{name}.bias"])
+            if f"{name}.running_mean" in sd:
+                for stat in ("running_mean", "running_var"):
+                    put(f"{name}.{stat}", f"{target}.{stat}",
+                        sd[f"{name}.{stat}"])
+    if not loaded:
+        raise ValueError(f"no convertible weights found in {path}")
+    return loaded
 
 
 def load_shapenet_encoder(model: nn.Module, path: str) -> list[str]:
     """Warm-start sa1..sa3 of a BatchNorm encoder from the original
-    repository's ShapeNet classifier checkpoint (``pointnet2_cls_ssg.pth``,
-    ``{"model_state_dict": ...}``), in place -> the loaded keys.
+    repository's ShapeNet classifier checkpoint (``pointnet2_cls_ssg.pth``)
+    -> the loaded keys (:func:`load_torch_pretrained` in its encoder
+    mode)."""
+    return load_torch_pretrained(model, path, mode="encoder")
 
-    The classifier head is dropped; the 1x1 Conv2d weights (C_out, C_in, 1,
-    1) are squeezed to the Linear layers' (C_out, C_in); BatchNorm weight,
-    bias and running statistics are copied (``num_batches_tracked`` is not:
-    the Flax-semantics BatchNorm does not read it). A key the model lacks
-    is skipped and a shape that differs raises, as
-    ``maskplanner_tpu/train/torch_convert.py::load_torch_pretrained`` does
-    in its ``mode="encoder"``."""
-    blob = torch.load(path, map_location="cpu", weights_only=True)
-    sd = blob.get("model_state_dict", blob)
+
+def load_params_only(run_dir: str, name: str, model: nn.Module,
+                     filter_heads: bool = False) -> list[str]:
+    """Warm-start ``model`` in place from a port run's
+    ``<run_dir>/<name>.torch.pt``: its weights and BatchNorm statistics
+    only, not Adam, the step or the epoch -> the loaded keys
+    (``maskplanner_tpu/train/checkpoints.py::load_params_only``). With
+    ``filter_heads`` the output layers ``fc3`` and ``fc_normals`` keep
+    their fresh init. The run's model must be this one: a key that differs
+    or a shape that differs raises."""
+    state = _read_checkpoint(run_dir, name)["model"]
     own = model.state_dict()
+    if set(state) != set(own):
+        raise ValueError(f"{checkpoint_path(run_dir, name)} holds another "
+                         f"model: keys {sorted(set(state) ^ set(own))} differ")
+    heads = ("fc3.", "fc_normals.")
     loaded = []
     with torch.no_grad():
-        for key, value in sd.items():
-            if not _ENCODER_KEY.match(key) or key not in own:
+        for key, value in state.items():
+            if filter_heads and key.startswith(heads):
                 continue
-            if value.dim() == 4:
-                value = value[:, :, 0, 0]
             if value.shape != own[key].shape:
                 raise ValueError(f"shape mismatch at {key}: model "
                                  f"{tuple(own[key].shape)} vs checkpoint "
                                  f"{tuple(value.shape)}")
             own[key].copy_(value)
             loaded.append(key)
-    if not loaded:
-        raise ValueError(f"no encoder weights found in {path}")
     return loaded
 
 

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from . import library
 from .sampling import ball_query_plain, index_points
 
 LAYER_NORM_EPS = 1e-6
@@ -224,8 +225,7 @@ def fused_sa_backward_plain(nsample: int, norm: str, xyz: torch.Tensor,
     return d_xyz, d_new, d_feat, [tuple(g) for g in grads]
 
 
-def _layers(flat, n_per: int) -> list:
-    return [flat[i:i + n_per] for i in range(0, len(flat), n_per)]
+_layers = library.split_layers
 
 
 class FusedSALevel(torch.autograd.Function):
@@ -308,7 +308,11 @@ def fused_sa_forward(radius: float, nsample: int, norm: str,
                      precision: str = "f32"):
     """One SA level -> (pooled (B, S, C_last) f32, idx (B, S, K) int32),
     differentiable in xyz, new_xyz, features and params (the neighbour
-    selection is piecewise constant, like every ball query).
+    selection is piecewise constant, like every ball query). Where autograd
+    records nothing (the eval forward, an export) it calls the custom op
+    ``maskplanner::fused_sa_fwd`` or ``fused_sa_fwd_bf16``
+    (``ops.library``), else :class:`FusedSALevel` on the card and the plain
+    level on the CPU.
 
     xyz (B, N, 3); new_xyz (B, S, 3), the FPS centroids; features (B, N, F)
     or None; params: per layer ``(w (C_out, C_in), b)``, plus
@@ -325,6 +329,12 @@ def fused_sa_forward(radius: float, nsample: int, norm: str,
         raise ValueError("a layer is (w, b, gamma, beta) with LayerNorm, "
                          "(w, b) without")
     flat = [a for layer in params for a in layer]
+    if xyz.device.type in ("cuda", "cpu") and not library.needs_grad(
+            xyz, new_xyz, features, *flat):
+        op = (library.fused_sa_fwd_bf16 if precision == "bf16"
+              else library.fused_sa_fwd)
+        return op(xyz, new_xyz, features, flat, radius, nsample,
+                  norm == "layer")
     if xyz.device.type == "cuda":
         return FusedSALevel.apply(radius, nsample, norm == "layer",
                                   precision == "bf16", xyz, new_xyz,

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from . import library
 from .fused_sa import bf16_round
 from .sampling import ball_query_plain, index_points
 
@@ -108,7 +109,13 @@ def ball_group(radius: float, nsample: int, xyz: torch.Tensor,
 
     xyz (B, N, 3); new_xyz (B, S, 3), the FPS centroids; features
     (B, N, F) or None. ``single_pass``: bf16 rows for a bf16 consumer
-    (see the module's docstring)."""
+    (see the module's docstring). Where autograd records nothing it calls
+    the custom op ``maskplanner::ball_group`` or ``ball_group_single``
+    (``ops.library``)."""
+    if xyz.device.type in ("cuda", "cpu") and not library.needs_grad(
+            xyz, new_xyz, features):
+        op = library.ball_group_single if single_pass else library.ball_group
+        return op(xyz, new_xyz, features, radius, nsample)
     if xyz.device.type == "cuda":
         return BallGroup.apply(radius, nsample, xyz, new_xyz, features,
                                single_pass)

@@ -2,12 +2,15 @@
 
 ``farthest_point_sample`` and ``query_ball_point`` launch their CUDA
 kernels for a CUDA tensor and run their plain versions (:func:`fps_plain`,
-:func:`ball_query_plain`) for a CPU tensor; any other device raises.
+:func:`ball_query_plain`) for a CPU tensor; any other device raises. FPS
+goes through the custom op ``maskplanner::fps`` (``ops.library``), which
+``torch.export`` traces.
 """
 from __future__ import annotations
 
 import torch
 
+from . import library
 from .distance import square_distance
 
 _BIG = 1e10
@@ -52,18 +55,12 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
     every cloud at index 0 (the deterministic eval path). On the CPU a start
     outside raises ``ValueError``; on the card the kernel checks it and
     traps, so that the host does not wait for the device."""
-    B, N, _ = xyz.shape
+    if xyz.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no FPS for device {xyz.device}")
     if start is None:
-        start = torch.zeros(B, dtype=torch.int32, device=xyz.device)
-    if xyz.device.type == "cuda":
-        from .cuda.fps import fps_cuda
-
-        return fps_cuda(xyz, npoint, start)
-    if xyz.device.type == "cpu":
-        if bool(((start < 0) | (start >= N)).any()):
-            raise ValueError(f"FPS start indices must lie in [0, {N})")
-        return fps_plain(xyz, npoint, start)
-    raise ValueError(f"no FPS for device {xyz.device}")
+        start = torch.zeros(xyz.shape[0], dtype=torch.int32,
+                            device=xyz.device)
+    return library.fps(xyz, npoint, start.to(torch.int32))
 
 
 def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,

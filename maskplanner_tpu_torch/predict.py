@@ -4,9 +4,19 @@ robot programs, from a run directory holding a port checkpoint.
     python -m maskplanner_tpu_torch.predict --run RUN_DIR --model last \\
         --meshes a.obj b.obj --out predicted_programs
 
+    # write the eval forward as a torch.export program and exit (unless
+    # --meshes)
+    python -m maskplanner_tpu_torch.predict --run RUN_DIR --export fwd.pt2
+
+    # serve from the program (weights in it; no model is traced again)
+    python -m maskplanner_tpu_torch.predict --run RUN_DIR \\
+        --from_export fwd.pt2 --meshes a.obj --out predicted_programs
+
 It runs on the card unless ``--device cpu`` is given, in bf16 unless
 ``--dtype f32`` (or ``train``: the run's own dtype) is given, as the JAX
-package's CLI.
+package's CLI. ``--platforms`` names the one device an export is traced
+for (default: ``--device``); a ``torch.export`` program holds one device,
+so a second one raises.
 """
 from __future__ import annotations
 
@@ -35,17 +45,22 @@ def parse_args(argv=None):
                    help="forward compute dtype: bf16 (the serving default), "
                         "f32, or 'train' for the run's training dtype")
     p.add_argument("--export", default=None,
-                   help="not ported: ahead-of-time export of the forward")
+                   help="write the eval forward as a torch.export program "
+                        "and exit (unless --meshes)")
+    p.add_argument("--platforms", nargs="*", default=None,
+                   help="the one device (cuda | cpu) --export traces for; "
+                        "default --device")
     p.add_argument("--from_export", default=None,
-                   help="not ported: serve from an exported forward")
+                   help="serve the forward from an exported program")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.export or args.from_export:
-        raise NotImplementedError("--export/--from_export are not ported yet "
-                                  "(ROADMAP.md, port queue)")
+    if args.platforms is not None and len(args.platforms) != 1:
+        raise ValueError(f"--platforms takes one device (cuda or cpu), got "
+                         f"{args.platforms}: a torch.export program is "
+                         f"traced for one device (ROADMAP.md)")
     from .serve import Predictor
 
     pred = Predictor(args.run, model=args.model, device=args.device,
@@ -55,6 +70,14 @@ def main(argv=None):
     dtype = "bf16" if pred.config["model"].get("bf16") else "f32"
     print(f"Loaded {args.model} (epoch {pred.epoch}) on {pred.device} in "
           f"{dtype} | pc_points={pred.pc_points} scale={pred.scale:.4f}")
+    if args.export:
+        device = args.platforms[0] if args.platforms else pred.device
+        blob = pred.export_compiled(args.export, device=device)
+        print(f"exported the forward -> {args.export} ({len(blob)} bytes, "
+              f"device {device}, {dtype})")
+    if args.from_export:
+        pred.serve_exported(args.from_export)
+        print(f"serving the forward from {args.from_export}")
     for mesh in args.meshes:
         name = os.path.splitext(os.path.basename(mesh))[0]
         out_path = os.path.join(args.out, f"{name}.txt")
@@ -64,8 +87,8 @@ def main(argv=None):
         n_strokes = len(np.unique(rows[:, 6])) if rows.size else 0
         print(f"{name}: {rows.shape[0]} poses, {n_strokes} strokes "
               f"-> {out_path}")
-    if not args.meshes:
-        print("nothing to do: pass --meshes")
+    if not args.meshes and not args.export:
+        print("nothing to do: pass --meshes and/or --export")
 
 
 if __name__ == "__main__":

@@ -8,13 +8,27 @@ export (``data.pointcloud``, ``data.io``), and ``resolve_scale``. The
 forward is the port's model on the card unless the caller asks for the
 CPU; ``device="cuda"`` without a card raises, and nothing falls back to the
 CPU.
+
+:meth:`Predictor.export_compiled` writes the eval forward as a
+``torch.export`` program with the weights in it (its kernels as the custom
+ops of ``ops.library``), and :func:`load_exported` serves from that file
+with no config, checkpoint or model code: it needs only the op library.
+The file is a header (magic, SHA-256 digest, metadata) before the archive
+that ``torch.export.save`` writes; a file whose bytes do not match the
+digest raises.
 """
 from __future__ import annotations
 
+import copy
+import hashlib
+import io
+import json
 import os
+import struct
 
 import numpy as np
 import torch
+from torch import nn
 
 from .convert import checkpoint_name, load_checkpoint
 from .data.io import (DATASET_DOWNSCALE_FACTORS, get_dataset_name,
@@ -22,6 +36,7 @@ from .data.io import (DATASET_DOWNSCALE_FACTORS, get_dataset_name,
                       read_mesh_as_pointcloud, save_traj_file)
 from .data.pointcloud import denormalize_traj, get_dim_traj_points
 from .models import MaskPlannerOutput, get_model
+from .models.maskplanner import f32_accumulation
 from .postprocess import process_pred_stroke_masks_to_stroke_ids
 from .postprocess.segments import process_stroke_segments
 from .utils.config import apply_retrocompat_defaults, load_config
@@ -95,6 +110,7 @@ class Predictor:
         self.epoch = load_checkpoint(run_dir, checkpoint_name(model),
                                      self.model)
         self.model.to(self.device)
+        self.exported = None
 
     def preprocess(self, mesh_file: str, n_raw_points: int = 10000):
         """OBJ -> (normalized (pc_points, 3) float32 cloud, centroid)."""
@@ -111,12 +127,44 @@ class Predictor:
         return pc.astype(np.float32), centroid
 
     def forward(self, pc_batch) -> MaskPlannerOutput:
-        """Model forward on a (B, pc_points, 3) normalized batch; the
-        outputs stay on the device."""
+        """Model forward on a (B, pc_points, 3) normalized batch, or the
+        exported program's after :meth:`serve_exported`; the outputs stay
+        on the device."""
+        if self.exported is not None:
+            return MaskPlannerOutput(*self.exported(pc_batch))
         x = torch.as_tensor(np.asarray(pc_batch, np.float32),
                             device=self.device)
         with torch.inference_mode():
             return self.model(x)
+
+    def export_compiled(self, path: str, batch: int = 1,
+                        device: str | torch.device | None = None) -> bytes:
+        """Write the eval forward at batch ``batch`` in the Predictor's
+        compute dtype, traced by ``torch.export.export`` on ``device``
+        (default: the Predictor's) with the weights in the program, to
+        ``path`` -> the file's bytes. Serve it with :func:`load_exported`;
+        a program traced for the card runs on the card only."""
+        device = self.device if device is None else resolve_device(device)
+        model = _ServingForward(self.model).to(device)
+        example = torch.zeros((batch, self.pc_points, 3), dtype=torch.float32,
+                              device=device)
+        with torch.no_grad():
+            program = torch.export.export(model, (example,))
+        archive = io.BytesIO()
+        torch.export.save(program, archive)
+        meta = {"device": device.type, "batch": int(batch),
+                "pc_points": self.pc_points,
+                "dtype": "bf16" if self.config["model"].get("bf16")
+                else "f32"}
+        blob = _seal(json.dumps(meta).encode(), archive.getvalue())
+        with open(path, "wb") as fh:
+            fh.write(blob)
+        return blob
+
+    def serve_exported(self, path: str) -> None:
+        """Serve every later request's forward from the program at ``path``
+        (:meth:`export_compiled`) on the Predictor's device."""
+        self.exported = load_exported(path, self.device)
 
     def predict_program(self, mesh_file: str, postprocess: bool = True,
                         keep_centroid: bool = True, cover_all: bool = True):
@@ -156,3 +204,77 @@ class Predictor:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         save_traj_file(rows, out_path, kind="euler")
         return out_path
+
+
+class _ServingForward(nn.Module):
+    """A frozen copy of the model whose forward returns the tuple
+    ``(traj, stroke_masks, mask_scores, seg_confidence)``: no parameter
+    asks for a gradient, so the levels call the custom ops."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = copy.deepcopy(model).eval()
+        self.model.requires_grad_(False)
+
+    def forward(self, xyz: torch.Tensor):
+        return tuple(self.model(xyz))
+
+
+_MAGIC = b"MPTORCHX"
+_HEADER = struct.Struct("<8s32sI")    # magic, SHA-256, metadata bytes
+
+
+def _seal(meta: bytes, archive: bytes) -> bytes:
+    body = meta + archive
+    return _HEADER.pack(_MAGIC, hashlib.sha256(body).digest(),
+                        len(meta)) + body
+
+
+def _unseal(blob: bytes, path: str) -> tuple[dict, bytes]:
+    """The metadata and the archive of an exported forward, after the
+    digest check."""
+    if len(blob) < _HEADER.size:
+        raise ValueError(f"{path}: {len(blob)} bytes, not an exported "
+                         f"forward")
+    magic, digest, n_meta = _HEADER.unpack_from(blob)
+    body = blob[_HEADER.size:]
+    if magic != _MAGIC:
+        raise ValueError(f"{path}: not an exported forward")
+    if hashlib.sha256(body).digest() != digest:
+        raise ValueError(f"{path}: the exported forward is corrupt (its "
+                         f"digest does not match its bytes)")
+    return json.loads(body[:n_meta]), body[n_meta:]
+
+
+def load_exported(path: str, device: str | torch.device | None = None):
+    """Load a :meth:`Predictor.export_compiled` file -> ``fn(pc_batch) ->
+    (traj, stroke_masks, mask_scores, seg_confidence)`` (``pc_batch`` a
+    numpy array or a tensor) on the device it was
+    traced for (``device``, when given, must be that one). No config,
+    checkpoint or model is needed; the op library is imported here. A
+    program traced for the card raises where no card is present."""
+    from .ops import library  # noqa: F401  (registers the custom ops)
+
+    with open(path, "rb") as fh:
+        meta, archive = _unseal(fh.read(), path)
+    own = resolve_device(meta["device"])
+    if device is not None and torch.device(device).type != own.type:
+        raise ValueError(f"{path} was exported for {own.type}, not for "
+                         f"{torch.device(device).type}: export it again")
+    program = torch.export.load(io.BytesIO(archive)).module()
+    bf16 = meta["dtype"] == "bf16"
+
+    def fn(pc_batch):
+        if isinstance(pc_batch, torch.Tensor):
+            x = pc_batch.to(own, torch.float32)
+        else:
+            x = torch.as_tensor(np.asarray(pc_batch, np.float32), device=own)
+        with torch.inference_mode():
+            if not bf16:
+                return program(x)
+            # the live bf16 forward's products sum in f32 (models.maskplanner)
+            with f32_accumulation():
+                return program(x)
+
+    fn.meta = meta
+    return fn

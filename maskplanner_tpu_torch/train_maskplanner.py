@@ -55,10 +55,18 @@ the host, and the card's kernels on the card) into
 that epoch; a run with fewer than 2 epochs left has no second epoch and
 raises.
 
-Not ported yet (each raises when its config asks for it): the adversarial
-losses, warm starts from a pretrained run (``model.pretrained_custom``).
-Rendering the final dumps (``render_results.py``) is not ported: the run
-prints a notice where the JAX driver would render.
+``model.pretrained_custom=<run_dir>`` warm-starts the model from another
+run, in the JAX driver's order: a port run's ``last_checkpoint.torch.pt``
+(weights and BatchNorm statistics; ``fc3`` and ``fc_normals`` keep their
+fresh init unless ``model.load_strict``), else a reference run's
+``last_checkpoint.pth`` (the same rule), else a JAX run's orbax
+``last_checkpoint/`` raises (its conversion is not ported), else it warns
+and trains from scratch. It loads in place before Adam and the device
+epoch are built, and takes the place of the ShapeNet warm start.
+
+Not ported yet (raises when its config asks for it): the adversarial
+losses. Rendering the final dumps (``render_results.py``) is not ported:
+the run prints a notice where the JAX driver would render.
 """
 from __future__ import annotations
 
@@ -70,7 +78,8 @@ import time
 import torch
 
 from .convert import (checkpoint_path, copy_checkpoint, load_checkpoint,
-                      load_shapenet_encoder, load_training_state,
+                      load_params_only, load_shapenet_encoder,
+                      load_torch_pretrained, load_training_state,
                       save_checkpoint)
 from .data.dataset import DataLoader, PaintDataset
 from .data.device_dataset import (device_dataset_eligible, epoch_perm,
@@ -130,9 +139,6 @@ def _refuse_unported(config) -> None:
     if any(n in ("discriminator", "wdiscriminator") for n in config["loss"]):
         raise NotImplementedError("the adversarial losses are not ported yet "
                                   "(ROADMAP.md, Queue 1)")
-    if config["model"].get("pretrained_custom"):
-        raise NotImplementedError("model.pretrained_custom warm starts are "
-                                  "not ported yet (ROADMAP.md, port queue)")
 
 
 def warm_start_encoder(model, config) -> list[str] | None:
@@ -155,6 +161,36 @@ def warm_start_encoder(model, config) -> list[str] | None:
     loaded = load_shapenet_encoder(model, pth)
     print(f"Encoder warm-started from {pth} ({len(loaded)} tensors)")
     return loaded
+
+
+def warm_start_custom(model, config) -> list[str] | None:
+    """The transfer-learning warm start (``model.pretrained_custom``, the
+    JAX driver's order) -> the loaded keys, or None (nothing to load: it
+    warns). A port run's checkpoint, else a reference run's ``.pth``; a
+    JAX run's orbax checkpoint raises."""
+    run = config["model"]["pretrained_custom"]
+    strict = bool(config["model"].get("load_strict"))
+    if os.path.isfile(checkpoint_path(run, "last_checkpoint")):
+        loaded = load_params_only(run, "last_checkpoint", model,
+                                  filter_heads=not strict)
+        print(f"Initialized from pretrained run {run} ({len(loaded)} "
+              f"tensors)")
+        return loaded
+    pth = os.path.join(run, "last_checkpoint.pth")
+    if os.path.isfile(pth):
+        loaded = load_torch_pretrained(model, pth, mode="full",
+                                       load_strict=strict)
+        print(f"Initialized from reference torch run {run} ({len(loaded)} "
+              f"tensors)")
+        return loaded
+    if os.path.isdir(os.path.join(run, "last_checkpoint")):
+        raise NotImplementedError(
+            f"pretrained_custom {run} is a JAX run (an orbax last_checkpoint/"
+            f"): converting it to last_checkpoint.torch.pt is not ported "
+            f"(ROADMAP.md, Queue 1 item 5)")
+    print(f"WARNING: pretrained_custom {run} has no last_checkpoint; "
+          f"training from scratch")
+    return None
 
 
 class _Preemption:
@@ -251,7 +287,10 @@ def _train(config, preempted: _Preemption):
     # ---- model, optimizer, loss, metrics ----------------------------------
     model = get_model(config, device=device,
                       generator=torch.Generator().manual_seed(seed))
-    if config["model"].get("pretrained"):
+    # in place, before Adam and the device epoch hold the parameters
+    if config["model"].get("pretrained_custom"):
+        warm_start_custom(model, config)
+    elif config["model"].get("pretrained"):
         warm_start_encoder(model, config)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Model: {config['model']['backbone']} | params: "

@@ -176,6 +176,12 @@ import maskplanner_tpu_torch.data
 import maskplanner_tpu_torch.postprocess.segments
 import maskplanner_tpu_torch.test_maskplanner
 import maskplanner_tpu_torch.data.fixture_category
+import maskplanner_tpu_torch.sim
+import maskplanner_tpu_torch.standalone.from_pred_to_offline_v2
+import maskplanner_tpu_torch.standalone.simulate_spray_thickness
+import maskplanner_tpu_torch.standalone.compute_paint_coverage_per_face
+import maskplanner_tpu_torch.ops.library
+import maskplanner_tpu_torch.predict
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("maskplanner_tpu", "jax", "flax"))
 assert not bad, bad

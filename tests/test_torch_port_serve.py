@@ -122,8 +122,9 @@ def test_preprocess_and_epoch_match(serve_run, predictors):
 
 def test_cli_writes_the_program(serve_run, tmp_path, capsys):
     """The CLI serves in bf16 by default, as the JAX CLI does, and in the
-    run's own dtype (f32 here) with ``--dtype train``; ``--export`` is not
-    ported."""
+    run's own dtype (f32 here) with ``--dtype train``; ``--export`` alone
+    writes the exported forward and serves nothing
+    (``tests/test_torch_port_export.py`` serves from it)."""
     from maskplanner_tpu_torch import predict
 
     run_dir, mesh = serve_run
@@ -138,9 +139,12 @@ def test_cli_writes_the_program(serve_run, tmp_path, capsys):
         assert rows.shape[1] == 7 and np.isfinite(rows).all()
         said = capsys.readouterr().out
         assert "poses" in said and f"in {dtype}" in said
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        predict.main(["--run", run_dir, "--device", "cpu", "--export",
-                      "f.pt"])
+    path = tmp_path / "forward.pt2"
+    predict.main(["--run", run_dir, "--device", "cpu", "--export",
+                  str(path)])
+    said = capsys.readouterr().out
+    assert f"exported the forward -> {path}" in said and "poses" not in said
+    assert path.stat().st_size > 0
 
 
 def test_bf16_predictor_rows_near_f32(serve_run, predictors):

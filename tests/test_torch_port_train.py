@@ -470,7 +470,9 @@ def test_profile_traces_the_second_epoch(profile, tmp_path):
 def test_driver_refuses_what_is_not_ported(tmp_path):
     from maskplanner_tpu_torch import train_maskplanner
 
-    for extra in ([f"model.pretrained_custom={tmp_path}"],
+    # a JAX run's orbax checkpoint cannot warm-start the port
+    (tmp_path / "jax_run" / "last_checkpoint").mkdir(parents=True)
+    for extra in ([f"model.pretrained_custom={tmp_path / 'jax_run'}"],
                   ["loss=[chamfer]"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_maskplanner.main([*SMALL, "device=cpu", "epochs=1",
