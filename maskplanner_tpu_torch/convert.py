@@ -1,9 +1,10 @@
 """Weights across the two packages, and the port's checkpoint file.
 
 :func:`state_dict_from_flax` maps a Flax variable tree of
-``PointNet2StrokeMasks`` (``{"params": ..., "batch_stats": ...}`` as nested
-dicts of numpy arrays) onto the port's ``state_dict``. Flax module paths map
-to the original PyTorch repo's names:
+``PointNet2StrokeMasks`` or of ``PointNet2Regressor``, whose paths are a
+subset of the flagship's (``{"params": ..., "batch_stats": ...}`` as nested
+dicts of numpy arrays), onto the port's ``state_dict``. Flax module paths
+map to the original PyTorch repo's names:
 
 - ``encoder/sa{i}/PointMLP_0/Dense_{j}`` -> ``sa{i}.mlp_convs.{j}``
 - ``encoder/sa{i}/PointMLP_0/BatchNorm_{j}`` -> ``sa{i}.mlp_bns.{j}``

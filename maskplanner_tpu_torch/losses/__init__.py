@@ -1,22 +1,82 @@
-"""Loss handler (``maskplanner_tpu/losses/__init__.py``).
+"""Loss registry and handler (``maskplanner_tpu/losses/__init__.py``).
 
 The weighted sum of the configured terms, each ``weight_<name>`` times its
-value. Loss weights are a plain dict of floats that the PSACD curriculum and
-the delayed activations change between epochs, or the same weights as 0-d
-tensors on the model's device (:class:`DeviceWeights`, the JAX step's
-"weights as a traced dict"), which a captured CUDA graph reads and the driver
-fills in place from the float dict after each change. Only the flagship's term,
-``asymm_v6_chamfer_with_stroke_masks``, is ported; the other names of the
-JAX package's registry raise.
+value, over the JAX package's registry of 32 names and with its
+compatibility checks. Loss weights are a plain dict of floats that the
+PSACD curriculum and the delayed activations change between epochs, or the
+same weights as 0-d tensors on the model's device (:class:`DeviceWeights`,
+the JAX step's "weights as a traced dict"), which a captured CUDA graph
+reads and the driver fills in place from the float dict after each change.
+
+Every term whose inputs ``train.build_loss_batch`` supplies is ported
+(``PORTED``); the others need outputs or state of models that are not
+ported yet, and raise ``NotImplementedError`` saying which (``WAITING``).
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
 from ..data.pointcloud import get_dim_traj_points
+from . import chamfer_losses as C
 from . import mask_losses as M
+from . import regularizers as R
+from . import stroke_losses as S
 
-PORTED = ("asymm_v6_chamfer_with_stroke_masks",)
+LOSS_NAMES = [
+    "chamfer", "repulsion", "mse", "align", "velcosine", "intra_align",
+    "discriminator", "wdiscriminator", "attraction_chamfer",
+    "rich_attraction_chamfer", "contrastive_v1", "asymm_segment_chamfer",
+    "reverse_asymm_point_chamfer", "stoch_reverse_asymm_segment_chamfer",
+    "reverse_asymm_segment_chamfer", "chamfer_bbox", "mse_strokes",
+    "chamfer_strokes", "asymm_v6_chamfer_strokes", "masked_mse_strokes",
+    "masked_mse_strokes_v2", "symm_segment_chamfer", "symm_point_chamfer",
+    "mse_nexttoken", "mse_nexttoken_v2", "emd", "chamfer_with_stroke_masks",
+    "asymm_v6_chamfer_with_stroke_masks", "asymm_v11_chamfer_with_stroke_masks",
+    "symm_v1_chamfer_with_stroke_masks", "masked_mse_strokes_from_segments",
+    "hungarian_SoPs",
+]
+
+_GAN = ("the adversarial training state (losses/gan.py, models/dgcnn.py "
+        "and the GAN train step)")
+_STROKE_WISE = ("the stroke-wise model (PointNet2StrokeWise) and the stroke "
+                "rollout's outputs")
+# the names whose inputs no ported model produces, with what they wait for
+WAITING = {
+    "discriminator": _GAN,
+    "wdiscriminator": _GAN,
+    "mse_strokes": _STROKE_WISE,
+    "chamfer_strokes": _STROKE_WISE,
+    "asymm_v6_chamfer_strokes": _STROKE_WISE,
+    "masked_mse_strokes": _STROKE_WISE,
+    "masked_mse_strokes_v2": _STROKE_WISE,
+    "masked_mse_strokes_from_segments": _STROKE_WISE,
+    "mse_nexttoken": _STROKE_WISE,
+    "mse_nexttoken_v2": _STROKE_WISE,
+    "hungarian_SoPs": ("the start-of-path model (PointNet2SoPs) and the SoP "
+                       "metrics"),
+    "contrastive_v1": ("the segmenters' latent segments (PointNet2Segmenter "
+                       "and the ball query kernel on their path)"),
+}
+PORTED = tuple(n for n in LOSS_NAMES if n not in WAITING)
+# the terms whose step a CUDA graph cannot capture, with why
+_SVD = ("torch.linalg.svdvals (cuSOLVER) copies to the host during a CUDA "
+        "graph capture")
+UNCAPTURABLE = {"align": _SVD, "intra_align": _SVD}
+
+# the terms allowed at lambda_points > 1 (the JAX handler's set)
+_LAMBDA_GT_1 = {
+    "hungarian_SoPs", "masked_mse_strokes_from_segments",
+    "asymm_v6_chamfer_with_stroke_masks", "symm_v1_chamfer_with_stroke_masks",
+    "asymm_v11_chamfer_with_stroke_masks", "chamfer_with_stroke_masks",
+    "emd", "chamfer", "symm_segment_chamfer", "symm_point_chamfer",
+    "intra_align", "attraction_chamfer", "rich_attraction_chamfer",
+    "repulsion", "contrastive_v1", "asymm_segment_chamfer",
+    "reverse_asymm_point_chamfer", "stoch_reverse_asymm_segment_chamfer",
+    "reverse_asymm_segment_chamfer", "chamfer_strokes", "mse_nexttoken",
+    "mse_nexttoken_v2",
+}
 
 # weights consumed inside the loss terms (beyond weight_<name>)
 _EXPLICIT_WEIGHT_KEYS = [
@@ -61,17 +121,38 @@ class LossHandler:
     """Builds and evaluates the weighted sum of the configured loss terms."""
 
     def __init__(self, loss, config):
-        unported = [name for name in loss if name not in PORTED]
-        if unported:
+        unknown = set(loss) - set(LOSS_NAMES)
+        assert not unknown, f"invalid loss names: {unknown}"
+        waiting = {name: WAITING[name] for name in loss if name in WAITING}
+        if waiting:
             raise NotImplementedError(
-                f"loss terms {unported} are not ported yet (ROADMAP.md, "
-                f"Queue 1); ported: {list(PORTED)}")
-        for name in loss:
-            assert f"weight_{name}" in config, \
-                f"missing weight_{name} in config"
+                "loss terms not ported yet (ROADMAP.md, Queue 1): "
+                + "; ".join(f"{n} waits for {w}" for n, w in waiting.items()))
         self.loss = list(loss)
         self.config = config
         self.outdim = get_dim_traj_points(config["extra_data"])
+        self.lambda_points = int(config["lambda_points"])
+
+        # the JAX handler's compatibility checks
+        for name in self.loss:
+            assert f"weight_{name}" in config, \
+                f"missing weight_{name} in config"
+        assert not ("chamfer" in self.loss and "mse" in self.loss)
+        if self.lambda_points > 1:
+            assert set(self.loss) <= _LAMBDA_GT_1, (
+                f"losses {set(self.loss) - _LAMBDA_GT_1} unsupported for "
+                f"lambda > 1")
+        if "intra_align" in self.loss:
+            assert self.lambda_points > 3
+        if "align" in self.loss:
+            assert config["knn_repulsion"] > 1
+        self._dispatch = self._build_dispatch()
+
+    @property
+    def uncapturable(self) -> dict[str, str]:
+        """The configured terms that a CUDA graph cannot capture, each with
+        why."""
+        return {n: UNCAPTURABLE[n] for n in self.loss if n in UNCAPTURABLE}
 
     def init_weights(self) -> dict[str, float]:
         """Flat dict of the dynamic loss weights."""
@@ -83,24 +164,88 @@ class LossHandler:
                 w[key] = float(self.config[key])
         return w
 
-    def compute(self, weights, return_list=True, **batch):
-        """Weighted total + per-term values."""
-        cfg = self.config
+    def compute(self, weights, generator: torch.Generator | None = None,
+                return_list=True, **batch):
+        """Weighted total + per-term values. ``generator``: the step's
+        generator, from which the stochastic term draws its subset."""
         total = 0.0
         terms = {}
         for name in self.loss:
-            value = M.asymm_v6_chamfer_with_stroke_masks(
-                y_pred=batch["y_pred"], y=batch["y"],
-                y_mask=batch.get("y_mask"), traj_as_pc=batch["traj_as_pc"],
-                pc_mask=batch.get("pc_mask"), outdim=self.outdim,
-                pred_stroke_masks=batch["pred_stroke_masks"],
-                mask_scores=batch["mask_scores"],
-                seg_logits=batch.get("seg_logits"),
-                stroke_ids=batch["stroke_ids"], weights=weights,
-                per_segment_confidence=bool(cfg.get("per_segment_confidence")),
-                smooth_targets=bool(cfg.get("smooth_target_stroke_masks")))
+            value = self._dispatch[name](batch, weights, generator)
             total = total + weights[f"weight_{name}"] * value
             terms[name] = value
         if return_list:
             return total, terms
         return total
+
+    def _build_dispatch(self) -> dict[str, Callable]:
+        cfg = self.config
+        outdim = self.outdim
+
+        def std(b):
+            return dict(y_pred=b["y_pred"], y=b.get("y"),
+                        y_mask=b.get("y_mask"),
+                        traj_as_pc=b.get("traj_as_pc"),
+                        pc_mask=b.get("pc_mask"), outdim=outdim)
+
+        def masks(b, w):
+            return dict(pred_stroke_masks=b["pred_stroke_masks"],
+                        mask_scores=b["mask_scores"],
+                        stroke_ids=b["stroke_ids"], weights=w)
+
+        def v6_args(b, w):
+            return dict(**std(b), **masks(b, w),
+                        seg_logits=b.get("seg_logits"),
+                        per_segment_confidence=bool(
+                            cfg.get("per_segment_confidence")),
+                        smooth_targets=bool(
+                            cfg.get("smooth_target_stroke_masks")))
+
+        return {
+            "chamfer": lambda b, w, g: C.chamfer(
+                **std(b), min_centroids=bool(cfg.get("min_centroids")),
+                velocities="vel" in cfg["extra_data"]),
+            "symm_segment_chamfer": lambda b, w, g:
+                C.symm_segment_chamfer(**std(b)),
+            "symm_point_chamfer": lambda b, w, g:
+                C.symm_point_chamfer(**std(b)),
+            "asymm_segment_chamfer": lambda b, w, g:
+                C.asymm_segment_chamfer(**std(b)),
+            "reverse_asymm_point_chamfer": lambda b, w, g:
+                C.reverse_asymm_point_chamfer(**std(b)),
+            "reverse_asymm_segment_chamfer": lambda b, w, g:
+                C.reverse_asymm_segment_chamfer(**std(b)),
+            "stoch_reverse_asymm_segment_chamfer": lambda b, w, g:
+                C.stoch_reverse_asymm_segment_chamfer(generator=g, **std(b)),
+            "attraction_chamfer": lambda b, w, g:
+                C.attraction_chamfer(**std(b)),
+            "rich_attraction_chamfer": lambda b, w, g:
+                C.rich_attraction_chamfer(
+                    soft_attraction=bool(cfg.get("soft_attraction")),
+                    **std(b)),
+            "chamfer_bbox": lambda b, w, g: C.chamfer_bbox(
+                bbox_pred=b["y_pred"], bbox_gt=b["y"],
+                bbox_mask=b.get("y_mask")),
+            "repulsion": lambda b, w, g: R.repulsion(
+                knn_repulsion=int(cfg["knn_repulsion"]),
+                rep_target=cfg.get("rep_target"),
+                lambda_points=self.lambda_points, **std(b)),
+            "align": lambda b, w, g: R.align(
+                b["y_pred"], knn_repulsion=int(cfg["knn_repulsion"])),
+            "intra_align": lambda b, w, g: R.intra_align(b["y_pred"]),
+            "velcosine": lambda b, w, g: R.velcosine(
+                b["y_pred"], knn_repulsion=int(cfg["knn_repulsion"])),
+            "mse": lambda b, w, g: R.mse(b["y_pred"], b["y"]),
+            "emd": lambda b, w, g: S.emd(b["y_pred"], b["y"],
+                                         y_mask=b.get("y_mask")),
+            "chamfer_with_stroke_masks": lambda b, w, g:
+                M.chamfer_with_stroke_masks(
+                    y_pred=b["y_pred"], y=b["y"], y_mask=b.get("y_mask"),
+                    **masks(b, w)),
+            "asymm_v6_chamfer_with_stroke_masks": lambda b, w, g:
+                M.asymm_v6_chamfer_with_stroke_masks(**v6_args(b, w)),
+            "asymm_v11_chamfer_with_stroke_masks": lambda b, w, g:
+                M.asymm_v11_chamfer_with_stroke_masks(**v6_args(b, w)),
+            "symm_v1_chamfer_with_stroke_masks": lambda b, w, g:
+                M.symm_v1_chamfer_with_stroke_masks(**std(b), **masks(b, w)),
+        }

@@ -1,4 +1,6 @@
-"""The stroke-mask loss and the MaskPlanner v6 composite loss
+"""The stroke-mask loss and the four composites built on it: the
+MaskPlanner v6 loss, its v11 variant, the symmetric v1 loss and the
+baselines' symmetric segment chamfer with stroke masks
 (``maskplanner_tpu/losses/mask_losses.py``).
 
 Dense one-hot target masks, a BCE (or MSE) cost matrix and the batched
@@ -10,10 +12,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.chamfer import mask_from_padding, nearest_sq_distance
+from ..ops.chamfer import (chamfer_distance, mask_from_padding,
+                           nearest_sq_distance)
 from ..ops.hungarian import hungarian
 from .chamfer_losses import (reverse_asymm_point_chamfer,
-                             reverse_asymm_segment_chamfer)
+                             reverse_asymm_segment_chamfer,
+                             symm_point_chamfer)
 from .common import (at_least_f32, bce_with_logits,
                      segment_distance_to_confidence)
 
@@ -111,3 +115,57 @@ def asymm_v6_chamfer_with_stroke_masks(
             + weights["weight_reverse_asymm_point_chamfer"] * rev_point
             + weights["weight_reverse_asymm_segment_chamfer"] * rev_seg
             + masks)
+
+
+def asymm_v11_chamfer_with_stroke_masks(
+        y_pred, y, pred_stroke_masks, mask_scores, seg_logits, stroke_ids,
+        traj_as_pc, outdim, weights, y_mask=None, pc_mask=None,
+        per_segment_confidence=False, smooth_targets=False, **_):
+    """The v6 loss without its reverse segment term."""
+    nn_dist, match = _forward_segment_chamfer_with_matching(y_pred, y, y_mask)
+    fwd = 100.0 * nn_dist.mean()
+    seg_conf = (per_segment_confidence_loss(nn_dist, seg_logits, weights)
+                if per_segment_confidence else 0.0)
+    rev_point = reverse_asymm_point_chamfer(y_pred, traj_as_pc, outdim,
+                                            pc_mask=pc_mask)
+    masks = stroke_masks_loss(match, pred_stroke_masks, mask_scores,
+                              stroke_ids, weights, nn_distance=nn_dist,
+                              smooth_targets=smooth_targets)
+    return (weights["weight_asymm_segment_chamfer"] * fwd
+            + seg_conf
+            + weights["weight_reverse_asymm_point_chamfer"] * rev_point
+            + masks)
+
+
+def _symmetric_segment_chamfer_with_matching(y_pred, y, y_mask):
+    """The symmetric segment chamfer and each predicted segment's nearest
+    GT segment (both directions searched)."""
+    dist, _, match, _ = chamfer_distance(y_pred, y, padded=True,
+                                         y_mask=y_mask, return_matching=True)
+    return dist, match
+
+
+def symm_v1_chamfer_with_stroke_masks(
+        y_pred, y, pred_stroke_masks, mask_scores, stroke_ids, traj_as_pc,
+        outdim, weights, y_mask=None, pc_mask=None, **_):
+    """Symmetric segment chamfer + symmetric point chamfer + stroke-mask
+    loss."""
+    symm_seg, match = _symmetric_segment_chamfer_with_matching(y_pred, y,
+                                                               y_mask)
+    symm_point = symm_point_chamfer(y_pred, traj_as_pc, outdim,
+                                    pc_mask=pc_mask)
+    masks = stroke_masks_loss(match, pred_stroke_masks, mask_scores,
+                              stroke_ids, weights)
+    return (weights["weight_symm_segment_chamfer"] * (100.0 * symm_seg)
+            + weights["weight_symm_point_chamfer"] * symm_point
+            + masks)
+
+
+def chamfer_with_stroke_masks(y_pred, y, pred_stroke_masks, mask_scores,
+                              stroke_ids, weights, y_mask=None, **_):
+    """The baselines' loss (``segmentWise``, ``pointWise``): symmetric
+    segment chamfer + stroke-mask loss."""
+    cham, match = _symmetric_segment_chamfer_with_matching(y_pred, y, y_mask)
+    masks = stroke_masks_loss(match, pred_stroke_masks, mask_scores,
+                              stroke_ids, weights)
+    return 100.0 * cham + masks

@@ -1,6 +1,7 @@
 """Model factory and IO sizes (``maskplanner_tpu/models/__init__.py``).
 
-Only the MaskPlanner backbone is ported so far; the others are queued in
+The MaskPlanner backbone (``pointnet2_strokemasks``) and the baselines'
+plain regressor (``pointnet2``) are ported; the others are queued in
 ROADMAP.md ("Queue 1").
 """
 from __future__ import annotations
@@ -12,10 +13,12 @@ import torch
 from torch import nn
 
 from ..data.pointcloud import get_dim_orient_traj_points, get_dim_traj_points
-from .maskplanner import MaskPlannerOutput, PointNet2StrokeMasks
+from .maskplanner import (MaskPlannerOutput, PointNet2Regressor,
+                          PointNet2StrokeMasks)
 
-__all__ = ["MaskPlannerOutput", "PointNet2StrokeMasks", "compute_out_vectors",
-           "get_io_info", "get_model", "init_parameters"]
+__all__ = ["MaskPlannerOutput", "PointNet2Regressor", "PointNet2StrokeMasks",
+           "compute_out_vectors", "get_io_info", "get_model",
+           "init_parameters"]
 
 
 def compute_out_vectors(config) -> int:
@@ -35,22 +38,25 @@ def compute_out_vectors(config) -> int:
 
 
 def get_io_info(io_type: str, config) -> dict[str, Any]:
-    """Input/output sizes of the MaskPlanner task."""
-    if io_type != "MaskPlanner":
+    """Input/output sizes of the MaskPlanner task, and of the ``paintnet``
+    task (the same without the stroke masks)."""
+    if io_type not in ("paintnet", "MaskPlanner"):
         raise NotImplementedError(
             f"io_type {io_type!r} is not ported yet (ROADMAP.md, Queue 1)")
     outdim = get_dim_traj_points(config["extra_data"])
     orient_outdim = get_dim_orient_traj_points(config["extra_data"])
     lam = config["lambda_points"]
-    return {
+    info = {
         "inputdim": 3,
         "outdim": outdim,
         "orient_outdim": orient_outdim,
         "vector_outdim_transl": (outdim - orient_outdim) * lam,
         "vector_outdim_orient": orient_outdim * lam,
         "out_vectors": compute_out_vectors(config),
-        "n_stroke_masks": config["max_n_strokes"],
     }
+    if io_type == "MaskPlanner":
+        info["n_stroke_masks"] = config["max_n_strokes"]
+    return info
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
@@ -80,24 +86,30 @@ def get_model(config, *, device: str | torch.device,
     which = config["model"]["backbone"]
     if which == "pointnet2_strokemasks_retrocompatible":
         which = "pointnet2_strokemasks"   # differs only in a layer name
-    if which != "pointnet2_strokemasks":
+    if which not in ("pointnet2_strokemasks", "pointnet2"):
         raise NotImplementedError(
             f"backbone {which!r} is not ported yet (ROADMAP.md, Queue 1)")
-    info = get_io_info("MaskPlanner", config)
-    model = PointNet2StrokeMasks(
+    info = get_io_info("MaskPlanner" if which == "pointnet2_strokemasks"
+                       else "paintnet", config)
+    common = dict(
         out_vectors=info["out_vectors"],
         outdim=info["outdim"] - info["orient_outdim"],
         outdim_orient=info["orient_outdim"],
         weight_orient=config["weight_orient"],
         lambda_points=config["lambda_points"],
         hidden_size=tuple(config["model"].get("hidden_size", (1024, 1024))),
-        n_stroke_masks=info["n_stroke_masks"],
-        segment_confidence_scores=bool(config.get("per_segment_confidence")),
         encoder_norm=config["model"].get("norm") or "batch",
         dropout=dropout,
         dtype=torch.bfloat16 if config["model"].get("bf16")
         else torch.float32,
     )
+    if which == "pointnet2":
+        model = PointNet2Regressor(**common)
+    else:
+        model = PointNet2StrokeMasks(
+            **common, n_stroke_masks=info["n_stroke_masks"],
+            segment_confidence_scores=bool(
+                config.get("per_segment_confidence")))
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.get("seed") or 0))
     init_parameters(model, generator)

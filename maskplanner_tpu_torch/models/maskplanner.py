@@ -1,8 +1,10 @@
-"""The MaskPlanner network (``maskplanner_tpu/models/maskplanner.py``).
+"""The MaskPlanner networks (``maskplanner_tpu/models/maskplanner.py``):
+the flagship and the baselines' plain regressor.
 
 The SSG encoder gives a 1024-d global feature; parallel heads regress the
 unordered segment set with per-pose orientations, the stroke masks, the
-mask confidence scores and, optionally, per-segment confidences.
+mask confidence scores and, optionally, per-segment confidences. The
+regressor has the encoder and the segment head only.
 
 In bf16 the heads follow the JAX package's, in train and in eval: each
 Dense gives bf16, each BatchNorm f32, the dropout of the BatchNorm-less
@@ -45,7 +47,70 @@ class MaskPlannerOutput(NamedTuple):
     seg_conf: torch.Tensor | None        # (B, out_vectors) sigmoid confidences
 
 
-class PointNet2StrokeMasks(PointNet2Encoder):
+class PointNet2Regressor(PointNet2Encoder):
+    """The plain segment-set regressor of the paper's baselines (the
+    ``pointnet2`` backbone): the encoder and the segment head, with the
+    flagship's module names (``sa1``..``sa3``, ``fc1``, ``bn1``, ``fc2``,
+    ``bn2``, ``fc3``, ``fc_normals``), so that one conversion and one
+    checkpoint format serve both models. The forward gives the
+    (B, out_vectors, λ·outdim) segments alone. ``dropout`` and ``dtype`` as
+    in :class:`PointNet2StrokeMasks`."""
+
+    def __init__(self, out_vectors: int, outdim: int = 3,
+                 outdim_orient: int = 3, weight_orient: float = 1.0,
+                 lambda_points: int = 1,
+                 hidden_size: Sequence[int] = (1024, 1024),
+                 encoder_norm: str = "batch", dropout: float = 0.3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(encoder_norm, dtype)
+        self.dropout = dropout
+        self.out_vectors = out_vectors
+        self.outdim_orient = outdim_orient
+        self.weight_orient = weight_orient
+        h1, h2 = hidden_size
+        n_pose = out_vectors * lambda_points
+        self.fc1, self.bn1 = nn.Linear(1024, h1), _bn(h1)
+        self.fc2, self.bn2 = nn.Linear(h1, h2), _bn(h2)
+        self.fc3 = nn.Linear(h2, n_pose * outdim)
+        if outdim_orient > 0:
+            self.fc_normals = nn.Linear(h2, n_pose * outdim_orient)
+
+    def forward(self, xyz: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """xyz: (B, N, 3) normalized point clouds -> the segments in the
+        parameters' dtype (float32)."""
+        if self.dtype == torch.float32:
+            return self._forward(xyz, generator)
+        with f32_accumulation():
+            return self._forward(xyz, generator).to(self.fc1.weight.dtype)
+
+    def _drop(self, generator):
+        return dict(rate=self.dropout, training=self.training,
+                    generator=generator, dtype=self.dtype)
+
+    def _segments(self, feat, generator):
+        """The segment head on the global feature -> (B, out_vectors,
+        λ·outdim)."""
+        dt = self.dtype
+        trunk = regression_head(feat, [(self.fc1, self.bn1),
+                                       (self.fc2, self.bn2)],
+                                **self._drop(generator))
+        positions = dense(self.fc3, trunk, dt)
+        if self.outdim_orient > 0:
+            return assemble_pose_output(positions,
+                                        dense(self.fc_normals, trunk, dt),
+                                        self.out_vectors, self.weight_orient)
+        return positions.reshape(feat.shape[0], self.out_vectors, -1)
+
+    def _forward(self, xyz, generator):
+        return self._segments(super().forward(xyz, generator), generator)
+
+
+def _bn(c: int) -> FlaxBatchNorm1d:
+    return FlaxBatchNorm1d(c, eps=BATCH_NORM_EPS)
+
+
+class PointNet2StrokeMasks(PointNet2Regressor):
     """The flagship MaskPlanner model.
 
     The encoder levels are this module's own ``sa1``..``sa3`` and the heads
@@ -63,30 +128,18 @@ class PointNet2StrokeMasks(PointNet2Encoder):
                  segment_confidence_scores: bool = False,
                  encoder_norm: str = "batch", dropout: float = 0.3,
                  dtype: torch.dtype = torch.float32):
-        super().__init__(encoder_norm, dtype)
-        self.dropout = dropout
-        self.out_vectors = out_vectors
-        self.outdim_orient = outdim_orient
-        self.weight_orient = weight_orient
+        super().__init__(out_vectors, outdim, outdim_orient, weight_orient,
+                         lambda_points, hidden_size, encoder_norm, dropout,
+                         dtype)
         self.n_stroke_masks = n_stroke_masks
         h1, h2 = hidden_size
-        n_pose = out_vectors * lambda_points
-
-        def bn(c):
-            return FlaxBatchNorm1d(c, eps=BATCH_NORM_EPS)
-
-        self.fc1, self.bn1 = nn.Linear(1024, h1), bn(h1)
-        self.fc2, self.bn2 = nn.Linear(h1, h2), bn(h2)
-        self.fc3 = nn.Linear(h2, n_pose * outdim)
-        if outdim_orient > 0:
-            self.fc_normals = nn.Linear(h2, n_pose * outdim_orient)
         if segment_confidence_scores:
             self.seg_conf_fc1 = nn.Linear(1024, h1)
             self.seg_conf_fc2 = nn.Linear(h1, h2)
             self.seg_conf_out = nn.Linear(h2, out_vectors)
         self.segment_confidence_scores = segment_confidence_scores
-        self.sm_fc1, self.sm_bn1 = nn.Linear(1024, h1), bn(h1)
-        self.sm_fc2, self.sm_bn2 = nn.Linear(h1, h2), bn(h2)
+        self.sm_fc1, self.sm_bn1 = nn.Linear(1024, h1), _bn(h1)
+        self.sm_fc2, self.sm_bn2 = nn.Linear(h1, h2), _bn(h2)
         self.sm_fc3 = nn.Linear(h2, out_vectors * n_stroke_masks)
         self.mask_conf_out = nn.Linear(h2, n_stroke_masks)
 
@@ -104,20 +157,11 @@ class PointNet2StrokeMasks(PointNet2Encoder):
                                    for t in out))
 
     def _forward(self, xyz, generator):
-        feat = super().forward(xyz, generator)
+        feat = PointNet2Encoder.forward(self, xyz, generator)
         B = feat.shape[0]
         dt = self.dtype
-        drop = dict(rate=self.dropout, training=self.training,
-                    generator=generator, dtype=dt)
-        trunk = regression_head(feat, [(self.fc1, self.bn1),
-                                       (self.fc2, self.bn2)], **drop)
-        positions = dense(self.fc3, trunk, dt)
-        if self.outdim_orient > 0:
-            traj = assemble_pose_output(positions,
-                                        dense(self.fc_normals, trunk, dt),
-                                        self.out_vectors, self.weight_orient)
-        else:
-            traj = positions.reshape(B, self.out_vectors, -1)
+        drop = self._drop(generator)
+        traj = self._segments(feat, generator)
 
         seg_conf = None
         if self.segment_confidence_scores:

@@ -1,13 +1,16 @@
 """Masked chamfer distance (``maskplanner_tpu/ops/chamfer.py``).
 
-The flags the MaskPlanner v6 loss uses: ``padded``, ``x_mask``/``y_mask``,
+Every flag of the JAX package's: ``padded``, ``x_mask``/``y_mask``,
 ``asymmetric``, ``reverse_asymmetric``, ``return_matching``,
-``point_reduction``, ``batch_reduction``. Matched indices come from
-``nn_argmin`` (the CUDA kernel on the card); the squared distances are
-recomputed by a gather, so that the gradient flows through the gather to
-both endpoints as it does through a min over the distance matrix. A
-direction that the asymmetric variants do not need is skipped, as in the
-JAX package's ``_nn_gather_chamfer``.
+``point_reduction``, ``batch_reduction``, ``velocities`` (the search on
+the positions, the distance on the full rows), ``min_centroids`` (the
+λ-window centroids) and ``avoid_in_sequence_collapsing`` with
+``soft_attraction`` (the attraction chamfer, :func:`_attraction_chamfer`).
+Matched indices come from ``nn_argmin`` (the CUDA kernel on the card); the
+squared distances are recomputed by a gather on the full rows, so that the
+gradient flows through the gather to both endpoints as it does through a
+min over the distance matrix. A direction that the asymmetric variants do
+not need is skipped, as in the JAX package's ``_nn_gather_chamfer``.
 
 ``x`` is the prediction set, ``y`` the ground truth (−100-padded rows).
 All distances are squared euclidean distances.
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .distance import smallest_k, square_distance
 from .nn_argmin import nn_argmin
 
 PAD_VALUE = -100.0
@@ -34,12 +38,16 @@ def _gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                         idx.long()[..., None].expand(-1, -1, points.shape[-1]))
 
 
-def nearest_sq_distance(x, y, y_mask=None):
+def nearest_sq_distance(x, y, y_mask=None, search_dims=None):
     """One direction of the chamfer distance: for every x row the squared
     distance to its nearest valid y row, recomputed by a gather, and that
     row's index -> (B, P1) distances, (B, P1) int32 indices. One
-    ``nn_argmin`` launch."""
-    idx = nn_argmin(x, y, y_mask)
+    ``nn_argmin`` launch. ``search_dims``: search on the first that many
+    coordinates only (the distance still takes every coordinate)."""
+    if search_dims is None:
+        idx = nn_argmin(x, y, y_mask)
+    else:
+        idx = nn_argmin(x[..., :search_dims], y[..., :search_dims], y_mask)
     return ((x - _gather_rows(y, idx)) ** 2).sum(-1), idx
 
 
@@ -51,12 +59,7 @@ def chamfer_distance(x, y, x_mask=None, y_mask=None, batch_reduction="mean",
                      reverse_asymmetric=False, return_matching=False):
     """Chamfer distance between two batched point sets; ``(dist, None)`` or,
     with ``return_matching``, ``(dist, None, x_idx, y_idx)``."""
-    if velocities or min_centroids or avoid_in_sequence_collapsing \
-            or soft_attraction:
-        raise NotImplementedError(
-            "chamfer_distance: velocities, min_centroids and the attraction "
-            "variants are not ported yet (ROADMAP.md, Queue 1)")
-    B, P1, _ = x.shape
+    B, P1, D = x.shape
     P2 = y.shape[1]
     if padded and y_mask is None:
         y_mask = mask_from_padding(y)
@@ -65,13 +68,22 @@ def chamfer_distance(x, y, x_mask=None, y_mask=None, batch_reduction="mean",
     y_lengths = (torch.full((B,), float(P2), device=x.device)
                  if y_mask is None else y_mask.sum(-1).float())
 
+    if min_centroids:
+        # compare the λ-window centroids, every 3 values taken as a point
+        lam = D // 3
+        x = x.reshape(B, P1, lam, 3).mean(-2)
+        y = y.reshape(B, P2, lam, 3).mean(-2)
+    if avoid_in_sequence_collapsing and not velocities:
+        return _attraction_chamfer(x, y, soft=soft_attraction)
+    search_dims = 3 if velocities else None
+
     cham_x = x.new_zeros((B, P1))
     cham_y = x.new_zeros((B, P2))
     x_idx = y_idx = None
     if not reverse_asymmetric or return_matching:
-        cham_x, x_idx = nearest_sq_distance(x, y, y_mask)
+        cham_x, x_idx = nearest_sq_distance(x, y, y_mask, search_dims)
     if not asymmetric or return_matching:
-        cham_y, y_idx = nearest_sq_distance(y, x, x_mask)
+        cham_y, y_idx = nearest_sq_distance(y, x, x_mask, search_dims)
 
     if x_mask is not None:
         cham_x = torch.where(x_mask, cham_x, 0.0)
@@ -101,3 +113,31 @@ def chamfer_distance(x, y, x_mask=None, y_mask=None, batch_reduction="mean",
     if return_matching:
         return dist, None, x_idx, y_idx
     return dist, None
+
+
+def _attraction_chamfer(x, y, soft: bool):
+    """The chamfer that skips self-matches at the same sequence position
+    (x and y hold P rows each, row i of x belongs with row i of y): a
+    nearest row at the own index is replaced by the second nearest (hard)
+    or the row is dropped (soft). The hard variant sums over the rows and
+    averages over the batch whatever the reductions asked for, as the JAX
+    package does."""
+    P = x.shape[1]
+    seq = torch.arange(P, device=x.device)
+
+    def one_direction(src, dst):
+        top2, idx = smallest_k(square_distance(src, dst), 2)
+        d0, d1 = top2[..., 0], top2[..., 1]
+        self_match = idx[..., 0] == seq[None, :]
+        if soft:
+            keep = ~self_match
+            per_b = torch.where(keep, d0, 0.0).sum(-1) / torch.clamp(
+                keep.sum(-1), min=1)
+            return per_b.mean()
+        return torch.where(self_match, d1, d0).sum(-1)
+
+    cham_x = one_direction(x, y)
+    cham_y = one_direction(y, x)
+    if soft:
+        return cham_x + cham_y, None
+    return (cham_x + cham_y).mean(), None

@@ -22,3 +22,21 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
         term = diff * diff
         acc = term if acc is None else acc + term
     return acc
+
+
+def smallest_k(d: torch.Tensor, k: int):
+    """The ``k`` smallest entries of each row of ``d`` in ascending order,
+    ties to the lower index (``jax.lax.top_k(-d, k)``'s order; ``torch.topk``
+    promises none) -> (values (..., k), indices (..., k) int64). ``k``
+    masked argmins on one copy of ``d``, each pass masking the column it
+    took; the values are gathered from ``d``, so the gradient flows to the
+    chosen entries."""
+    rest = d.detach().clone() if k > 1 else d.detach()
+    picked = []
+    for i in range(k):
+        idx = torch.argmin(rest, dim=-1, keepdim=True)
+        picked.append(idx)
+        if i + 1 < k:
+            rest.scatter_(-1, idx, torch.inf)
+    idx = torch.cat(picked, dim=-1)
+    return d.gather(-1, idx), idx

@@ -106,6 +106,11 @@ class Predictor:
         self.extra_data = list(self.config["extra_data"])
         self.outdim = get_dim_traj_points(self.extra_data)
         self.scale = resolve_scale(self.config, data_scale_factor)
+        if self.config["model"]["backbone"] == "pointnet2":
+            raise NotImplementedError(
+                "a Predictor serves the stroke-mask models; a pointnet2 "
+                "run has no masks to post-process (score it with "
+                "test_maskplanner)")
         self.model = get_model(self.config, device="cpu")
         self.epoch = load_checkpoint(run_dir, checkpoint_name(model),
                                      self.model)

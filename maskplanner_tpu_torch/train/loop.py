@@ -4,7 +4,9 @@ Per batch: the eval loss (one host sync for the loss and its terms), the
 metrics, optionally the single-sample latency, and a ``.npy`` dump in the
 format that ``render_results.py`` and ``standalone/`` read with
 ``np.load(..., allow_pickle=True).item()``: a dict of numpy arrays on the
-host (float32 outputs), ``None`` where an output is absent.
+host (float32 outputs), ``None`` where an output is absent: a model with
+a plain segment output (``models.PointNet2Regressor``) has no masks, mask
+scores or segment confidences, and its metrics get none.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from ..metrics import MetricsHandler
+from ..models import MaskPlannerOutput
 from .trainer import batch_to_device, eval_step
 
 
@@ -32,6 +35,14 @@ def _batch_names(loader, split: str, count: int, B: int) -> list[str]:
 
 def _output(t: torch.Tensor | None) -> np.ndarray | None:
     return None if t is None else t.float().cpu().numpy()
+
+
+def _outputs(out) -> MaskPlannerOutput:
+    """The model's outputs as a ``MaskPlannerOutput``: a plain segment
+    tensor becomes its ``traj``, with no masks."""
+    if isinstance(out, MaskPlannerOutput):
+        return out
+    return MaskPlannerOutput(out, None, None, None)
 
 
 def _sync(device: torch.device) -> None:
@@ -60,8 +71,11 @@ def evaluate(model, loader, handler, weights, metrics_handler: MetricsHandler,
     weighted by the batches' sizes; ``ms`` the mean single-sample latency
     when ``forward`` is given, else None. With ``save``, every batch (the
     train split: its first only) is dumped to
-    ``{save_dir}/{eval_ckpt}_{split}_batch{i}.npy``."""
+    ``{save_dir}/{eval_ckpt}_{split}_batch{i}.npy``. The stochastic loss
+    term draws from a generator seeded with 0 at every call, so that an
+    eval's loss depends on the weights only."""
     device = torch.device(device)
+    generator = torch.Generator(device=device).manual_seed(0)
     tot_loss, count = 0.0, 0
     tot_terms: dict[str, float] = {}
     tot_metrics: dict[str, float] = {}
@@ -70,7 +84,8 @@ def evaluate(model, loader, handler, weights, metrics_handler: MetricsHandler,
     for i, batch in enumerate(loader.epoch(0)):
         B = batch["point_cloud"].shape[0]
         b = batch_to_device(batch, device)
-        loss, terms, out = eval_step(model, handler, b, weights)
+        loss, terms, out = eval_step(model, handler, b, weights, generator)
+        out = _outputs(out)
 
         if forward is not None:
             all_ms.append(_single_sample_ms(model, batch["point_cloud"],

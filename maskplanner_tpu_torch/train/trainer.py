@@ -2,7 +2,8 @@
 (``maskplanner_tpu/train/trainer.py``).
 
 One step: the train forward (random FPS starts and dropout masks from an
-explicit generator), the loss, the backward, ``torch.optim.Adam`` (β 0.9 /
+explicit generator), the loss (whose stochastic term draws from the same
+generator), the backward, ``torch.optim.Adam`` (β 0.9 /
 0.999, eps 1e-8, as ``optax.adam``) on the f32 parameters, and the
 BatchNorm running statistics, which the forward moves in place. A bf16
 model's forward and backward both sum their bf16 products in f32
@@ -77,13 +78,14 @@ def train_step(model, optimizer, handler: LossHandler, batch, weights,
     optimizer.zero_grad(set_to_none=True)
     with f32_accumulation():
         out = model(batch["point_cloud"], generator=generator)
-        total, terms = handler.compute(weights, **build_loss_batch(out, batch))
+        total, terms = handler.compute(weights, generator=generator,
+                                       **build_loss_batch(out, batch))
         total.backward()
     optimizer.step()
     return total.detach(), {k: v.detach() for k, v in terms.items()}
 
 
-def forward(model, point_cloud: torch.Tensor) -> MaskPlannerOutput:
+def forward(model, point_cloud: torch.Tensor):
     """The eval forward (``make_forward``): eval mode (running BatchNorm
     statistics, FPS from index 0, no dropout), no autograd, bf16 products
     summed in f32."""
@@ -92,11 +94,14 @@ def forward(model, point_cloud: torch.Tensor) -> MaskPlannerOutput:
         return model(point_cloud)
 
 
-def eval_step(model, handler: LossHandler, batch, weights):
-    """The loss on the eval forward -> (loss, terms, outputs)."""
+def eval_step(model, handler: LossHandler, batch, weights,
+              generator: torch.Generator | None = None):
+    """The loss on the eval forward -> (loss, terms, outputs).
+    ``generator``: the stochastic loss term's draw."""
     out = forward(model, batch["point_cloud"])
     with torch.no_grad():
-        total, terms = handler.compute(weights, **build_loss_batch(out, batch))
+        total, terms = handler.compute(weights, generator=generator,
+                                       **build_loss_batch(out, batch))
     return total, terms, out
 
 

@@ -64,9 +64,16 @@ fresh init unless ``model.load_strict``), else a reference run's
 and trains from scratch. It loads in place before Adam and the device
 epoch are built, and takes the place of the ShapeNet warm start.
 
-Not ported yet (raises when its config asks for it): the adversarial
-losses. Rendering the final dumps (``render_results.py``) is not ported:
-the run prints a notice where the JAX driver would render.
+Every loss name of the JAX registry whose inputs the port's models give
+trains (``losses.PORTED``, with the paper's baselines ``segmentWise`` and
+``pointWise``), on ``model.backbone`` ``pointnet2_strokemasks`` or
+``pointnet2`` (the plain regressor, whose eval has no masks). Not ported
+yet (raises when its config asks for it): the adversarial losses and the
+other names of ``losses.WAITING``. On the card a loss term that a CUDA
+graph cannot capture (``LossHandler.uncapturable``: the singular values
+of ``align``, ``intra_align``) trains on the host loader, and the run
+prints why. Rendering the final dumps (``render_results.py``) is not
+ported: the run prints a notice where the JAX driver would render.
 """
 from __future__ import annotations
 
@@ -133,12 +140,6 @@ def _resume_dir(config) -> str | None:
         if os.path.isdir(cand):
             return cand
     raise ValueError(f"resume={arg!r}: no such run directory")
-
-
-def _refuse_unported(config) -> None:
-    if any(n in ("discriminator", "wdiscriminator") for n in config["loss"]):
-        raise NotImplementedError("the adversarial losses are not ported yet "
-                                  "(ROADMAP.md, Queue 1)")
 
 
 def warm_start_encoder(model, config) -> list[str] | None:
@@ -258,7 +259,6 @@ def _train(config, preempted: _Preemption):
     if run_dir is not None:
         config = restore_frozen_config(config, run_dir)
     device = resolve_device(config.get("device") or "cuda")
-    _refuse_unported(config)
     if run_dir is None:
         run_dir = create_dirs(os.path.join(get_output_dir(config),
                                            get_run_name(config)))
@@ -324,7 +324,12 @@ def _train(config, preempted: _Preemption):
 
     # the device-resident epoch where it applies, else the host loader
     device_epoch = data = None
-    if device_dataset_eligible(config, 1, batch_size):
+    # on the card the device-resident epoch is a CUDA graph of the step
+    uncapturable = handler.uncapturable if device.type == "cuda" else {}
+    if uncapturable:
+        print(f"device-resident dataset: off, the step cannot be captured "
+              f"as a CUDA graph: {uncapturable}")
+    elif device_dataset_eligible(config, 1, batch_size):
         data = stage_device_dataset(tr_dataset, device=device)
     if data is not None:
         device_epoch = DeviceEpoch(model, optimizer, handler, data, weights,

@@ -473,7 +473,7 @@ def test_driver_refuses_what_is_not_ported(tmp_path):
     # a JAX run's orbax checkpoint cannot warm-start the port
     (tmp_path / "jax_run" / "last_checkpoint").mkdir(parents=True)
     for extra in ([f"model.pretrained_custom={tmp_path / 'jax_run'}"],
-                  ["loss=[chamfer]"]):
+                  ["loss=[mse_strokes]"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_maskplanner.main([*SMALL, "device=cpu", "epochs=1",
                                     f"output_dir={tmp_path}", *extra])

@@ -185,11 +185,14 @@ def test_chamfer_matches_jax(call, fixed_order_distances):
 
 
 def test_chamfer_unported_flags_raise():
-    x = torch.zeros(1, 4, 6)
+    """The flags this test once saw raise are ported: each gives a finite
+    distance (their values against the JAX package's are
+    tests/test_torch_port_losses.py's)."""
+    x = torch.arange(24, dtype=torch.float32).reshape(1, 4, 6) / 24
     for flag in ("velocities", "min_centroids",
                  "avoid_in_sequence_collapsing"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            chamfer_distance(x, x, **{flag: True})
+        assert torch.isfinite(chamfer_distance(x, x.flip(1),
+                                               **{flag: True})[0])
 
 
 def _cost_case():
