@@ -245,8 +245,38 @@ result line:
     steps on the graphed loop with phase 11's trace (4 replays) and
     final-eval checks (no request: a ``Predictor`` serves the mask
     models);
-25. the card line, a ``kernels`` JSON line (launches: the kernels that ran
-    in the traced graphed epoch of 8 replays; for the five kernels of the
+25. the limits (``phase_limits``): the shapes past the small paths of
+    #1, #4 and #5, which the JAX package computes, on the kernels' paths
+    for them. FPS above 8192 points (``fps_large``): N 8193 and 16384 at
+    batch 4 and 64, 60000 at batch 4, npoint 512, and the large path
+    forced at 5120 points, indices identical to the plain version; a start
+    index out of range at 8193 points traps in a child; the flagship
+    forward at ``pc_points=16384``, batch 64: exactly fps 2 (fps_large 1)
+    and fused_sa_fwd 2, finite, 2 samples on the CPU within
+    1e-4 · max|ref|; at that size on 8 clouds a train-mode forward and
+    backward of each recipe in f32 and bf16 with its step's launches and
+    finite gradients, and the ball query identical to its plain version. The argmin above 128 coordinates
+    (``nn_argmin_chunked``): d 129, 132, 192 and 384 with exact ties on a
+    grid, a mask that is not a prefix and sizes off every tile, and the
+    chunked path forced at d 6 and 24, indices identical; the training step
+    at ``lambda_points=22`` (d 132), batch 64: exactly the step's
+    launches with nn_argmin_chunked 2, the card against the CPU on 2
+    samples by phase 8's rule. The LAP above 128 rows (``lap_large``): n
+    129, 200 and 256 at batch 1 and 64, random and integer costs, and the
+    large path forced at n 22 and 128, total costs within 1e-5 relative of
+    the plain version's (run in child processes on the CPU); n 1024 and
+    4096, random and integer, and 9000 (past the shared-memory cut),
+    random, at batch 1 against ``scipy.optimize.linear_sum_assignment``
+    (the oracle only, in child processes), with each one's Dijkstra steps
+    and time; ``losses/stroke_losses.py::emd`` on 64 x 200 predictions
+    against 50 GT rows, card against CPU within 1e-5 relative, its LAP's
+    total within 1e-5 relative of the CPU's, with exactly lap 1
+    (lap_large 1). Each new path's CUDA-event median at its
+    main-path shape, plain time, bound (the LAP's also its chain floor,
+    ``lap_large_step_cycles``; the argmin's its instruction floor);
+26. the card line, a ``kernels`` JSON line (launches: the kernels that ran
+    in the traced graphed epoch of 8 replays, the three large-shape paths'
+    in phase 25's forward, step and ``emd``; for the five kernels of the
     exported forward their custom op and the child's launches; the
     argmin's row also its launches a step in each recipe of phase 24 and
     its d = 3 numbers, the LAP's the n of those recipes), and the result
@@ -335,7 +365,22 @@ KERNELS = {
         source="maskplanner_tpu_torch/csrc/sa_weight_grad.cu",
         replaces="maskplanner_tpu/ops/pallas/fused_sa_train.py:589",
         mode='precision="default"'),
+    # the paths for the shapes past the small paths' limits (phase 25),
+    # whose launches the kernels' own counts include
+    "fps_large": dict(source="maskplanner_tpu_torch/csrc/fps.cu",
+                      replaces="maskplanner_tpu/ops/pallas/fps.py:84",
+                      mode="more than 8192 points"),
+    "nn_argmin_chunked": dict(
+        source="maskplanner_tpu_torch/csrc/nn_argmin.cu",
+        replaces="maskplanner_tpu/ops/pallas/nn_argmin.py:54",
+        mode="more than 128 coordinates"),
+    "lap_large": dict(source="maskplanner_tpu_torch/csrc/lap.cu",
+                      replaces="maskplanner_tpu/ops/pallas/lap.py:150",
+                      mode="more than 128 rows"),
 }
+# each large-shape path and the kernel whose count includes its launches
+PATH_OF = {"fps_large": "fps", "nn_argmin_chunked": "nn_argmin",
+           "lap_large": "lap"}
 
 
 def launches_of(**counts) -> dict:
@@ -542,7 +587,9 @@ def per_replay(traced: dict, replays: int, expect: dict, what: str) -> dict:
 # namespace
 KERNEL_SYMBOLS = ("fps_kernel", "fused_sa_fwd_kernel", "fused_sa_bwd_kernel",
                   "dw_partial", "vec_partial", "::finish(", "nn_argmin_kernel",
-                  "lap_warp_kernel", "lap_block_kernel", "ball_group_kernel")
+                  "lap_warp_kernel", "lap_block_kernel", "ball_group_kernel",
+                  "fps_large_kernel", "nn_argmin_chunked_kernel",
+                  "lap_large_kernel")
 
 
 def kernel_of(symbol: str) -> str | None:
@@ -573,7 +620,9 @@ def kernel_of(symbol: str) -> str | None:
             "dw_partial_bf16": "sa_weight_grad_bf16",
             "vec_partial": "k2_vec_partial", "finish": "k2_finish",
             "nn_argmin_kernel": "nn_argmin", "lap_warp_kernel": "lap",
-            "lap_block_kernel": "lap"}.get(name)
+            "lap_block_kernel": "lap", "fps_large_kernel": "fps_large",
+            "nn_argmin_chunked_kernel": "nn_argmin_chunked",
+            "lap_large_kernel": "lap_large"}.get(name)
 
 
 def trace_launches(kernels: list) -> dict:
@@ -594,6 +643,9 @@ def trace_launches(kernels: list) -> dict:
         raise AssertionError(f"kernels of the port's sources that "
                              f"kernel_of does not know: {sorted(missed)}")
     out = {name: counts[name] for name in KERNELS}
+    # a kernel's count includes its large-shape path's, as its wrapper's does
+    for path, kernel in PATH_OF.items():
+        out[kernel] += out[path]
     k2 = out["sa_weight_grad"] + out["sa_weight_grad_bf16"]
     if counts["k2_vec_partial"] != k2 or counts["k2_finish"] != k2:
         raise AssertionError(f"K2 ran dw_partial {k2} times, vec_partial "
@@ -837,15 +889,15 @@ def check_fps_edges(xyz: torch.Tensor) -> None:
     log(f"[kernels] fps identical on {', '.join(cases)}")
 
 
-def check_fps_trap() -> None:
-    """A start index out of range traps the FPS kernel (the context is lost
-    then, so a child process launches it): the child must fail after the
-    launch."""
+def check_fps_trap(n: int = 100) -> None:
+    """A start index out of range traps the FPS kernel on clouds of ``n``
+    points (the context is lost then, so a child process launches it): the
+    child must fail after the launch."""
     code = ("import torch\n"
             "from maskplanner_tpu_torch.ops.sampling import "
             "farthest_point_sample\n"
-            "x = torch.rand(2, 100, 3, device='cuda')\n"
-            "farthest_point_sample(x, 8, torch.tensor([0, 100], "
+            f"x = torch.rand(2, {n}, 3, device='cuda')\n"
+            f"farthest_point_sample(x, 8, torch.tensor([0, {n}], "
             "dtype=torch.int32, device='cuda'))\n"
             "print('launched', flush=True)\n"
             "torch.cuda.synchronize()\n")
@@ -856,7 +908,7 @@ def check_fps_trap() -> None:
         raise AssertionError(f"an out-of-range FPS start did not fail after "
                              f"the launch: exit {p.returncode}, {said!r}, "
                              f"{p.stderr[-400:]!r}")
-    log(f"[kernels] fps start out of range: the child exited "
+    log(f"[kernels] fps start out of range on {n} points: the child exited "
         f"{p.returncode} after the launch ({said!r})")
 
 
@@ -3666,6 +3718,400 @@ def phase_recipes(items: list[dict], res: dict, card: dict) -> dict:
     res["lap"]["recipe_n"] = lap_n
     return epochs
 
+# phase 25: the shapes past the small paths of #1, #4 and #5
+LIMITS_PC_POINTS = 16384
+LIMITS_LAMBDA = 22          # the segment chamfer's d = 6 λ = 132
+LIMITS_LAUNCHES = launches_of(fps=2, fps_large=1, fused_sa_fwd=2)
+LIMITS_STEP_LAUNCHES = launches_of(fps=2, fused_sa_fwd=2, fused_sa_bwd=2,
+                                   sa_weight_grad=2, nn_argmin=3,
+                                   nn_argmin_chunked=2, lap=1)
+# the LAP's large path against the plain version (on the CPU), forced at n
+# 22 and 128 and past the small paths at 129, 200 and 256, batch 1 and 64;
+# and against scipy at batch 1 at n 1024, 4096 and 9000, past the path's
+# shared-memory cut (about 8900 columns)
+LAP_PLAIN_N = (22, 128, 129, 200, 256)
+LAP_SCIPY = ((1024, "random"), (1024, "integer"), (4096, "random"),
+             (4096, "integer"), (9000, "random"))
+# the references, each group in a child process of its own beside the
+# phase's work on the card: argv root, "plain" or "scipy", the output
+# file, then the cases n:batch:kind
+LAP_REFERENCE_CHILD = """
+import sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from chip_smoke import lap_cost
+cases = [c.split(":") for c in sys.argv[4:]]
+out = {}
+if sys.argv[2] == "scipy":
+    from scipy.optimize import linear_sum_assignment
+    for n, batch, kind in cases:
+        cost = lap_cost(int(n), int(batch), kind)
+        out[f"{n}:{batch}:{kind}"] = np.stack(
+            [linear_sum_assignment(c)[1] for c in cost]).astype(np.int32)
+else:
+    import torch
+    from maskplanner_tpu_torch.ops.hungarian import lap_plain
+    torch.set_num_threads(1)
+    for n, batch, kind in cases:
+        cost = torch.from_numpy(lap_cost(int(n), int(batch), kind))
+        out[f"{n}:{batch}:{kind}"] = lap_plain(cost).numpy()
+np.savez(sys.argv[3], **out)
+"""
+
+
+def lap_cost(n: int, batch: int, kind: str) -> np.ndarray:
+    """Phase 25's (batch, n, n) float32 LAP costs, seeded by the case:
+    standard normal, or small integers (exact ties): in [0, 4) up to 256
+    rows, in [0, 16 n) above (where [0, 4) makes every augmentation walk
+    about n steps)."""
+    rng = np.random.default_rng([n, batch, kind == "integer"])
+    if kind == "integer":
+        top = 4 if n <= 256 else 16 * n
+        return rng.integers(0, top, (batch, n, n)).astype(np.float32)
+    return rng.standard_normal((batch, n, n), dtype=np.float32)
+
+
+def start_lap_references(tmp: str) -> dict:
+    """The children of ``LAP_REFERENCE_CHILD``: {output file: (its cases,
+    the process)}, one a plain n, and one for each scipy case but n 1024's
+    two."""
+    groups = [("plain", [(n, b, kind) for b in (1, BATCH)
+                         for kind in ("random", "integer")])
+              for n in LAP_PLAIN_N]
+    groups += [("scipy", [(n, 1, kind) for n, kind in LAP_SCIPY
+                          if n == 1024])]
+    groups += [("scipy", [(n, 1, kind)]) for n, kind in LAP_SCIPY if n > 1024]
+    children = {}
+    for i, (oracle, cases) in enumerate(groups):
+        path = os.path.join(tmp, f"lap_{oracle}_{i}.npz")
+        children[path] = (cases, spawn(
+            [sys.executable, "-c", LAP_REFERENCE_CHILD, ROOT, oracle, path]
+            + [f"{n}:{b}:{kind}" for n, b, kind in cases]))
+    return children
+
+
+def limits_fps(res: dict) -> None:
+    """FPS above 8192 points on the large path: indices identical to the
+    plain version (on the card) at N 8193 and 16384, batch 4 and 64, and
+    60000 at batch 4, npoint 512; the large path forced at 5120 points;
+    a start index out of range traps in a child; the time, plain time and
+    bound at the forward's shape (64 x 16384 -> 512)."""
+    from maskplanner_tpu_torch.ops.cuda.fps import fps_cuda
+    from maskplanner_tpu_torch.ops.sampling import fps_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    S = 512
+    cases = [(n, b) for n in (8193, LIMITS_PC_POINTS) for b in (4, BATCH)]
+    cases += [(60000, 4), (5120, 8)]
+    for n, b in cases:
+        pts = torch.rand((b, n, 3), generator=gen, device="cuda")
+        start = torch.randint(0, n, (b,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        got = fps_cuda(pts, S, start, large=True)
+        ref = fps_plain(pts, S, start)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"FPS large path {b} x {n}: indices differ "
+                                 f"at {int((got != ref).sum())} places")
+    log(f"[limits] fps large path identical to the plain version at "
+        f"{', '.join(f'{b} x {n}' for n, b in cases)} -> {S}")
+    check_fps_trap(8193)
+    pts = torch.rand((BATCH, LIMITS_PC_POINTS, 3), generator=gen,
+                     device="cuda")
+    start = torch.zeros(BATCH, dtype=torch.int32, device="cuda")
+    ms = median_ms(lambda: fps_cuda(pts, S, start), 10)
+    plain = median_ms(lambda: fps_plain(pts, S, start), 3, 1)
+    B, N = BATCH, LIMITS_PC_POINTS
+    res.update(ms=ms, plain_ms=plain, library_ms=None,
+               us_per_step=1e3 * ms / S,
+               **bound(10.0 * B * S * N, 4.0 * (B * N * 3 + B + B * S)))
+    log(f"[limits] fps large {B} x {N} -> {S}: kernel {ms:.4f} ms "
+        f"({res['us_per_step']:.3f} us a step), plain {plain:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+
+
+def limits_argmin() -> None:
+    """The argmin above 128 coordinates on the chunked path, and the
+    chunked path forced at d 6 and 24: exact ties on a grid, a mask that
+    is not a prefix, sizes off every tile; indices identical to the plain
+    version."""
+    from maskplanner_tpu_torch.ops.cuda.nn_argmin import nn_argmin_cuda
+    from maskplanner_tpu_torch.ops.nn_argmin import nn_argmin_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    checked = []
+    for d in (6, 24, 129, 132, 192, 384):
+        x = torch.randn((BATCH, 449, d), generator=gen, device="cuda")
+        y = torch.randn((BATCH, 449, d), generator=gen, device="cuda")
+        mask = torch.rand((BATCH, 449), generator=gen, device="cuda") > 0.3
+        for what, (ex, ey, em) in {"random": (x, y, mask),
+                                   **nn_argmin_edges(x, y, mask)}.items():
+            got = nn_argmin_cuda(ex, ey, em, chunked=True)
+            ref = nn_argmin_plain(ex, ey, em)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"nn_argmin chunked {what}: indices "
+                                     f"differ at {int((got != ref).sum())} "
+                                     f"places")
+            checked.append(what)
+    log(f"[limits] nn_argmin chunked path identical to the plain version on "
+        f"{len(checked)} inputs: {', '.join(checked)}")
+
+
+def limits_lap(children: dict) -> None:
+    """The LAP's large path on every case of ``start_lap_references``,
+    random and integer costs: permutations whose totals lie within 1e-5
+    relative of the reference's (the plain version, or scipy past 256
+    rows), with the large path's Dijkstra steps and time at scipy's
+    sizes."""
+    from maskplanner_tpu_torch.ops.cuda.lap import lap_cuda
+
+    for path, (cases, proc) in children.items():
+        got = {}
+        for n, b, kind in cases:
+            cost = torch.from_numpy(lap_cost(n, b, kind))
+            steps = torch.zeros(b, dtype=torch.int32, device="cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got[n, b, kind] = lap_cuda(cost.cuda(), large=True, steps=steps)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t
+            if n > 256:
+                log(f"[limits] lap large n={n} {kind}: {int(steps.sum())} "
+                    f"Dijkstra steps in {took:.3f} s "
+                    f"({1e9 * took / int(steps.sum()):.1f} ns a step)")
+        finish(proc, f"the LAP references of {cases}")
+        refs = np.load(path)
+        for (n, b, kind), col4row in got.items():
+            cost = torch.from_numpy(lap_cost(n, b, kind))
+            rel, _ = check_assignment(
+                f"lap large n={n} b={b} {kind}", cost, col4row.cpu(),
+                torch.from_numpy(refs[f"{n}:{b}:{kind}"]))
+            log(f"[limits] lap large n={n} batch {b} {kind}: permutations "
+                f"within {rel:.2e} relative of "
+                f"{'scipy' if n > 256 else 'the plain version'}")
+
+
+def limits_emd(res: dict) -> int:
+    """``losses/stroke_losses.py::emd`` on 64 x 200 predictions against 50
+    GT rows (the exact route: a 200 x 200 LAP a sample) on the card
+    against the CPU within 1e-5 relative -> its LAP launches, held to
+    exactly lap 1 (lap_large 1). The large path's time, plain time, bound
+    and chain floor on that LAP's costs."""
+    from maskplanner_tpu_torch.losses.stroke_losses import emd
+    from maskplanner_tpu_torch.ops import hungarian as hung
+    from maskplanner_tpu_torch.ops.cuda.lap import (lap_cuda,
+                                                    lap_large_step_cycles)
+
+    gen = torch.Generator().manual_seed(28)
+    y_pred = torch.randn((BATCH, 200, 24), generator=gen)
+    y = torch.randn((BATCH, 50, 24), generator=gen)
+    y_mask = torch.rand((BATCH, 50), generator=gen) > 0.2
+    y_mask[:, 0] = True
+    seen = []   # (costs, col4row) of each LAP, the card's then the CPU's
+    orig = hung.lap
+    hung.lap = lambda cost: (seen.append((cost.clone(), orig(cost))),
+                             seen[-1][1])[1]
+    try:
+        reset_counts()
+        card = float(emd(y_pred.cuda(), y.cuda(), y_mask.cuda()))
+        launches = read_counts()
+        cpu = float(emd(y_pred, y, y_mask))
+    finally:
+        hung.lap = orig
+    rel = abs(card - cpu) / abs(cpu)
+    log(f"[limits] emd 64 x 200 against 50: card {card:.7f}, cpu {cpu:.7f}, "
+        f"rel Δ {rel:.2e}; launches {launches}")
+    if not rel <= 1e-5:
+        raise AssertionError(f"emd: card and CPU differ by {rel} relative")
+    want = launches_of(lap=1, lap_large=1)
+    if launches != want or len(seen) != 2:
+        raise AssertionError(f"emd launched {launches}, expected {want}")
+    (cost, got), (cost_cpu, ref) = seen
+    _, gap = check_assignment("lap large (emd)", cost_cpu, got.cpu(), ref)
+    B, n, _ = cost.shape
+    steps = torch.zeros(B, dtype=torch.int32, device="cuda")
+    lap_cuda(cost, steps=steps)
+    ms = median_ms(lambda: lap_cuda(cost), 10)
+    t = time.perf_counter()
+    hung.lap_plain(cost)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t) * 1e3
+    mhz = sm_clock_mhz()
+    cycles = lap_large_step_cycles(n)
+    longest = int(steps.max())
+    res.update(ms=ms, plain_ms=plain, library_ms=None, max_abs_err=gap,
+               **bound(6.0 * int(steps.sum()) * n,
+                       4.0 * (cost.numel() + B * n)),
+               chain_bound_ms=longest * cycles / (mhz * 1e6) * 1e3,
+               chain_bound_by=f"{longest} dependent steps x {cycles} cycles "
+                              f"at {mhz:.0f} MHz",
+               ns_per_step=ms * 1e6 / longest)
+    log(f"[limits] lap large {tuple(cost.shape)} (emd): kernel {ms:.4f} ms, "
+        f"plain (one call, on the card) {plain:.1f} ms; {int(steps.sum())} "
+        f"steps, the longest problem {longest}; bound {res['bound_ms']:.6f} "
+        f"ms ({res['bound_by']}), chain floor {res['chain_bound_ms']:.4f} ms "
+        f"({cycles} cycles a step at {mhz:.0f} MHz), "
+        f"{res['ns_per_step']:.1f} ns a dependent step")
+    return launches["lap_large"]
+
+
+def limits_forward() -> tuple[int, np.ndarray]:
+    """The flagship forward at ``pc_points=16384``, batch 64: exactly fps 2
+    (fps_large 1) and fused_sa_fwd 2, finite outputs of the flagship's
+    shapes, 2 samples on the CPU within 1e-4 · max|ref| -> (fps_large's
+    launches, the clouds)."""
+    from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    cfg = load_args(argv=[FLAGSHIP, f"pc_points={LIMITS_PC_POINTS}"])
+    model = get_model(cfg, device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    clouds = np.stack([it["point_cloud"] for it in load_items(cfg, "test")])
+    x = torch.from_numpy(clouds).cuda()
+    reset_counts()
+    with torch.inference_mode():
+        out = model(x)
+    launches = read_counts()
+    log(f"[limits] forward at pc_points={LIMITS_PC_POINTS}: launches "
+        f"{launches}")
+    if launches != LIMITS_LAUNCHES:
+        raise AssertionError(f"the forward launched {launches}, expected "
+                             f"{LIMITS_LAUNCHES}")
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        ref = cpu_model(torch.from_numpy(clouds[:2]))
+    shapes = {"traj": (BATCH, 449, 24), "stroke_masks": (BATCH, 22, 449),
+              "mask_scores": (BATCH, 22)}
+    for field, shape in shapes.items():
+        t = getattr(out, field)
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{field}: shape {tuple(t.shape)} "
+                                 f"(expected {shape}) or non-finite values")
+        a, b = t[:2].cpu(), getattr(ref, field)
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if not err <= REL_TOL * scale:
+            raise AssertionError(f"{field} at pc_points={LIMITS_PC_POINTS}: "
+                                 f"card and CPU disagree, {err} > {REL_TOL} "
+                                 f"x {scale}")
+        log(f"[limits] {field}: card vs CPU max|Δ| {err:.3e} (max|ref| "
+            f"{scale:.3e})")
+    with torch.inference_mode():
+        t64 = median_host_s(lambda: model(x), 5)
+    log(f"[limits] forward at pc_points={LIMITS_PC_POINTS}, batch {BATCH}: "
+        f"{t64 * 1e3:.3f} ms")
+    return launches["fps_large"], clouds
+
+
+def limits_other_kernels(clouds: np.ndarray) -> None:
+    """The other kernels of the forwards and the steps at
+    ``pc_points=16384`` (8 clouds): a train-mode forward and backward of
+    each recipe in f32 and bf16 (#2/2b with K1/K2 and their bf16 modes;
+    #6/6b), each with exactly its step's kernel launches (FPS on its large
+    path once) and finite outputs and gradients; the ball query (#7) at
+    sa1's shape, indices identical to its plain version."""
+    from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.ops.sampling import (ball_query_plain,
+                                                    farthest_point_sample,
+                                                    index_points,
+                                                    query_ball_point)
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    x = torch.from_numpy(clouds[:8]).cuda()
+    cases = (("f32", [], dict(fused_sa_fwd=2, fused_sa_bwd=2,
+                              sa_weight_grad=2)),
+             ("bf16", ["model.bf16=true"],
+              dict(fused_sa_fwd_bf16=2, fused_sa_bwd_bf16=2,
+                   sa_weight_grad_bf16=2)),
+             ("model.norm=batch", [BATCH_NORM], dict(ball_group=2)),
+             ("model.norm=batch bf16", [BATCH_NORM, "model.bf16=true"],
+              dict(ball_group_single=2)))
+    for label, extra, counts in cases:
+        cfg = load_args(argv=[FLAGSHIP, f"pc_points={LIMITS_PC_POINTS}",
+                              *extra])
+        model = get_model(cfg, device="cuda", dropout=0.0,
+                          generator=torch.Generator().manual_seed(0))
+        model.train()
+        reset_counts()
+        out = model(x)
+        sum(o.float().sum() for o in out if o is not None).backward()
+        launches = read_counts()
+        want = launches_of(fps=2, fps_large=1, **counts)
+        if launches != want:
+            raise AssertionError(f"{label} forward and backward at "
+                                 f"pc_points={LIMITS_PC_POINTS} launched "
+                                 f"{launches}, expected {want}")
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        if bad or not all(bool(torch.isfinite(o).all())
+                          for o in out if o is not None):
+            raise AssertionError(f"{label} at pc_points={LIMITS_PC_POINTS}: "
+                                 f"non-finite outputs or gradients {bad}")
+        log(f"[limits] {label} forward and backward at "
+            f"pc_points={LIMITS_PC_POINTS}, batch 8: launches as expected, "
+            f"finite")
+    new_xyz = index_points(x, farthest_point_sample(x, 512))
+    got = query_ball_point(0.2, 32, x, new_xyz)
+    if not torch.equal(got, ball_query_plain(0.2, 32, x, new_xyz)):
+        raise AssertionError(f"ball query at {LIMITS_PC_POINTS} points: "
+                             f"indices differ from the plain version")
+    log(f"[limits] ball query at {LIMITS_PC_POINTS} points, 512 x 32: "
+        f"identical to the plain version")
+
+
+def limits_step(res: dict, card: dict) -> int:
+    """The training step at ``lambda_points=22`` (the segment chamfer at
+    d 132), batch 64: exactly the step's launches with nn_argmin_chunked 2,
+    the card against the CPU on 2 samples by phase 8's rule; the chunked
+    path's time, plain time, ``torch.cdist(x, y).argmin(-1)``, bound and
+    instruction floor at the step's two d = 132 searches -> its
+    launches."""
+    from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.train import build_loss_batch
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    cfg = load_args(argv=[FLAGSHIP, f"lambda_points={LIMITS_LAMBDA}"])
+    items = load_items(cfg, "train")
+    launches, _ = phase_train_step(cfg, items, "limits-train",
+                                   LIMITS_STEP_LAUNCHES, steps=0, compare=2)
+    model = get_model(cfg, device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    batch = to_batch(items, "cuda")
+    with torch.no_grad():
+        lb = build_loss_batch(model(batch["point_cloud"]), batch)
+    d = lb["y_pred"].shape[-1]
+    if d != 6 * LIMITS_LAMBDA:
+        raise AssertionError(f"the segment rows have {d} values, expected "
+                             f"{6 * LIMITS_LAMBDA}")
+    calls = [("forward segments", lb["y_pred"], lb["y"], lb["y_mask"]),
+             ("reverse segments", lb["y"], lb["y_pred"], None)]
+    res.update(hold_argmin(calls, card, "limits"))
+    log(f"[limits] nn_argmin chunked at the step's d = {d} searches: "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"torch.cdist+argmin {res['library_ms']:.4f} ms; bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}), instruction floor "
+        f"{res['instr_bound_ms']:.4f} ms")
+    return launches["nn_argmin_chunked"]
+
+
+def phase_limits(res: dict, card: dict) -> dict:
+    """Phase 25 -> each large-shape path's launches on its main path (the
+    forward at pc_points 16384, the step at λ=22, ``emd``)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        children = start_lap_references(tmp)
+        limits_fps(res["fps_large"])
+        limits_argmin()
+        launched = {"lap_large": limits_emd(res["lap_large"])}
+        launched["fps_large"], clouds = limits_forward()
+        limits_other_kernels(clouds)
+        launched["nn_argmin_chunked"] = limits_step(
+            res["nn_argmin_chunked"], card)
+        limits_lap(children)
+    log(f"[limits] phase took {time.perf_counter() - t0:.1f} s")
+    return launched
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3789,6 +4235,9 @@ def main() -> int:
         "bytes of the graphed loop: " + "; ".join(
             f"{name} {r['ms']:.3f} / {r['busy_ms']:.3f} / {r['idle']:.3f} "
             f"/ {r['pool_bytes']}" for name, r in recipe_epochs.items()))
+    # the shapes past the small paths: each main path's counts set to 0
+    # just before it and read just after
+    limits = phase_limits(res, card)
     log(f"[time] all phases done at {time.perf_counter() - t0:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -3809,6 +4258,11 @@ def main() -> int:
                 counted[name] = (path, n)
     for name in ("ball_query", "fused_sa_folded"):
         counted[name] = ("own check, through its entry point", own[name])
+    for name, path in (("fps_large", "forward at pc_points=16384"),
+                       ("nn_argmin_chunked", "training step at "
+                                             "lambda_points=22"),
+                       ("lap_large", "emd, 200 predictions x 50 GT rows")):
+        counted[name] = (path, limits[name])
     if eval_launches["nn_argmin"] == 0:
         raise AssertionError("the eval launched no nn_argmin")
     for name in KERNELS:

@@ -49,6 +49,21 @@
 // A start index outside [0, n) prints the cloud and the index and traps,
 // so that it fails loudly at the next synchronize without a host sync.
 //
+// Clouds of more than kMaxPoints points (16 bytes of shared memory a point
+// and at most 20 in a thread's registers) take the large path,
+// fps_large_kernel: one block of 1024 threads a cloud, thread t owning
+// points t, t + 1024, ..., and no size limit. The coordinates are read from
+// device memory at every step (12 bytes a point, L2-resident at batch 64
+// and 16384 points); the running min-distances, which only their owner
+// reads and writes, live in shared memory while they fit (4 bytes a point,
+// beside the staged picks: kLargeSmem), else in a scratch buffer the
+// wrapper allocates (fps_large_scratch_floats). A thread's points no
+// longer run in lane order, so the argmax takes the lowest explicit index
+// among the largest keys, at each level (a thread's own strict '>' over its
+// rising indices, then warp_arg_max on the indices themselves). The
+// squared distance and the start-index trap are the small path's. It is a
+// simple kernel that is right; its time and bound are in PERF.md.
+//
 // Two build switches serve timing studies only (bench_fps_argmin.py sets
 // them; no path of the port does): FPS_THREADS=t fixes the threads a block,
 // and the P=20 case of fps_forward is reached only through it (256 threads
@@ -62,12 +77,18 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdio>
 
 namespace {
 
-constexpr int kMaxPoints = 8192;   // points a cloud
+constexpr int kMaxPoints = 8192;   // points a cloud of the small path
 constexpr int kMaxStaged = 8192;   // picks staged in shared memory
+constexpr int kLargeThreads = 1024;  // threads a cloud of the large path
+// dynamic shared memory the large path may take (of the 227 KB a block can
+// use, the rest left to its static slots)
+constexpr size_t kLargeSmem = 226 * 1024;
+constexpr int kDevices = 16;  // devices whose shared memory setting is kept
 
 __device__ __forceinline__ float sq_dist(float x, float y, float z, float cx,
                                          float cy, float cz) {
@@ -193,7 +214,6 @@ cudaError_t launch(const float* xyz, const int* start, int b, int n,
                       static_cast<size_t>(staged) * sizeof(int);
   // the shared memory limit, raised when a call needs more (a call costs
   // host time)
-  constexpr int kDevices = 16;  // devices whose setting is remembered
   static size_t smem_set[kDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -211,11 +231,120 @@ cudaError_t launch(const float* xyz, const int* start, int b, int n,
   return cudaGetLastError();
 }
 
+
+// -- the large path (any n, one block of kLargeThreads a cloud) ---------------
+
+// Picks staged in shared memory, and whether the running distances fit there
+// beside them (else they take `n` floats of scratch a cloud).
+__host__ __device__ inline int large_staged(int npoint) {
+  return npoint <= kMaxStaged ? npoint : 0;
+}
+
+inline bool large_dist_shared(int n, int npoint) {
+  return (static_cast<size_t>(n) + large_staged(npoint)) * 4 <= kLargeSmem;
+}
+
+__global__ void __launch_bounds__(kLargeThreads)
+    fps_large_kernel(const float* __restrict__ xyz,
+                     const int* __restrict__ start, int n, int npoint,
+                     float* __restrict__ scratch, int* __restrict__ out) {
+  // the running distances (unless `scratch`), then the staged picks
+  extern __shared__ float smem[];
+  __shared__ uint2 slots[2][32];  // (key, index) of each warp
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int threads = blockDim.x;
+  const float* pts = xyz + static_cast<size_t>(b) * n * 3;
+  float* dist = scratch == nullptr ? smem : scratch + static_cast<size_t>(b) * n;
+  const bool staged = npoint <= kMaxStaged;
+  int* const picks =
+      staged ? reinterpret_cast<int*>(scratch == nullptr ? smem + n : smem)
+             : out + static_cast<size_t>(b) * npoint;
+
+  int far = start[b];
+  if (far < 0 || far >= n) {
+    if (tid == 0) {
+      printf("fps: cloud %d has start index %d outside [0, %d)\n", b, far,
+             n);
+    }
+    __trap();
+  }
+  // a thread's own points only: no barrier needed before the first step
+  for (int j = tid; j < n; j += threads) dist[j] = 1e10f;
+
+  uint2* const own_slot = &slots[0][warp];
+  const uint2* const read_slot = &slots[0][lane];
+  for (int i = 0; i < npoint; ++i) {
+    if (tid == 0) picks[i] = far;
+    const float cx = pts[3 * far];
+    const float cy = pts[3 * far + 1];
+    const float cz = pts[3 * far + 2];
+    // j grows: a strict '>' keeps the lowest index among a thread's ties; a
+    // thread without points offers key 0 at index ~0
+    float best = -1.f;
+    int best_j = -1;
+    for (int j = tid; j < n; j += threads) {
+      const float d = fminf(
+          dist[j], sq_dist(pts[3 * j], pts[3 * j + 1], pts[3 * j + 2], cx,
+                           cy, cz));
+      dist[j] = d;
+      if (d > best) {
+        best = d;
+        best_j = j;
+      }
+    }
+    const int buf = (i & 1) * 32;
+    unsigned max_key;
+    const int g = warp_arg_max(best < 0.f ? 0u : __float_as_uint(best),
+                               best_j, max_key);
+    if (lane == 0) own_slot[buf] = make_uint2(max_key, g);
+    __syncthreads();
+    const uint2 s = lane < n_warps ? read_slot[buf] : make_uint2(0u, ~0u);
+    far = warp_arg_max(s.x, static_cast<int>(s.y), max_key);
+  }
+  if (staged) {
+    __syncthreads();
+    for (int e = tid; e < npoint; e += threads) {
+      out[static_cast<size_t>(b) * npoint + e] = picks[e];
+    }
+  }
+}
+
+cudaError_t launch_large(const float* xyz, const int* start, int b, int n,
+                         int npoint, float* scratch, int* out,
+                         cudaStream_t stream) {
+  const size_t staged = static_cast<size_t>(large_staged(npoint)) * 4;
+  const size_t smem =
+      staged + (scratch == nullptr ? static_cast<size_t>(n) * 4 : 0);
+  static bool raised[kDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  bool unknown = false;
+  bool& set = device < kDevices ? raised[device] : unknown;
+  if (smem > 48 * 1024 && !set) {
+    err = cudaFuncSetAttribute(fps_large_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kLargeSmem));
+    if (err != cudaSuccess) return err;
+    set = true;
+  }
+  const int threads = std::min(kLargeThreads, (n + 31) / 32 * 32);
+  fps_large_kernel<<<b, threads, smem, stream>>>(xyz, start, n, npoint,
+                                                 scratch, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // xyz (b, n, 3) f32 contiguous, start (b,) int32 in [0, n) (checked on the
 // device: a start outside traps) -> out (b, npoint) int32. Returns a
-// cudaError_t as int (0 = launched).
+// cudaError_t as int (0 = launched). The register path, n <= kMaxPoints;
+// fps_large_forward takes any n.
 extern "C" int fps_forward(const float* xyz, const int* start, int b, int n,
                            int npoint, int* out, void* stream) {
   if (b <= 0 || n <= 0 || npoint <= 0 || n > kMaxPoints) {
@@ -259,4 +388,26 @@ extern "C" int fps_forward(const float* xyz, const int* start, int b, int n,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Floats of scratch a cloud that the large path needs at (n, npoint): 0
+// while its running distances fit in shared memory, else n.
+extern "C" long long fps_large_scratch_floats(int n, int npoint) {
+  return large_dist_shared(n, npoint) ? 0 : n;
+}
+
+// The large path at any n >= 1 (the wrapper's route above kMaxPoints
+// points): fps_forward's arguments, with `scratch` b x
+// fps_large_scratch_floats(n, npoint) floats of device memory, or null
+// when that is 0.
+extern "C" int fps_large_forward(const float* xyz, const int* start, int b,
+                                 int n, int npoint, float* scratch, int* out,
+                                 void* stream) {
+  if (b <= 0 || n <= 0 || npoint <= 0 ||
+      (scratch == nullptr && !large_dist_shared(n, npoint))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch_large(xyz, start, b, n, npoint, scratch,
+                                       out,
+                                       static_cast<cudaStream_t>(stream)));
 }

@@ -41,10 +41,33 @@
 //   scanned rows in shared memory; the argmin a warp-shuffle reduction and
 //   one round through shared memory over the warps; one thread walks the
 //   augmenting path.
+// - n > 128 (emd's exact route: 200 predictions against 50 GT rows pad to
+//   200 x 200), the large path, lap_large_kernel, with n bounded only by
+//   the card's memory: one block a problem of up to 1024 threads, thread t
+//   owning columns t, t + T, ...; each step reads row i's costs from
+//   device memory (coalesced, L2-resident); u, v, the shortest distances,
+//   the path rows, col4row, row4col and the scanned rows and columns
+//   (26 bytes an index, LargeState) sit in dynamic shared memory while
+//   they fit (kLargeSmem: about 8900 columns), else in a scratch buffer
+//   the wrapper allocates (lap_large_scratch_bytes). A step's argmin is a
+//   thread's own scan over its rising columns (strict '<'), a
+//   warp-shuffle reduction and one round through shared memory (double
+//   buffered by step, so one barrier a step), ties to the lowest column;
+//   the owner of the winning column marks it scanned. Its chain of one
+//   step, counted as above: the row's cost from L2 (200) -> the three adds
+//   (12) -> the shortest distance's compare and selects (8) -> the
+//   thread's scan, 8 a column it owns -> five shuffle-and-merge rounds
+//   (5 x 40) -> the store, barrier and load of the warps' winners (64) ->
+//   five more rounds (200) -> the winner's row4col (24 from shared memory,
+//   200 from scratch) -> the loop's test (8): lap_large_step_cycles(n).
+//   It is a simple kernel that is right; its time and bound are in
+//   PERF.md.
 // Every value is f32, formed in the plain version's order
 // (ops/hungarian.py::lap_plain), so the two normally agree index for index.
 
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 namespace {
 
@@ -53,6 +76,10 @@ constexpr float kInf = 1e18f;
 constexpr int kStepCycles = 136;
 constexpr int kWarpProblems = 4;  // problems a block of the warp path
 constexpr int kDevices = 16;      // devices whose attribute is set
+constexpr int kLargeThreads = 1024;  // threads a problem of the large path
+// dynamic shared memory the large path's state may take (of the 227 KB a
+// block can use, the rest left to its static slots)
+constexpr size_t kLargeSmem = 226 * 1024;
 
 // -- the warp path (n <= 32) -------------------------------------------------
 
@@ -262,10 +289,204 @@ __global__ void __launch_bounds__(kMaxN)
   if (col) col4row_out[static_cast<size_t>(blockIdx.x) * n + j] = col4row[j];
 }
 
+
+// -- the large path (any n; the wrapper's route above kMaxN) -----------------
+
+// A problem's state on the large path: 26 bytes an index, 16-byte aligned
+// arrays.
+struct LargeState {
+  float* u;
+  float* v;
+  float* shortest;
+  int* path;
+  int* col4row;
+  int* row4col;
+  unsigned char* s_rows;
+  unsigned char* s_cols;
+};
+
+__host__ __device__ inline size_t large_words(int n) {
+  return (static_cast<size_t>(n) * 4 + 15) & ~static_cast<size_t>(15);
+}
+
+__host__ __device__ inline size_t large_flags(int n) {
+  return (static_cast<size_t>(n) + 15) & ~static_cast<size_t>(15);
+}
+
+__host__ __device__ inline size_t large_state_bytes(int n) {
+  return 6 * large_words(n) + 2 * large_flags(n);
+}
+
+__device__ inline LargeState large_state(unsigned char* base, int n) {
+  const size_t w = large_words(n);
+  LargeState st;
+  st.u = reinterpret_cast<float*>(base);
+  st.v = reinterpret_cast<float*>(base + w);
+  st.shortest = reinterpret_cast<float*>(base + 2 * w);
+  st.path = reinterpret_cast<int*>(base + 3 * w);
+  st.col4row = reinterpret_cast<int*>(base + 4 * w);
+  st.row4col = reinterpret_cast<int*>(base + 5 * w);
+  st.s_rows = base + 6 * w;
+  st.s_cols = base + 6 * w + large_flags(n);
+  return st;
+}
+
+__device__ __forceinline__ void warp_arg_min(float& best_v, int& best_j) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, best_v, off);
+    const int oj = __shfl_xor_sync(0xffffffffu, best_j, off);
+    arg_min_merge(ov, oj, best_v, best_j);
+  }
+}
+
+__global__ void __launch_bounds__(kLargeThreads)
+    lap_large_kernel(const float* __restrict__ cost, int n,
+                     unsigned char* __restrict__ scratch,
+                     int* __restrict__ col4row_out,
+                     int* __restrict__ steps_out) {
+  extern __shared__ __align__(16) unsigned char smem_state[];
+  __shared__ float warp_v[2][32];
+  __shared__ int warp_j[2][32];
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int threads = blockDim.x;
+  const size_t problem = blockIdx.x;
+  const LargeState st = large_state(
+      scratch == nullptr ? smem_state
+                         : scratch + problem * large_state_bytes(n),
+      n);
+  const float* cb = cost + problem * n * n;
+  for (int e = t; e < n; e += threads) {
+    st.u[e] = 0.f;
+    st.v[e] = 0.f;
+    st.col4row[e] = -1;
+    st.row4col[e] = -1;
+  }
+  int n_steps = 0;
+
+  for (int cur = 0; cur < n; ++cur) {
+    for (int e = t; e < n; e += threads) {
+      st.shortest[e] = kInf;
+      st.path[e] = -1;
+      st.s_rows[e] = 0;
+      st.s_cols[e] = 0;
+    }
+    __syncthreads();
+    int i = cur;  // identical in every thread
+    int sink = -1;
+    float minval = 0.f;
+    for (int step = 0; sink < 0 && step < n; ++step) {
+      ++n_steps;
+      if (t == 0) st.s_rows[i] = 1;
+      const float ui = st.u[i];
+      const float* ci = cb + static_cast<size_t>(i) * n;
+      // this thread's columns, rising: a strict '<' keeps the lowest among
+      // ties; scanned columns count as kInf (the plain version's mask)
+      float best_v = INFINITY;
+      int best_j = n;
+      for (int j = t; j < n; j += threads) {
+        const bool scanned = st.s_cols[j];
+        float sh = st.shortest[j];
+        if (!scanned) {
+          const float d = ((minval + ci[j]) - ui) - st.v[j];
+          if (d < sh) {
+            sh = d;
+            st.shortest[j] = d;
+            st.path[j] = i;
+          }
+        }
+        const float cand = scanned ? kInf : sh;
+        if (cand < best_v) {
+          best_v = cand;
+          best_j = j;
+        }
+      }
+      warp_arg_min(best_v, best_j);
+      const int buf = step & 1;  // rewritten two steps later, past a barrier
+      if (lane == 0) {
+        warp_v[buf][warp] = best_v;
+        warp_j[buf][warp] = best_j;
+      }
+      __syncthreads();
+      best_v = lane < n_warps ? warp_v[buf][lane] : INFINITY;
+      best_j = lane < n_warps ? warp_j[buf][lane] : n;
+      warp_arg_min(best_v, best_j);
+      minval = best_v;
+      if (best_j % threads == t) st.s_cols[best_j] = 1;
+      const int nxt = st.row4col[best_j];
+      if (nxt < 0) {
+        sink = best_j;
+      } else {
+        i = nxt;
+      }
+    }
+    __syncthreads();  // every thread's shortest, s_rows and s_cols
+    // potentials (scipy rectangular_lsap): row r's, then column r's
+    for (int r = t; r < n; r += threads) {
+      if (r == cur) {
+        st.u[r] = st.u[r] + minval;
+      } else if (st.s_rows[r]) {
+        const int cj = st.col4row[r] < 0 ? 0 : st.col4row[r];
+        st.u[r] = st.u[r] + (minval - st.shortest[cj]);
+      }
+      if (st.s_cols[r]) st.v[r] = (st.v[r] + st.shortest[r]) - minval;
+    }
+    __syncthreads();
+    // augment along the alternating path that ends at the sink
+    if (t == 0) {
+      int jj = sink;
+      for (int k = 0; k < n && jj >= 0; ++k) {
+        const int r = st.path[jj];
+        st.row4col[jj] = r;
+        const int prev = st.col4row[r];
+        st.col4row[r] = jj;
+        if (r == cur) break;
+        jj = prev;
+      }
+    }
+    __syncthreads();
+  }
+  for (int e = t; e < n; e += threads) {
+    col4row_out[problem * n + e] = st.col4row[e];
+  }
+  if (t == 0 && steps_out != nullptr) steps_out[problem] = n_steps;
+}
+
+inline bool large_state_shared(int n) {
+  return large_state_bytes(n) <= kLargeSmem;
+}
+
+int launch_large(const float* cost, int b, int n, unsigned char* scratch,
+                 int* col4row, int* steps, cudaStream_t stream) {
+  const size_t smem = scratch == nullptr ? large_state_bytes(n) : 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool raised[kDevices] = {};
+  bool unknown = false;
+  bool& set = device < kDevices ? raised[device] : unknown;
+  if (smem > 48 * 1024 && !set) {
+    err = cudaFuncSetAttribute(lap_large_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kLargeSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set = true;
+  }
+  const int threads = n < kLargeThreads ? (n + 31) / 32 * 32 : kLargeThreads;
+  lap_large_kernel<<<b, threads, smem, stream>>>(cost, n, scratch, col4row,
+                                                 steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// cost (b, n, n) f32 contiguous, 1 <= n <= 128. Writes col4row (b, n) int32.
-// Returns a cudaError_t as int (0 = launched).
+// cost (b, n, n) f32 contiguous, 1 <= n <= 128 (the warp and block paths;
+// lap_large_forward takes any n). Writes col4row (b, n) int32. Returns a
+// cudaError_t as int (0 = launched).
 extern "C" int lap_forward(const float* cost, int b, int n, int* col4row,
                            void* stream) {
   if (b <= 0 || n <= 0 || n > kMaxN) {
@@ -302,3 +523,32 @@ extern "C" int lap_forward(const float* cost, int b, int n, int* col4row,
 // Cycles of one dependent Dijkstra step of the warp path (the chain floor
 // in this file's note).
 extern "C" int lap_step_cycles() { return kStepCycles; }
+
+// Bytes of scratch a problem that the large path needs at n: 0 while its
+// state fits in shared memory, else the state's 26 bytes an index.
+extern "C" long long lap_large_scratch_bytes(int n) {
+  return large_state_shared(n) ? 0 : static_cast<long long>(large_state_bytes(n));
+}
+
+// The large path at any n >= 1 (the wrapper's route above kMaxN):
+// lap_forward's arguments, with `scratch` b x lap_large_scratch_bytes(n)
+// bytes of device memory (16-byte aligned), or null when that is 0;
+// `steps`, when not null, (b,) int32: each problem's Dijkstra steps.
+extern "C" int lap_large_forward(const float* cost, int b, int n,
+                                 int* col4row, void* scratch, int* steps,
+                                 void* stream) {
+  if (b <= 0 || n <= 0 || (scratch == nullptr && !large_state_shared(n))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_large(cost, b, n, static_cast<unsigned char*>(scratch),
+                      col4row, steps, static_cast<cudaStream_t>(stream));
+}
+
+// Cycles of one dependent Dijkstra step of the large path at n (the chain
+// floor in this file's note): its fixed part, 8 a column a thread owns,
+// and the winner's row4col from scratch past the shared-memory cut.
+extern "C" int lap_large_step_cycles(int n) {
+  const int threads = n < kLargeThreads ? (n + 31) / 32 * 32 : kLargeThreads;
+  const int owned = (n + threads - 1) / threads;
+  return 716 + 8 * owned + (large_state_shared(n) ? 0 : 176);
+}

@@ -36,6 +36,17 @@
 //   first coordinate, so they never win and the inner loop has no branch.
 // - d is a template: exactly 6 and 24 (the main path) with vector loads,
 //   and a general instantiation for any other d up to 128.
+// - Above 128 coordinates (the segment chamfer at lambda_points >= 22,
+//   d = 6 lambda), the chunked path, nn_argmin_chunked_kernel, with no
+//   limit on d: a block takes 128 query rows of one cloud, one a thread,
+//   and walks y in tiles of kTileRows rows; for each tile it walks d in
+//   chunks of kChunk coordinates, staging the x and y chunks in shared
+//   memory, and carries each (x, y) pair's partial sum in a register
+//   across the chunks, so that the sum is still formed left to right over
+//   every coordinate. Coordinates past d and rows past p2 are padded with
+//   0, which adds +0 to a sum: bitwise nothing. Each tile's rows are then
+//   compared in index order with a strict '<', masked rows skipped. It is
+//   a simple kernel that is right; its time and bound are in PERF.md.
 // - The warps' (distance, index) winners are merged in shared memory in
 //   slice order with a strict '<': every thread forms the same bits for
 //   the same pair, so the lowest index among equal distances wins, as in
@@ -52,6 +63,10 @@ namespace {
 constexpr int kWarpsPerSm = 16;         // the warps a launch aims to fill
 constexpr int kStageBytes = 64 * 1024;   // y rows staged by a block
 constexpr int kDevices = 16;             // devices whose setting is kept
+constexpr int kChunkThreads = 128;       // query rows a block, chunked path
+constexpr int kTileRows = 32;            // y rows a tile, chunked path
+constexpr int kChunk = 32;               // coordinates a chunk
+constexpr int kChunkStride = kChunk + 4;  // a staged row: 16-byte aligned
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -253,18 +268,110 @@ int launch(const float* x, const float* y, const unsigned char* y_mask, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// -- the chunked path (any d) -------------------------------------------------
+
+__global__ void __launch_bounds__(kChunkThreads)
+    nn_argmin_chunked_kernel(const float* __restrict__ x,
+                             const float* __restrict__ y,
+                             const unsigned char* __restrict__ y_mask, int p1,
+                             int p2, int d, int* __restrict__ out) {
+  __shared__ __align__(16) float xs[kChunkThreads * kChunkStride];
+  __shared__ __align__(16) float ys[kTileRows * kChunkStride];
+  const int t = threadIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kChunkThreads;
+  const float* xb = x + static_cast<size_t>(b) * p1 * d;
+  const float* yb = y + static_cast<size_t>(b) * p2 * d;
+  const unsigned char* mb =
+      y_mask == nullptr ? nullptr : y_mask + static_cast<size_t>(b) * p2;
+
+  float best = INFINITY;
+  int best_j = 0;
+  for (int t0 = 0; t0 < p2; t0 += kTileRows) {
+    float acc[kTileRows];
+#pragma unroll
+    for (int u = 0; u < kTileRows; ++u) acc[u] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += kChunk) {
+      __syncthreads();  // the previous chunk is read
+      for (int e = t; e < kChunkThreads * kChunk; e += kChunkThreads) {
+        const int r = e / kChunk;
+        const int c = e % kChunk;
+        const int row = q0 + r;
+        xs[r * kChunkStride + c] =
+            (row < p1 && c0 + c < d) ? xb[static_cast<size_t>(row) * d + c0 + c]
+                                     : 0.f;
+      }
+      for (int e = t; e < kTileRows * kChunk; e += kChunkThreads) {
+        const int r = e / kChunk;
+        const int c = e % kChunk;
+        const int row = t0 + r;
+        ys[r * kChunkStride + c] =
+            (row < p2 && c0 + c < d) ? yb[static_cast<size_t>(row) * d + c0 + c]
+                                     : 0.f;
+      }
+      __syncthreads();
+      float q[kChunk];
+      const float4* x4 = reinterpret_cast<const float4*>(xs + t * kChunkStride);
+#pragma unroll
+      for (int k = 0; k < kChunk / 4; ++k) {
+        const float4 v = x4[k];
+        q[4 * k] = v.x;
+        q[4 * k + 1] = v.y;
+        q[4 * k + 2] = v.z;
+        q[4 * k + 3] = v.w;
+      }
+#pragma unroll
+      for (int u = 0; u < kTileRows; ++u) {
+        const float4* y4 =
+            reinterpret_cast<const float4*>(ys + u * kChunkStride);
+        float a = acc[u];
+#pragma unroll
+        for (int k = 0; k < kChunk / 4; ++k) {
+          const float4 v = y4[k];  // a broadcast
+          a = __fadd_rn(a, term(q[4 * k], v.x));
+          a = __fadd_rn(a, term(q[4 * k + 1], v.y));
+          a = __fadd_rn(a, term(q[4 * k + 2], v.z));
+          a = __fadd_rn(a, term(q[4 * k + 3], v.w));
+        }
+        acc[u] = a;
+      }
+    }
+    // the tile's rows in index order: a strict '<' keeps the first minimum
+#pragma unroll
+    for (int u = 0; u < kTileRows; ++u) {
+      const int j = t0 + u;
+      if (j < p2 && (mb == nullptr || mb[j]) && acc[u] < best) {
+        best = acc[u];
+        best_j = j;
+      }
+    }
+  }
+  if (q0 + t < p1) out[static_cast<size_t>(b) * p1 + q0 + t] = best_j;
+}
+
+int nn_argmin_chunked(const float* x, const float* y,
+                      const unsigned char* y_mask, int b, int p1, int p2,
+                      int d, int* out, cudaStream_t stream) {
+  const dim3 grid((p1 + kChunkThreads - 1) / kChunkThreads, b);
+  nn_argmin_chunked_kernel<<<grid, kChunkThreads, 0, stream>>>(
+      x, y, y_mask, p1, p2, d, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x (b, p1, d), y (b, p2, d) f32 contiguous, y_mask (b, p2) bool (one byte
-// each) or null; 1 <= d <= 128. Writes out (b, p1) int32. Returns a
-// cudaError_t as int (0 = launched).
+// each) or null; d >= 1 (above 128 the chunked path). Writes out (b, p1)
+// int32. Returns a cudaError_t as int (0 = launched).
 extern "C" int nn_argmin_forward(const float* x, const float* y,
                                  const unsigned char* y_mask, int b, int p1,
                                  int p2, int d, int* out, void* stream) {
-  if (b <= 0 || b > 65535 || p1 <= 0 || p2 <= 0 || d <= 0 || d > 128) {
+  if (b <= 0 || b > 65535 || p1 <= 0 || p2 <= 0 || d <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > 128) return nn_argmin_chunked(x, y, y_mask, b, p1, p2, d, out, s);
   // <coordinates, query rows a thread, y rows an iteration, exact d,
   // warps a block at most>
   if (d == 24) return launch<24, 2, 2, true, 16>(x, y, y_mask, b, p1, p2, d, out, s);
@@ -272,4 +379,18 @@ extern "C" int nn_argmin_forward(const float* x, const float* y,
   if (d <= 8) return launch<8, 4, 1, false, 16>(x, y, y_mask, b, p1, p2, d, out, s);
   if (d <= 32) return launch<32, 2, 1, false, 16>(x, y, y_mask, b, p1, p2, d, out, s);
   return launch<128, 1, 1, false, 8>(x, y, y_mask, b, p1, p2, d, out, s);
+}
+
+// The chunked path at any d >= 1 (nn_argmin_forward's route above 128
+// coordinates; at smaller d, its checks), with nn_argmin_forward's
+// arguments.
+extern "C" int nn_argmin_chunked_forward(const float* x, const float* y,
+                                         const unsigned char* y_mask, int b,
+                                         int p1, int p2, int d, int* out,
+                                         void* stream) {
+  if (b <= 0 || b > 65535 || p1 <= 0 || p2 <= 0 || d <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return nn_argmin_chunked(x, y, y_mask, b, p1, p2, d, out,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -7,7 +7,9 @@ def launch_counters() -> dict:
     """Every kernel's wrapper by kernel name; each wrapper's ``launches``
     counts the calls that launch its kernel, or record it into a CUDA
     graph being captured; a graph's replays run no Python and count
-    nothing."""
+    nothing. ``fps_large``, ``nn_argmin_chunked`` and ``lap_large`` count
+    the launches of those kernels' paths for large shapes, which their
+    wrappers' own counts include."""
     from .fps import fps_cuda
     from .fused_sa import (folded_sa_cuda, fused_sa_bf16_cuda,
                            fused_sa_bwd_bf16_cuda, fused_sa_bwd_cuda,
@@ -26,4 +28,7 @@ def launch_counters() -> dict:
             "fused_sa_fwd_bf16": fused_sa_bf16_cuda,
             "ball_group_single": ball_group_single_cuda,
             "fused_sa_bwd_bf16": fused_sa_bwd_bf16_cuda,
-            "sa_weight_grad_bf16": sa_weight_grad_bf16_cuda}
+            "sa_weight_grad_bf16": sa_weight_grad_bf16_cuda,
+            "fps_large": fps_cuda.large,
+            "nn_argmin_chunked": nn_argmin_cuda.chunked,
+            "lap_large": lap_cuda.large}

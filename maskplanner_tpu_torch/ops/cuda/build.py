@@ -112,6 +112,14 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+class PathLaunches:
+    """The launches of one path of a kernel, which its wrapper's own
+    ``launches`` counts as well."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+
 def check(err: int, what: str) -> None:
     """Raise when a C entry point reports a CUDA error."""
     if err != 0:

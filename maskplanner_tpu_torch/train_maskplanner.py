@@ -60,8 +60,9 @@ run, in the JAX driver's order: a port run's ``last_checkpoint.torch.pt``
 (weights and BatchNorm statistics; ``fc3`` and ``fc_normals`` keep their
 fresh init unless ``model.load_strict``), else a reference run's
 ``last_checkpoint.pth`` (the same rule), else a JAX run's orbax
-``last_checkpoint/`` raises (its conversion is not ported), else it warns
-and trains from scratch. It loads in place before Adam and the device
+``last_checkpoint/`` raises, naming ``tools/orbax_to_torch.py``, which
+writes the run's ``last_checkpoint.torch.pt``; else it warns and trains
+from scratch. It loads in place before Adam and the device
 epoch are built, and takes the place of the ShapeNet warm start.
 
 Every loss name of the JAX registry whose inputs the port's models give
@@ -72,14 +73,19 @@ yet (raises when its config asks for it): the adversarial losses and the
 other names of ``losses.WAITING``. On the card a loss term that a CUDA
 graph cannot capture (``LossHandler.uncapturable``: the singular values
 of ``align``, ``intra_align``) trains on the host loader, and the run
-prints why. Rendering the final dumps (``render_results.py``) is not
-ported: the run prints a notice where the JAX driver would render.
+prints why. After the final eval, unless ``skip_rendering`` or ``debug``,
+a child process renders the dumps (``render_results``, PNGs under
+``<run_dir>/renders/``), as the JAX driver does; its exit status is
+printed and a failed render never fails the run (rendering needs
+matplotlib, which only that child imports).
 """
 from __future__ import annotations
 
 import json
 import os
 import signal
+import subprocess
+import sys
 import time
 
 import torch
@@ -105,6 +111,8 @@ from .utils.args import load_args
 from .utils.config import load_config, save_config
 from .utils.profiling import profile_trace
 
+# the directory that holds the package (the render child imports it)
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def get_output_dir(config):
     """Priority: config.output_dir > $WORKDIR > ./runs."""
@@ -167,8 +175,9 @@ def warm_start_encoder(model, config) -> list[str] | None:
 def warm_start_custom(model, config) -> list[str] | None:
     """The transfer-learning warm start (``model.pretrained_custom``, the
     JAX driver's order) -> the loaded keys, or None (nothing to load: it
-    warns). A port run's checkpoint, else a reference run's ``.pth``; a
-    JAX run's orbax checkpoint raises."""
+    warns). A port run's checkpoint (a JAX run's after
+    ``tools/orbax_to_torch.py``), else a reference run's ``.pth``; a JAX
+    run's orbax checkpoint alone raises, naming that tool."""
     run = config["model"]["pretrained_custom"]
     strict = bool(config["model"].get("load_strict"))
     if os.path.isfile(checkpoint_path(run, "last_checkpoint")):
@@ -185,10 +194,10 @@ def warm_start_custom(model, config) -> list[str] | None:
               f"tensors)")
         return loaded
     if os.path.isdir(os.path.join(run, "last_checkpoint")):
-        raise NotImplementedError(
-            f"pretrained_custom {run} is a JAX run (an orbax last_checkpoint/"
-            f"): converting it to last_checkpoint.torch.pt is not ported "
-            f"(ROADMAP.md, Queue 1 item 5)")
+        raise FileNotFoundError(
+            f"pretrained_custom {run} is a JAX run (an orbax last_checkpoint/)"
+            f" without last_checkpoint.torch.pt: convert it first with "
+            f"`python tools/orbax_to_torch.py --run {run}`")
     print(f"WARNING: pretrained_custom {run} has no last_checkpoint; "
           f"training from scratch")
     return None
@@ -241,9 +250,27 @@ def _final_eval(config, run_dir, model, loaders, handler, weights,
         if ms is not None:
             summary[f"{split}_inference_ms"] = ms
     if not config.get("skip_rendering") and not config.get("debug"):
-        print(f"NOTE: rendering the dumps in {results_dir} is not ported yet "
-              f"(ROADMAP.md, Queue 1)")
+        render(run_dir, results_dir, eval_ckpt)
     return summary
+
+
+def render(run_dir: str, results_dir: str, eval_ckpt) -> None:
+    """Render the final eval's dumps, as the JAX driver does: a child
+    process runs ``render_results`` on 4 samples; its exit status is
+    printed, and a failure (or a timeout) never fails the run."""
+    print(f"Rendering results from {results_dir} ...")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (_ROOT, env.get("PYTHONPATH")) if p)
+    try:
+        done = subprocess.run(
+            [sys.executable, "-m", "maskplanner_tpu_torch.render_results",
+             "--run", os.path.abspath(run_dir), "--max_samples", "4",
+             "--model", str(eval_ckpt)],
+            check=False, timeout=600, env=env)
+        print(f"rendering exited with status {done.returncode}")
+    except Exception as e:  # rendering must never fail the run
+        print(f"(rendering skipped: {e})")
 
 
 def main(argv=None):

@@ -470,11 +470,13 @@ def test_profile_traces_the_second_epoch(profile, tmp_path):
 def test_driver_refuses_what_is_not_ported(tmp_path):
     from maskplanner_tpu_torch import train_maskplanner
 
-    # a JAX run's orbax checkpoint cannot warm-start the port
+    # a JAX run's orbax checkpoint warm-starts the port only once converted
     (tmp_path / "jax_run" / "last_checkpoint").mkdir(parents=True)
-    for extra in ([f"model.pretrained_custom={tmp_path / 'jax_run'}"],
-                  ["loss=[mse_strokes]"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for extra, error, says in (
+            ([f"model.pretrained_custom={tmp_path / 'jax_run'}"],
+             FileNotFoundError, "tools/orbax_to_torch.py"),
+            (["loss=[mse_strokes]"], NotImplementedError, "ROADMAP")):
+        with pytest.raises(error, match=says):
             train_maskplanner.main([*SMALL, "device=cpu", "epochs=1",
                                     f"output_dir={tmp_path}", *extra])
 

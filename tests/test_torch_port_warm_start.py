@@ -3,7 +3,8 @@ port, on the CPU: a port run warm-starts another (every tensor equal, the
 output layers ``fc3`` and ``fc_normals`` at their fresh init unless
 ``load_strict``), a reference run's ``.pth`` loads bitwise as the JAX
 package's ``load_torch_pretrained(mode="full")`` loads it, a JAX run's
-orbax checkpoint raises, an empty run warns and trains from scratch, and a
+orbax checkpoint alone raises (naming ``tools/orbax_to_torch.py``, whose
+round trip ``test_torch_port_render.py`` holds), an empty run warns and trains from scratch, and a
 shape mismatch raises.
 """
 import numpy as np
@@ -181,7 +182,7 @@ def test_a_jax_run_raises(tmp_path):
 
     run = tmp_path / "jax_run"
     (run / "last_checkpoint").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(FileNotFoundError, match="tools/orbax_to_torch.py"):
         train_maskplanner.main([*RUN, f"output_dir={tmp_path}",
                                 f"model.pretrained_custom={run}"])
 
