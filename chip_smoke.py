@@ -274,13 +274,36 @@ result line:
     (lap_large 1). Each new path's CUDA-event median at its
     main-path shape, plain time, bound (the LAP's also its chain floor,
     ``lap_large_step_cycles``; the argmin's its instruction floor);
-26. the card line, a ``kernels`` JSON line (launches: the kernels that ran
+26. the stroke-wise and start-of-path families (``phase_zoo``) at full
+    width on the 64 train clouds, with every extra of ``load_extra_data``
+    and ``max_n_stroke_points``, ``out_points_per_stroke`` and
+    ``out_segments_per_stroke`` set to the longest GT stroke among them
+    (printed), ``out_prototypes`` 44, tokens of 4 poses: the eval forwards
+    of ``pointnet2_strokewise``, ``pointnet2_sops`` (with confidences) and
+    ``pointnet2_3dbbox`` (a BatchNorm encoder), each with exactly the
+    flagship's or the BatchNorm recipe's forward launches, 2 samples on the
+    CPU within 1e-4 · max|ref|, ms at batch 64; #1, #2 and #3 at the
+    stroke-wise model's sa1 and sa2 and #6 at the 3D-box model's against
+    their plain versions (phase 6's and 14's rules); the nine loss names
+    of the slice through ``LossHandler`` (exactly nn_argmin 4 and lap 2),
+    each value and prediction gradient card against CPU by phase 8's
+    rules, #4 on the stroke stack with indices identical and times, #5 on
+    the 64 x 22 x 22 and 64 x 44 x 44 costs those terms gave it, totals
+    equal to the plain version's, with times; the gradient of
+    ``masked_mse_strokes_v2`` through the stroke-wise model (exactly fps
+    2, fused_sa_fwd 2, fused_sa_bwd 2, sa_weight_grad 2, lap 1), card
+    against CPU on 2 samples by phase 8's rule, ms at batch 64; the
+    rollout (``mlp_rollout``, 20 steps from a cloud's 44 tokens) card
+    against CPU, ``sop_metrics`` and ``sop_metrics_v2``; ``point_transformer``
+    at its defaults, teacher-forced and autoregressive, card against CPU;
+27. the card line, a ``kernels`` JSON line (launches: the kernels that ran
     in the traced graphed epoch of 8 replays, the three large-shape paths'
     in phase 25's forward, step and ``emd``; for the five kernels of the
     exported forward their custom op and the child's launches; the
     argmin's row also its launches a step in each recipe of phase 24 and
-    its d = 3 numbers, the LAP's the n of those recipes), and the result
-    line last.
+    its d = 3 numbers, the LAP's the n of those recipes; ``zoo_launches``,
+    each kernel's launches on phase 26's paths, and for #4 and #5 their
+    ``zoo`` times), and the result line last.
 
 It needs one CUDA card and the repository around it; without either it
 exits non-zero.
@@ -1230,18 +1253,70 @@ def hold_argmin(calls, card: dict, tag: str) -> dict:
     return out
 
 
+def hold_sa_backward(name, sa, pts, new_xyz, feats, gen) -> dict:
+    """The fused SA level (#2, and #3 as K1 and K2) against the plain level
+    on the card, on one level's inputs: the backward launches K1 and K2
+    once each, the neighbour indices are identical, pooled within
+    1e-4 · max|ref|, every max routed (``check_routing``), and each
+    gradient for a seeded cotangent (from ``gen``) within
+    ``check_against_exact``'s rule of the plain level's in float64 -> the
+    level's leaves, parameters, ``wrt`` (the tensors differentiated),
+    indices, pooled output, cotangent, and each gradient's max|kernel −
+    plain| by name (K2's names start with "L")."""
+    from maskplanner_tpu_torch.ops.fused_sa import (fused_sa_forward,
+                                                    fused_sa_forward_plain)
+
+    params = [tuple(t.detach().clone().requires_grad_(True) for t in l)
+              for l in sa.layer_params()]
+    leaves = [pts.detach().clone().requires_grad_(True),
+              new_xyz.detach().clone().requires_grad_(True),
+              None if feats is None
+              else feats.detach().clone().requires_grad_(True)]
+    wrt = [t for t in leaves if t is not None] + [t for l in params
+                                                  for t in l]
+    names = ["d_xyz", "d_new_xyz"] + ([] if feats is None
+                                      else ["d_features"])
+    names += [f"L{j}.{n}" for j in range(len(params))
+              for n in ("dW", "db", "dgamma", "dbeta")]
+    args = (sa.radius, sa.nsample, "layer")
+    pooled, idx = fused_sa_forward(*args, *leaves, params)
+    ct = torch.randn(pooled.shape, generator=gen, device=pooled.device)
+    reset_counts()
+    g = torch.autograd.grad((pooled * ct).sum(), wrt)
+    counts = read_counts()
+    if (counts["fused_sa_bwd"], counts["sa_weight_grad"]) != (1, 1):
+        raise AssertionError("the level's backward did not run K1 and K2 "
+                             "once each")
+    ref, ridx = fused_sa_forward_plain(*args, *leaves, params)
+    if not torch.equal(idx, ridx):
+        raise AssertionError(f"fused SA {name}: neighbour indices differ")
+    check_close(f"fused SA {name}", pooled.detach(), ref.detach(), REL_TOL)
+    gp = torch.autograd.grad((ref * ct).sum(), wrt)
+    l64 = [None if t is None else t.detach().double().requires_grad_(True)
+           for t in leaves]
+    p64 = [tuple(t.detach().double().requires_grad_(True) for t in l)
+           for l in params]
+    ref64, _ = fused_sa_forward_plain(*args, *l64, p64)
+    g64 = torch.autograd.grad(
+        (ref64 * ct.double()).sum(),
+        [t for t in l64 if t is not None] + [t for l in p64 for t in l])
+    check_routing(name, sa, leaves, params, idx, pooled)
+    errs = {n: check_against_exact(n, a, b, c)
+            for n, a, b, c in zip(names, g, gp, g64)}
+    return dict(leaves=leaves, params=params, wrt=wrt, idx=idx,
+                pooled=pooled, ct=ct, errs=errs)
+
+
 def phase_train_kernels(cfg, model, batch, res: dict, card: dict) -> None:
     """The training kernels against their plain versions at the step's
     shapes and inputs."""
     from maskplanner_tpu_torch.losses import LossHandler
-    from maskplanner_tpu_torch.ops import hungarian as hung
     from maskplanner_tpu_torch.ops.cuda.fused_sa import (fused_sa_bwd_cuda,
                                                          sa_weight_grad_cuda,
                                                          scratch_floats)
-    from maskplanner_tpu_torch.ops.cuda.lap import lap_cuda, lap_step_cycles
+    from maskplanner_tpu_torch.ops.cuda.lap import lap_step_cycles
     from maskplanner_tpu_torch.ops.cuda.nn_argmin import nn_argmin_cuda
-    from maskplanner_tpu_torch.ops.fused_sa import (fused_sa_forward,
-                                                    fused_sa_forward_plain)
+    from maskplanner_tpu_torch.ops.fused_sa import fused_sa_forward_plain
     from maskplanner_tpu_torch.ops.nn_argmin import nn_argmin_plain
     from maskplanner_tpu_torch.ops.sampling import (farthest_point_sample,
                                                     index_points)
@@ -1257,49 +1332,13 @@ def phase_train_kernels(cfg, model, batch, res: dict, card: dict) -> None:
         B, N, _ = pts.shape
         S, K = sa.npoint, sa.nsample
         new_xyz = index_points(pts, farthest_point_sample(pts, S))
-        params = [tuple(t.detach().clone().requires_grad_(True) for t in l)
-                  for l in sa.layer_params()]
-        leaves = [pts.detach().clone().requires_grad_(True),
-                  new_xyz.detach().clone().requires_grad_(True),
-                  None if feats is None
-                  else feats.detach().clone().requires_grad_(True)]
-        names = ["d_xyz", "d_new_xyz"] + ([] if feats is None
-                                          else ["d_features"])
-        flat = [t for layer in params for t in layer]
-        names += [f"L{j}.{n}" for j in range(len(params))
-                  for n in ("dW", "db", "dgamma", "dbeta")]
-
-        def run(fn, ls, ps, level=sa):
-            return fn(level.radius, level.nsample, "layer", *ls, ps)
-
-        pooled, idx = run(fused_sa_forward, leaves, params)
-        ct = torch.randn(pooled.shape, generator=gen, device="cuda")
-        reset_counts()
-        g = torch.autograd.grad((pooled * ct).sum(),
-                                [t for t in leaves if t is not None] + flat)
-        counts = read_counts()
-        if (counts["fused_sa_bwd"], counts["sa_weight_grad"]) != (1, 1):
-            raise AssertionError("the level's backward did not run K1 and K2 "
-                                 "once each")
-        ref, ridx = run(fused_sa_forward_plain, leaves, params)
-        if not torch.equal(idx, ridx):
-            raise AssertionError(f"fused SA {name}: neighbour indices differ")
-        gp = torch.autograd.grad((ref * ct).sum(),
-                                 [t for t in leaves if t is not None] + flat)
-        l64 = [None if t is None else t.detach().double().requires_grad_(True)
-               for t in leaves]
-        p64 = [tuple(t.detach().double().requires_grad_(True) for t in l)
-               for l in params]
-        ref64, _ = run(fused_sa_forward_plain, l64, p64)
-        g64 = torch.autograd.grad(
-            (ref64 * ct.double()).sum(),
-            [t for t in l64 if t is not None] + [t for l in p64 for t in l])
         log(f"[train-kernels] fused_sa_bwd {name} B={B} N={N} S={S} K={K}:")
-        check_routing(name, sa, leaves, params, idx, pooled)
-        for n, a, b, c in zip(names, g, gp, g64):
-            err = check_against_exact(n, a, b, c)
+        lv = hold_sa_backward(name, sa, pts, new_xyz, feats, gen)
+        for n, err in lv["errs"].items():
             r = k2 if n.startswith("L") else k1
             r["max_abs_err"] = max(r["max_abs_err"], err)
+        leaves, params, idx, pooled, ct = (lv[k] for k in (
+            "leaves", "params", "idx", "pooled", "ct"))
         # times: K1 with the step's flags (sa2's features alone carry a
         # gradient), K2 on its rows, and autograd's backward of the plain
         # level
@@ -1314,10 +1353,10 @@ def phase_train_kernels(cfg, model, batch, res: dict, card: dict) -> None:
         ms2 = median_ms(lambda: sa_weight_grad_cuda(scratch, vec, chans,
                                                     True, rows), 5)
         del scratch, vec
-        ref, _ = run(fused_sa_forward_plain, leaves, params)
+        ref, _ = fused_sa_forward_plain(sa.radius, K, "layer", *leaves,
+                                        params)
         plain = median_ms(lambda: torch.autograd.grad(
-            (ref * ct).sum(), [t for t in leaves if t is not None] + flat,
-            retain_graph=True), 3, 1)
+            (ref * ct).sum(), lv["wrt"], retain_graph=True), 3, 1)
         log(f"[train-kernels] fused_sa_bwd {name}: K1 {ms1:.3f} ms + K2 "
             f"{ms2:.3f} ms = {ms1 + ms2:.3f} ms, plain (autograd) "
             f"{plain:.3f} ms")
@@ -1382,52 +1421,59 @@ def phase_train_kernels(cfg, model, batch, res: dict, card: dict) -> None:
         f"instruction floor {r['instr_bound_ms']:.4f} ms")
 
     # the LAP's input, recorded from the loss itself
-    seen = []
-    orig = hung.lap
-    hung.lap = lambda cost: (seen.append(cost.clone()), orig(cost))[1]
-    try:
-        with torch.no_grad():
-            handler.compute(active_weights(cfg, handler), **lb)
-    finally:
-        hung.lap = orig
-    if len(seen) != 1 or tuple(seen[0].shape) != (BATCH, 22, 22):
+    with lap_costs() as seen, torch.no_grad():
+        handler.compute(active_weights(cfg, handler), **lb)
+    if [tuple(c.shape) for c, _ in seen] != [(BATCH, 22, 22)]:
         raise AssertionError(f"expected one 64 x 22 x 22 LAP, got "
-                             f"{[tuple(c.shape) for c in seen]}")
-    cost = seen[0]
-    stats = {}
-    got = lap_cuda(cost)
-    ref = hung.lap_plain(cost, stats)
-    rel, gap = check_assignment("lap", cost, got, ref)
-    agree = float((got == ref).float().mean())
-    ms = median_ms(lambda: lap_cuda(cost), 20)
-    plain = median_ms(lambda: hung.lap_plain(cost), 3, 1)
-    log(f"[train-kernels] lap {tuple(cost.shape)}: permutations, total cost "
-        f"max rel Δ {rel:.2e}, index agreement {agree:.4f}, "
-        f"{stats['steps']} Dijkstra steps; kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms")
-    n = cost.shape[1]
-    res["lap"].update(ms=ms, plain_ms=plain, library_ms=None,
-                      max_abs_err=gap,
-                      # per step and column: 3 add/sub, 2 compares, a select
-                      **bound(6.0 * stats["steps"] * n,
-                              4.0 * (cost.numel() + BATCH * n)))
+                             f"{[tuple(c.shape) for c, _ in seen]}")
+    r = res["lap"]
+    r.update(library_ms=None, **hold_lap(seen[0][0], "train-kernels"))
     # the chain floor: the longest problem's dependent steps at the cycles
     # one step needs (csrc/lap.cu's note), at the SM clock right after the
     # timing
     mhz = sm_clock_mhz()
     cycles = lap_step_cycles()
-    res["lap"].update(
-        chain_bound_ms=stats["max_steps"] * cycles / (mhz * 1e6) * 1e3,
-        chain_bound_by=f"{stats['max_steps']} dependent steps x {cycles} "
+    r.update(
+        chain_bound_ms=r["max_steps"] * cycles / (mhz * 1e6) * 1e3,
+        chain_bound_by=f"{r['max_steps']} dependent steps x {cycles} "
                        f"cycles at {mhz:.0f} MHz",
-        ns_per_step=ms * 1e6 / stats["max_steps"])
-    log(f"[train-kernels] lap chain: longest problem {stats['max_steps']} of "
-        f"{stats['steps']} steps; floor {res['lap']['chain_bound_ms']:.4f} ms "
+        ns_per_step=r["ms"] * 1e6 / r["max_steps"])
+    log(f"[train-kernels] lap chain: longest problem {r['max_steps']} of "
+        f"{r['steps']} steps; floor {res['lap']['chain_bound_ms']:.4f} ms "
         f"({cycles} cycles a step at {mhz:.0f} MHz); kernel "
         f"{res['lap']['ns_per_step']:.1f} ns a dependent step (launch gap "
         f"included)")
     check_lap_edges()
     model.eval()
+
+
+def hold_lap(cost, tag: str) -> dict:
+    """The LAP kernel on ``cost`` (B, n, n) on the card: a permutation per
+    problem whose total cost lies within 1e-5 relative of the plain
+    version's; its time (CUDA-event median), the plain version's, the
+    largest total-cost gap, the Dijkstra steps (all and the longest
+    problem's) and the bound."""
+    from maskplanner_tpu_torch.ops.cuda.lap import lap_cuda
+    from maskplanner_tpu_torch.ops.hungarian import lap_plain
+
+    stats = {}
+    got = lap_cuda(cost)
+    ref = lap_plain(cost, stats)
+    rel, gap = check_assignment(f"[{tag}] lap {tuple(cost.shape)}", cost,
+                                got, ref)
+    agree = float((got == ref).float().mean())
+    ms = median_ms(lambda: lap_cuda(cost), 20)
+    plain = median_ms(lambda: lap_plain(cost), 3, 1)
+    log(f"[{tag}] lap {tuple(cost.shape)}: permutations, total cost max rel "
+        f"Δ {rel:.2e}, index agreement {agree:.4f}, {stats['steps']} "
+        f"Dijkstra steps (longest {stats['max_steps']}); kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms")
+    B, n, _ = cost.shape
+    return dict(ms=ms, plain_ms=plain, max_abs_err=gap, steps=stats["steps"],
+                max_steps=stats["max_steps"],
+                # per step and column: 3 add/sub, 2 compares, a select
+                **bound(6.0 * stats["steps"] * n,
+                        4.0 * (cost.numel() + B * n)))
 
 
 def check_assignment(what: str, cost, got, ref) -> tuple[float, float]:
@@ -1506,9 +1552,10 @@ def phase_train_step(cfg, items, label: str = "train",
     gen = torch.Generator(device="cuda").manual_seed(0)
     train_step(model, opt, handler, batch, weights, gen)   # warm up
     reset_counts()
-    with lap_shapes() as shapes:
+    with lap_costs() as seen:
         loss, _ = train_step(model, opt, handler, batch, weights, gen)
     launches = read_counts()
+    shapes = [tuple(c.shape) for c, _ in seen]
     log(f"[{label}] launches in one step: {launches}; LAP costs {shapes}")
     if launches != expect:
         raise AssertionError(f"one training step launched {launches}, "
@@ -1544,20 +1591,20 @@ def phase_train_step(cfg, items, label: str = "train",
 
 
 @contextlib.contextmanager
-def lap_shapes():
-    """The shapes of the cost tensors that ``ops.hungarian.lap`` is given
-    inside the block, in call order."""
+def lap_costs():
+    """The (cost, col4row) pairs of the calls of ``ops.hungarian.lap``
+    inside the block, in call order, each cost a detached copy."""
     from maskplanner_tpu_torch.ops import hungarian
 
-    shapes, lap = [], hungarian.lap
+    seen, lap = [], hungarian.lap
 
     def recorded(cost):
-        shapes.append(tuple(cost.shape))
-        return lap(cost)
+        seen.append((cost.detach().clone(), lap(cost)))
+        return seen[-1][1]
 
     hungarian.lap = recorded
     try:
-        yield shapes
+        yield seen
     finally:
         hungarian.lap = lap
 
@@ -3908,17 +3955,12 @@ def limits_emd(res: dict) -> int:
     y = torch.randn((BATCH, 50, 24), generator=gen)
     y_mask = torch.rand((BATCH, 50), generator=gen) > 0.2
     y_mask[:, 0] = True
-    seen = []   # (costs, col4row) of each LAP, the card's then the CPU's
-    orig = hung.lap
-    hung.lap = lambda cost: (seen.append((cost.clone(), orig(cost))),
-                             seen[-1][1])[1]
-    try:
+    # (costs, col4row) of each LAP, the card's then the CPU's
+    with lap_costs() as seen:
         reset_counts()
         card = float(emd(y_pred.cuda(), y.cuda(), y_mask.cuda()))
         launches = read_counts()
         cpu = float(emd(y_pred, y, y_mask))
-    finally:
-        hung.lap = orig
     rel = abs(card - cpu) / abs(cpu)
     log(f"[limits] emd 64 x 200 against 50: card {card:.7f}, cpu {cpu:.7f}, "
         f"rel Δ {rel:.2e}; launches {launches}")
@@ -4113,6 +4155,492 @@ def phase_limits(res: dict, card: dict) -> dict:
     return launched
 
 
+# phase 26: the stroke-wise and start-of-path families
+ZOO_EXTRAS = ["load_extra_data=[stroke_prototypes,segments_per_stroke,"
+              "history_of_segments_per_stroke_v2]",
+              "start_of_path_token_length=4", "out_prototypes=44",
+              "sop_confidence_scores=true", "substroke_points=4",
+              "stroke_prototype_dim=24", "rollout_loss=[mse_nexttoken_v2]",
+              "end_of_path_confidence=true",
+              "explicit_weight_masked_mse_loss=1.0",
+              "explicit_weight_point_confidence_loss=1.0",
+              "explicit_weight_stroke_confidence_loss=1.0",
+              "explicit_no_sop_weight=0.2",
+              "explicit_weight_sop_confidence_loss=1.0",
+              "explicit_weight_endofpath_confidence_loss=1.0"]
+# the nine loss names of the slice, and those the JAX handler takes at
+# λ = 4 (the others are held under a λ = 1 configuration: the handler's
+# check only, the data stay the same)
+ZOO_TERMS = ("mse_strokes", "chamfer_strokes", "asymm_v6_chamfer_strokes",
+             "masked_mse_strokes", "masked_mse_strokes_v2",
+             "masked_mse_strokes_from_segments", "mse_nexttoken",
+             "mse_nexttoken_v2", "hungarian_SoPs")
+ZOO_LAMBDA4 = ("chamfer_strokes", "masked_mse_strokes_from_segments",
+               "mse_nexttoken", "mse_nexttoken_v2", "hungarian_SoPs")
+ZOO_ROLLOUT_STEPS = 20
+ZOO_FORWARD_LAUNCHES = {"pointnet2_strokewise": FORWARD_LAUNCHES,
+                        "pointnet2_sops": FORWARD_LAUNCHES,
+                        "pointnet2_3dbbox": BN_FORWARD_LAUNCHES}
+# chamfer_strokes and asymm_v6_chamfer_strokes search both directions on
+# the stroke stack; masked_mse_strokes_v2 and hungarian_SoPs solve a LAP
+ZOO_TERM_LAUNCHES = launches_of(nn_argmin=4, lap=2)
+ZOO_GRAD_LAUNCHES = launches_of(fps=2, fused_sa_fwd=2, fused_sa_bwd=2,
+                                sa_weight_grad=2, lap=1)
+ZOO_HISTORY_KEYS = ("strokewise_history_batch", "strokewise_target_batch",
+                    "strokewise_stroke_ids_batch",
+                    "strokewise_end_of_path_batch")
+
+
+def zoo_config():
+    """The zoo's configuration with every GT stroke's length: the longest
+    stroke over the 64 train clouds of the flagship data, in poses and in
+    λ-segments -> (config, train items)."""
+    from maskplanner_tpu_torch.data import PaintDataset
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    probe = load_args(argv=[FLAGSHIP, "pc_points=64"])
+    ds = PaintDataset(probe, split="train", size=BATCH)
+    points = segments = 0
+    for i in range(BATCH):
+        it = ds[i]
+        for ids, what in ((it["stroke_ids_as_pc"], "points"),
+                          (it["stroke_ids"], "segments")):
+            longest = int(np.bincount(ids[ids >= 0]).max())
+            if what == "points":
+                points = max(points, longest)
+            else:
+                segments = max(segments, longest)
+    log(f"[zoo] the longest GT stroke over {BATCH} train clouds: {points} "
+        f"poses, {segments} segments: max_n_stroke_points={points}, "
+        f"out_points_per_stroke={points}, out_segments_per_stroke="
+        f"{segments}; out_prototypes 44, start_of_path_token_length 4, "
+        f"substroke_points 4, {ZOO_ROLLOUT_STEPS} rollout steps")
+    cfg = load_args(argv=[FLAGSHIP, *ZOO_EXTRAS,
+                          f"max_n_stroke_points={points}",
+                          f"out_points_per_stroke={points}",
+                          f"out_segments_per_stroke={segments}"])
+    ds = PaintDataset(cfg, split="train", size=BATCH)
+    return cfg, [ds[i] for i in range(BATCH)]
+
+
+def zoo_batch(items: list[dict], device) -> tuple[dict, dict]:
+    """The items' extras as a batch, the next-token histories (a row count
+    of their own an item, which ``collate`` cannot stack) concatenated."""
+    from maskplanner_tpu_torch.data import collate
+
+    batch = collate([{k: v for k, v in it.items()
+                      if k not in ZOO_HISTORY_KEYS} for it in items])
+    hist = {k: np.concatenate([it[k] for it in items])
+            for k in ZOO_HISTORY_KEYS}
+    to = (lambda d: {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                     for k, v in d.items()})
+    return to(batch), to(hist)
+
+
+def zoo_models(cfg) -> dict:
+    from maskplanner_tpu_torch.models import get_model
+
+    return {name: get_model(cfg, device="cuda", which=name,
+                            generator=torch.Generator().manual_seed(3))
+            for name in ("pointnet2_strokewise", "pointnet2_sops",
+                         "pointnet2_3dbbox", "mlp_rollout",
+                         "point_transformer")}
+
+
+def zoo_forwards(models: dict, clouds: torch.Tensor) -> dict:
+    """Each regressor's eval forward at batch 64: its launches (exactly
+    the flagship forward's, or the BatchNorm recipe's), finite outputs, 2
+    samples on the CPU within 1e-4 · max|ref|, ms at batch 64 (host
+    clock, median of 10) -> {model: (outputs, launches)}."""
+    out = {}
+    for name, expect in ZOO_FORWARD_LAUNCHES.items():
+        model = models[name]
+        reset_counts()
+        with torch.inference_mode():
+            got = model(clouds)
+        launches = read_counts()
+        if launches != expect:
+            raise AssertionError(f"[zoo] {name} forward launched "
+                                 f"{launches}, expected {expect}")
+        cpu = copy.deepcopy(model).cpu()
+        with torch.inference_mode():
+            ref = cpu(clouds[:2].cpu())
+        for i, (a, b) in enumerate(zip(got, ref)):
+            if a is None:
+                continue
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"[zoo] {name} output {i}: not finite")
+            err = float((a[:2].cpu() - b).abs().max())
+            scale = float(b.abs().max())
+            if not err <= REL_TOL * scale:
+                raise AssertionError(f"[zoo] {name} output {i}: card vs CPU "
+                                     f"{err} > {REL_TOL} x {scale}")
+            log(f"[zoo] {name} output {i} {tuple(a.shape)}: card vs CPU "
+                f"max|Δ| {err:.3e} (max|ref| {scale:.3e})")
+
+        def fwd(m=model):
+            with torch.inference_mode():
+                return m(clouds)
+
+        ms = median_host_s(fwd, 10) * 1e3
+        log(f"[zoo] {name} forward at batch {BATCH}: {ms:.3f} ms; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        out[name] = (got, launches, ms)
+    return out
+
+
+def zoo_encoder_kernels(models: dict, clouds: torch.Tensor) -> None:
+    """#1, #2 and #3 at the stroke-wise model's sa1 and sa2 and #6 at the
+    3D-box model's, on the zoo's clouds, against their plain versions on
+    the card: FPS indices identical, the fused level's neighbour indices
+    identical and pooled within 1e-4 · max|ref|, its backward (K1 and K2)
+    for a seeded cotangent within phase 6's rule (``check_against_exact``)
+    with every max routed (``check_routing``), the ball-group gather's
+    indices identical and values within 1e-6 · max|ref|."""
+    from maskplanner_tpu_torch.ops.cuda.fps import fps_cuda
+    from maskplanner_tpu_torch.ops.cuda.group_gather import ball_group_cuda
+    from maskplanner_tpu_torch.ops.group_gather import ball_group_plain
+    from maskplanner_tpu_torch.ops.sampling import fps_plain, index_points
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    start = torch.zeros(BATCH, dtype=torch.int32, device="cuda")
+    model = models["pointnet2_strokewise"]
+    pts, feats = clouds, None
+    for name, sa in (("sa1", model.sa1), ("sa2", model.sa2)):
+        S = sa.npoint
+        idx = fps_cuda(pts, S, start)
+        if not torch.equal(idx, fps_plain(pts, S, start)):
+            raise AssertionError(f"[zoo] fps {name}: indices differ")
+        new_xyz = index_points(pts, idx)
+        log(f"[zoo] fps {name}: indices identical; fused_sa_fwd, "
+            f"fused_sa_bwd and sa_weight_grad:")
+        pooled = hold_sa_backward(name, sa, pts, new_xyz, feats,
+                                  gen)["pooled"]
+        pts, feats = new_xyz.detach(), pooled.detach()
+    bbox = models["pointnet2_3dbbox"]
+    with torch.no_grad():
+        sa2_in = bbox.sa1(clouds, None)
+        for name, sa, pts, feats in (("sa1", bbox.sa1, clouds, None),
+                                     ("sa2", bbox.sa2, *sa2_in)):
+            r, K = sa.radius, sa.nsample
+            new_xyz = index_points(pts, fps_cuda(pts, sa.npoint,
+                                                 start[:pts.shape[0]]))
+            got, idx = ball_group_cuda(r, K, pts, new_xyz, feats)
+            ref, ridx = ball_group_plain(r, K, pts, new_xyz, feats)
+            if not torch.equal(idx, ridx):
+                raise AssertionError(f"[zoo] ball_group {name}: indices "
+                                     f"differ")
+            err = check_close(f"[zoo] ball_group {name}", got, ref, 1e-6)
+            log(f"[zoo] ball_group {name} (pointnet2_3dbbox): indices "
+                f"identical, max|Δ| {err:.3e}")
+
+
+def zoo_term_inputs(cfg, batch: dict, hist: dict, fwd: dict) -> dict:
+    """Each of the nine terms' inputs on the card: the stroke-wise model's
+    strokes and the SoP model's tokens where a model gives them, else the
+    GT near which seeded noise puts the predictions (random where the GT
+    is padding) -> {name: (its inputs, the prediction keys)}."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def near(gt):
+        noise = torch.randn(gt.shape, generator=gen, device=gt.device)
+        return torch.where(gt == -100.0, noise, gt + 0.05 * noise)
+
+    def logits(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    valid = batch["stroke_valid"]
+    B, M = valid.shape
+    segs = batch["segments_per_stroke"][valid]          # (K, S, 24)
+    pts = batch["points_per_stroke"][valid]             # (K, N, 6)
+    K, N = pts.shape[:2]
+    zeroed = torch.where(pts == -100.0, 0.0, pts)
+    tgt, eop = hist["strokewise_target_batch"], hist[
+        "strokewise_end_of_path_batch"]
+    strokes, point_conf, stroke_conf = fwd["pointnet2_strokewise"][0]
+    tokens, sop_conf = fwd["pointnet2_sops"][0]
+    return {
+        "mse_strokes": (dict(stacked_strokes_pred=near(zeroed.reshape(K, -1)),
+                             stacked_strokes_gt=zeroed.reshape(K, -1)),
+                        ("stacked_strokes_pred",)),
+        "chamfer_strokes": (dict(stacked_segments_per_stroke_pred=near(segs),
+                                 stacked_segments_per_stroke_gt=segs),
+                            ("stacked_segments_per_stroke_pred",)),
+        "asymm_v6_chamfer_strokes": (
+            dict(stacked_segments_per_stroke_pred=near(segs),
+                 stacked_segments_per_stroke_gt=segs),
+            ("stacked_segments_per_stroke_pred",)),
+        "masked_mse_strokes": (
+            dict(stacked_points_per_stroke_pred=near(pts),
+                 stacked_points_per_stroke_gt=pts,
+                 confidence_scores=logits((K, N, 1))),
+            ("stacked_points_per_stroke_pred", "confidence_scores")),
+        "masked_mse_strokes_v2": (
+            dict(pred_points_per_stroke=strokes.clone(),
+                 points_per_stroke=batch["points_per_stroke"].reshape(
+                     B, M, -1),
+                 pred_point_scores=point_conf.clone(),
+                 pred_stroke_scores=stroke_conf.clone(),
+                 gt_stroke_mask=valid),
+            ("pred_points_per_stroke", "pred_point_scores",
+             "pred_stroke_scores")),
+        "masked_mse_strokes_from_segments": (
+            dict(stacked_points_per_stroke_pred=near(zeroed),
+                 stacked_points_per_stroke_gt=zeroed,
+                 confidence_scores=torch.sigmoid(logits((K, N, 1))),
+                 output_mask=~torch.all(pts == -100.0, dim=-1)),
+            ("stacked_points_per_stroke_pred", "confidence_scores")),
+        "mse_nexttoken": (dict(stacked_pred_nexttoken=near(tgt),
+                               stacked_gt_nexttoken=tgt),
+                          ("stacked_pred_nexttoken",)),
+        "mse_nexttoken_v2": (
+            dict(stacked_pred_nexttoken=near(tgt), stacked_gt_nexttoken=tgt,
+                 end_of_path_scores=logits(eop.shape), end_of_path_gt=eop),
+            ("stacked_pred_nexttoken", "end_of_path_scores")),
+        "hungarian_SoPs": (
+            dict(sop_pred=tokens.clone(), sop_gt=batch["stroke_prototypes"],
+                 pred_sop_conf_scores=sop_conf.clone()),
+            ("sop_pred", "pred_sop_conf_scores")),
+    }
+
+
+def zoo_handler(cfg, name: str):
+    from maskplanner_tpu_torch.losses import LossHandler
+
+    c = copy.deepcopy(cfg)
+    c[f"weight_{name}"] = 1.0
+    if name not in ZOO_LAMBDA4:
+        c["lambda_points"], c["overlapping"] = 1, 0
+    return LossHandler([name], c)
+
+
+def zoo_term_value(handler, inputs: dict, preds, dev, dtype):
+    """The term and its gradients with respect to ``preds`` on ``dev`` in
+    ``dtype`` -> (value, {key: float64 gradient on the CPU})."""
+    d = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+         for k, v in inputs.items()}
+    for k in preds:
+        d[k] = d[k].detach().clone().requires_grad_(True)
+    total = handler.compute(handler.init_weights(), **d)[0]
+    total.backward()
+    return float(total.detach()), {k: d[k].grad.double().cpu()
+                                   for k in preds}
+
+
+def zoo_terms(cfg, terms: dict, card: dict, res: dict) -> dict:
+    """The nine loss names through ``LossHandler`` at batch 64: their
+    launches on the card (exactly nn_argmin 4 and lap 2), each value card
+    against CPU within 1e-4 relative plus 3 x the CPU's own float32 error
+    and each prediction gradient's rms within 1e-3 of its norm plus 3 x
+    the CPU's own (phase 8's rules); #4 on the stroke stacks and #5 at
+    64 x 22 x 22 and 64 x 44 x 44 against their plain versions on the
+    card -> the launches."""
+    handlers = {name: zoo_handler(cfg, name) for name in ZOO_TERMS}
+    with lap_costs() as seen:
+        reset_counts()
+        card_runs = {name: zoo_term_value(handlers[name], *terms[name],
+                                          "cuda", torch.float32)
+                     for name in ZOO_TERMS}
+        launches = read_counts()
+    if launches != ZOO_TERM_LAUNCHES:
+        raise AssertionError(f"[zoo] the nine terms launched {launches}, "
+                             f"expected {ZOO_TERM_LAUNCHES}")
+    for name in ZOO_TERMS:
+        v, g = card_runs[name]
+        ref, ref_g = zoo_term_value(handlers[name], *terms[name], "cpu",
+                                    torch.float32)
+        v64, g64 = zoo_term_value(handlers[name], *terms[name], "cpu",
+                                  torch.float64)
+        own = abs(ref - v64)
+        if not (np.isfinite(v) and abs(v - ref) <= 1e-4 * abs(ref)
+                + 3.0 * own):
+            raise AssertionError(f"[zoo] {name}: card {v}, CPU {ref} "
+                                 f"(float64 {v64})")
+        for k in ref_g:
+            d = float((g[k] - ref_g[k]).norm())
+            tol = 1e-3 * float(ref_g[k].norm()) + 3.0 * float(
+                (ref_g[k] - g64[k]).norm())
+            if not d <= tol:
+                raise AssertionError(f"[zoo] {name} d/d{k}: card vs CPU rms "
+                                     f"{d} > {tol}")
+        log(f"[zoo] {name}: card {v:.6g}, CPU {ref:.6g} (float64 {v64:.6g});"
+            f" gradients with respect to {', '.join(ref_g)} agree")
+    # #4 on the stroke stacks: chamfer_strokes' two searches
+    segs_pred, segs = (terms["chamfer_strokes"][0][k] for k in (
+        "stacked_segments_per_stroke_pred", "stacked_segments_per_stroke_gt"))
+    from maskplanner_tpu_torch.ops.chamfer import mask_from_padding
+    res["nn_argmin"]["zoo"] = hold_argmin(
+        [("stroke stack forward", segs_pred, segs, mask_from_padding(segs)),
+         ("stroke stack reverse", segs, segs_pred, None)], card, "zoo")
+    # #5 on the costs the two matching terms gave it
+    shapes = sorted(tuple(c.shape) for c, _ in seen)
+    if shapes != [(BATCH, 22, 22), (BATCH, 44, 44)]:
+        raise AssertionError(f"[zoo] LAP costs {shapes}, expected 64 x 22 x "
+                             f"22 and 64 x 44 x 44")
+    res["lap"]["zoo"] = {f"n{cost.shape[1]}": hold_lap(cost, "zoo")
+                         for cost, _ in seen}
+    return launches
+
+
+def zoo_gradient(cfg, batch: dict) -> dict:
+    """The gradient of ``masked_mse_strokes_v2`` through the stroke-wise
+    model in train mode (dropout 0, FPS from index 0): its launches at
+    batch 64 (exactly ZOO_GRAD_LAUNCHES) and the ms of a forward, loss and
+    backward (host clock, median of 5);
+    on 2 samples the card against the CPU by phase 8's rule, the loss
+    within 1e-4 relative and each parameter gradient's rms within 1e-3 of
+    its norm plus 3 x the CPU's own float32 error -> the launches."""
+    from maskplanner_tpu_torch.models import get_model
+
+    handler = zoo_handler(cfg, "masked_mse_strokes_v2")
+    B, M = batch["stroke_valid"].shape
+    gt = dict(points_per_stroke=batch["points_per_stroke"].reshape(B, M, -1),
+              gt_stroke_mask=batch["stroke_valid"])
+
+    def backward(model, pc, g):
+        model.zero_grad(set_to_none=True)
+        strokes, point_conf, stroke_conf = model(pc)
+        loss = handler.compute(
+            handler.init_weights(), pred_points_per_stroke=strokes,
+            pred_point_scores=point_conf, pred_stroke_scores=stroke_conf,
+            **{k: v[:pc.shape[0]].to(pc.device) if k == "gt_stroke_mask"
+               else v[:pc.shape[0]].to(pc.device, pc.dtype)
+               for k, v in g.items()})[0]
+        loss.backward()
+        return loss
+
+    def grads(model, pc, g):
+        loss = backward(model, pc, g)
+        return float(loss.detach()), {n: p.grad.detach().double().cpu()
+                                      for n, p in model.named_parameters()}
+
+    def fresh(dev, dtype):
+        m = get_model(cfg, device="cpu", dropout=0.0,
+                      which="pointnet2_strokewise",
+                      generator=torch.Generator().manual_seed(3))
+        return m.to(dev, dtype).train()
+
+    card_model = fresh("cuda", torch.float32)
+    pc = batch["point_cloud"]
+    reset_counts()
+    backward(card_model, pc, gt)
+    launches = read_counts()
+    if launches != ZOO_GRAD_LAUNCHES:
+        raise AssertionError(f"[zoo] the stroke-wise gradient launched "
+                             f"{launches}, expected {ZOO_GRAD_LAUNCHES}")
+    ms = median_host_s(lambda: backward(card_model, pc, gt), 5) * 1e3
+    two = pc[:2]
+    l_gpu, g_gpu = grads(fresh("cuda", torch.float32), two, gt)
+    l_cpu, g_cpu = grads(fresh("cpu", torch.float32), two.cpu(), gt)
+    l_64, g_64 = grads(fresh("cpu", torch.float64), two.cpu().double(), gt)
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    if not rel <= 1e-4:
+        raise AssertionError(f"[zoo] masked_mse_strokes_v2 through the "
+                             f"model: loss card {l_gpu} vs CPU {l_cpu}")
+    for n, ref in g_cpu.items():
+        d = float((g_gpu[n] - ref).norm())
+        tol = 1e-3 * float(ref.norm()) + 3.0 * float((ref - g_64[n]).norm())
+        if not d <= tol:
+            raise AssertionError(f"[zoo] gradient {n}: card vs CPU rms {d} > "
+                                 f"{tol}")
+    log(f"[zoo] masked_mse_strokes_v2 through pointnet2_strokewise: loss "
+        f"card {l_gpu:.6f}, CPU {l_cpu:.6f} (float64 {l_64:.6f}), rel Δ "
+        f"{rel:.2e}; {len(g_cpu)} parameter gradients agree; forward and "
+        f"backward at batch {BATCH}: {ms:.3f} ms; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def zoo_rollout(cfg, models: dict, fwd: dict) -> None:
+    """The rollout from the 44 SoP tokens of a cloud (``mlp_rollout``, 4
+    history segments, ``ZOO_ROLLOUT_STEPS`` steps) on the card against the
+    CPU within 1e-4 · max|ref|, the paths cut at their end-of-path
+    logits, its time (host clock, median of 10 after a warm-up), and both
+    SoP metric families on the batch's tokens."""
+    from maskplanner_tpu_torch.metrics import MetricsHandler
+    from maskplanner_tpu_torch.postprocess.sop import (
+        postprocess_sop_predictions, truncate_autoregressive_eop)
+    from maskplanner_tpu_torch.train.rollout import \
+        sample_autoregressive_inference_sop
+
+    tokens, conf = fwd["pointnet2_sops"][0]
+    head = models["mlp_rollout"]
+    args = (4, 24, ZOO_ROLLOUT_STEPS)
+    paths, eops = sample_autoregressive_inference_sop(head, tokens[0], *args)
+    ms = median_host_s(lambda: sample_autoregressive_inference_sop(
+        head, tokens[0], *args), 10) * 1e3
+    ref_paths, ref_eops = sample_autoregressive_inference_sop(
+        copy.deepcopy(head).cpu(), tokens[0].cpu(), *args)
+    for what, a, b in (("paths", paths, ref_paths), ("eops", eops, ref_eops)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"[zoo] rollout {what}: not finite")
+        check_close(f"[zoo] rollout {what}", a.cpu(), b, REL_TOL)
+    cut = truncate_autoregressive_eop(paths.cpu().numpy(),
+                                      eops.cpu().numpy()[..., 0])
+    log(f"[zoo] rollout of {tokens.shape[1]} tokens x "
+        f"{ZOO_ROLLOUT_STEPS} steps: {tuple(paths.shape)}, card vs CPU "
+        f"within {REL_TOL} of max|ref|, {ms:.3f} ms; lengths at the "
+        f"end-of-path logits {[len(c) for c in cut][:8]}...")
+    processed = postprocess_sop_predictions(tokens.cpu().numpy(),
+                                            conf.cpu().numpy(), 0.5)
+    metrics = MetricsHandler(cfg, ["sop_metrics", "sop_metrics_v2"]).compute(
+        sop_pred=tokens, sop_gt=fwd["sop_gt"], pred_sop_conf_scores=conf,
+        sop_conf_threshold=0.5, processed_sop_pred=processed)
+    if not all(np.isfinite(v) for v in metrics.values()) or len(metrics) != 15:
+        raise AssertionError(f"[zoo] SoP metrics {metrics}")
+    log(f"[zoo] SoP metrics: {metrics}")
+
+
+def zoo_transformer(models: dict, batch: dict) -> None:
+    """``point_transformer`` at its defaults on the GT segments (449 of
+    24 values): teacher forcing on the first 100 segments and the
+    autoregressive decoding over ``max_seq_len`` 100, batch 64, finite,
+    2 samples on the CPU within 1e-4 · max|ref|, ms of each (host clock,
+    median of 5 after a warm-up)."""
+    model = models["point_transformer"]
+    src = torch.where(batch["traj"] == -100.0, 0.0, batch["traj"])
+    tgt = src[:, :model.max_seq_len]
+    for what, inputs in (("teacher forcing", (src, tgt)),
+                         ("autoregressive", (src,))):
+        with torch.no_grad():
+            got = model(*inputs)
+            ms = median_host_s(lambda: model(*inputs), 5) * 1e3
+            ref = copy.deepcopy(model).cpu()(*(x[:2].cpu() for x in inputs))
+        for a, b in zip(got, ref):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"[zoo] point_transformer {what}: not "
+                                     f"finite")
+            check_close(f"[zoo] point_transformer {what}", a[:2].cpu(), b,
+                        REL_TOL)
+        log(f"[zoo] point_transformer {what}: {tuple(got[0].shape)} at batch "
+            f"{BATCH} in {ms:.3f} ms, 2 samples on the CPU within {REL_TOL} "
+            f"of max|ref|")
+
+
+def phase_zoo(res: dict, card: dict) -> dict:
+    """Phase 26 -> {path: launches} of the zoo's main paths."""
+    t0 = time.perf_counter()
+    cfg, items = zoo_config()
+    batch, hist = zoo_batch(items, "cuda")
+    models = zoo_models(cfg)
+    fwd = zoo_forwards(models, batch["point_cloud"])
+    fwd["sop_gt"] = batch["stroke_prototypes"]
+    paths = {f"{name} forward": fwd[name][1]
+             for name in ZOO_FORWARD_LAUNCHES}
+    zoo_encoder_kernels(models, batch["point_cloud"])
+    paths["the nine terms"] = zoo_terms(
+        cfg, zoo_term_inputs(cfg, batch, hist, fwd), card, res)
+    paths["masked_mse_strokes_v2 gradient"] = zoo_gradient(cfg, batch)
+    zoo_rollout(cfg, models, fwd)
+    zoo_transformer(models, batch)
+    for name in KERNELS:
+        ran = {p: n[name] for p, n in paths.items() if n[name]}
+        if ran:
+            res[name]["zoo_launches"] = ran
+    log(f"[zoo] phase took {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4238,6 +4766,9 @@ def main() -> int:
     # the shapes past the small paths: each main path's counts set to 0
     # just before it and read just after
     limits = phase_limits(res, card)
+    # the stroke-wise and start-of-path families: each path's counts set to
+    # 0 just before it and read just after
+    phase_zoo(res, card)
     log(f"[time] all phases done at {time.perf_counter() - t0:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (

@@ -1,9 +1,12 @@
 """Weights across the two packages, and the port's checkpoint file.
 
 :func:`state_dict_from_flax` maps a Flax variable tree of
-``PointNet2StrokeMasks`` or of ``PointNet2Regressor``, whose paths are a
-subset of the flagship's (``{"params": ..., "batch_stats": ...}`` as nested
-dicts of numpy arrays), onto the port's ``state_dict``. Flax module paths
+``PointNet2StrokeMasks``, or of a regressor built like it
+(``PointNet2Regressor``, ``PointNet2SoPs``, ``PointNet2StrokeWise``: the
+flagship's paths or a subset of them, with their own outputs), or of
+``MLPRegressor`` or ``PointTransformer`` (``{"params": ...,
+"batch_stats": ...}`` as nested dicts of numpy arrays), onto the port's
+``state_dict``. Flax module paths
 map to the original PyTorch repo's names:
 
 - ``encoder/sa{i}/PointMLP_0/Dense_{j}`` -> ``sa{i}.mlp_convs.{j}``
@@ -16,11 +19,29 @@ map to the original PyTorch repo's names:
   ``mask_conf_out``
 - ``seg_conf_head/Dense_{0,1}`` -> ``seg_conf_fc{1,2}``; ``seg_conf_out`` ->
   ``seg_conf_out``
+- the start-of-path and stroke-wise regressors' own outputs:
+  ``sop_conf_out``, ``point_conf_out``, ``stroke_conf_out``, by name
+
+and the other ported models' trees:
+
+- ``MLPRegressor``: ``Dense_{j}``, ``BatchNorm_{j}`` -> ``fcs.{j}``,
+  ``bns.{j}``; ``output_trasl``, ``output_normals``, ``out_confidence``
+  by name
+- ``PointTransformer``: ``{encoder,decoder}_layers_{i}`` ->
+  ``{encoder,decoder}_layers.{i}``, inside which
+  ``MultiHeadDotProductAttention_{0,1}/{query,key,value,out}`` ->
+  ``{self,cross}_attn.{query,key,value,out}``, ``Dense_{k}`` -> ``ff.{k}``,
+  ``LayerNorm_{k}`` -> ``norms.{k}``; the embeddings and the two output
+  layers by name. The attention's kernels are Flax's ``DenseGeneral``
+  ones, (d, heads, head_dim) for query, key and value and (heads,
+  head_dim, d) for out, flattened to the Linear layers' (d, d).
 
 Dense kernels (in, out) are transposed to (out, in). BatchNorm ``mean`` /
 ``var`` are copied as they are (eval reads only them).
 :func:`flax_tree_from_state_dict` maps back (numpy out), for a ``state_dict``
-or a dict of gradients by parameter name.
+or a dict of gradients by parameter name; the attention's kernels go back
+to ``models.point_transformer.ATTENTION_HEADS`` heads, the count
+``get_model`` builds.
 
 Warm starts (``model.pretrained``, ``model.pretrained_custom``):
 :func:`load_torch_pretrained` loads a reference ``.pth`` (the original
@@ -40,6 +61,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.point_transformer import ATTENTION_HEADS
+
 _HEAD_MODULES = {
     ("head", "Dense_0"): "fc1", ("head", "BatchNorm_0"): "bn1",
     ("head", "Dense_1"): "fc2", ("head", "BatchNorm_1"): "bn2",
@@ -51,24 +74,57 @@ _HEAD_MODULES = {
     ("seg_conf_head", "Dense_1"): "seg_conf_fc2",
     ("seg_conf_out",): "seg_conf_out",
 }
+# the modules that keep their Flax name
+_SAME_NAME = ("sop_conf_out", "point_conf_out", "stroke_conf_out",
+              "output_trasl", "output_normals", "out_confidence",
+              "segments_embedding", "points_embedding", "output_layer",
+              "eos_layer")
+_HEAD_MODULES.update({(name,): name for name in _SAME_NAME})
 _ENCODER_MODULE = re.compile(
     r"encoder/(sa\d)/PointMLP_0/(Dense|BatchNorm|LayerNorm)_(\d+)$")
 _ENCODER_LISTS = {"Dense": "mlp_convs", "BatchNorm": "mlp_bns",
                   "LayerNorm": "mlp_lns"}
+_MLP_MODULE = re.compile(r"(Dense|BatchNorm)_(\d+)$")
+_MLP_LISTS = {"Dense": "fcs", "BatchNorm": "bns"}
+_LAYER_MODULE = re.compile(
+    r"(encoder|decoder)_layers_(\d+)/(?:MultiHeadDotProductAttention_(\d)/"
+    r"(query|key|value|out)|(Dense|LayerNorm)_(\d))$")
+_ATTENTIONS = ("self_attn", "cross_attn")
+_LAYER_LISTS = {"Dense": "ff", "LayerNorm": "norms"}
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
            "mean": "running_mean", "var": "running_var"}
 
 
 def _torch_module(path: tuple[str, ...]) -> str:
-    m = _ENCODER_MODULE.match("/".join(path))
+    flat = "/".join(path)
+    m = _ENCODER_MODULE.match(flat)
     if m:
         sa, kind, j = m.groups()
         return f"{sa}.{_ENCODER_LISTS[kind]}.{j}"
+    m = _MLP_MODULE.match(flat)
+    if m:
+        kind, j = m.groups()
+        return f"{_MLP_LISTS[kind]}.{j}"
+    m = _LAYER_MODULE.match(flat)
+    if m:
+        part, i, attn, proj, kind, k = m.groups()
+        inner = (f"{_ATTENTIONS[int(attn)]}.{proj}" if proj
+                 else f"{_LAYER_LISTS[kind]}.{k}")
+        return f"{part}_layers.{i}.{inner}"
     try:
         return _HEAD_MODULES[path]
     except KeyError:
-        raise KeyError(f"no port module for Flax path {'/'.join(path)}") \
-            from None
+        raise KeyError(f"no port module for Flax path {flat}") from None
+
+
+def _flat_kernel(arr: np.ndarray, out_projection: bool) -> np.ndarray:
+    """A Dense kernel (in, out) -> the Linear weight (out, in); an
+    attention's (d, heads, head_dim) or, for its output projection,
+    (heads, head_dim, d) is flattened to (d, d) first."""
+    if arr.ndim == 3:
+        arr = (arr.reshape(-1, arr.shape[-1]) if out_projection
+               else arr.reshape(arr.shape[0], -1))
+    return arr.T
 
 
 def _leaves(tree, prefix=()):
@@ -87,7 +143,9 @@ def state_dict_from_flax(variables) -> dict[str, torch.Tensor]:
             name = f"{_torch_module(path[:-1])}.{_LEAVES[path[-1]]}"
             arr = np.asarray(value, dtype=np.float32)
             if path[-1] == "kernel":
-                arr = arr.T
+                arr = _flat_kernel(arr, path[-2] == "out")
+            elif arr.ndim == 2:                 # an attention's bias
+                arr = arr.reshape(-1)
             sd[name] = torch.tensor(arr)
             if path[-1] == "mean":
                 sd[name.replace("running_mean", "num_batches_tracked")] = \
@@ -98,6 +156,12 @@ def state_dict_from_flax(variables) -> dict[str, torch.Tensor]:
 _FLAX_HEAD_PATHS = {v: k for k, v in _HEAD_MODULES.items()}
 _FLAX_ENCODER_LISTS = {v: k for k, v in _ENCODER_LISTS.items()}
 _TORCH_MODULE = re.compile(r"(sa\d)\.(mlp_convs|mlp_bns|mlp_lns)\.(\d+)$")
+_FLAX_MLP_LISTS = {v: k for k, v in _MLP_LISTS.items()}
+_TORCH_MLP_MODULE = re.compile(r"(fcs|bns)\.(\d+)$")
+_FLAX_LAYER_LISTS = {v: k for k, v in _LAYER_LISTS.items()}
+_TORCH_LAYER_MODULE = re.compile(
+    r"(encoder|decoder)_layers\.(\d+)\.(?:(self_attn|cross_attn)\."
+    r"(query|key|value|out)|(ff|norms)\.(\d))$")
 
 
 def _flax_path(module: str) -> tuple[str, ...]:
@@ -106,6 +170,16 @@ def _flax_path(module: str) -> tuple[str, ...]:
         sa, kind, j = m.groups()
         return ("encoder", sa, "PointMLP_0",
                 f"{_FLAX_ENCODER_LISTS[kind]}_{j}")
+    m = _TORCH_MLP_MODULE.match(module)
+    if m:
+        kind, j = m.groups()
+        return (f"{_FLAX_MLP_LISTS[kind]}_{j}",)
+    m = _TORCH_LAYER_MODULE.match(module)
+    if m:
+        part, i, attn, proj, kind, k = m.groups()
+        inner = ((f"MultiHeadDotProductAttention_{_ATTENTIONS.index(attn)}",
+                  proj) if proj else (f"{_FLAX_LAYER_LISTS[kind]}_{k}",))
+        return (f"{part}_layers_{i}", *inner)
     try:
         return _FLAX_HEAD_PATHS[module]
     except KeyError:
@@ -123,11 +197,20 @@ def flax_tree_from_state_dict(state) -> dict:
             continue
         path = _flax_path(module)
         arr = value.detach().cpu().numpy().astype(np.float32)
+        attention = path[-1] in ("query", "key", "value", "out")
         if leaf == "weight":
             dense = not path[-1].startswith(("BatchNorm", "LayerNorm"))
             flax_leaf = "kernel" if dense else "scale"
             if dense:
                 arr = arr.T
+            if attention:
+                d = arr.shape[0]
+                arr = (arr.reshape(ATTENTION_HEADS, -1, d)
+                       if path[-1] == "out"
+                       else arr.reshape(d, ATTENTION_HEADS, -1))
+        elif leaf == "bias" and attention and path[-1] != "out":
+            flax_leaf = "bias"
+            arr = arr.reshape(ATTENTION_HEADS, -1)
         else:
             flax_leaf = {"bias": "bias", "running_mean": "mean",
                          "running_var": "var"}[leaf]

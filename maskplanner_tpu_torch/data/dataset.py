@@ -282,19 +282,54 @@ class PaintDataset:
 
     def _add_extras(self, item, segments, seg_ids, traj_as_pc, ids_as_pc,
                     index):
-        """Optional load_extra_data items (reference paintnet_ODv1.py:
-        360-484). The port has no ``data/extras.py`` yet: a config that asks
-        for any of them raises."""
+        """Optional load_extra_data items with static-shape padding
+        (reference paintnet_ODv1.py:360-484)."""
+        from . import extras
+
         cfg = self.config
         load = set(cfg.get("load_extra_data") or [])
-        if ("stroke_prototypes" in load or cfg.get("load_stroke_prototypes")
-                or "segments_per_stroke" in load
-                or ("history_of_segments_per_stroke_v2" in load
-                    and cfg.get("substroke_points"))):
-            raise NotImplementedError(
-                "load_extra_data items (stroke prototypes, segments per "
-                "stroke, stroke histories) are not ported yet (ROADMAP.md, "
-                "Queue 1)")
+        M = self.max_n_strokes
+
+        if "stroke_prototypes" in load or cfg.get("load_stroke_prototypes"):
+            protos, order = extras.get_stroke_prototypes(
+                traj_as_pc, ids_as_pc,
+                kind=cfg.get("stroke_prototype_kind", "start_of_path_token"),
+                outdim=self.outdim,
+                start_of_path_token_length=int(
+                    cfg.get("start_of_path_token_length") or 4))
+            item["stroke_prototypes"] = extras.pad_prototypes(protos, M)
+
+        if "segments_per_stroke" in load:
+            sps, order2 = extras.get_vectors_per_stroke(segments, seg_ids)
+            pps, _ = extras.get_vectors_per_stroke(traj_as_pc, ids_as_pc)
+            max_seg = int(cfg.get("out_segments_per_stroke")
+                          or max(s.shape[0] for s in sps))
+            max_pts = int(cfg.get("out_points_per_stroke")
+                          or max(p.shape[0] for p in pps))
+            item["segments_per_stroke"], item["stroke_valid"] = \
+                extras.pad_vectors_per_stroke(sps, M, max_seg)
+            item["points_per_stroke"], _ = \
+                extras.pad_vectors_per_stroke(pps, M, max_pts)
+
+        if ("history_of_segments_per_stroke_v2" in load
+                and cfg.get("substroke_points")):
+            sps, order2 = extras.get_vectors_per_stroke(segments, seg_ids)
+            hist, tgt, pid, eop = extras.history_batches_v2(
+                sps, order2, int(cfg["substroke_points"]))
+            if (self.split == "train"
+                    and "general_noise" in (cfg.get("augmentations") or [])
+                    and cfg.get("sample_substroke_v2")):
+                # noisy teacher forcing (reference paintnet_ODv1.py:429-448)
+                hist = extras.add_history_noise(
+                    hist, self.lambda_points, self.outdim,
+                    float(cfg.get("trasl_noise_stdev") or 0.01),
+                    float(cfg.get("orient_noise_stdev") or 0.01),
+                    float(cfg["weight_orient"]),
+                    np.random.default_rng(index))
+            item["strokewise_history_batch"] = hist.astype(np.float32)
+            item["strokewise_target_batch"] = tgt.astype(np.float32)
+            item["strokewise_stroke_ids_batch"] = pid
+            item["strokewise_end_of_path_batch"] = eop
 
 
 def collate(items: list[dict]) -> dict:

@@ -8,9 +8,13 @@ same weights as 0-d tensors on the model's device (:class:`DeviceWeights`,
 the JAX step's "weights as a traced dict"), which a captured CUDA graph
 reads and the driver fills in place from the float dict after each change.
 
-Every term whose inputs ``train.build_loss_batch`` supplies is ported
-(``PORTED``); the others need outputs or state of models that are not
-ported yet, and raise ``NotImplementedError`` saying which (``WAITING``).
+Every term is ported (``PORTED``, 29 of the 32) but those that need
+outputs or state of models not ported yet, which raise
+``NotImplementedError`` saying which (``WAITING``: the two adversarial
+terms and ``contrastive_v1``). ``train.build_loss_batch`` supplies the
+MaskPlanner and regressor terms' inputs; the stroke-wise, rollout and
+start-of-path terms take batches that their caller builds, under the JAX
+handler's batch keys, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -40,25 +44,15 @@ LOSS_NAMES = [
 
 _GAN = ("the adversarial training state (losses/gan.py, models/dgcnn.py "
         "and the GAN train step)")
-_STROKE_WISE = ("the stroke-wise model (PointNet2StrokeWise) and the stroke "
-                "rollout's outputs")
 # the names whose inputs no ported model produces, with what they wait for
 WAITING = {
     "discriminator": _GAN,
     "wdiscriminator": _GAN,
-    "mse_strokes": _STROKE_WISE,
-    "chamfer_strokes": _STROKE_WISE,
-    "asymm_v6_chamfer_strokes": _STROKE_WISE,
-    "masked_mse_strokes": _STROKE_WISE,
-    "masked_mse_strokes_v2": _STROKE_WISE,
-    "masked_mse_strokes_from_segments": _STROKE_WISE,
-    "mse_nexttoken": _STROKE_WISE,
-    "mse_nexttoken_v2": _STROKE_WISE,
-    "hungarian_SoPs": ("the start-of-path model (PointNet2SoPs) and the SoP "
-                       "metrics"),
     "contrastive_v1": ("the segmenters' latent segments (PointNet2Segmenter "
                        "and the ball query kernel on their path)"),
 }
+# the names the JAX handler accepts without their weight_<name> key
+_NO_WEIGHT_KEY = ("masked_mse_strokes_from_segments",)
 PORTED = tuple(n for n in LOSS_NAMES if n not in WAITING)
 # the terms whose step a CUDA graph cannot capture, with why
 _SVD = ("torch.linalg.svdvals (cuSOLVER) copies to the host during a CUDA "
@@ -135,7 +129,7 @@ class LossHandler:
 
         # the JAX handler's compatibility checks
         for name in self.loss:
-            assert f"weight_{name}" in config, \
+            assert f"weight_{name}" in config or name in _NO_WEIGHT_KEY, \
                 f"missing weight_{name} in config"
         assert not ("chamfer" in self.loss and "mse" in self.loss)
         if self.lambda_points > 1:
@@ -193,6 +187,11 @@ class LossHandler:
                         mask_scores=b["mask_scores"],
                         stroke_ids=b["stroke_ids"], weights=w)
 
+        def strokes(b):
+            return dict(y_pred=b["stacked_segments_per_stroke_pred"],
+                        y=b["stacked_segments_per_stroke_gt"],
+                        y_mask=b.get("stacked_segments_per_stroke_gt_mask"))
+
         def v6_args(b, w):
             return dict(**std(b), **masks(b, w),
                         seg_logits=b.get("seg_logits"),
@@ -248,4 +247,33 @@ class LossHandler:
                 M.asymm_v11_chamfer_with_stroke_masks(**v6_args(b, w)),
             "symm_v1_chamfer_with_stroke_masks": lambda b, w, g:
                 M.symm_v1_chamfer_with_stroke_masks(**std(b), **masks(b, w)),
+            "chamfer_strokes": lambda b, w, g: C.chamfer_strokes(
+                b["stacked_segments_per_stroke_pred"],
+                b["stacked_segments_per_stroke_gt"],
+                gt_mask=b.get("stacked_segments_per_stroke_gt_mask")),
+            "asymm_v6_chamfer_strokes": lambda b, w, g: (
+                C.asymm_segment_chamfer(**strokes(b))
+                + C.reverse_asymm_segment_chamfer(**strokes(b))),
+            "mse_strokes": lambda b, w, g: S.mse_strokes(
+                b["stacked_strokes_pred"], b["stacked_strokes_gt"]),
+            "mse_nexttoken": lambda b, w, g: S.mse_nexttoken(
+                b["stacked_pred_nexttoken"], b["stacked_gt_nexttoken"]),
+            "mse_nexttoken_v2": lambda b, w, g: S.mse_nexttoken_v2(
+                b["stacked_pred_nexttoken"], b["stacked_gt_nexttoken"],
+                b["end_of_path_scores"], b["end_of_path_gt"], w),
+            "masked_mse_strokes": lambda b, w, g: S.masked_mse_strokes(
+                b["stacked_points_per_stroke_pred"],
+                b["stacked_points_per_stroke_gt"], b["confidence_scores"]),
+            "masked_mse_strokes_v2": lambda b, w, g: S.masked_mse_strokes_v2(
+                b["pred_points_per_stroke"], b["points_per_stroke"],
+                b["pred_point_scores"], b["pred_stroke_scores"],
+                b["gt_stroke_mask"], w, outdim=outdim),
+            "masked_mse_strokes_from_segments": lambda b, w, g:
+                S.masked_mse_strokes_from_segments(
+                    b["stacked_points_per_stroke_pred"],
+                    b["stacked_points_per_stroke_gt"],
+                    b["confidence_scores"], b["output_mask"]),
+            "hungarian_SoPs": lambda b, w, g: S.hungarian_sops(
+                b["sop_pred"], b["sop_gt"], b["pred_sop_conf_scores"], w,
+                sop_mask=b.get("sop_mask")),
         }

@@ -107,3 +107,14 @@ def chamfer_bbox(bbox_pred, bbox_gt, bbox_mask=None, **_):
     """Symmetric chamfer between predicted and GT boxes ×100."""
     return 100.0 * chamfer_distance(bbox_pred, bbox_gt, padded=True,
                                     y_mask=bbox_mask)[0]
+
+
+def chamfer_strokes(segments_per_stroke_pred, segments_per_stroke_gt,
+                    gt_mask=None, **_):
+    """Symmetric chamfer ×100 between each predicted stroke's segments and
+    its GT stroke's, the strokes stacked on the batch axis (B·M, S,
+    λ·outdim), the GT −100-padded (or ``gt_mask``): two argmin launches on
+    the stack."""
+    return 100.0 * chamfer_distance(segments_per_stroke_pred,
+                                    segments_per_stroke_gt, padded=True,
+                                    y_mask=gt_mask)[0]

@@ -5,8 +5,8 @@ same registry, output names and checks. The chamfer metrics run on
 tensors through the port's ``ops.chamfer`` (the nearest-neighbour argmin
 kernel on the card) and sync the host once each; the stroke-count and
 clustering metrics copy the mask heads to the host and run the port's
-numpy postprocess. The SoP families need ``postprocess/sop.py``, which is
-not ported: asking for one raises when the handler is built.
+numpy postprocess; the SoP families count the start-of-path tokens with
+``postprocess/sop.py`` on the host.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 
 from ..data.pointcloud import get_dim_traj_points
 from ..ops.chamfer import chamfer_distance
+from ..postprocess.sop import postprocess_sop_predictions, unpad_rows
 from ..postprocess.stroke_ids import process_pred_stroke_masks_to_stroke_ids
 from .clustering import adjusted_rand_score, v_measure_score
 
@@ -52,7 +53,6 @@ METRIC_OUTPUTS = {
         "avg_num_of_gt_strokes", "mean_absolute_error_NoP",
     ),
 }
-_UNPORTED = ("sop_metrics", "sop_metrics_v2")
 
 
 def _host(x) -> np.ndarray:
@@ -71,11 +71,6 @@ class MetricsHandler:
         self.metrics = list(metrics)
         unknown = set(self.metrics) - set(METRIC_OUTPUTS)
         assert not unknown, f"invalid metrics: {unknown}"
-        unported = [m for m in self.metrics if m in _UNPORTED]
-        if unported:
-            raise NotImplementedError(
-                f"metrics {unported} need postprocess/sop.py, which is not "
-                f"ported yet (ROADMAP.md, Queue 1)")
         # several families emit the same output names; results are keyed
         # by name, so a collision would silently drop one family's values
         names = [n for m in self.metrics for n in METRIC_OUTPUTS[m]]
@@ -182,6 +177,34 @@ class MetricsHandler:
         return [float(np.mean(vms)), float(np.mean(aris)),
                 float(np.mean(outliers))]
 
+    def get_sop_metrics(self, sop_pred, processed_sop_pred, sop_gt,
+                        pred_sop_conf_scores, sop_conf_threshold, **kw):
+        """Start-of-path counts: mean predicted (``processed_sop_pred``, the
+        tokens kept), mean GT, their mean ratio, and the same counts and
+        ratios at the thresholds halfway to 1 and halfway to 0."""
+        n_gt, n_pred, swept = _sop_counts(
+            sop_pred, processed_sop_pred, sop_gt, pred_sop_conf_scores,
+            sop_conf_threshold)
+        res = [float(np.mean(n_pred)), float(np.mean(n_gt)),
+               float(np.mean(n_pred / np.maximum(n_gt, 1)))]
+        return (res + [float(np.mean(n_t)) for n_t in swept]
+                + [float(np.mean(n_t / np.maximum(n_gt, 1)))
+                   for n_t in swept])
+
+    def get_sop_metrics_v2(self, sop_pred, processed_sop_pred, sop_gt,
+                           pred_sop_conf_scores, sop_conf_threshold, **kw):
+        """Start-of-path counts as stroke counts: % correct, mean
+        predicted, mean GT, mean absolute error, then the mean predicted
+        and the mean absolute error at the thresholds halfway to 1 and
+        halfway to 0."""
+        n_gt, n_pred, swept = _sop_counts(
+            sop_pred, processed_sop_pred, sop_gt, pred_sop_conf_scores,
+            sop_conf_threshold)
+        res = [float(np.mean(n_gt == n_pred)), float(np.mean(n_pred)),
+               float(np.mean(n_gt)), float(np.mean(np.abs(n_pred - n_gt)))]
+        return (res + [float(np.mean(n_t)) for n_t in swept]
+                + [float(np.mean(np.abs(n_t - n_gt))) for n_t in swept])
+
     def get_stroke_chamfer(self, y_pred, traj_pc, stroke_ids, **kw):
         """Debug metric: each predicted segment's least asymmetric chamfer
         to a GT stroke, ×10⁴, averaged; a launch and a host sync per
@@ -212,3 +235,15 @@ def _count_metrics(n_pred: np.ndarray, n_strokes) -> list[float]:
     n_gt = _host(n_strokes).astype(int)
     return [float(np.mean(n_gt == n_pred)), float(np.mean(n_pred)),
             float(np.mean(n_gt)), float(np.mean(np.abs(n_pred - n_gt)))]
+
+
+def _sop_counts(sop_pred, processed_sop_pred, sop_gt, pred_sop_conf_scores,
+                threshold):
+    """-> (GT tokens a sample, kept tokens a sample, [kept tokens a sample
+    at (threshold + 1) / 2, at threshold / 2])."""
+    n_gt = np.array([len(unpad_rows(g)) for g in _host(sop_gt)])
+    n_pred = np.array([len(p) for p in processed_sop_pred])
+    swept = [np.array([len(p) for p in postprocess_sop_predictions(
+        _host(sop_pred), _host(pred_sop_conf_scores), thr)])
+        for thr in ((threshold + 1) / 2, threshold / 2)]
+    return n_gt, n_pred, swept

@@ -1,8 +1,12 @@
 """Model factory and IO sizes (``maskplanner_tpu/models/__init__.py``).
 
-The MaskPlanner backbone (``pointnet2_strokemasks``) and the baselines'
-plain regressor (``pointnet2``) are ported; the others are queued in
-ROADMAP.md ("Queue 1").
+Ported: the MaskPlanner backbone (``pointnet2_strokemasks``), the
+baselines' plain regressor (``pointnet2``), the start-of-path and
+stroke-wise regressors (``pointnet2_sops``, ``pointnet2_3dbbox``,
+``pointnet2_strokewise``), the rollout head (``mlp_rollout``) and the
+transformer baseline (``point_transformer``). The segmenters, PointNet,
+the GAN generator and the discriminator are queued in ROADMAP.md
+("Queue 1").
 """
 from __future__ import annotations
 
@@ -14,11 +18,22 @@ from torch import nn
 
 from ..data.pointcloud import get_dim_orient_traj_points, get_dim_traj_points
 from .maskplanner import (MaskPlannerOutput, PointNet2Regressor,
-                          PointNet2StrokeMasks)
+                          PointNet2SoPs, PointNet2StrokeMasks,
+                          PointNet2StrokeWise)
+from .mlp import MLPRegressor
+from .point_transformer import PointTransformer
 
-__all__ = ["MaskPlannerOutput", "PointNet2Regressor", "PointNet2StrokeMasks",
-           "compute_out_vectors", "get_io_info", "get_model",
-           "init_parameters"]
+__all__ = ["MLPRegressor", "MaskPlannerOutput", "PointNet2Regressor",
+           "PointNet2SoPs", "PointNet2StrokeMasks", "PointNet2StrokeWise",
+           "PointTransformer", "compute_out_vectors", "get_io_info",
+           "get_model", "init_parameters"]
+
+# the models whose output is a ``MaskPlannerOutput`` of stroke masks
+STROKE_MASK_BACKBONES = ("pointnet2_strokemasks",
+                         "pointnet2_strokemasks_retrocompatible")
+PORTED_BACKBONES = (*STROKE_MASK_BACKBONES, "pointnet2",
+                    "pointnet2_sops", "pointnet2_strokewise",
+                    "pointnet2_3dbbox", "mlp_rollout", "point_transformer")
 
 
 def compute_out_vectors(config) -> int:
@@ -38,25 +53,86 @@ def compute_out_vectors(config) -> int:
 
 
 def get_io_info(io_type: str, config) -> dict[str, Any]:
-    """Input/output sizes of the MaskPlanner task, and of the ``paintnet``
-    task (the same without the stroke masks)."""
-    if io_type not in ("paintnet", "MaskPlanner"):
-        raise NotImplementedError(
-            f"io_type {io_type!r} is not ported yet (ROADMAP.md, Queue 1)")
+    """Input/output sizes by task: ``paintnet``, ``MaskPlanner`` (with the
+    stroke masks), ``StrokeWise``, ``multipathregression``,
+    ``ODv1_strokeProposal`` (start-of-path tokens) and
+    ``ODv1_strokeRollout`` (the rollout head, by ``rollout_loss``)."""
     outdim = get_dim_traj_points(config["extra_data"])
     orient_outdim = get_dim_orient_traj_points(config["extra_data"])
     lam = config["lambda_points"]
-    info = {
-        "inputdim": 3,
-        "outdim": outdim,
-        "orient_outdim": orient_outdim,
-        "vector_outdim_transl": (outdim - orient_outdim) * lam,
-        "vector_outdim_orient": orient_outdim * lam,
-        "out_vectors": compute_out_vectors(config),
-    }
-    if io_type == "MaskPlanner":
-        info["n_stroke_masks"] = config["max_n_strokes"]
-    return info
+
+    if io_type in ("paintnet", "MaskPlanner"):
+        info = {
+            "inputdim": 3,
+            "outdim": outdim,
+            "orient_outdim": orient_outdim,
+            "vector_outdim_transl": (outdim - orient_outdim) * lam,
+            "vector_outdim_orient": orient_outdim * lam,
+            "out_vectors": compute_out_vectors(config),
+        }
+        if io_type == "MaskPlanner":
+            info["n_stroke_masks"] = config["max_n_strokes"]
+        return info
+
+    if io_type in ("StrokeWise", "multipathregression"):
+        points, vectors = (("max_n_stroke_points", "max_n_strokes")
+                           if io_type == "StrokeWise"
+                           else ("stroke_points", "n_strokes"))
+        return {
+            "inputdim": 3,
+            "outdim": outdim,
+            "orient_outdim": orient_outdim,
+            "vector_outdim_transl": (outdim - orient_outdim)
+            * config[points],
+            "vector_outdim_orient": orient_outdim * config[points],
+            "out_vectors": config[vectors],
+        }
+
+    if io_type == "ODv1_strokeProposal":
+        tok = int(config.get("start_of_path_token_length", 1))
+        return {
+            "vector_outdim_transl": (outdim - orient_outdim) * tok,
+            "vector_outdim_orient": orient_outdim * tok,
+        }
+
+    if io_type == "ODv1_strokeRollout":
+        input_size = int(config["stroke_prototype_dim"])
+        if config.select("rollout_model.object_features"):
+            input_size += 1024
+        rollout_loss = config.get("rollout_loss") or []
+        eop = False
+        if "mse_strokes" in rollout_loss:
+            out_vectors = config["stroke_points"]
+        elif "chamfer_strokes" in rollout_loss:
+            out_vectors = config["out_segments_per_stroke"]
+        elif "masked_mse_strokes" in rollout_loss:
+            out_vectors = config["out_points_per_stroke"]
+            eop = True
+        elif "masked_mse_strokes_from_segments" in rollout_loss:
+            out_vectors = config["out_points_per_stroke"]
+        elif "mse_nexttoken" in rollout_loss:
+            out_vectors = 1
+            input_size += (config["substroke_points"] - 1) * outdim * lam
+        elif "mse_nexttoken_v2" in rollout_loss:
+            out_vectors = 1
+            input_size += config["substroke_points"] * outdim * lam
+            eop = bool(config.get("end_of_path_confidence"))
+        else:
+            raise ValueError(f"unsupported rollout_loss: {rollout_loss}")
+        return {
+            "input_size": input_size,
+            "outdim_trasl": (outdim - orient_outdim) * lam,
+            "outdim_orient": orient_outdim * lam,
+            "out_vectors": out_vectors,
+            "outdim": outdim,
+            "end_of_path_confidence": eop,
+        }
+
+    if io_type == "ContrastiveClustering":
+        raise NotImplementedError(
+            "io_type 'ContrastiveClustering' waits for the segmenters "
+            "(ROADMAP.md, Queue 1)")
+    raise ValueError(f"unknown io_type: {io_type}")
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
@@ -77,39 +153,72 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 def get_model(config, *, device: str | torch.device,
               generator: torch.Generator | None = None,
-              dropout: float = 0.3) -> nn.Module:
-    """Build the backbone named by ``config.model.backbone`` in eval mode on
-    ``device``, its weights drawn from ``generator`` (default: seeded from
-    ``config.seed``). ``dropout``: the heads' rate in train mode. Under
-    ``model.bf16`` it computes in bf16, in train and in eval (the
-    parameters stay f32)."""
-    which = config["model"]["backbone"]
+              dropout: float = 0.3, which: str | None = None) -> nn.Module:
+    """Build the backbone named by ``which`` (default
+    ``config.model.backbone``) in eval mode on ``device``, its weights
+    drawn from ``generator`` (default: seeded from ``config.seed``).
+    ``dropout``: the regressor heads' rate in train mode. Under
+    ``model.bf16`` the MaskPlanner and the plain regressor compute in
+    bf16, in train and in eval (the parameters stay f32); the others
+    ignore it, as in the JAX package: the start-of-path and stroke-wise
+    regressors take ``model.norm`` and stay f32, ``pointnet2_3dbbox`` has
+    a BatchNorm encoder whatever ``model.norm`` says."""
+    which = which or config["model"]["backbone"]
     if which == "pointnet2_strokemasks_retrocompatible":
         which = "pointnet2_strokemasks"   # differs only in a layer name
-    if which not in ("pointnet2_strokemasks", "pointnet2"):
+    if which not in PORTED_BACKBONES:
         raise NotImplementedError(
             f"backbone {which!r} is not ported yet (ROADMAP.md, Queue 1)")
-    info = get_io_info("MaskPlanner" if which == "pointnet2_strokemasks"
-                       else "paintnet", config)
-    common = dict(
-        out_vectors=info["out_vectors"],
-        outdim=info["outdim"] - info["orient_outdim"],
-        outdim_orient=info["orient_outdim"],
-        weight_orient=config["weight_orient"],
-        lambda_points=config["lambda_points"],
-        hidden_size=tuple(config["model"].get("hidden_size", (1024, 1024))),
-        encoder_norm=config["model"].get("norm") or "batch",
-        dropout=dropout,
-        dtype=torch.bfloat16 if config["model"].get("bf16")
-        else torch.float32,
-    )
-    if which == "pointnet2":
-        model = PointNet2Regressor(**common)
+    outdim = get_dim_traj_points(config["extra_data"])
+    orient_outdim = get_dim_orient_traj_points(config["extra_data"])
+    hidden = tuple(config["model"].get("hidden_size", (1024, 1024)))
+    norm = config["model"].get("norm") or "batch"
+    poses = dict(outdim=outdim - orient_outdim, outdim_orient=orient_outdim,
+                 weight_orient=config["weight_orient"])
+    if which in ("pointnet2_strokemasks", "pointnet2"):
+        info = get_io_info("MaskPlanner" if which == "pointnet2_strokemasks"
+                           else "paintnet", config)
+        common = dict(
+            **poses, out_vectors=info["out_vectors"],
+            lambda_points=config["lambda_points"], hidden_size=hidden,
+            encoder_norm=norm, dropout=dropout,
+            dtype=torch.bfloat16 if config["model"].get("bf16")
+            else torch.float32)
+        if which == "pointnet2":
+            model = PointNet2Regressor(**common)
+        else:
+            model = PointNet2StrokeMasks(
+                **common, n_stroke_masks=info["n_stroke_masks"],
+                segment_confidence_scores=bool(
+                    config.get("per_segment_confidence")))
+    elif which == "pointnet2_sops":
+        model = PointNet2SoPs(
+            config["out_prototypes"], **poses,
+            token_length=config.get("start_of_path_token_length", 1),
+            hidden_size=hidden, sop_confidence_scores=bool(
+                config.get("sop_confidence_scores")),
+            encoder_norm=norm, dropout=dropout)
+    elif which == "pointnet2_strokewise":
+        model = PointNet2StrokeWise(
+            config["max_n_strokes"], config["max_n_stroke_points"], **poses,
+            hidden_size=hidden, encoder_norm=norm, dropout=dropout)
+    elif which == "pointnet2_3dbbox":
+        model = PointNet2SoPs(config["out_prototypes"], outdim=6,
+                              outdim_orient=0, hidden_size=hidden,
+                              dropout=dropout)
+    elif which == "mlp_rollout":
+        info = get_io_info("ODv1_strokeRollout", config)
+        model = MLPRegressor(
+            info["input_size"], info["out_vectors"], info["outdim_trasl"],
+            hidden, outdim_orient=info["outdim_orient"],
+            weight_orient=config["weight_orient"],
+            confidence_scores=info["end_of_path_confidence"])
     else:
-        model = PointNet2StrokeMasks(
-            **common, n_stroke_masks=info["n_stroke_masks"],
-            segment_confidence_scores=bool(
-                config.get("per_segment_confidence")))
+        model = PointTransformer(
+            input_dim=outdim * config["lambda_points"],
+            outdim=outdim * config["lambda_points"],
+            max_seq_len=int(config.get("max_seq_len", 100)),
+            weight_orient=config["weight_orient"])
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.get("seed") or 0))
     init_parameters(model, generator)

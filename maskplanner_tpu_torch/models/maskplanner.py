@@ -1,5 +1,6 @@
 """The MaskPlanner networks (``maskplanner_tpu/models/maskplanner.py``):
-the flagship and the baselines' plain regressor.
+the flagship, the baselines' plain regressor, and the start-of-path and
+stroke-wise regressors built on it.
 
 The SSG encoder gives a 1024-d global feature; parallel heads regress the
 unordered segment set with per-pose orientations, the stroke masks, the
@@ -88,19 +89,27 @@ class PointNet2Regressor(PointNet2Encoder):
         return dict(rate=self.dropout, training=self.training,
                     generator=generator, dtype=self.dtype)
 
-    def _segments(self, feat, generator):
-        """The segment head on the global feature -> (B, out_vectors,
-        λ·outdim)."""
+    def _trunk(self, feat, generator):
+        """The segment head's fc/BatchNorm/ReLU/dropout trunk."""
+        return regression_head(feat, [(self.fc1, self.bn1),
+                                      (self.fc2, self.bn2)],
+                               **self._drop(generator))
+
+    def _poses(self, trunk):
+        """The trunk -> (B, out_vectors, λ·outdim) poses (``fc3``, and
+        ``fc_normals`` with the unit orientations)."""
         dt = self.dtype
-        trunk = regression_head(feat, [(self.fc1, self.bn1),
-                                       (self.fc2, self.bn2)],
-                                **self._drop(generator))
         positions = dense(self.fc3, trunk, dt)
         if self.outdim_orient > 0:
             return assemble_pose_output(positions,
                                         dense(self.fc_normals, trunk, dt),
                                         self.out_vectors, self.weight_orient)
-        return positions.reshape(feat.shape[0], self.out_vectors, -1)
+        return positions.reshape(trunk.shape[0], self.out_vectors, -1)
+
+    def _segments(self, feat, generator):
+        """The segment head on the global feature -> (B, out_vectors,
+        λ·outdim)."""
+        return self._poses(self._trunk(feat, generator))
 
     def _forward(self, xyz, generator):
         return self._segments(super().forward(xyz, generator), generator)
@@ -175,3 +184,61 @@ class PointNet2StrokeMasks(PointNet2Regressor):
             B, self.n_stroke_masks, self.out_vectors)
         return MaskPlannerOutput(traj, stroke_masks,
                                  dense(self.mask_conf_out, sm, dt), seg_conf)
+
+
+class PointNet2SoPs(PointNet2Regressor):
+    """The start-of-path token regressor (``pointnet2_sops``, and with
+    6-value boxes and no orientations ``pointnet2_3dbbox``): the
+    regressor's encoder and head with ``token_length`` poses a token in
+    place of λ, and with ``sop_confidence_scores`` a logit a token
+    (``sop_conf_out``) on the head's trunk. The forward gives ``(tokens
+    (B, out_vectors, token_length·outdim), logits (B, out_vectors) or
+    None)``, f32 only."""
+
+    def __init__(self, out_vectors: int, outdim: int = 3,
+                 outdim_orient: int = 3, weight_orient: float = 1.0,
+                 token_length: int = 1,
+                 hidden_size: Sequence[int] = (1024, 1024),
+                 sop_confidence_scores: bool = False,
+                 encoder_norm: str = "batch", dropout: float = 0.3):
+        super().__init__(out_vectors, outdim, outdim_orient, weight_orient,
+                         token_length, hidden_size, encoder_norm, dropout)
+        self.sop_confidence_scores = sop_confidence_scores
+        if sop_confidence_scores:
+            self.sop_conf_out = nn.Linear(hidden_size[1], out_vectors)
+
+    def _forward(self, xyz, generator):
+        trunk = self._trunk(PointNet2Encoder.forward(self, xyz, generator),
+                            generator)
+        tokens = self._poses(trunk)
+        if not self.sop_confidence_scores:
+            return tokens, None
+        return tokens, self.sop_conf_out(trunk)
+
+
+class PointNet2StrokeWise(PointNet2Regressor):
+    """The whole-stroke regressor (``pointnet2_strokewise``):
+    ``n_strokes`` strokes of ``stroke_points`` poses each from the
+    regressor's encoder and head, with a logit a pose (``point_conf_out``,
+    the end of the stroke) and a logit a stroke (``stroke_conf_out``, its
+    existence) on the head's trunk. The forward gives ``(strokes (B,
+    n_strokes, stroke_points·outdim), point logits (B, n_strokes,
+    stroke_points), stroke logits (B, n_strokes))``, f32 only."""
+
+    def __init__(self, n_strokes: int, stroke_points: int, outdim: int = 3,
+                 outdim_orient: int = 3, weight_orient: float = 1.0,
+                 hidden_size: Sequence[int] = (1024, 1024),
+                 encoder_norm: str = "batch", dropout: float = 0.3):
+        super().__init__(n_strokes, outdim, outdim_orient, weight_orient,
+                         stroke_points, hidden_size, encoder_norm, dropout)
+        self.stroke_points = stroke_points
+        self.point_conf_out = nn.Linear(hidden_size[1],
+                                        n_strokes * stroke_points)
+        self.stroke_conf_out = nn.Linear(hidden_size[1], n_strokes)
+
+    def _forward(self, xyz, generator):
+        trunk = self._trunk(PointNet2Encoder.forward(self, xyz, generator),
+                            generator)
+        point_conf = self.point_conf_out(trunk).reshape(
+            trunk.shape[0], self.out_vectors, self.stroke_points)
+        return self._poses(trunk), point_conf, self.stroke_conf_out(trunk)

@@ -35,7 +35,7 @@ from .data.io import (DATASET_DOWNSCALE_FACTORS, get_dataset_name,
                       get_mean_mesh, orientnorm_to_euler,
                       read_mesh_as_pointcloud, save_traj_file)
 from .data.pointcloud import denormalize_traj, get_dim_traj_points
-from .models import MaskPlannerOutput, get_model
+from .models import STROKE_MASK_BACKBONES, MaskPlannerOutput, get_model
 from .models.maskplanner import f32_accumulation
 from .postprocess import process_pred_stroke_masks_to_stroke_ids
 from .postprocess.segments import process_stroke_segments
@@ -106,11 +106,12 @@ class Predictor:
         self.extra_data = list(self.config["extra_data"])
         self.outdim = get_dim_traj_points(self.extra_data)
         self.scale = resolve_scale(self.config, data_scale_factor)
-        if self.config["model"]["backbone"] == "pointnet2":
+        backbone = self.config["model"]["backbone"]
+        if backbone not in STROKE_MASK_BACKBONES:
             raise NotImplementedError(
-                "a Predictor serves the stroke-mask models; a pointnet2 "
-                "run has no masks to post-process (score it with "
-                "test_maskplanner)")
+                f"a Predictor serves the stroke-mask models; a {backbone} "
+                f"run has no masks to post-process (score a pointnet2 run "
+                f"with test_maskplanner)")
         self.model = get_model(self.config, device="cpu")
         self.epoch = load_checkpoint(run_dir, checkpoint_name(model),
                                      self.model)

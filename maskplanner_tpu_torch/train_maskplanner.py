@@ -69,8 +69,10 @@ Every loss name of the JAX registry whose inputs the port's models give
 trains (``losses.PORTED``, with the paper's baselines ``segmentWise`` and
 ``pointWise``), on ``model.backbone`` ``pointnet2_strokemasks`` or
 ``pointnet2`` (the plain regressor, whose eval has no masks). Not ported
-yet (raises when its config asks for it): the adversarial losses and the
-other names of ``losses.WAITING``. On the card a loss term that a CUDA
+yet (raises when its config asks for it): the names of ``losses.WAITING``.
+The start-of-path, stroke-wise, rollout and transformer backbones build
+(``models.get_model``) but do not train here, as the JAX driver does not
+train them: the driver refuses them. On the card a loss term that a CUDA
 graph cannot capture (``LossHandler.uncapturable``: the singular values
 of ``align``, ``intra_align``) trains on the host loader, and the run
 prints why. After the final eval, unless ``skip_rendering`` or ``debug``,
@@ -100,7 +102,7 @@ from .data.device_dataset import (device_dataset_eligible, epoch_perm,
 from .data.prefetch import Prefetcher
 from .losses import DeviceWeights, LossHandler
 from .metrics import MetricsHandler
-from .models import get_model
+from .models import STROKE_MASK_BACKBONES, get_model
 from .serve import resolve_device
 from .train import (PSACDScheduler, apply_delayed_activations, forward,
                     make_lr_scheduler, make_optimizer, train_step)
@@ -273,6 +275,10 @@ def render(run_dir: str, results_dir: str, eval_ckpt) -> None:
         print(f"(rendering skipped: {e})")
 
 
+# the backbones whose outputs the training step turns into a loss batch
+TRAINABLE_BACKBONES = (*STROKE_MASK_BACKBONES, "pointnet2")
+
+
 def main(argv=None):
     """Train; returns (run_dir, model). SIGTERM and SIGINT stop the run at
     the end of the current epoch; the previous handlers come back when it
@@ -286,6 +292,12 @@ def _train(config, preempted: _Preemption):
     if run_dir is not None:
         config = restore_frozen_config(config, run_dir)
     device = resolve_device(config.get("device") or "cuda")
+    if config["model"]["backbone"] not in TRAINABLE_BACKBONES:
+        raise NotImplementedError(
+            f"the driver trains {', '.join(TRAINABLE_BACKBONES)}; "
+            f"{config['model']['backbone']!r} has no loss batch in the "
+            f"training step (nor in the JAX trainer): build its batches and "
+            f"call losses.LossHandler directly")
     if run_dir is None:
         run_dir = create_dirs(os.path.join(get_output_dir(config),
                                            get_run_name(config)))

@@ -118,10 +118,41 @@ def test_renormalization_keeps_padding_rows():
 
 @pytest.mark.parametrize("metric", ["sop_metrics", "sop_metrics_v2"])
 def test_sop_metrics_raise_when_asked_for(metric):
+    """Asked for beside ``pcd`` (once they raised, before
+    ``postprocess/sop.py`` was ported), the SoP families give the JAX
+    handler's values exactly, the port's inputs as tensors; asked for
+    without their inputs, the handler raises."""
+    from maskplanner_tpu.metrics import MetricsHandler as JaxMetricsHandler
     from maskplanner_tpu_torch.metrics import MetricsHandler
+    from maskplanner_tpu_torch.postprocess.sop import \
+        postprocess_sop_predictions
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MetricsHandler(load_args(argv=[FLAGSHIP]), ["pcd", metric])
+    rng = np.random.default_rng(12)
+    sop_gt = np.full((3, 8, 24), -100.0, np.float32)
+    for b, n in enumerate((2, 5, 8)):
+        sop_gt[b, :n] = rng.normal(size=(n, 24))
+    sop_pred = rng.normal(size=(3, 10, 24)).astype(np.float32)
+    conf = rng.normal(size=(3, 10)).astype(np.float32)
+    pcd = dict(y_pred=rng.normal(size=(3, 5, 24)).astype(np.float32),
+               traj_as_pc=rng.normal(size=(3, 30, 6)).astype(np.float32))
+    kw = dict(pcd, sop_pred=sop_pred, sop_gt=sop_gt,
+              pred_sop_conf_scores=conf, sop_conf_threshold=0.5,
+              processed_sop_pred=postprocess_sop_predictions(sop_pred, conf))
+    want = JaxMetricsHandler(jax_load_args(argv=[FLAGSHIP]),
+                             ["pcd", metric]).compute(**kw)
+    handler = MetricsHandler(load_args(argv=[FLAGSHIP]), ["pcd", metric])
+    got = handler.compute(**{k: torch.from_numpy(v)
+                             if isinstance(v, np.ndarray) else v
+                             for k, v in kw.items()})
+    assert got.keys() == want.keys()
+    np.testing.assert_allclose(got["point-wise chamfer distance"],
+                               want["point-wise chamfer distance"],
+                               rtol=METRIC_RTOL)
+    for name in got:
+        if name != "point-wise chamfer distance":
+            assert got[name] == want[name], name
+    with pytest.raises(ValueError, match="sop_gt"):
+        handler.compute(**dict(kw, sop_gt=None))
 
 
 def _perturbed(variables, seed=0):

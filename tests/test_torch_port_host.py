@@ -64,12 +64,21 @@ def test_paint_dataset_items_match(split):
 
 
 def test_extras_request_raises():
+    """A config that asks for the extras gets the JAX dataset's items, bit
+    for bit (once it raised, before ``data/extras.py`` was ported); with
+    ``out_segments_per_stroke`` / ``out_points_per_stroke`` unset each item
+    pads to its own longest stroke, as the JAX dataset's do."""
+    from maskplanner_tpu.data import PaintDataset as JaxPaintDataset
     from maskplanner_tpu_torch.data import PaintDataset
 
-    cfg = load_args(argv=[FLAGSHIP, "pc_points=64",
-                          "load_extra_data=[segments_per_stroke]"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PaintDataset(cfg, split="train", size=2)[0]
+    argv = [FLAGSHIP, "pc_points=64", "load_extra_data=[segments_per_stroke]"]
+    ref_ds = JaxPaintDataset(jax_load_args(argv=argv), split="train", size=2)
+    ds = PaintDataset(load_args(argv=argv), split="train", size=2)
+    for i in range(2):
+        a, b = ds[i], ref_ds[i]
+        assert sorted(a) == sorted(b) and "segments_per_stroke" in a
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
 
 
 def test_resolve_scale_matches():
@@ -182,6 +191,11 @@ import maskplanner_tpu_torch.standalone.simulate_spray_thickness
 import maskplanner_tpu_torch.standalone.compute_paint_coverage_per_face
 import maskplanner_tpu_torch.ops.library
 import maskplanner_tpu_torch.predict
+import maskplanner_tpu_torch.data.extras
+import maskplanner_tpu_torch.postprocess.strokewise
+import maskplanner_tpu_torch.postprocess.sop
+import maskplanner_tpu_torch.postprocess.beam_search
+import maskplanner_tpu_torch.train.rollout
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("maskplanner_tpu", "jax", "flax"))
 assert not bad, bad

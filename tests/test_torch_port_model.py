@@ -175,7 +175,7 @@ def test_seeded_init_is_reproducible():
 
 def test_unported_backbone_and_norm_spec_raise():
     cfg = _small_config(64, False)
-    cfg["model"]["backbone"] = "pointnet2_sops"
+    cfg["model"]["backbone"] = "pointnet2_segmenter_v1"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(cfg, device="cpu")
     with pytest.raises(ValueError):
