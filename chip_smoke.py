@@ -88,13 +88,15 @@ result line:
     the batch's real mask, the −100-padded GT poses against the predicted
     poses) with indices identical to the plain version, CUDA-event
     medians, bound, instruction floor and ``torch.cdist(x, y).argmin(-1)``;
-13. resume on the card: two uninterrupted 2-epoch runs of the flagship
+13. resume on the card: three uninterrupted 2-epoch runs of the flagship
     on the driver's default (graphed) path, one stopped by SIGTERM after
     epoch 1 on the host loader's path (``device_dataset=false``) and
-    resumed with ``resume=<run_dir>`` on the graphed path, and one stopped
-    on the graphed path and resumed on the host loader's; each parameter
-    group's relative L2 distance from the first run, each resumed run's at
-    most 2x the second uninterrupted run's plus 1e-6;
+    resumed with ``resume=<run_dir>`` on the graphed path, one stopped on
+    the graphed path and resumed on the host loader's, and a control
+    resumed from a checkpoint whose Adam moments were zeroed; each
+    parameter group's relative L2 distance from the first run, each
+    resumed run's at most 2x the largest of the three uninterrupted pairs'
+    distances plus 1e-6, the control's beyond that in some group;
 14. the reference BatchNorm recipe (``model.norm=batch``, seeded weights,
     BatchNorm running statistics away from 0/1), its kernels against their
     plain versions at the step's sa1 and sa2 shapes (a batch of 64 of the
@@ -296,14 +298,47 @@ result line:
     rollout (``mlp_rollout``, 20 steps from a cloud's 44 tokens) card
     against CPU, ``sop_metrics`` and ``sop_metrics_v2``; ``point_transformer``
     at its defaults, teacher-forced and autoregressive, card against CPU;
-27. the card line, a ``kernels`` JSON line (launches: the kernels that ran
+27. the segmenters and the GAN recipe (``phase_segmenters_gan``): (i)
+    ``pointnet2_segmenter_v1`` (``ball_in_xyz_space``, ``latent_dim`` 64)
+    on the 64 flagship train items' GT segments (449 of 24 values a
+    cloud): FPS of 512 centres from 449 centroids identical to the plain
+    version, the ball query (#7) at sa1 identical to ``ball_query_plain``
+    with its time, plain time and bound; the eval forward (exactly fps 2,
+    ball_query 1, ball_group 1), finite, 2 samples on the CPU within
+    1e-4 · max|ref|, ms at batch 64; the train forward with
+    ``contrastive_v1`` and its backward (the same launches); the latents,
+    the loss and every gradient through the segmenter on 8 clouds card
+    against CPU by phase 8's rule (``hold_rule``), in eval and in train
+    mode (the same FPS starts), the uniform draw fed to both and the card
+    making the CPU float32 run's ReLU and max-pool choices
+    (``shared_choices``); the PaintNet
+    segmenter (the BatchNorm recipe's forward launches) and ``pointnet``
+    (none) at batch 64, each 2 samples on the CPU within 1e-4 · max|ref|.
+    (ii)
+    ``train_maskplanner`` with ``config=[pointWise,windows_v2,longx_v2]
+    loss=[chamfer,wdiscriminator]`` for 2 epochs of 2 steps (the host
+    loader; DGCNN at k 20 over 1350 poses): every loss and
+    ``d_internal_train_loss`` finite, then a resume restoring the
+    critic's state bitwise; the GAN step at batch 64 (exactly fps 2,
+    fused_sa_fwd 2, fused_sa_bwd 2, sa_weight_grad 2, nn_argmin 2), ms a
+    step, the critic's share, the peak memory; one minimax step; card
+    against CPU (``phase_gan_card_vs_cpu``): the critic's update (loss,
+    gradients, statistics) and the generator's term in float64 within
+    1e-9, then in float32 by phase 8's rule on the CPU float64 run's
+    critic graphs and choices (``critic_neighbours``,
+    ``shared_choices``), with the generator's gradients through the
+    critic on its graphs; every allowance printed; the phase's seconds;
+28. the card line, a ``kernels`` JSON line (launches: the kernels that ran
     in the traced graphed epoch of 8 replays, the three large-shape paths'
-    in phase 25's forward, step and ``emd``; for the five kernels of the
-    exported forward their custom op and the child's launches; the
-    argmin's row also its launches a step in each recipe of phase 24 and
-    its d = 3 numbers, the LAP's the n of those recipes; ``zoo_launches``,
-    each kernel's launches on phase 26's paths, and for #4 and #5 their
-    ``zoo`` times), and the result line last.
+    in phase 25's forward, step and ``emd``, the ball query's on the
+    segmenter's eval forward; for the five kernels of the exported forward
+    their custom op and the child's launches; the argmin's row also its
+    launches a step in each recipe of phase 24 and its d = 3 numbers, the
+    LAP's the n of those recipes; ``zoo_launches``, each kernel's launches
+    on phase 26's paths, and for #4 and #5 their ``zoo`` times;
+    ``segmenters_gan_launches``, each kernel's on phase 27's paths; the
+    ball query's numbers its segmenter inputs', its own check's under
+    ``own_check``), and the result line last.
 
 It needs one CUDA card and the repository around it; without either it
 exits non-zero.
@@ -313,6 +348,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import collections
+import itertools
 import json
 import os
 import re
@@ -1634,12 +1670,10 @@ def phase_card_vs_cpu(cfg, items, handler, label: str = "train",
     """One step's loss and gradients on the card and on the CPU.
 
     The same weights, FPS from index 0, head dropout 0, the activated loss
-    weights. The loss within 1e-4 relative; each gradient's rms difference
-    within 1e-3 of its norm plus 3 x the CPU step's own float32 rms error on
-    that tensor, measured against the CPU step in float64 (rms, not max:
-    near-ties in the max-pools and the matchings fall apart in another
-    summation order and move single entries by O(1); see
-    ``check_against_exact``).
+    weights, held by ``hold_rule``: the loss within 1e-4 relative; each
+    gradient's rms difference within 1e-3 of its norm plus 3 x the CPU
+    step's own float32 rms error on that tensor, measured against the CPU
+    step in float64.
 
     Three rules that only the recipes of ``phase_recipes`` ask for: with
     ``cotangent`` the gradients are those for fixed seeded cotangents on
@@ -1667,42 +1701,113 @@ def phase_card_vs_cpu(cfg, items, handler, label: str = "train",
              for k, v in b.items()}
         res[dev, dtype] = step_grads(m, handler, b, weights, cotangent)
     (l_gpu, g_gpu), (l_cpu, g_cpu), (l_64, g_64) = res.values()
-    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    own = abs(l_cpu - l_64) / abs(l_cpu)
-    limit = 1e-4 + (3.0 * own if loss_own else 0.0)
-    log(f"[card-vs-cpu] {label}: loss card {l_gpu:.6f} cpu {l_cpu:.6f} "
-        f"(float64 {l_64:.6f}): rel Δ {rel:.2e}, the CPU's own {own:.2e}, "
-        f"allowed {limit:.2e}")
-    if not rel <= limit:
-        raise AssertionError(f"the card's loss differs from the CPU's by "
-                             f"{rel} relative (allowed {limit})")
-    worst = (0.0, "")
     zero = (batchnorm_fed_biases(models["cpu", torch.float32])
-            if zero_biases else set())
+            if zero_biases else frozenset())
+    hold_rule(f"card-vs-cpu {label}", (l_gpu, l_cpu, l_64),
+              (g_gpu, g_cpu, g_64), loss_own=loss_own, zero=zero)
+
+
+def hold_rule(label: str, loss: tuple | None, tensors: tuple,
+              loss_own: bool = False, zero=frozenset(),
+              each: bool = False) -> None:
+    """Phase 8's rule on (card, CPU, exact) triples. The card and the CPU
+    ran in the compared dtype (float32); the exact run is the CPU's in
+    float64, and the CPU run's distance from it is the compared dtype's
+    own error on that value.
+
+    ``loss``: three floats, the card's within 1e-4 of the CPU's, relative
+    (with ``loss_own`` plus 3 x the CPU's own error); None holds no loss.
+    ``tensors``: three {name: tensor} dicts (gradients, or outputs), each
+    card tensor's rms distance from the CPU's within 1e-3 of its norm plus
+    3 x the CPU's own error on it (rms, not max: near-ties in the
+    max-pools and the matchings fall apart in another summation order and
+    move single entries by O(1); see ``check_against_exact``). The names
+    in ``zero`` are 0 in exact arithmetic (``batchnorm_fed_biases``):
+    their norm on the card within 1e-4 of the largest norm. Logs each
+    tensor's distance beside its allowance with ``each``, else the
+    tightest."""
+    if loss is not None:
+        l_gpu, l_cpu, l_64 = loss
+        own = abs(l_cpu - l_64)
+        limit = REL_TOL * abs(l_cpu) + (3.0 * own if loss_own else 0.0)
+        d = abs(l_gpu - l_cpu)
+        log(f"[{label}] loss card {l_gpu:.9g} cpu {l_cpu:.9g} (float64 "
+            f"{l_64:.9g}): |Δ| {d:.3e}, the CPU's own {own:.3e}, allowed "
+            f"{limit:.3e}")
+        if not d <= limit:
+            raise AssertionError(f"[{label}] the card's loss {l_gpu} differs "
+                                 f"from the CPU's {l_cpu} by {d} (allowed "
+                                 f"{limit})")
+    g_gpu, g_cpu, g_64 = ({n: t.detach().cpu().double() for n, t in g.items()}
+                          for g in tensors)
     scale = max(float(g.norm()) for g in g_cpu.values())
+    tight, worst = (0.0, "", 0.0, 0.0), (0.0, "")
     for n, ref in g_cpu.items():
         if n in zero:
             # exactly 0: both sides' values are rounding noise
             if not float(g_gpu[n].norm()) <= 1e-4 * scale:
-                raise AssertionError(f"gradient {n} (0 in exact arithmetic): "
-                                     f"norm {float(g_gpu[n].norm())} on the "
+                raise AssertionError(f"[{label}] {n} (0 in exact arithmetic):"
+                                     f" norm {float(g_gpu[n].norm())} on the "
                                      f"card > 1e-4 x {scale}")
             continue
         norm = float(ref.norm())
         d = float((g_gpu[n] - ref).norm())
         own = float((ref - g_64[n]).norm())
         tol = 1e-3 * norm + 3.0 * own
+        if each:
+            log(f"[{label}] {n}: rms Δ {d:.3e}, allowed {tol:.3e} (1e-3 x "
+                f"{norm:.3e} + 3 x {own:.3e})")
         if not d <= tol:
-            raise AssertionError(f"gradient {n}: card vs CPU rms {d} > {tol} "
-                                 f"(1e-3 x {norm} + 3 x {own})")
+            raise AssertionError(f"[{label}] {n}: card vs CPU rms {d} > "
+                                 f"{tol} (1e-3 x {norm} + 3 x {own})")
+        share = d / tol if tol > 0 else 0.0
+        tight = max(tight, (share, n, d, tol))
         rel_max = float((g_gpu[n] - ref).abs().max()) / max(
             float(ref.abs().max()), 1e-30)
         worst = max(worst, (rel_max, n))
-    log(f"[card-vs-cpu] {label}: {len(g_cpu) - len(zero)} gradients agree"
+    log(f"[{label}] {len(g_cpu) - len(zero)} tensors agree"
         + (f", {len(zero)} that are 0 in exact arithmetic within 1e-4 of "
-           f"the largest gradient norm" if zero else "")
-        + f"; largest card-vs-CPU max|Δ| {worst[0]:.2e} of max|ref| "
-        f"({worst[1]})")
+           f"the largest norm" if zero else "")
+        + f"; the tightest {tight[1]} (rms Δ {tight[2]:.3e}, allowed "
+        f"{tight[3]:.3e}); largest card-vs-CPU max|Δ| {worst[0]:.2e} of "
+        f"max|ref| ({worst[1]})")
+
+
+def hold_float64(label: str, loss: tuple, tensors: tuple,
+                 limit: float = 1e-9, zero=frozenset()) -> None:
+    """Card against CPU, both in float64: ``loss`` (card, CPU) within
+    ``limit`` relative, and each tensor of ``tensors`` (card, CPU dicts)
+    by rms within ``limit`` of its norm, those in ``zero`` (0 in exact
+    arithmetic: both sides hold rounding noise) by their card norm within
+    ``limit`` of the largest norm; logs each. Float64 rounds at 1e-16:
+    the limit leaves room for other summation orders, none for a float32
+    error or a different choice (a neighbour, a max-pool winner)."""
+    (l_gpu, l_cpu), (g_gpu, g_cpu) = loss, (
+        {n: t.detach().cpu().double() for n, t in g.items()}
+        for g in tensors)
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    log(f"[{label}] loss card {l_gpu:.15g} cpu {l_cpu:.15g}: rel Δ "
+        f"{rel:.2e}, allowed {limit:.0e}")
+    if not rel <= limit:
+        raise AssertionError(f"[{label}] the loss differs by {rel} relative "
+                             f"(allowed {limit})")
+    scale = max(float(g.norm()) for g in g_cpu.values())
+    for n, ref in g_cpu.items():
+        if n in zero:
+            got = float(g_gpu[n].norm())
+            log(f"[{label}] {n} (0 in exact arithmetic): norm {got:.3e} on "
+                f"the card, allowed {limit * scale:.3e}")
+            if not got <= limit * scale:
+                raise AssertionError(f"[{label}] {n}: norm {got} on the card "
+                                     f"> {limit} x {scale}")
+            continue
+        norm = float(ref.norm())
+        d = float((g_gpu[n] - ref).norm())
+        log(f"[{label}] {n}: rms Δ {d:.3e}, allowed {limit * norm:.3e} "
+            f"({limit:.0e} x {norm:.3e})")
+        if not d <= limit * norm:
+            raise AssertionError(f"[{label}] {n}: card vs CPU rms {d} > "
+                                 f"{limit} x {norm}")
 
 
 def batchnorm_fed_biases(model) -> set:
@@ -1714,7 +1819,7 @@ def batchnorm_fed_biases(model) -> set:
     for name, m in mods.items():
         if isinstance(m, torch.nn.Linear):
             bn = (name.replace("mlp_convs", "mlp_bns") if "mlp_convs" in name
-                  else re.sub(r"fc(\d)$", r"bn\1", name))
+                  else re.sub(r"(fc|conv)(\d)$", r"bn\2", name))
             if bn != name and isinstance(mods.get(bn), torch.nn.BatchNorm1d):
                 out.add(f"{name}.bias")
     return out
@@ -1910,14 +2015,21 @@ def check_final_eval(run_dir: str, label: str) -> None:
 
 
 def phase_resume() -> None:
-    """Two uninterrupted 2-epoch runs of the flagship on the driver's
+    """Three uninterrupted 2-epoch runs of the flagship on the driver's
     default path (the CUDA-graphed device-resident epoch), one stopped by
     SIGTERM in epoch 1 on the host loader's path (``device_dataset=false``)
-    and resumed on the graphed path, and one stopped on the graphed path
-    and resumed on the host loader's: each parameter group's relative L2
-    distance from the first run, each resumed run's within 2x the second
-    uninterrupted run's plus 1e-6 (the card's scatters sum in launch-
-    dependent order, so no run is bitwise another)."""
+    and resumed on the graphed path, one stopped on the graphed path and
+    resumed on the host loader's, and a control stopped on the graphed path
+    and resumed from a checkpoint whose Adam moments were zeroed.
+
+    The card's scatters sum in launch-dependent order, so no run is bitwise
+    another: each parameter group's relative L2 distance between two
+    uninterrupted runs is noise, whose size is the largest of the three
+    pairs' (one pair alone read 7.4e-4 to 9.2e-4 at sa1, and once 2.30e-4,
+    where a sound resume at 7.55e-4 failed a bound of twice it). Each
+    resumed run lies within 2x that plus 1e-6 of the first run in every
+    group, and the control must lie outside it in some group: the gate
+    still catches a resume that loses Adam's state."""
     import signal
 
     from maskplanner_tpu_torch import train_maskplanner
@@ -1931,10 +2043,17 @@ def phase_resume() -> None:
         return {n: v.double() for n, v in blob["model"].items()
                 if v.is_floating_point()}
 
-    def stopped_then_resumed(out, stop_on, patched, resume_on):
+    def zero_moments(path):
+        blob = torch.load(path, weights_only=True)
+        for state in blob["optimizer"]["state"].values():
+            for key in ("exp_avg", "exp_avg_sq"):
+                state[key].zero_()
+        torch.save(blob, path)
+
+    def stopped_then_resumed(out, stop_on, patched, resume_on, tamper=None):
         """A run on ``device_dataset=stop_on`` whose ``patched`` (module or
         class, attribute) sends SIGTERM after its first call, resumed on
-        ``device_dataset=resume_on``."""
+        ``device_dataset=resume_on`` (``tamper(checkpoint path)`` first)."""
         owner, name = patched
         original, calls = getattr(owner, name), []
 
@@ -1951,38 +2070,53 @@ def phase_resume() -> None:
                 [*args, f"device_dataset={stop_on}", f"output_dir={out}"])
         finally:
             setattr(owner, name, original)
-        blob = torch.load(os.path.join(stopped, "last_checkpoint.torch.pt"),
-                          weights_only=True)
-        if blob["epoch"] != 1:
-            raise AssertionError(f"the stopped run saved epoch "
-                                 f"{blob['epoch']}")
+        path = os.path.join(stopped, "last_checkpoint.torch.pt")
+        if torch.load(path, weights_only=True)["epoch"] != 1:
+            raise AssertionError("the stopped run saved another epoch")
+        if tamper is not None:
+            tamper(path)
         train_maskplanner.main([f"resume={stopped}",
                                 f"device_dataset={resume_on}"])
         return stopped
 
+    graphed = (train_maskplanner.DeviceEpoch, "run")
     with tempfile.TemporaryDirectory() as out:
-        runs = [train_maskplanner.main([*args, f"output_dir={out}/{k}"])[0]
-                for k in ("a", "b")]
-        # the host path's step, the graphed path's epoch
+        runs = [params(train_maskplanner.main(
+            [*args, f"output_dir={out}/{k}"])[0]) for k in ("a", "b", "c")]
         resumed = {
             "host then graphed": stopped_then_resumed(
-                f"{out}/c", "false", (train_maskplanner, "train_step"),
+                f"{out}/d", "false", (train_maskplanner, "train_step"),
                 "auto"),
             "graphed then host": stopped_then_resumed(
-                f"{out}/d", "auto", (train_maskplanner.DeviceEpoch, "run"),
-                "false")}
-        ref = params(runs[0])
-        own = group_rel_l2(params(runs[1]), ref)
+                f"{out}/e", "auto", graphed, "false")}
+        control = stopped_then_resumed(f"{out}/f", "auto", graphed, "auto",
+                                       tamper=zero_moments)
+        ref = runs[0]
+        pairs = [group_rel_l2(runs[i], runs[j])
+                 for i, j in ((0, 1), (0, 2), (1, 2))]
         dist = {k: group_rel_l2(params(r), ref) for k, r in resumed.items()}
-    for g in own:
-        log(f"[resume] {g}: " + ", ".join(f"{k} {d[g]:.3e}"
-                                          for k, d in dist.items())
-            + f", uninterrupted {own[g]:.3e}")
+        ctrl = group_rel_l2(params(control), ref)
+    caught = []
+    for g in pairs[0]:
+        noise = max(p[g] for p in pairs)
+        limit = 2.0 * noise + 1e-6
+        log(f"[resume] {g}: uninterrupted pairs "
+            + ", ".join(f"{p[g]:.3e}" for p in pairs)
+            + "; " + ", ".join(f"{k} {d[g]:.3e}" for k, d in dist.items())
+            + f"; limit {limit:.3e}; control (Adam's moments zeroed) "
+            f"{ctrl[g]:.3e}")
         for k, d in dist.items():
-            if not d[g] <= 2.0 * own[g] + 1e-6:
+            if not d[g] <= limit:
                 raise AssertionError(f"the run stopped and resumed ({k}) "
                                      f"lies {d[g]} from the first run in "
-                                     f"{g}, the second's {own[g]}")
+                                     f"{g}, beyond {limit} (noise {noise})")
+        if not ctrl[g] <= limit:
+            caught.append(g)
+    if not caught:
+        raise AssertionError("a resume with Adam's moments zeroed passed the "
+                             "resume gate in every group")
+    log(f"[resume] the control fails the gate in {len(caught)} group(s): "
+        f"{caught}")
 
 
 def phase_health(then=None) -> None:
@@ -4451,20 +4585,8 @@ def zoo_terms(cfg, terms: dict, card: dict, res: dict) -> dict:
                                     torch.float32)
         v64, g64 = zoo_term_value(handlers[name], *terms[name], "cpu",
                                   torch.float64)
-        own = abs(ref - v64)
-        if not (np.isfinite(v) and abs(v - ref) <= 1e-4 * abs(ref)
-                + 3.0 * own):
-            raise AssertionError(f"[zoo] {name}: card {v}, CPU {ref} "
-                                 f"(float64 {v64})")
-        for k in ref_g:
-            d = float((g[k] - ref_g[k]).norm())
-            tol = 1e-3 * float(ref_g[k].norm()) + 3.0 * float(
-                (ref_g[k] - g64[k]).norm())
-            if not d <= tol:
-                raise AssertionError(f"[zoo] {name} d/d{k}: card vs CPU rms "
-                                     f"{d} > {tol}")
-        log(f"[zoo] {name}: card {v:.6g}, CPU {ref:.6g} (float64 {v64:.6g});"
-            f" gradients with respect to {', '.join(ref_g)} agree")
+        hold_rule(f"zoo {name}", (v, ref, v64), (g, ref_g, g64),
+                  loss_own=True)
     # #4 on the stroke stacks: chamfer_strokes' two searches
     segs_pred, segs = (terms["chamfer_strokes"][0][k] for k in (
         "stacked_segments_per_stroke_pred", "stacked_segments_per_stroke_gt"))
@@ -4533,20 +4655,10 @@ def zoo_gradient(cfg, batch: dict) -> dict:
     l_gpu, g_gpu = grads(fresh("cuda", torch.float32), two, gt)
     l_cpu, g_cpu = grads(fresh("cpu", torch.float32), two.cpu(), gt)
     l_64, g_64 = grads(fresh("cpu", torch.float64), two.cpu().double(), gt)
-    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    if not rel <= 1e-4:
-        raise AssertionError(f"[zoo] masked_mse_strokes_v2 through the "
-                             f"model: loss card {l_gpu} vs CPU {l_cpu}")
-    for n, ref in g_cpu.items():
-        d = float((g_gpu[n] - ref).norm())
-        tol = 1e-3 * float(ref.norm()) + 3.0 * float((ref - g_64[n]).norm())
-        if not d <= tol:
-            raise AssertionError(f"[zoo] gradient {n}: card vs CPU rms {d} > "
-                                 f"{tol}")
-    log(f"[zoo] masked_mse_strokes_v2 through pointnet2_strokewise: loss "
-        f"card {l_gpu:.6f}, CPU {l_cpu:.6f} (float64 {l_64:.6f}), rel Δ "
-        f"{rel:.2e}; {len(g_cpu)} parameter gradients agree; forward and "
-        f"backward at batch {BATCH}: {ms:.3f} ms; launches "
+    hold_rule("zoo masked_mse_strokes_v2 through pointnet2_strokewise",
+              (l_gpu, l_cpu, l_64), (g_gpu, g_cpu, g_64))
+    log(f"[zoo] masked_mse_strokes_v2 through pointnet2_strokewise: forward "
+        f"and backward at batch {BATCH}: {ms:.3f} ms; launches "
         f"{ {k: v for k, v in launches.items() if v} }")
     return launches
 
@@ -4638,6 +4750,559 @@ def phase_zoo(res: dict, card: dict) -> dict:
         if ran:
             res[name]["zoo_launches"] = ran
     log(f"[zoo] phase took {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 27: the segmenters and the GAN recipe
+# ---------------------------------------------------------------------------
+
+# the contrastive segmenter on the flagship's GT segments (λ=4, 449 a cloud)
+SEGMENTER = ["model.backbone=pointnet2_segmenter_v1", "ball_in_xyz_space=true",
+             "latent_dim=64", "loss=[contrastive_v1]",
+             "weight_contrastive_v1=1.0"]
+# sa1: FPS and the ball query (#7) on the R³ centroids, the full segments
+# grouped; sa2: FPS and the ball-group gather (#6); sa3: plain ops. The
+# train forward's BallGroup launches #6 too (its backward is index_add_)
+SEG_LAUNCHES = launches_of(fps=2, ball_query=1, ball_group=1)
+# the GAN recipe: pointWise's generator (1350 one-pose segments) against a
+# full-width DGCNN critic (k = knn_gcn = 20); the critic launches no kernel
+GAN_RECIPE = ["config=[pointWise,windows_v2,longx_v2]",
+              "loss=[chamfer,wdiscriminator]", "weight_wdiscriminator=0.01"]
+GAN_STEP_LAUNCHES = launches_of(fps=2, fused_sa_fwd=2, fused_sa_bwd=2,
+                                sa_weight_grad=2, nn_argmin=2)
+# samples of the card-against-CPU checks: the generator's (as phase 8) and
+# the critic's: its pooled BatchNorms normalise one row a cloud, and at 4
+# clouds a channel's variance can be 2.6e-6 of its E[x²], where the
+# one-pass variance (Flax's) loses six float32 digits: the update's loss
+# lay 7.2e-4 from float64 on the CPU, and 4.2e-6 at 8 (H100; PERF.md §6)
+GAN_COMPARE = 2
+CRITIC_COMPARE = 8
+# the critic's parameters whose update gradient is 0 in exact arithmetic:
+# bn7 normalises linear2's output in train mode, and neither the WGAN loss
+# (a difference of two logit means) nor the penalty (an input gradient)
+# moves with the logit's bias
+CRITIC_ZERO = frozenset({"linear2.bias", "linear3.bias"})
+
+
+@contextlib.contextmanager
+def shared_choices(record: list | None = None,
+                   replay: list | None = None):
+    """The (leaky) ReLUs' signs and the max-pools' winners inside the
+    block: ``torch.relu``, ``functional.leaky_relu`` and ``Tensor.amax``
+    run as they are and append their choices to ``record`` (the inputs
+    above 0; the entries equal to the max), or, with ``replay``, make the
+    recorded ones call by call (all of them): x · mask, x or x · slope by
+    the mask, the mean of the recorded winners (one winner: its value;
+    ties: the gradient split among them, as ``amax`` splits it). So two
+    runs make the same choices where an input within rounding of 0, or
+    two entries within rounding of each other, would fall either way with
+    the summation order; with neither the block is left as it is."""
+    if record is None and replay is None:
+        yield
+        return
+    functional = torch.nn.functional
+    relu, leaky, amax = torch.relu, functional.leaky_relu, torch.Tensor.amax
+    calls, used = iter(replay or ()), []
+
+    def recorded(x, mask):
+        record.append(mask.cpu())
+
+    def replayed(x):
+        used.append(1)
+        return next(calls).to(x.device)
+
+    def shared_relu(x):
+        if replay is None:
+            recorded(x, x > 0)
+            return relu(x)
+        return x * replayed(x).to(x.dtype)
+
+    def shared_leaky(x, negative_slope=0.01):
+        if replay is None:
+            recorded(x, x > 0)
+            return leaky(x, negative_slope)
+        return torch.where(replayed(x), x, x * negative_slope)
+
+    def shared_amax(x, dim, keepdim=False):
+        if replay is None:
+            out = amax(x, dim, keepdim=True)
+            recorded(x, x == out)
+            return out if keepdim else out.squeeze(dim)
+        won = replayed(x).to(x.dtype)
+        out = (x * won).sum(dim, keepdim=True) / won.sum(dim, keepdim=True)
+        return out if keepdim else out.squeeze(dim)
+
+    torch.relu, functional.leaky_relu = shared_relu, shared_leaky
+    torch.Tensor.amax = shared_amax
+    try:
+        yield
+    finally:
+        torch.relu, functional.leaky_relu = relu, leaky
+        torch.Tensor.amax = amax
+    if replay is not None and len(used) != len(replay):
+        raise AssertionError(f"{len(used)} choices made, {len(replay)} "
+                             f"recorded")
+
+
+def segmenter_grads(model, segs, ids, uniform, n_strokes_max: int,
+                    fps_seed: int | None = None, **choices):
+    """The contrastive loss on the segmenter's latents (the uniform draw
+    given) -> (loss, {"latents": the latents, parameter: its gradient}).
+    Eval mode, or with ``fps_seed`` train mode, its FPS starts drawn from a
+    CPU generator of that seed (the same starts on either device);
+    ``choices``: ``shared_choices``'s."""
+    from maskplanner_tpu_torch.losses import regularizers as R
+
+    model.zero_grad(set_to_none=True)
+    with shared_choices(**choices):
+        if fps_seed is None:
+            lat = model.eval()(segs)
+        else:
+            lat = model.train()(segs, generator=torch.Generator().manual_seed(
+                fps_seed))
+        loss = R.contrastive_v1(lat, ids, margin=0.3, balance_negatives=True,
+                                n_strokes_max=n_strokes_max, uniform=uniform)
+        loss.backward()
+    return loss.item(), {"latents": lat.detach(), **{
+        n: p.grad.detach() for n, p in model.named_parameters()}}
+
+
+def phase_segmenter(items: list, res: dict) -> dict:
+    """(i) of phase 27 -> {path: launches}."""
+    from maskplanner_tpu_torch.losses import LossHandler
+    from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.ops.sampling import (ball_query_plain,
+                                                    farthest_point_sample,
+                                                    fps_plain, index_points,
+                                                    query_ball_point)
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    cfg = load_args(argv=[FLAGSHIP, *SEGMENTER])
+    batch = to_batch(items, "cuda")
+    segs, ids = batch["traj"], batch["stroke_ids"]
+    B, N, D = segs.shape
+    model = get_model(cfg, device="cuda", io_type="ContrastiveClustering",
+                      generator=torch.Generator().manual_seed(0))
+    sa = model.sa1
+    # sa1's FPS and ball on the centroids: 512 centres from N < 512 points
+    xyz = segs.reshape(B, N, 4, D // 4)[..., :3].mean(-2)
+    idx = farthest_point_sample(xyz, sa.npoint)
+    ref = fps_plain(xyz, sa.npoint, torch.zeros(B, dtype=torch.int32,
+                                                device="cuda"))
+    if not torch.equal(idx, ref):
+        raise AssertionError(f"FPS of {sa.npoint} centres from {N} "
+                             f"centroids differs from its plain version")
+    log(f"[segmenter] {B} clouds of {N} segments ({D} values): FPS of "
+        f"{sa.npoint} > {N} centres identical to the plain version "
+        f"(index 0 repeated {int((idx[:, N:] == 0).sum())} times)")
+    new_xyz = index_points(xyz, idx)
+    r, K = sa.radius, sa.nsample
+    q = query_ball_point(r, K, xyz, new_xyz)
+    q_ref = ball_query_plain(r, K, xyz, new_xyz)
+    if not torch.equal(q, q_ref):
+        raise AssertionError("ball_query on the segmenter's sa1: indices "
+                             "differ from ball_query_plain")
+    ms = median_ms(lambda: query_ball_point(r, K, xyz, new_xyz), 20)
+    plain = median_ms(lambda: ball_query_plain(r, K, xyz, new_xyz), 5, 1)
+    rq = res["ball_query"]
+    rq["own_check"] = {k: rq.pop(k) for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "level_ms")}
+    rq.update(ms=ms, plain_ms=plain, max_abs_err=0.0,
+              shape=[B, N, sa.npoint, K])
+    rq.update(bound(scan_ops(r, K, xyz, new_xyz),
+                    4.0 * (xyz.numel() + new_xyz.numel() + q.numel())))
+    log(f"[segmenter] ball_query at sa1 (B={B} N={N} S={sa.npoint} K={K}): "
+        f"identical to ball_query_plain; kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {rq['bound_ms']:.4f} ms ({rq['bound_by']})")
+
+    paths = {}
+    with torch.no_grad():
+        model(segs)                                   # warm up
+        reset_counts()
+        lat = model(segs)
+        paths["segmenter eval forward"] = read_counts()
+        fwd_ms = median_host_s(lambda: model(segs), 10) * 1e3
+    if paths["segmenter eval forward"] != SEG_LAUNCHES:
+        raise AssertionError(f"the segmenter's forward launched "
+                             f"{paths['segmenter eval forward']}")
+    if lat.shape != (B, N, 64) or not bool(torch.isfinite(lat).all()):
+        raise AssertionError(f"segmenter latents {tuple(lat.shape)}, not "
+                             f"finite or not (B, N, 64)")
+    cpu = copy.deepcopy(model).cpu().eval()
+    with torch.no_grad():
+        err = check_close("[segmenter] forward, card vs CPU", lat[:2].cpu(),
+                          cpu(segs[:2].cpu()), REL_TOL)
+    log(f"[segmenter] eval forward at batch {B}: {fwd_ms:.3f} ms, launches "
+        f"{paths['segmenter eval forward']}; 2 samples on the CPU within "
+        f"max|Δ| {err:.3e}")
+
+    # train mode: random FPS starts, batch statistics, the loss's backward
+    handler = LossHandler(cfg["loss"], cfg)
+    weights = handler.init_weights()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    model.train()
+    reset_counts()
+    total, _ = handler.compute(weights, generator=gen,
+                               latent_segments=model(segs, generator=gen),
+                               stroke_ids=ids)
+    total.backward()
+    total = total.detach()
+    paths["segmenter train forward and backward"] = read_counts()
+    if paths["segmenter train forward and backward"] != SEG_LAUNCHES \
+            or not bool(torch.isfinite(total)):
+        raise AssertionError(
+            f"the segmenter's train step launched "
+            f"{paths['segmenter train forward and backward']}, loss "
+            f"{float(total)}")
+    log(f"[segmenter] train forward, contrastive_v1 {float(total):.6f} and "
+        f"backward at batch {B}: launches "
+        f"{paths['segmenter train forward and backward']}")
+
+    # the latents, the loss and its gradient, card vs CPU on 8 clouds, in
+    # eval and in train mode (the same FPS starts and uniform draw), the
+    # card making the CPU float32 run's ReLU and max-pool choices: one ReLU
+    # input within 1.2e-8 of 0 that falls the other way carries 8.7e-4 of
+    # the eval gradients' norm, and in train mode reversing the batch on
+    # the CPU alone moves the encoder's gradients by up to 7.9e-3 (H100;
+    # PERF.md §6)
+    n = min(8, B)
+    uniform = torch.rand((n, N, N), generator=torch.Generator().manual_seed(4))
+    for mode, fps_seed in (("eval", None), ("train", 5)):
+        res_g, choices = {}, []
+        for dev, dtype, kw in (("cpu", torch.float32, {"record": choices}),
+                               ("cuda", torch.float32, {"replay": choices}),
+                               ("cpu", torch.float64, {})):
+            m = copy.deepcopy(model).to(device=dev, dtype=dtype)
+            res_g[dev, dtype] = segmenter_grads(
+                m, segs[:n].to(dev, dtype), ids[:n].to(dev),
+                uniform.to(dev, dtype), int(cfg["max_n_strokes"]),
+                fps_seed, **kw)
+        # in train mode the BatchNorm-fed biases' gradients are 0 exactly
+        zero = batchnorm_fed_biases(model) if fps_seed else frozenset()
+        hold_rule(f"segmenter {mode} latents and contrastive_v1 on shared "
+                  f"choices, card vs CPU", *zip(*(res_g[k] for k in (
+                      ("cuda", torch.float32), ("cpu", torch.float32),
+                      ("cpu", torch.float64)))), zero=zero)
+
+    # the PaintNet segmenter and PointNet, eval at batch 64 on the clouds
+    pc = batch["point_cloud"]
+    for which, extra, expect in (
+            ("pointnet2_segmenter_paintnet_v1", [], BN_FORWARD_LAUNCHES),
+            ("pointnet", ["extra_data=[]"], launches_of())):
+        c = load_args(argv=[FLAGSHIP, f"model.backbone={which}", *extra])
+        m = get_model(c, device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            m(pc)
+            reset_counts()
+            out = m(pc)
+            paths[f"{which} eval forward"] = got = read_counts()
+            t = median_host_s(lambda: m(pc), 5) * 1e3
+            e = check_close(f"[segmenter] {which}, card vs CPU",
+                            out[:2].cpu(), copy.deepcopy(m).cpu()(
+                                pc[:2].cpu()), REL_TOL)
+        if got != expect or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{which}'s forward launched {got}, or is "
+                                 f"not finite")
+        log(f"[segmenter] {which} eval forward {tuple(out.shape)} at batch "
+            f"{B}: {t:.3f} ms, launches {got}; 2 samples on the CPU within "
+            f"max|Δ| {e:.3e}")
+    return paths
+
+
+def phase_gan_driver() -> None:
+    """The GAN recipe through ``train_maskplanner`` for 2 epochs of 2 steps
+    (the host loader), then a resume that must restore the critic's state
+    bitwise."""
+    from maskplanner_tpu_torch import train_maskplanner
+
+    with tempfile.TemporaryDirectory() as out:
+        t = time.perf_counter()
+        run_dir, _ = train_maskplanner.main([
+            *GAN_RECIPE, "device=cuda", "epochs=2", "eval_freq=1",
+            f"dataset_size={2 * BATCH}", "test_dataset_size=8", "seed=1",
+            "skip_rendering=true", f"output_dir={out}"])
+        took = time.perf_counter() - t
+        with open(os.path.join(run_dir, "logs.jsonl")) as fh:
+            logs = [json.loads(line) for line in fh]
+        for entry in logs:
+            for k, v in entry.items():
+                if k.endswith("_loss") and not np.isfinite(v):
+                    raise AssertionError(f"GAN driver: {k} = {v}")
+        if not all("d_internal_train_loss" in e for e in logs):
+            raise AssertionError("GAN driver: no d_internal_train_loss")
+        aux = os.path.join(run_dir, "last_checkpoint_aux.torch.pt")
+        saved = torch.load(aux, weights_only=True)
+        seen = []
+        load = train_maskplanner.load_aux_state
+
+        def recorded(run, name, critic):
+            found = load(run, name, critic)
+            seen.append((found, critic.state_dict()))
+            return found
+
+        train_maskplanner.load_aux_state = recorded
+        try:
+            train_maskplanner.main([f"resume={run_dir}"])
+        finally:
+            train_maskplanner.load_aux_state = load
+        (found, state), = seen
+        same = found and all(torch.equal(state["module"][k], v)
+                             for k, v in saved["module"].items()) and all(
+            torch.equal(state["optimizer"]["state"][i][k], v)
+            for i, s in saved["optimizer"]["state"].items()
+            for k, v in s.items())
+        if not same:
+            raise AssertionError("the resumed GAN run's critic is not the "
+                                 "saved one")
+    log(f"[gan] train_maskplanner {' '.join(GAN_RECIPE)}: 2 epochs of 2 "
+        f"steps at batch {BATCH} in {took:.1f} s; losses finite, "
+        f"d_internal_train_loss " + ", ".join(
+            f"{e['d_internal_train_loss']:.4g}" for e in logs)
+        + "; resume restored the critic's state bitwise")
+
+
+def gan_critic(cfg, kind: str = "wdiscriminator"):
+    """The adversarial loss and its seeded full-width critic on the card."""
+    from maskplanner_tpu_torch.losses.gan import AdversarialLoss
+
+    adv = AdversarialLoss(cfg, kind)
+    return adv, adv.init_state(torch.zeros(1, 1350, 6), "cuda",
+                               torch.Generator().manual_seed(17))
+
+
+def gan_parts(cfg, kind: str = "wdiscriminator"):
+    """The seeded generator, its Adam, the loss handler and weights, the
+    adversarial loss and its critic on the card."""
+    from maskplanner_tpu_torch.losses import LossHandler
+    from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.train import make_optimizer
+
+    model = get_model(cfg, device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    handler = LossHandler(cfg["loss"], cfg)
+    return (model, make_optimizer(model, cfg), handler,
+            active_weights(cfg, handler), *gan_critic(cfg, kind))
+
+
+def phase_gan_step(items: list) -> dict:
+    """The GAN step at batch 64: launches, ms a step, the critic's share,
+    the peak memory; one minimax step -> its launches."""
+    from maskplanner_tpu_torch.train import gan_train_step
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    cfg = load_args(argv=GAN_RECIPE)
+    batch = to_batch(items, "cuda")
+    model, opt, handler, weights, adv, critic = gan_parts(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    steps = itertools.count()
+
+    def step():
+        return gan_train_step(model, opt, handler, batch, weights, gen,
+                              adv=adv, critic=critic, step=next(steps))
+
+    step()                                              # warm up
+    reset_counts()
+    loss, terms = step()
+    launches = read_counts()
+    if launches != GAN_STEP_LAUNCHES:
+        raise AssertionError(f"the GAN step launched {launches}")
+    if not all(bool(torch.isfinite(v)) for v in (loss, *terms.values())):
+        raise AssertionError(f"the GAN step: {float(loss)}, {terms}")
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_host_s(step, 3) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        model.train()
+        y_pred = model(batch["point_cloud"], generator=gen).traj.float()
+
+    def critic_loss_fwd_bwd():
+        yp = y_pred.detach().requires_grad_(True)
+        adv.generator_loss(critic, yp).backward()
+
+    update = median_host_s(lambda: adv.discriminator_update(
+        critic, y_pred, batch["traj"], gen), 3) * 1e3
+    g_loss = median_host_s(critic_loss_fwd_bwd, 3) * 1e3
+    log(f"[gan] step at batch {BATCH} (1350 poses a cloud, critic k="
+        f"{critic.module.k}): {ms:.3f} ms; launches {launches}; the critic "
+        f"{update + g_loss:.3f} ms of it ({(update + g_loss) / ms:.3f}: its "
+        f"update {update:.3f} ms, the generator's term forward and backward "
+        f"{g_loss:.3f} ms); peak memory {peak / 2**30:.2f} GiB; terms "
+        + ", ".join(f"{k} {float(v):.6g}" for k, v in terms.items()))
+
+    mm = load_args(argv=[*GAN_RECIPE, "loss=[chamfer,discriminator]",
+                         "weight_discriminator=0.01"])
+    model, opt, handler, weights, adv, critic = gan_parts(mm,
+                                                          "discriminator")
+    reset_counts()
+    loss, terms = gan_train_step(model, opt, handler, batch, weights, gen,
+                                 adv=adv, critic=critic, step=0)
+    minimax = read_counts()
+    if minimax != GAN_STEP_LAUNCHES or not all(
+            bool(torch.isfinite(v)) for v in (loss, *terms.values())):
+        raise AssertionError(f"the minimax step launched {minimax}: "
+                             f"{float(loss)}, {terms}")
+    log(f"[gan] one minimax (discriminator) step: loss {float(loss):.6f}, "
+        + ", ".join(f"{k} {float(v):.6g}" for k, v in terms.items()))
+    return {"GAN step (wdiscriminator)": launches,
+            "GAN step (discriminator)": minimax}
+
+
+@contextlib.contextmanager
+def critic_neighbours(record: list | None = None,
+                      replay: list | None = None):
+    """``models.dgcnn``'s kNN inside the block: it appends each call's
+    neighbour indices to ``record``, or, with ``replay``, hands out the
+    recorded ones call by call in place of its own (and must use them
+    all), so that two runs share the critic's graphs; with neither it is
+    left as it is."""
+    from maskplanner_tpu_torch.models import dgcnn
+
+    if record is None and replay is None:
+        yield
+        return
+    knn, calls, used = dgcnn.knn, iter(replay or ()), []
+
+    def recorded(k, query, points, *args, **kw):
+        d, idx = knn(k, query, points, *args, **kw)
+        record.append(idx.cpu())
+        return d, idx
+
+    def replayed(k, query, points, *args, **kw):
+        used.append(1)
+        return None, next(calls).to(query.device)
+
+    dgcnn.knn = replayed if replay is not None else recorded
+    try:
+        yield
+    finally:
+        dgcnn.knn = knn
+    if replay is not None and len(used) != len(replay):
+        raise AssertionError(f"the critic built {len(used)} graphs, "
+                             f"{len(replay)} recorded")
+
+
+def phase_gan_card_vs_cpu(items: list) -> None:
+    """One GAN step at fixed weights, card against CPU, on 8 clouds of the
+    recipe's GT and of the CPU generator's prediction, with one set of
+    mixing weights and dropout masks:
+
+    - the critic's update (its loss; its gradient, from Adam's first
+      moment; the statistics it moved) and the generator's term (its
+      value; its gradient with respect to the prediction) in float64 on
+      both sides, each within 1e-9 (``hold_float64``): the card's kNN in
+      feature space picks the CPU's neighbours;
+    - the same in float32 by phase 8's rule (``hold_rule``), each float32
+      run on the critic graphs and the leaky ReLU and max-pool choices of
+      the CPU's float64 run (``critic_neighbours``, ``shared_choices``):
+      on the GT's −100 padding (most of the 1350 poses, printed) the
+      float32 matmul-expansion distances over near-equal features decide
+      near-ties by rounding, which moved the critic's loss 52% from
+      float64 on the CPU (H100; PERF.md §6);
+    - the generator's parameter gradients through the critic in float32
+      by phase 8's rule (2 clouds: FPS from index 0, no dropout, the
+      critic in eval) on the CPU float64 run's critic graphs.
+
+    Every allowance is printed beside its distance."""
+    from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    cfg = load_args(argv=GAN_RECIPE)
+    adv, critic = gan_critic(cfg)
+    weight = float(cfg["weight_wdiscriminator"])
+    b = to_batch(items[:CRITIC_COMPARE], "cpu")
+    masks = critic.module.dropout_masks(CRITIC_COMPARE,
+                                        torch.Generator().manual_seed(5),
+                                        "cpu")
+    eps = torch.rand(1, CRITIC_COMPARE, 1, 1,
+                     generator=torch.Generator().manual_seed(6))
+
+    def generator(dev, dtype):
+        model = get_model(cfg, device="cpu", dropout=0.0,
+                          generator=torch.Generator().manual_seed(0))
+        return model.to(device=dev, dtype=dtype).train()
+
+    def critic_on(dev, dtype):
+        c = copy.deepcopy(critic)
+        c.module.to(device=dev, dtype=dtype)
+        c.module.dropout_masks = (
+            lambda batch, gen, device, d=dev, t=dtype:
+            tuple(m.to(d, t) for m in masks))
+        return c
+
+    def critic_step(key, mode=None):
+        """The generator's term, then the critic's update, with ``mode``
+        "record" or "replay" the critic's graphs (``critic_neighbours``)
+        and choices (``shared_choices``) -> ((value, {"y_pred": gradient}),
+        (loss, {name: gradient or statistic}))."""
+        c = critic_on(*key)
+        with critic_neighbours(**{mode: graphs} if mode else {}), \
+                shared_choices(**{mode: choices} if mode else {}):
+            yp = fake.to(*key).clone().requires_grad_(True)
+            t = weight * adv.generator_loss(c, yp)
+            t.backward()
+            loss = adv.discriminator_update(c, fake.to(*key),
+                                            b["traj"].to(*key),
+                                            eps=eps.to(*key))
+        named = c.module.named_parameters()
+        return ((t.item(), {"y_pred": yp.grad}), (float(loss), {
+            **{n: c.optimizer.state[p]["exp_avg"] / 0.1 for n, p in named},
+            **{f"statistic {n}": v for n, v in c.module.named_buffers()}}))
+
+    with torch.no_grad():
+        fake = generator("cpu", torch.float32)(b["point_cloud"]).traj
+    padded = (b["traj"] == -100.0).all(-1).sum(-1).tolist()
+    log(f"[gan] GT poses that are −100 padding, of "
+        f"{b['traj'].shape[1]} a cloud: {padded}")
+    c64, f32, f64 = (("cuda", torch.float64), ("cpu", torch.float32),
+                     ("cpu", torch.float64))
+    graphs, choices = [], []
+    runs = {f64: critic_step(f64, "record"), c64: critic_step(c64)}
+    for key in (("cuda", torch.float32), f32):
+        runs[key] = critic_step(key, "replay")
+    for i, what in enumerate(("generator's term", "critic update")):
+        zero = CRITIC_ZERO if i else frozenset()
+        hold_float64(f"gan {what} in float64, card vs CPU",
+                     *zip(runs[c64][i], runs[f64][i]), zero=zero)
+        hold_rule(f"gan {what} in float32 on shared critic graphs and "
+                  f"choices, card vs CPU", *zip(*(runs[k][i] for k in (
+                      ("cuda", torch.float32), f32, f64))), zero=zero,
+                  each=True)
+
+    graphs, grads = [], {}
+    for key, kw in ((f64, {"record": graphs}),
+                    (("cuda", torch.float32), {"replay": graphs}),
+                    (f32, {"replay": graphs})):
+        model = generator(*key)
+        c = critic_on(*key)
+        pc = b["point_cloud"][:GAN_COMPARE].to(*key)
+        with critic_neighbours(**kw):
+            term = weight * adv.generator_loss(c, model(pc).traj)
+            term.backward()
+        grads[key] = {n: p.grad for n, p in model.named_parameters()
+                      if p.grad is not None}
+    # (the term's value moves with the generator's own float32 error, which
+    # phase 24 allows pointWise's loss; on one prediction it is held above)
+    hold_rule("gan generator gradients through the critic in float32 on "
+              "shared critic graphs, card vs CPU", None,
+              tuple(grads[k] for k in (("cuda", torch.float32), f32, f64)),
+              each=True)
+
+
+def phase_segmenters_gan(items: list, res: dict) -> dict:
+    """Phase 27 -> {path: launches}."""
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    t0 = time.perf_counter()
+    paths = phase_segmenter(items, res)
+    t1 = time.perf_counter()
+    gan_items = load_items(load_args(argv=GAN_RECIPE), "train")
+    phase_gan_driver()
+    paths.update(phase_gan_step(gan_items))
+    phase_gan_card_vs_cpu(gan_items)
+    log(f"[segmenters-gan] phase took {time.perf_counter() - t0:.1f} s (the "
+        f"segmenters {t1 - t0:.1f} s)")
     return paths
 
 
@@ -4769,6 +5434,8 @@ def main() -> int:
     # the stroke-wise and start-of-path families: each path's counts set to
     # 0 just before it and read just after
     phase_zoo(res, card)
+    # the segmenters and the GAN recipe: likewise
+    seg_gan = phase_segmenters_gan(train_items, res)
     log(f"[time] all phases done at {time.perf_counter() - t0:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -4787,8 +5454,11 @@ def main() -> int:
         for name, n in epochs[label]["launches"].items():
             if n and name not in counted:
                 counted[name] = (path, n)
-    for name in ("ball_query", "fused_sa_folded"):
-        counted[name] = ("own check, through its entry point", own[name])
+    counted["fused_sa_folded"] = ("own check, through its entry point",
+                                  own["fused_sa_folded"])
+    counted["ball_query"] = (
+        "pointnet2_segmenter_v1 (ball_in_xyz_space) eval forward, sa1",
+        seg_gan["segmenter eval forward"]["ball_query"])
     for name, path in (("fps_large", "forward at pc_points=16384"),
                        ("nn_argmin_chunked", "training step at "
                                              "lambda_points=22"),
@@ -4798,6 +5468,9 @@ def main() -> int:
         raise AssertionError("the eval launched no nn_argmin")
     for name in KERNELS:
         counted.setdefault(name, ("no path", 0))
+        ran = {p: n[name] for p, n in seg_gan.items() if n[name]}
+        if ran:
+            res[name]["segmenters_gan_launches"] = ran
     for name, (path, n) in counted.items():
         if n == 0:
             raise AssertionError(f"{name} was never launched on {path}")

@@ -36,6 +36,33 @@ and the other ported models' trees:
   ones, (d, heads, head_dim) for query, key and value and (heads,
   head_dim, d) for out, flattened to the Linear layers' (d, d).
 
+and the trees of this slice's models, told apart by their module names
+(the original repository's on the port's side):
+
+- PointNet (``feat`` at the root): ``feat/{stn,fstn}/_ConvBNStack_0/
+  {Dense,BatchNorm}_{j}`` -> ``feat.{stn,fstn}.conv{j+1}``, ``bn{j+1}``;
+  ``_ConvBNStack_1/{Dense,BatchNorm}_{j}`` -> ``fc{j+1}``, ``bn{j+4}``;
+  their ``Dense_0`` -> ``fc3``; ``feat/mlp1`` -> ``feat.conv1``,
+  ``feat.bn1``; ``feat/mlp2/{Dense,BatchNorm}_{j}`` -> ``feat.conv{j+2}``,
+  ``feat.bn{j+2}``; ``feat/conv3``, ``feat/bn3`` -> the last conv
+  (``feat.conv3``, or ``feat.conv5`` in the deeper extractor). The
+  regressor's ``Dense_{0,1,2}``, ``BatchNorm_{0,1}`` -> ``fc{1,2,3}``,
+  ``bn{1,2}``; the segmenter's ``_ConvBNStack_0/{Dense,BatchNorm}_{j}`` ->
+  ``conv{j+1}``, ``bn{j+1}`` and ``Dense_0`` -> ``conv4``
+- ``PointNetSegmenterConv1d`` (four bare Dense): ``Dense_{j}`` ->
+  ``conv{j+1}``
+- the PointNet++ segmenters (``sa1`` at the root):
+  ``sa{i}/PointMLP_0/...`` -> ``sa{i}.mlp_convs``/``mlp_bns``;
+  ``PointMLP_0/{Dense,BatchNorm}_{j}`` -> ``conv{j+1}``, ``bn{j+1}``;
+  ``Dense_0`` -> ``conv4``; ``conv4_trasl``, ``conv4_orient`` by name
+- DGCNN (``_EdgeConv_0`` at the root): ``_EdgeConv_{i}/{Dense,BatchNorm}_0``
+  -> ``conv{i+1}``, ``bn{i+1}``; ``Dense_{0,1,2,3}`` -> ``conv5``,
+  ``linear1``, ``linear2``, ``linear3``; ``BatchNorm_{0,1,2}`` -> ``bn5``,
+  ``bn6``, ``bn7``
+- ``MLP`` as ``MLPRegressor``'s hidden layers (``fcs.{j}``, ``bns.{j}``,
+  its output the last of ``fcs``); ``MLPGenerator``'s ``MLP_0/...`` ->
+  ``mlp.fcs``, ``mlp.bns``
+
 Dense kernels (in, out) are transposed to (out, in). BatchNorm ``mean`` /
 ``var`` are copied as they are (eval reads only them).
 :func:`flax_tree_from_state_dict` maps back (numpy out), for a ``state_dict``
@@ -135,12 +162,121 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def _pointnet_table(deeper: bool) -> dict:
+    """PointNet's feature extractor: Flax path -> port module."""
+    t = {("feat", "mlp1", "Dense_0"): "feat.conv1",
+         ("feat", "mlp1", "BatchNorm_0"): "feat.bn1"}
+    for stn in ("stn", "fstn"):
+        for j in range(3):
+            t[("feat", stn, "_ConvBNStack_0", f"Dense_{j}")] = \
+                f"feat.{stn}.conv{j + 1}"
+            t[("feat", stn, "_ConvBNStack_0", f"BatchNorm_{j}")] = \
+                f"feat.{stn}.bn{j + 1}"
+        for j in range(2):
+            t[("feat", stn, "_ConvBNStack_1", f"Dense_{j}")] = \
+                f"feat.{stn}.fc{j + 1}"
+            t[("feat", stn, "_ConvBNStack_1", f"BatchNorm_{j}")] = \
+                f"feat.{stn}.bn{j + 4}"
+        t[("feat", stn, "Dense_0")] = f"feat.{stn}.fc3"
+    mid = 3 if deeper else 1
+    for j in range(mid):
+        t[("feat", "mlp2", f"Dense_{j}")] = f"feat.conv{j + 2}"
+        t[("feat", "mlp2", f"BatchNorm_{j}")] = f"feat.bn{j + 2}"
+    t[("feat", "conv3")] = f"feat.conv{mid + 2}"
+    t[("feat", "bn3")] = f"feat.bn{mid + 2}"
+    return t
+
+
+def _zoo_table(family: str, deeper: bool = False) -> dict:
+    """Flax module path -> port module, for one family of the PointNet,
+    segmenter and critic models."""
+    t = {}
+    if family == "pointnet_regressor":
+        t.update(_pointnet_table(deeper))
+        t.update({("Dense_0",): "fc1", ("BatchNorm_0",): "bn1",
+                  ("Dense_1",): "fc2", ("BatchNorm_1",): "bn2",
+                  ("Dense_2",): "fc3"})
+    elif family == "pointnet_segmenter":
+        t.update(_pointnet_table(deeper))
+        for j in range(3):
+            t[("_ConvBNStack_0", f"Dense_{j}")] = f"conv{j + 1}"
+            t[("_ConvBNStack_0", f"BatchNorm_{j}")] = f"bn{j + 1}"
+        t[("Dense_0",)] = "conv4"
+    elif family == "pointnet_conv1d":
+        t.update({(f"Dense_{j}",): f"conv{j + 1}" for j in range(4)})
+    elif family == "pointnet2_segmenter":
+        for i in (1, 2, 3):
+            for j in range(3):
+                for kind, torch_list in (("Dense", "mlp_convs"),
+                                         ("BatchNorm", "mlp_bns")):
+                    t[(f"sa{i}", "PointMLP_0", f"{kind}_{j}")] = \
+                        f"sa{i}.{torch_list}.{j}"
+        for j in range(3):
+            t[("PointMLP_0", f"Dense_{j}")] = f"conv{j + 1}"
+            t[("PointMLP_0", f"BatchNorm_{j}")] = f"bn{j + 1}"
+        t.update({("Dense_0",): "conv4", ("conv4_trasl",): "conv4_trasl",
+                  ("conv4_orient",): "conv4_orient"})
+    elif family == "dgcnn":
+        for i in range(4):
+            t[(f"_EdgeConv_{i}", "Dense_0")] = f"conv{i + 1}"
+            t[(f"_EdgeConv_{i}", "BatchNorm_0")] = f"bn{i + 1}"
+        t.update({("Dense_0",): "conv5", ("BatchNorm_0",): "bn5",
+                  ("Dense_1",): "linear1", ("BatchNorm_1",): "bn6",
+                  ("Dense_2",): "linear2", ("BatchNorm_2",): "bn7",
+                  ("Dense_3",): "linear3"})
+    return t
+
+
+def _flax_family(params: dict) -> tuple[str | None, bool]:
+    """A Flax ``params`` tree -> (its zoo family or None, deeper)."""
+    if "feat" in params:
+        deeper = "Dense_2" in params["feat"].get("mlp2", {})
+        return ("pointnet_regressor" if "Dense_2" in params
+                else "pointnet_segmenter"), deeper
+    if "_EdgeConv_0" in params:
+        return "dgcnn", False
+    if "sa1" in params:
+        return "pointnet2_segmenter", False
+    if "MLP_0" in params:
+        return "mlp_generator", False
+    if set(params) == {f"Dense_{j}" for j in range(4)}:
+        return "pointnet_conv1d", False
+    return None, False
+
+
+def _torch_family(names) -> tuple[str | None, bool]:
+    """The names of a port ``state_dict`` -> (its zoo family or None,
+    deeper)."""
+    modules = {n.rsplit(".", 1)[0] for n in names}
+    if any(m.startswith("feat.") for m in modules):
+        return ("pointnet_regressor" if "fc1" in modules
+                else "pointnet_segmenter"), "feat.conv5" in modules
+    if "linear1" in modules:
+        return "dgcnn", False
+    if "sa1.mlp_convs.0" in modules and ("conv4" in modules
+                                         or "conv4_trasl" in modules):
+        return "pointnet2_segmenter", False
+    if any(m.startswith("mlp.") for m in modules):
+        return "mlp_generator", False
+    if "conv1" in modules:
+        return "pointnet_conv1d", False
+    return None, False
+
+
 def state_dict_from_flax(variables) -> dict[str, torch.Tensor]:
     """Flax ``{"params", "batch_stats"}`` numpy tree -> port ``state_dict``."""
+    family, deeper = _flax_family(variables.get("params", {}))
+    table = _zoo_table(family, deeper)
+
+    def module_of(path):
+        if family == "mlp_generator":
+            return "mlp." + _torch_module(path[1:])
+        return table[path] if table else _torch_module(path)
+
     sd = {}
     for collection in ("params", "batch_stats"):
         for path, value in _leaves(variables.get(collection, {})):
-            name = f"{_torch_module(path[:-1])}.{_LEAVES[path[-1]]}"
+            name = f"{module_of(path[:-1])}.{_LEAVES[path[-1]]}"
             arr = np.asarray(value, dtype=np.float32)
             if path[-1] == "kernel":
                 arr = _flat_kernel(arr, path[-2] == "out")
@@ -190,16 +326,25 @@ def flax_tree_from_state_dict(state) -> dict:
     """Port ``state_dict`` (or gradients by parameter name) -> Flax
     ``{"params": ..., "batch_stats": ...}`` nested dicts of numpy arrays;
     ``num_batches_tracked`` has no counterpart and is dropped."""
+    family, deeper = _torch_family(state)
+    table = {v: k for k, v in _zoo_table(family, deeper).items()}
+
+    def path_of(module):
+        if family == "mlp_generator":
+            return ("MLP_0", *_flax_path(module[len("mlp."):]))
+        return table[module] if table else _flax_path(module)
+
     tree: dict = {}
     for name, value in state.items():
         module, leaf = name.rsplit(".", 1)
         if leaf == "num_batches_tracked":
             continue
-        path = _flax_path(module)
+        path = path_of(module)
         arr = value.detach().cpu().numpy().astype(np.float32)
         attention = path[-1] in ("query", "key", "value", "out")
         if leaf == "weight":
-            dense = not path[-1].startswith(("BatchNorm", "LayerNorm"))
+            # PointNet's feat/bn3 is a BatchNorm too
+            dense = not path[-1].startswith(("BatchNorm", "LayerNorm", "bn"))
             flax_leaf = "kernel" if dense else "scale"
             if dense:
                 arr = arr.T
@@ -484,3 +629,30 @@ def load_training_state(run_dir: str, name: str, model: nn.Module,
         lr_sched.load_state_dict(blob["lr_sched"])
     generator.set_state(blob["generator"])
     return int(blob["epoch"]), int(blob["step"])
+
+
+def aux_name(name: str) -> str:
+    """The file beside checkpoint ``name`` that holds the critic's state."""
+    return f"{name}_aux"
+
+
+def save_aux_state(run_dir: str, name: str, critic) -> str:
+    """Write the critic's state (``losses.gan.CriticState``: its weights,
+    BatchNorm statistics and Adam) beside checkpoint ``name``, as
+    ``<run_dir>/<name>_aux.torch.pt`` (``maskplanner_tpu/train/
+    checkpoints.py::save_aux_state``)."""
+    path = checkpoint_path(run_dir, aux_name(name))
+    torch.save(critic.state_dict(), path)
+    return path
+
+
+def load_aux_state(run_dir: str, name: str, critic) -> bool:
+    """Restore the critic's state saved beside checkpoint ``name`` into
+    ``critic`` -> whether there was one; without the file the critic stays
+    as it is (a fresh critic), as the JAX loader does."""
+    path = checkpoint_path(run_dir, aux_name(name))
+    if not os.path.isfile(path):
+        return False
+    critic.load_state_dict(torch.load(path, map_location="cpu",
+                                      weights_only=True))
+    return True

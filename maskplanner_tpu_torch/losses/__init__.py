@@ -8,13 +8,16 @@ same weights as 0-d tensors on the model's device (:class:`DeviceWeights`,
 the JAX step's "weights as a traced dict"), which a captured CUDA graph
 reads and the driver fills in place from the float dict after each change.
 
-Every term is ported (``PORTED``, 29 of the 32) but those that need
-outputs or state of models not ported yet, which raise
-``NotImplementedError`` saying which (``WAITING``: the two adversarial
-terms and ``contrastive_v1``). ``train.build_loss_batch`` supplies the
-MaskPlanner and regressor terms' inputs; the stroke-wise, rollout and
-start-of-path terms take batches that their caller builds, under the JAX
-handler's batch keys, as in the JAX package.
+Every term is ported (``PORTED``, all 32; ``WAITING`` is empty).
+``train.build_loss_batch`` supplies the MaskPlanner and regressor terms'
+inputs; the stroke-wise, rollout, start-of-path and contrastive
+(``latent_segments``, the segmenters' output) terms take batches that their
+caller builds, under the JAX handler's batch keys, as in the JAX package.
+The adversarial terms (``discriminator``, ``wdiscriminator``) read the
+critic from the batch keys ``gan_module`` (``losses.gan.AdversarialLoss``)
+and ``gan_state`` (its ``CriticState``), which
+``train.trainer.gan_train_step`` passes; without them (the eval) they are
+0.
 """
 from __future__ import annotations
 
@@ -42,15 +45,8 @@ LOSS_NAMES = [
     "hungarian_SoPs",
 ]
 
-_GAN = ("the adversarial training state (losses/gan.py, models/dgcnn.py "
-        "and the GAN train step)")
-# the names whose inputs no ported model produces, with what they wait for
-WAITING = {
-    "discriminator": _GAN,
-    "wdiscriminator": _GAN,
-    "contrastive_v1": ("the segmenters' latent segments (PointNet2Segmenter "
-                       "and the ball query kernel on their path)"),
-}
+# the names whose inputs no ported model produces: none any more
+WAITING: dict[str, str] = {}
 # the names the JAX handler accepts without their weight_<name> key
 _NO_WEIGHT_KEY = ("masked_mse_strokes_from_segments",)
 PORTED = tuple(n for n in LOSS_NAMES if n not in WAITING)
@@ -117,11 +113,6 @@ class LossHandler:
     def __init__(self, loss, config):
         unknown = set(loss) - set(LOSS_NAMES)
         assert not unknown, f"invalid loss names: {unknown}"
-        waiting = {name: WAITING[name] for name in loss if name in WAITING}
-        if waiting:
-            raise NotImplementedError(
-                "loss terms not ported yet (ROADMAP.md, Queue 1): "
-                + "; ".join(f"{n} waits for {w}" for n, w in waiting.items()))
         self.loss = list(loss)
         self.config = config
         self.outdim = get_dim_traj_points(config["extra_data"])
@@ -200,7 +191,21 @@ class LossHandler:
                         smooth_targets=bool(
                             cfg.get("smooth_target_stroke_masks")))
 
+        def adversarial(b, w, g):
+            # the eval (no critic in the batch) reads 0
+            if b.get("gan_module") is None:
+                return torch.zeros((), device=b["y_pred"].device)
+            return b["gan_module"].generator_loss(b["gan_state"], b["y_pred"])
+
         return {
+            "discriminator": adversarial,
+            "wdiscriminator": adversarial,
+            "contrastive_v1": lambda b, w, g: R.contrastive_v1(
+                b["latent_segments"], b["stroke_ids"], generator=g,
+                margin=float(cfg.get("contrastive_loss_margin", 0.3)),
+                balance_negatives=bool(
+                    cfg.get("contrastive_balance_negatives", True)),
+                n_strokes_max=int(cfg.get("max_n_strokes") or 64)),
             "chamfer": lambda b, w, g: C.chamfer(
                 **std(b), min_centroids=bool(cfg.get("min_centroids")),
                 velocities="vel" in cfg["extra_data"]),

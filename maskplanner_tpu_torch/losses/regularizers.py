@@ -1,5 +1,6 @@
 """The geometric regularizers (``maskplanner_tpu/losses/regularizers.py``):
-repulsion, align, intra-align, velcosine and mse.
+repulsion, align, intra-align, velcosine and mse, and the segmenters'
+contrastive loss ``contrastive_v1``.
 
 The neighbour searches take the k smallest distances with ties to the
 lower index (``ops.distance.smallest_k``), as ``jax.lax.top_k`` orders
@@ -111,3 +112,41 @@ def velcosine(y_pred, knn_repulsion=1, **_):
 def mse(y_pred, y, **_):
     """Mean squared error."""
     return ((y_pred - y) ** 2).mean()
+
+
+def contrastive_v1(latent_segments, stroke_ids, generator=None, margin=0.3,
+                   balance_negatives=True, n_strokes_max=64, uniform=None,
+                   **_):
+    """Pairwise cosine contrastive loss over the latents (B, n, C) of the
+    segments, whose strokes are ``stroke_ids`` (B, n): a pair of one
+    stroke costs 1 − cos, a pair of two strokes relu(cos − ``margin``);
+    the mean over all B·n·n pairs, the diagonal at 0. A stroke id of −1
+    (padding), or one past ``n_strokes_max``, is a zero one-hot row (``jax.nn.one_hot``'s), so it pairs
+    with nothing. With ``balance_negatives`` a pair of two strokes counts
+    only where a uniform draw exceeds 1 − the share of same-stroke pairs
+    in the whole padded tensor: ``uniform`` (B, n, n), else drawn from
+    ``generator``."""
+    B, n, _ = latent_segments.shape
+    feat = latent_segments / torch.clamp(
+        torch.linalg.vector_norm(latent_segments, dim=-1, keepdim=True),
+        min=1e-12)
+    pair_sim = torch.einsum("bic,bjc->bij", feat, feat)
+    ids = stroke_ids.long()
+    # an id outside [0, n_strokes_max) gets the extra class, dropped
+    ids = torch.where((ids >= 0) & (ids < n_strokes_max), ids, n_strokes_max)
+    one_hot = torch.nn.functional.one_hot(
+        ids, n_strokes_max + 1)[..., :n_strokes_max].to(feat.dtype)
+    pair_target = torch.einsum("bik,bjk->bij", one_hot, one_hot)
+    cos_loss = (pair_target * (1.0 - pair_sim)
+                + (1.0 - pair_target) * torch.relu(pair_sim - margin))
+    positive = pair_target == 1
+    if balance_negatives:
+        if uniform is None:
+            uniform = torch.rand(pair_target.shape, generator=generator,
+                                 device=feat.device)
+        pos_fraction = positive.to(feat.dtype).mean()
+        sample_mask = positive | (uniform > 1 - pos_fraction)
+    else:
+        sample_mask = torch.ones_like(positive)
+    diag = 1.0 - torch.eye(n, dtype=feat.dtype, device=feat.device)
+    return (diag * sample_mask * cos_loss).mean()

@@ -1,12 +1,23 @@
 """Model factory and IO sizes (``maskplanner_tpu/models/__init__.py``).
 
-Ported: the MaskPlanner backbone (``pointnet2_strokemasks``), the
-baselines' plain regressor (``pointnet2``), the start-of-path and
-stroke-wise regressors (``pointnet2_sops``, ``pointnet2_3dbbox``,
-``pointnet2_strokewise``), the rollout head (``mlp_rollout``) and the
-transformer baseline (``point_transformer``). The segmenters, PointNet,
-the GAN generator and the discriminator are queued in ROADMAP.md
-("Queue 1").
+Every backbone the JAX factory builds: the MaskPlanner backbone
+(``pointnet2_strokemasks``), the baselines' plain regressor
+(``pointnet2``), the start-of-path and stroke-wise regressors
+(``pointnet2_sops``, ``pointnet2_3dbbox``, ``pointnet2_strokewise``), the
+rollout head (``mlp_rollout``), the transformer baseline
+(``point_transformer``), PointNet (``pointnet``, ``pointnet_deeper``), the
+segmenters (``pointnet_segmenter``, ``pointnet_segmenter_conv1d``,
+``pointnet2_segmenter_v1``, ``pointnet2_segmenter_paintnet_v1``), the
+random-noise generator (``mlp_generator``) and the DGCNN critic
+(``dgcnn``). ``samplenet``, ``gnn`` and ``transformer`` raise
+``NotImplementedError`` there and here: the original repository never
+released them.
+
+The JAX modules size their first layer from the first input; a port
+module is built with its input width. The segmenters take λ-segments
+(``io_type="ContrastiveClustering"``: outdim · λ values) or, under any
+other ``io_type``, what the training driver feeds every model, the point
+cloud (3 values).
 """
 from __future__ import annotations
 
@@ -17,23 +28,37 @@ import torch
 from torch import nn
 
 from ..data.pointcloud import get_dim_orient_traj_points, get_dim_traj_points
+from .dgcnn import DGCNNDiscriminator
 from .maskplanner import (MaskPlannerOutput, PointNet2Regressor,
                           PointNet2SoPs, PointNet2StrokeMasks,
                           PointNet2StrokeWise)
-from .mlp import MLPRegressor
+from .mlp import MLP, MLPGenerator, MLPRegressor
 from .point_transformer import PointTransformer
+from .pointnet import (PointNetRegressor, PointNetSegmenter,
+                       PointNetSegmenterConv1d)
+from .pointnet2_seg import PointNet2Segmenter, PointNet2SegmenterPaintNet
 
-__all__ = ["MLPRegressor", "MaskPlannerOutput", "PointNet2Regressor",
-           "PointNet2SoPs", "PointNet2StrokeMasks", "PointNet2StrokeWise",
-           "PointTransformer", "compute_out_vectors", "get_io_info",
-           "get_model", "init_parameters"]
+__all__ = ["DGCNNDiscriminator", "MLP", "MLPGenerator", "MLPRegressor",
+           "MaskPlannerOutput", "PointNet2Regressor", "PointNet2Segmenter",
+           "PointNet2SegmenterPaintNet", "PointNet2SoPs",
+           "PointNet2StrokeMasks", "PointNet2StrokeWise",
+           "PointNetRegressor", "PointNetSegmenter",
+           "PointNetSegmenterConv1d", "PointTransformer",
+           "compute_out_vectors", "get_io_info", "get_model",
+           "init_parameters"]
 
 # the models whose output is a ``MaskPlannerOutput`` of stroke masks
 STROKE_MASK_BACKBONES = ("pointnet2_strokemasks",
                          "pointnet2_strokemasks_retrocompatible")
 PORTED_BACKBONES = (*STROKE_MASK_BACKBONES, "pointnet2",
                     "pointnet2_sops", "pointnet2_strokewise",
-                    "pointnet2_3dbbox", "mlp_rollout", "point_transformer")
+                    "pointnet2_3dbbox", "mlp_rollout", "point_transformer",
+                    "pointnet", "pointnet_deeper", "pointnet_segmenter",
+                    "pointnet_segmenter_conv1d", "pointnet2_segmenter_v1",
+                    "pointnet2_segmenter_paintnet_v1", "mlp_generator",
+                    "dgcnn")
+# named by the original repository, never released there
+UNRELEASED_BACKBONES = ("samplenet", "gnn", "transformer")
 
 
 def compute_out_vectors(config) -> int:
@@ -56,7 +81,8 @@ def get_io_info(io_type: str, config) -> dict[str, Any]:
     """Input/output sizes by task: ``paintnet``, ``MaskPlanner`` (with the
     stroke masks), ``StrokeWise``, ``multipathregression``,
     ``ODv1_strokeProposal`` (start-of-path tokens) and
-    ``ODv1_strokeRollout`` (the rollout head, by ``rollout_loss``)."""
+    ``ODv1_strokeRollout`` (the rollout head, by ``rollout_loss``) and
+    ``ContrastiveClustering`` (the segmenters' λ-segments)."""
     outdim = get_dim_traj_points(config["extra_data"])
     orient_outdim = get_dim_orient_traj_points(config["extra_data"])
     lam = config["lambda_points"]
@@ -129,21 +155,25 @@ def get_io_info(io_type: str, config) -> dict[str, Any]:
         }
 
     if io_type == "ContrastiveClustering":
-        raise NotImplementedError(
-            "io_type 'ContrastiveClustering' waits for the segmenters "
-            "(ROADMAP.md, Queue 1)")
+        return {"inputdim": outdim * lam}
     raise ValueError(f"unknown io_type: {io_type}")
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """PyTorch's default init, drawn from ``generator``: Linear weights and
-    biases uniform in ±1/sqrt(fan_in), norms at weight 1 and bias 0."""
+    biases uniform in ±1/sqrt(fan_in), norms at weight 1 and bias 0. A
+    Linear layer marked ``zero_init`` (the PointNet transform nets' last
+    layer, zero-initialised in the JAX package) starts at 0."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Linear):
                 bound = 1.0 / math.sqrt(m.in_features)
                 m.weight.uniform_(-bound, bound, generator=generator)
-                m.bias.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
+                if getattr(m, "zero_init", False):
+                    m.weight.zero_()
+                    m.bias.zero_()
             elif isinstance(m, (nn.BatchNorm1d, nn.LayerNorm)):
                 m.weight.fill_(1.0)
                 m.bias.fill_(0.0)
@@ -153,7 +183,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 def get_model(config, *, device: str | torch.device,
               generator: torch.Generator | None = None,
-              dropout: float = 0.3, which: str | None = None) -> nn.Module:
+              dropout: float = 0.3, which: str | None = None,
+              io_type: str = "MaskPlanner") -> nn.Module:
     """Build the backbone named by ``which`` (default
     ``config.model.backbone``) in eval mode on ``device``, its weights
     drawn from ``generator`` (default: seeded from ``config.seed``).
@@ -162,13 +193,21 @@ def get_model(config, *, device: str | torch.device,
     bf16, in train and in eval (the parameters stay f32); the others
     ignore it, as in the JAX package: the start-of-path and stroke-wise
     regressors take ``model.norm`` and stay f32, ``pointnet2_3dbbox`` has
-    a BatchNorm encoder whatever ``model.norm`` says."""
+    a BatchNorm encoder whatever ``model.norm`` says, and so have the
+    PointNet++ segmenters. ``io_type``: the inputs of ``pointnet``,
+    ``pointnet_deeper``, ``mlp_generator`` and the segmenters (the module's
+    docstring). It asserts and raises where the JAX factory does: PointNet
+    and the generator without orientations, the segmenters with
+    ``latent_dim`` (no shipped default)."""
     which = which or config["model"]["backbone"]
     if which == "pointnet2_strokemasks_retrocompatible":
         which = "pointnet2_strokemasks"   # differs only in a layer name
-    if which not in PORTED_BACKBONES:
+    if which in UNRELEASED_BACKBONES:
         raise NotImplementedError(
-            f"backbone {which!r} is not ported yet (ROADMAP.md, Queue 1)")
+            f"backbone {which!r} is unreleased in the original repository "
+            "and has no behavior to match")
+    if which not in PORTED_BACKBONES:
+        raise ValueError(f"unknown backbone: {which}")
     outdim = get_dim_traj_points(config["extra_data"])
     orient_outdim = get_dim_orient_traj_points(config["extra_data"])
     hidden = tuple(config["model"].get("hidden_size", (1024, 1024)))
@@ -213,13 +252,62 @@ def get_model(config, *, device: str | torch.device,
             hidden, outdim_orient=info["outdim_orient"],
             weight_orient=config["weight_orient"],
             confidence_scores=info["end_of_path_confidence"])
-    else:
+    elif which == "point_transformer":
         model = PointTransformer(
             input_dim=outdim * config["lambda_points"],
             outdim=outdim * config["lambda_points"],
             max_seq_len=int(config.get("max_seq_len", 100)),
             weight_orient=config["weight_orient"])
+    else:
+        model = _zoo_model(which, config, io_type, dropout)
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.get("seed") or 0))
     init_parameters(model, generator)
     return model.to(device).eval()
+
+
+def _zoo_model(which: str, config, io_type: str,
+               dropout: float) -> nn.Module:
+    """The PointNet family, the segmenters, the generator and the critic."""
+    outdim = get_dim_traj_points(config["extra_data"])
+    orient_outdim = get_dim_orient_traj_points(config["extra_data"])
+    lam = config["lambda_points"]
+    affinetrans = bool(config["model"].get("affinetrans"))
+    # the segmenters' inputs: λ-segments, or the driver's point clouds
+    inputdim = (get_io_info("ContrastiveClustering", config)["inputdim"]
+                if io_type == "ContrastiveClustering" else 3)
+    if which in ("pointnet", "pointnet_deeper", "mlp_generator"):
+        info = get_io_info("paintnet" if io_type == "MaskPlanner"
+                           else io_type, config)
+    if which in ("pointnet", "pointnet_deeper"):
+        assert orient_outdim == 0, (
+            f"{which} backbone does not support output normals")
+        return PointNetRegressor(
+            info["out_vectors"], info["vector_outdim_transl"],
+            affinetrans=affinetrans,
+            hidden_size=tuple(config["model"].get("hidden_size",
+                                                  (1024, 1024))),
+            deeper=which == "pointnet_deeper", dropout=dropout)
+    if which == "mlp_generator":
+        assert info["vector_outdim_orient"] == 0, (
+            "mlp generator does not support output normals")
+        return MLPGenerator(int(config.get("random_input_dim") or 32),
+                            (512, 1024), info["out_vectors"],
+                            info["vector_outdim_transl"])
+    if which == "pointnet_segmenter":
+        return PointNetSegmenter(config["latent_dim"],
+                                 affinetrans=affinetrans, inputdim=inputdim)
+    if which == "pointnet_segmenter_conv1d":
+        return PointNetSegmenterConv1d(
+            config["latent_dim"], lam,
+            input_normals_only=bool(config.get("input_normals_only")),
+            inputdim=inputdim)
+    if which == "pointnet2_segmenter_v1":
+        return PointNet2Segmenter(
+            inputdim, config["latent_dim"], lam,
+            ball_in_xyz_space=bool(config.get("ball_in_xyz_space")))
+    if which == "pointnet2_segmenter_paintnet_v1":
+        return PointNet2SegmenterPaintNet(
+            outdim - orient_outdim, orient_outdim, config["weight_orient"],
+            lam)
+    return DGCNNDiscriminator(outdim, k=int(config.get("knn_gcn", 20)))

@@ -1,11 +1,13 @@
-"""The stroke-rollout head (``maskplanner_tpu/models/mlp.py::MLPRegressor``,
-the ``mlp_rollout`` backbone).
+"""The MLP heads (``maskplanner_tpu/models/mlp.py``): the plain ``MLP``
+(the critic of ``discr_input_type=singlestrokes``), the random-noise
+generator ``MLPGenerator`` (the ``mlp_generator`` backbone) and the
+stroke-rollout head ``MLPRegressor`` (the ``mlp_rollout`` backbone).
 
 Dense -> BatchNorm -> ReLU blocks (the BatchNorm with Flax's train-mode
-semantics, :class:`FlaxBatchNorm1d`), then the translations, the
-orientations (tanh, unit length, times ``weight_orient``) and, optionally,
-a confidence logit per output vector. ``MLP`` and ``MLPGenerator`` wait for
-the adversarial slice (ROADMAP.md, Queue 1).
+semantics, :class:`FlaxBatchNorm1d`) named ``fcs.{j}`` and ``bns.{j}``;
+the plain MLP's output layer is the last of ``fcs``. The rollout head
+then gives the translations, the orientations (tanh, unit length, times
+``weight_orient``) and, optionally, a confidence logit per output vector.
 """
 from __future__ import annotations
 
@@ -15,6 +17,42 @@ import torch
 from torch import nn
 
 from .pointnet2 import BATCH_NORM_EPS, FlaxBatchNorm1d
+
+
+class MLP(nn.Module):
+    """(B, input_size) -> (B, output_size): ``fcs.{j}`` -> ``bns.{j}`` ->
+    ReLU per hidden size, then the last of ``fcs``."""
+
+    def __init__(self, input_size: int, hidden_sizes: Sequence[int],
+                 output_size: int):
+        super().__init__()
+        widths = [input_size, *hidden_sizes, output_size]
+        self.fcs = nn.ModuleList(nn.Linear(a, b)
+                                 for a, b in zip(widths[:-1], widths[1:]))
+        self.bns = nn.ModuleList(FlaxBatchNorm1d(h, eps=BATCH_NORM_EPS)
+                                 for h in hidden_sizes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for fc, bn in zip(self.fcs, self.bns):
+            x = torch.relu(bn(fc(x)))
+        return self.fcs[-1](x)
+
+
+class MLPGenerator(nn.Module):
+    """(B, input_size) noise -> (B, out_vectors, outdim) through ``mlp``
+    (:class:`MLP`)."""
+
+    def __init__(self, input_size: int, hidden_sizes: Sequence[int],
+                 out_vectors: int, outdim: int = 3):
+        super().__init__()
+        self.out_vectors = out_vectors
+        self.outdim = outdim
+        self.mlp = MLP(input_size, hidden_sizes, out_vectors * outdim)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        del generator       # no random draw
+        return self.mlp(x).reshape(x.shape[0], self.out_vectors, self.outdim)
 
 
 class MLPRegressor(nn.Module):

@@ -39,7 +39,8 @@ from torch.nn import functional
 from ..ops.fused_sa import (LAYER_NORM_EPS, fold_pointmlp_params,
                             fused_sa_forward)
 from ..ops.group_gather import ball_group
-from ..ops.sampling import farthest_point_sample, index_points
+from ..ops.sampling import (farthest_point_sample, index_points, knn,
+                            query_ball_point)
 
 BATCH_NORM_EPS = 1e-5
 BATCH_NORM_MOMENTUM = 0.9  # Flax's: running = 0.9 running + 0.1 batch
@@ -99,6 +100,12 @@ def random_starts(xyz: torch.Tensor,
                          device=generator.device).to(xyz.device)
 
 
+def batch_norm_rows(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """``bn`` over the last axis of ``x`` (..., C), every other axis a row
+    (Flax's ``BatchNorm`` on a channel-last tensor)."""
+    return bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+
+
 def dense(linear: nn.Linear, x: torch.Tensor,
           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``linear(x)`` computed in ``dtype``, as Flax's ``nn.Dense(dtype=...)``:
@@ -144,8 +151,7 @@ class PointMLP(nn.Module):
         for j, conv in enumerate(self.mlp_convs):
             x = dense(conv, x, dtype)
             if self.norm == "batch":
-                x = self.mlp_bns[j](x.reshape(-1, x.shape[-1])) \
-                    .reshape(x.shape)
+                x = batch_norm_rows(self.mlp_bns[j], x)
             elif self.norm == "layer":
                 ln = self.mlp_lns[j]
                 x = ln(x.to(ln.weight.dtype))
@@ -197,7 +203,15 @@ class SetAbstraction(PointMLP):
     (``ops.fused_sa.fold_pointmlp_params``) and the max; in eval without
     features (sa1), the MLP with running statistics and the max. The
     ``group_all`` level runs as plain ops. In bf16 see the module's
-    docstring."""
+    docstring.
+
+    With ``full_points`` (B, N, D) (``ball_in_xyz_space`` of
+    ``models.pointnet2_seg``), FPS and the ball query (``query_ball_point``:
+    the ball query kernel on the card) run on ``xyz`` in R³ and the grouped
+    rows are the full vectors of those neighbours, as the JAX package
+    groups them: not centred on their query. The MLP then runs as it is
+    (its BatchNorm in eval on the running statistics, never folded), in
+    any norm, and the max over K follows."""
 
     def __init__(self, npoint: int | None, radius: float | None,
                  nsample: int | None, in_channel: int,
@@ -210,8 +224,10 @@ class SetAbstraction(PointMLP):
         self.group_all = group_all
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None,
-                generator: torch.Generator | None = None):
-        """``generator``: the random FPS starts in train mode."""
+                generator: torch.Generator | None = None,
+                full_points: torch.Tensor | None = None):
+        """``generator``: the random FPS starts in train mode;
+        ``full_points``: the rows to group in place of ``[x − q ; f]``."""
         bf16 = self.dtype == torch.bfloat16
         if self.group_all:
             new_xyz = xyz.new_zeros((xyz.shape[0], 1, 3))
@@ -224,6 +240,10 @@ class SetAbstraction(PointMLP):
         start = random_starts(xyz, generator) if self.training else None
         fps_idx = farthest_point_sample(xyz, self.npoint, start)
         new_xyz = index_points(xyz, fps_idx)                    # (B, S, 3)
+        if full_points is not None:
+            idx = query_ball_point(self.radius, self.nsample, xyz, new_xyz)
+            grouped = index_points(full_points, idx)            # (B, S, K, D)
+            return new_xyz, self.pool(self.run_mlp(grouped))
         if self.norm in ("layer", "none"):
             pooled, _ = fused_sa_forward(
                 self.radius, self.nsample, self.norm, xyz, new_xyz, features,
@@ -234,6 +254,35 @@ class SetAbstraction(PointMLP):
         if self.training or (features is None and not bf16):
             return new_xyz, self.pool(self.run_mlp(grouped))
         return new_xyz, self.run_folded(grouped)
+
+
+class FeaturePropagation(PointMLP):
+    """Inverse-distance 3-NN feature upsampling
+    (``maskplanner_tpu/models/pointnet2.py::FeaturePropagation``, the
+    original repository's ``PointNetFeaturePropagation``): the features of
+    the S points ``xyz2`` carried to the N points ``xyz1`` (broadcast when
+    S is 1, else weighted 1 / (d² + 1e-8) over the 3 nearest, normalised),
+    after ``feat1`` when given, then the MLP over the rows. No model of
+    the JAX package calls it."""
+
+    def __init__(self, in_channel: int, mlp: Sequence[int],
+                 norm: str = "batch"):
+        super().__init__(in_channel, mlp, norm)
+
+    def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,
+                feat1: torch.Tensor | None,
+                feat2: torch.Tensor) -> torch.Tensor:
+        B, N, _ = xyz1.shape
+        if xyz2.shape[1] == 1:
+            interpolated = feat2.expand(B, N, feat2.shape[-1])
+        else:
+            dists, idx = knn(3, xyz1, xyz2)
+            w = 1.0 / (dists + 1e-8)
+            w = w / w.sum(-1, keepdim=True)
+            interpolated = (index_points(feat2, idx) * w[..., None]).sum(-2)
+        x = (interpolated if feat1 is None
+             else torch.cat([feat1, interpolated], dim=-1))
+        return self.run_mlp(x)
 
 
 def level_norms(norm: str) -> list[str]:

@@ -4,14 +4,17 @@
 kernels for a CUDA tensor and run their plain versions (:func:`fps_plain`,
 :func:`ball_query_plain`) for a CPU tensor; any other device raises. FPS
 goes through the custom op ``maskplanner::fps`` (``ops.library``), which
-``torch.export`` traces.
+``torch.export`` traces. The CUDA kernels take points in R³; the plain
+versions take any number of coordinates, as the JAX package's plain
+versions do. :func:`knn` is plain PyTorch (the JAX package's has no
+kernel either).
 """
 from __future__ import annotations
 
 import torch
 
 from . import library
-from .distance import square_distance
+from .distance import smallest_k, square_distance, square_distance_expanded
 
 _BIG = 1e10
 
@@ -26,10 +29,10 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def fps_plain(xyz: torch.Tensor, npoint: int,
               start: torch.Tensor) -> torch.Tensor:
-    """Plain farthest point sampling: (B, N, 3), (B,) start -> (B, npoint)
-    int32. Ties go to the lowest index (``argmax`` returns the first
-    maximum); once every point is picked all distances are 0 and index 0
-    repeats."""
+    """Plain farthest point sampling: (B, N, D), (B,) start -> (B, npoint)
+    int32, the squared distances summed over the D coordinates in order.
+    Ties go to the lowest index (``argmax`` returns the first maximum);
+    once every point is picked all distances are 0 and index 0 repeats."""
     B, N, _ = xyz.shape
     xyz = xyz.float()
     rows = torch.arange(B, device=xyz.device)
@@ -40,8 +43,8 @@ def fps_plain(xyz: torch.Tensor, npoint: int,
         out[:, i] = far
         diff = xyz - xyz[rows, far][:, None, :]
         d = diff[..., 0] * diff[..., 0]
-        d = d + diff[..., 1] * diff[..., 1]
-        d = d + diff[..., 2] * diff[..., 2]
+        for c in range(1, xyz.shape[-1]):
+            d = d + diff[..., c] * diff[..., c]
         dist = torch.minimum(dist, d)
         far = torch.argmax(dist, dim=-1)
     return out
@@ -94,3 +97,20 @@ def ball_query_plain(radius: float, nsample: int, xyz: torch.Tensor,
                        sorted=True).values
     group = torch.where(group == N, group[..., :1], group)
     return torch.where(group == N, 0, group).to(torch.int32)
+
+
+def knn(k: int, query: torch.Tensor, points: torch.Tensor,
+        points_mask: torch.Tensor | None = None, expanded: bool = False):
+    """Masked k nearest neighbours: query (B, S, C), points (B, N, C) ->
+    (squared distances (B, S, k) ascending, indices (B, S, k) int64), ties
+    to the lower index (``ops.distance.smallest_k``, ``jax.lax.top_k``'s
+    order). Points outside ``points_mask`` (B, N) lie at ``_BIG``. The
+    distances are the fixed-order ones (``square_distance``), or with
+    ``expanded`` the matmul expansion (``square_distance_expanded``, for
+    the wide feature space of ``models.dgcnn``); the gradient reaches
+    them through the chosen entries."""
+    form = square_distance_expanded if expanded else square_distance
+    d = form(query, points)
+    if points_mask is not None:
+        d = torch.where(points_mask[:, None, :], d, _BIG)
+    return smallest_k(d, k)

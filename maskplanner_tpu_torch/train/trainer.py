@@ -9,6 +9,10 @@ BatchNorm running statistics, which the forward moves in place. A bf16
 model's forward and backward both sum their bf16 products in f32
 (``models.maskplanner.f32_accumulation``), as the JAX reference does.
 
+:func:`gan_train_step` is the step of a recipe with an adversarial term
+(``make_gan_train_step``): the same step against the current critic, then
+the critic's update on the detached prediction.
+
 An epoch runs the step over the host loader's batches (:func:`host_epoch`)
 or over a split staged on the device (:class:`DeviceEpoch`, the JAX
 package's ``make_scan_train_epoch``): there each step gathers its batch on
@@ -83,6 +87,39 @@ def train_step(model, optimizer, handler: LossHandler, batch, weights,
         total.backward()
     optimizer.step()
     return total.detach(), {k: v.detach() for k, v in terms.items()}
+
+
+def gan_train_step(model, optimizer, handler: LossHandler, batch, weights,
+                   generator: torch.Generator | None = None, *, adv,
+                   critic, step: int):
+    """One step with an adversarial term (``make_gan_train_step``) -> (loss,
+    terms), detached; ``adv``: the ``losses.gan.AdversarialLoss``,
+    ``critic``: its ``CriticState``, updated in place; ``step``: the steps
+    the run has taken before this one (the JAX step's ``state.step``).
+
+    One train forward; the loss, its adversarial term against the current
+    critic (eval mode, no gradient on the critic); the backward and Adam's
+    step; then, when ``step`` is a multiple of ``discr_train_freq``, the
+    critic's update on the detached prediction
+    and the GT (``discriminator_update``). ``terms["d_internal"]`` is the
+    update's loss, 0 on a step without one."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    with f32_accumulation():
+        out = model(batch["point_cloud"], generator=generator)
+        lb = build_loss_batch(out, batch)
+        total, terms = handler.compute(weights, generator=generator,
+                                       gan_module=adv, gan_state=critic,
+                                       **lb)
+        total.backward()
+    optimizer.step()
+    terms = {k: v.detach() for k, v in terms.items()}
+    if step % adv.train_freq == 0:
+        terms["d_internal"] = adv.discriminator_update(
+            critic, lb["y_pred"].detach(), lb["y"], generator)
+    else:
+        terms["d_internal"] = torch.zeros((), device=total.device)
+    return total.detach(), terms
 
 
 def forward(model, point_cloud: torch.Tensor):

@@ -65,14 +65,27 @@ writes the run's ``last_checkpoint.torch.pt``; else it warns and trains
 from scratch. It loads in place before Adam and the device
 epoch are built, and takes the place of the ShapeNet warm start.
 
-Every loss name of the JAX registry whose inputs the port's models give
-trains (``losses.PORTED``, with the paper's baselines ``segmentWise`` and
-``pointWise``), on ``model.backbone`` ``pointnet2_strokemasks`` or
-``pointnet2`` (the plain regressor, whose eval has no masks). Not ported
-yet (raises when its config asks for it): the names of ``losses.WAITING``.
-The start-of-path, stroke-wise, rollout and transformer backbones build
-(``models.get_model``) but do not train here, as the JAX driver does not
-train them: the driver refuses them. On the card a loss term that a CUDA
+Every loss name of the JAX registry whose inputs the training step gives
+trains (with the paper's baselines ``segmentWise`` and ``pointWise``), on
+the backbones of ``TRAINABLE_BACKBONES``: ``pointnet2_strokemasks``,
+``pointnet2`` (the plain regressor, whose eval has no masks), and the
+backbones that the JAX driver trains on its point clouds as it trains the
+regressor: ``pointnet`` and ``pointnet_deeper`` (without orientations, as
+the JAX factory asserts), ``pointnet_segmenter``,
+``pointnet_segmenter_conv1d`` and the two PointNet++ segmenters (with
+``latent_dim``, which has no default). The start-of-path, stroke-wise,
+rollout and transformer backbones, the random-noise generator and the
+critic build (``models.get_model``) but do not train here, as the JAX
+driver does not train them: the driver refuses them.
+
+A ``loss`` with an adversarial term (``discriminator``, ``wdiscriminator``;
+``losses.gan``) trains on the host loader (``device_dataset_eligible``
+refuses it, as the JAX driver's does) with ``train.trainer.gan_train_step``:
+each step also updates the critic, whose loss is logged as
+``d_internal_train_loss``. Its state (``losses.gan.CriticState``) is saved
+beside every ``last_checkpoint`` (``last_checkpoint_aux.torch.pt``) and
+copied beside ``best_model``; ``resume=`` restores it, and a run without
+that file starts a fresh critic, as the JAX driver does. On the card a loss term that a CUDA
 graph cannot capture (``LossHandler.uncapturable``: the singular values
 of ``align``, ``intra_align``) trains on the host loader, and the run
 prints why. After the final eval, unless ``skip_rendering`` or ``debug``,
@@ -83,6 +96,7 @@ matplotlib, which only that child imports).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import signal
@@ -92,22 +106,23 @@ import time
 
 import torch
 
-from .convert import (checkpoint_path, copy_checkpoint, load_checkpoint,
-                      load_params_only, load_shapenet_encoder,
-                      load_torch_pretrained, load_training_state,
-                      save_checkpoint)
+from .convert import (aux_name, checkpoint_path, copy_checkpoint,
+                      load_aux_state, load_checkpoint, load_params_only,
+                      load_shapenet_encoder, load_torch_pretrained,
+                      load_training_state, save_aux_state, save_checkpoint)
 from .data.dataset import DataLoader, PaintDataset
 from .data.device_dataset import (device_dataset_eligible, epoch_perm,
                                   stage_device_dataset, staged_bytes)
 from .data.prefetch import Prefetcher
 from .losses import DeviceWeights, LossHandler
+from .losses.gan import AdversarialLoss
 from .metrics import MetricsHandler
 from .models import STROKE_MASK_BACKBONES, get_model
 from .serve import resolve_device
 from .train import (PSACDScheduler, apply_delayed_activations, forward,
                     make_lr_scheduler, make_optimizer, train_step)
 from .train.loop import evaluate
-from .train.trainer import DeviceEpoch, host_epoch
+from .train.trainer import DeviceEpoch, gan_train_step, host_epoch
 from .utils import create_dirs, get_run_name, set_seed
 from .utils.args import load_args
 from .utils.config import load_config, save_config
@@ -275,8 +290,15 @@ def render(run_dir: str, results_dir: str, eval_ckpt) -> None:
         print(f"(rendering skipped: {e})")
 
 
-# the backbones whose outputs the training step turns into a loss batch
-TRAINABLE_BACKBONES = (*STROKE_MASK_BACKBONES, "pointnet2")
+# the backbones whose outputs the training step turns into a loss batch:
+# those the JAX driver trains (a 2-epoch run of each on the CPU; it fails
+# on mlp_generator, which reshapes a point cloud as noise, and on dgcnn,
+# whose logits the chamfer cannot take)
+TRAINABLE_BACKBONES = (*STROKE_MASK_BACKBONES, "pointnet2", "pointnet",
+                       "pointnet_deeper", "pointnet_segmenter",
+                       "pointnet_segmenter_conv1d", "pointnet2_segmenter_v1",
+                       "pointnet2_segmenter_paintnet_v1")
+ADVERSARIAL_TERMS = ("discriminator", "wdiscriminator")
 
 
 def main(argv=None):
@@ -296,8 +318,8 @@ def _train(config, preempted: _Preemption):
         raise NotImplementedError(
             f"the driver trains {', '.join(TRAINABLE_BACKBONES)}; "
             f"{config['model']['backbone']!r} has no loss batch in the "
-            f"training step (nor in the JAX trainer): build its batches and "
-            f"call losses.LossHandler directly")
+            f"training step (the JAX driver does not train it either): build "
+            f"its batches and call losses.LossHandler directly")
     if run_dir is None:
         run_dir = create_dirs(os.path.join(get_output_dir(config),
                                            get_run_name(config)))
@@ -343,12 +365,25 @@ def _train(config, preempted: _Preemption):
     psacd = (PSACDScheduler(config["psacd_scheduler"])
              if config["psacd_scheduler"].get("active") else None)
 
+    # an adversarial term: the critic beside the model, its own step
+    critic = None
+    gan_kinds = [n for n in config["loss"] if n in ADVERSARIAL_TERMS]
+    if gan_kinds:
+        adv = AdversarialLoss(config, kind=gan_kinds[0])
+        critic = adv.init_state(
+            tr_dataset[0]["traj"][None], device,
+            torch.Generator().manual_seed(seed + 17))
+
     epochs = int(config["epochs"])
     start_epoch, step = 0, 0
     if config.get("resume") and os.path.isfile(
             checkpoint_path(run_dir, "last_checkpoint")):
         start_epoch, step = load_training_state(
             run_dir, "last_checkpoint", model, optimizer, lr_sched, generator)
+        if critic is not None and not load_aux_state(
+                run_dir, "last_checkpoint", critic):
+            print("WARNING: no critic state beside last_checkpoint; the "
+                  "critic starts fresh")
         # PSACD steps are cumulative and the delayed activations gated by
         # epoch: replay every epoch already done
         for e in range(start_epoch):
@@ -357,6 +392,15 @@ def _train(config, preempted: _Preemption):
             floats = apply_delayed_activations(config, floats, e)
         weights.load(floats)
         print(f"Resumed from epoch {start_epoch} (step {step})")
+    step_fn = train_step
+    if critic is not None:
+        # the step count before each step gates the critic's update
+        counter = itertools.count(step)
+
+        def gan_step(*args):
+            return gan_train_step(*args, adv=adv, critic=critic,
+                                  step=next(counter))
+        step_fn = gan_step
     if config.get("profile") and epochs - start_epoch < 2:
         raise ValueError(f"profile=true traces the second epoch, but "
                          f"epochs={epochs} with {start_epoch} done")
@@ -384,6 +428,13 @@ def _train(config, preempted: _Preemption):
     def save(name: str, epoch: int) -> None:
         save_checkpoint(run_dir, name, model, epoch, optimizer=optimizer,
                         lr_sched=lr_sched, step=step, generator=generator)
+        if critic is not None:
+            save_aux_state(run_dir, name, critic)
+
+    def copy(src: str, dst: str) -> None:
+        copy_checkpoint(run_dir, src, dst)
+        if critic is not None:
+            copy_checkpoint(run_dir, aux_name(src), aux_name(dst))
 
     eval_freq = int(config["eval_freq"])
     best_eval_loss, best_epoch = float("inf"), -1
@@ -401,7 +452,7 @@ def _train(config, preempted: _Preemption):
                 else:
                     losses, terms = host_epoch(
                         model, optimizer, handler, prefetcher.epoch(epoch),
-                        weights, generator, step_fn=train_step)
+                        weights, generator, step_fn=step_fn)
             step += len(losses)
             # one host sync per epoch
             epoch_loss = float(losses.mean())
@@ -427,14 +478,12 @@ def _train(config, preempted: _Preemption):
                 if not config.get("no_save"):
                     save("last_checkpoint", epoch + 1)
                     if is_best:
-                        copy_checkpoint(run_dir, "last_checkpoint",
-                                        "best_model")
+                        copy("last_checkpoint", "best_model")
                     if (config.get("save_intermediate_models")
                             and (epoch + 1) % int(
                                 config["save_intermediate_models_freq"]) == 0):
-                        copy_checkpoint(
-                            run_dir, "last_checkpoint",
-                            f"intermediate_checkpoint_epoch{epoch + 1}")
+                        copy("last_checkpoint",
+                             f"intermediate_checkpoint_epoch{epoch + 1}")
                 print(f"[{epoch + 1}/{epochs}] train {epoch_loss:.4f} "
                       f"| eval {eval_loss:.4f} | {log['epoch_seconds']:.2f}s")
             log_fh.write(json.dumps(log) + "\n")

@@ -174,9 +174,14 @@ def test_seeded_init_is_reproducible():
 
 
 def test_unported_backbone_and_norm_spec_raise():
+    """Every backbone of the JAX factory is ported: the unreleased ones
+    raise as there, an unknown name and a bad norm spec too."""
     cfg = _small_config(64, False)
-    cfg["model"]["backbone"] = "pointnet2_segmenter_v1"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg["model"]["backbone"] = "samplenet"
+    with pytest.raises(NotImplementedError, match="unreleased"):
+        get_model(cfg, device="cpu")
+    cfg["model"]["backbone"] = "no_such_backbone"
+    with pytest.raises(ValueError, match="unknown backbone"):
         get_model(cfg, device="cpu")
     with pytest.raises(ValueError):
         level_norms("layer+batch")

@@ -241,14 +241,19 @@ def test_io_sizes_match_jax(io_type, extra):
 
 
 def test_unknown_rollout_loss_and_clustering_io_raise():
+    """An unknown rollout loss raises; the clustering io (the segmenters',
+    no longer raising) answers as the JAX package's."""
+    from maskplanner_tpu.models import get_io_info as jax_io
     from maskplanner_tpu_torch.models import get_io_info
 
     cfg = load_args(argv=[*SMALL, "stroke_prototype_dim=24",
                           "rollout_loss=[chamfer]"])
     with pytest.raises(ValueError, match="rollout_loss"):
         get_io_info("ODv1_strokeRollout", cfg)
-    with pytest.raises(NotImplementedError, match="segmenters"):
-        get_io_info("ContrastiveClustering", cfg)
+    # the segmenters' λ-segments: outdim · λ values
+    assert get_io_info("ContrastiveClustering", cfg) == {
+        "inputdim": jax_io("ContrastiveClustering",
+                           jax_load_args(argv=[*SMALL]))["inputdim"]}
 
 
 # ------------------------------------------------- rollout head, rollout

@@ -475,11 +475,12 @@ def test_driver_refuses_what_is_not_ported(tmp_path):
     for extra, error, says in (
             ([f"model.pretrained_custom={tmp_path / 'jax_run'}"],
              FileNotFoundError, "tools/orbax_to_torch.py"),
-            (["loss=[discriminator]"], NotImplementedError, "ROADMAP"),
             # built by get_model, but the training step has no loss batch
             # for it, as the JAX trainer has none
             (["model.backbone=pointnet2_sops", "out_prototypes=12"],
-             NotImplementedError, "no loss batch")):
+             NotImplementedError, "no loss batch"),
+            (["model.backbone=dgcnn"], NotImplementedError,
+             "no loss batch")):
         with pytest.raises(error, match=says):
             train_maskplanner.main([*SMALL, "device=cpu", "epochs=1",
                                     f"output_dir={tmp_path}", *extra])
