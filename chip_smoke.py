@@ -59,11 +59,11 @@ result line:
    first;
 10. step time at batch 64 (host clock, median of 10) and device time by
     kernel for one step (torch.profiler);
-11. ``train_maskplanner.main`` for 2 epochs of 2 steps with
+11. ``train_maskplanner.main`` for 2 epochs of 8 steps with
     ``profile=true``, on the driver's default path (the device-resident
     epoch, the step a CUDA graph; the first step runs eagerly and is then
     captured, every later step is a replay): the chrome trace of the second
-    epoch holds 2 CUDA graph replays whose kernels, by their symbols, are
+    epoch holds 8 CUDA graph replays whose kernels, by their symbols, are
     phase 7's counts each (``trace_launches``, ``per_replay``), and the
     wrappers count the fused SA backward's kernels twice those (the eager
     step and the capture); its
@@ -243,8 +243,8 @@ result line:
     and on ``nn_argmin_edges``, indices identical to the plain version,
     times, bound and ``torch.cdist(x, y).argmin(-1)`` (``phase_argmin_d3``);
     the regressor (``model.backbone=pointnet2 loss=[chamfer,repulsion]
-    eval_metrics=[pcd]``) through ``train_maskplanner`` for 2 epochs of 4
-    steps on the graphed loop with phase 11's trace (4 replays) and
+    eval_metrics=[pcd]``) through ``train_maskplanner`` for 2 epochs of 8
+    steps on the graphed loop with phase 11's trace (8 replays) and
     final-eval checks (no request: a ``Predictor`` serves the mask
     models);
 25. the limits (``phase_limits``): the shapes past the small paths of
@@ -328,7 +328,33 @@ result line:
     critic graphs and choices (``critic_neighbours``,
     ``shared_choices``), with the generator's gradients through the
     critic on its graphs; every allowance printed; the phase's seconds;
-28. the card line, a ``kernels`` JSON line (launches: the kernels that ran
+28. data-parallel training (``phase_data_parallel``; ``parallel/``) and
+    the multi-scale level. (a) A process group of one over NCCL around
+    the graphed device-resident epoch of the default recipe at batch 64
+    for 4 steps (``phase_dp_world_one``): at LR 0 its losses, terms,
+    parameters, BatchNorm statistics, Adam step counts and generator
+    bitwise those of the ungrouped graphed epoch from the same seeded
+    state, and Adam's moments (K1's float atomics give two runs of one
+    graph other last bits) within 2x the largest distance between 3
+    ungrouped runs plus 1e-6 (``dp_within_noise``); at the config's LR the
+    first loss bitwise and the parameters after 4 steps within that
+    noise; a trace of two epochs of the grouped graph (8 replays) with
+    the step's port kernels a replay (one rank's collectives launch
+    nothing); host ms a
+    step of both graphs in turns. (b) 2 ranks over gloo on
+    the one card with CUDA tensors (``dp_worker``, processes started by the
+    ``spawn`` method), the eager device-resident epoch on 32 rows each of
+    a global batch of 64: the first step's global loss and all-reduced
+    gradients held against the single process's eager step by phase 8's
+    rule (``hold_rule``; the own error two single-process runs' distance,
+    the BatchNorm-fed biases by their norm), after 3 steps the ranks'
+    parameters bitwise equal, ms a step. (c) The same over NCCL, graphed,
+    on two cards (and on four, where there are four), with NCCL kernels in
+    a traced replay and their share of its busy time; with one card a line says ``not run: 1 device``. (d) ``SetAbstractionMsg``
+    (``MSG_LEVEL``) at batch 64: exactly fps 1 and ball_query 3 launches,
+    every scale's indices identical to ``ball_query_plain``'s, the
+    forward's ms, #7's at the widest scale with plain time and bound;
+29. the card line, a ``kernels`` JSON line (launches: the kernels that ran
     in the traced graphed epoch of 8 replays, the three large-shape paths'
     in phase 25's forward, step and ``emd``, the ball query's on the
     segmenter's eval forward; for the five kernels of the exported forward
@@ -338,7 +364,8 @@ result line:
     on phase 26's paths, and for #4 and #5 their ``zoo`` times;
     ``segmenters_gan_launches``, each kernel's on phase 27's paths; the
     ball query's numbers its segmenter inputs', its own check's under
-    ``own_check``), and the result line last.
+    ``own_check``, its launches and times on the multi-scale level under
+    ``msg_*``), and the result line last.
 
 It needs one CUDA card and the repository around it; without either it
 exits non-zero.
@@ -623,13 +650,21 @@ def traced_kernels(fn) -> list:
     return [e for e in events if e.get("cat") == "kernel"]
 
 
+# replays a trace held by ``per_replay`` spans: phase 18's trace of two
+# replays lost four of one replay's records (fps 2, fused_sa_fwd_bf16 2),
+# which the rounding over 2 replays cannot absorb (PERF.md §6)
+TRACED_REPLAYS = 8
+
+
 def per_replay(traced: dict, replays: int, expect: dict, what: str) -> dict:
     """Hold a trace of ``replays`` replays of a captured step against the
     step's counts ``expect``: each kernel's traced count over the replays,
     rounded, must be its count a step, and no count may exceed ``replays``
     times it. A fault of the capture moves a count by a multiple of the
     replays; the profiler's lost records (``trace_launches``) move it by
-    one or two, and are logged -> the rounded counts a replay."""
+    one to four, and are logged -> the rounded counts a replay. Hold
+    ``TRACED_REPLAYS`` replays: the rounding absorbs up to a whole lost
+    replay in 8, not in 2."""
     want = {k: v * replays for k, v in expect.items()}
     rounded = {k: int(v / replays + 0.5) for k, v in traced.items()}
     if rounded != expect or any(v > want[k] for k, v in traced.items()):
@@ -1828,7 +1863,7 @@ def batchnorm_fed_biases(model) -> set:
 def phase_train_then_serve(extra=(), expect: dict = STEP_LAUNCHES,
                            serve: dict = FORWARD_LAUNCHES,
                            label: str = "train-then-serve",
-                           then=None, steps: int = 2) -> dict:
+                           then=None, steps: int = TRACED_REPLAYS) -> dict:
     """The training entry point in-process (with the ``extra`` config
     arguments, ``profile=true``) for 2 epochs of ``steps`` steps on the
     driver's default loop: the first step runs eagerly and is then
@@ -3885,11 +3920,8 @@ def phase_recipes(items: list[dict], res: dict, card: dict) -> dict:
                      timed=False)
     phase_terms(items)
     phase_argmin_d3(items, res, card)
-    # 4 steps an epoch: late in this process a trace loses its first 3
-    # kernel records (phase 20's and recipe_epoch's read so), which 2
-    # replays cannot absorb
     launched["regressor"] = phase_train_then_serve(
-        REGRESSOR, REGRESSOR_STEP_LAUNCHES, None, "regressor", steps=4)
+        REGRESSOR, REGRESSOR_STEP_LAUNCHES, None, "regressor")
     # what each recipe's counted step launched (the regressor's: its traced
     # replays) and the n of the LAP's cost tensors in that step
     res["nn_argmin"]["recipe_launches"] = {
@@ -5306,6 +5338,520 @@ def phase_segmenters_gan(items: list, res: dict) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# data-parallel training (``maskplanner_tpu_torch/parallel``) and the
+# multi-scale level
+# ---------------------------------------------------------------------------
+
+# steps of the data-parallel epochs: phase 28's (a) at batch 64
+DP_STEPS = 4
+# steps a rank of (b) or (c) times, after the 3 it holds
+DP_TIMED_STEPS = 8
+# the multi-scale level of (d): the original repository's
+# ``pointnet2_cls_msg`` sa1 (512 centres, three balls), on the flagship's
+# 5120-point clouds without normals
+MSG_LEVEL = dict(npoint=512, radii=(0.1, 0.2, 0.4), nsamples=(16, 32, 128),
+                 in_channel=0, mlps=((32, 32, 64), (64, 64, 128),
+                                     (64, 96, 128)))
+# the NCCL kernels in a trace: its ring and tree kernels, and the one a
+# group of one runs for an averaging all-reduce (``onerank.cu``)
+NCCL_KERNEL = re.compile(r"nccl|oneRankReduce", re.IGNORECASE)
+# (a)'s rule for what K1's float atomics leave unreproducible: a grouped
+# run's relative L2 distance from an ungrouped run at most this many times
+# the largest distance between two of DP_NOISE_RUNS ungrouped runs, plus
+# DP_NOISE_FLOOR
+DP_NOISE_FACTOR = 2.0
+DP_NOISE_FLOOR = 1e-6
+DP_NOISE_RUNS = 3
+
+
+def dp_perm(steps: int, seed: int) -> np.ndarray:
+    """(steps, 64) rows, each a seeded permutation of the 64 staged
+    items."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.permutation(BATCH) for _ in range(steps)]
+                    ).astype(np.int32)
+
+
+def dp_epoch(cfg, data: dict, graphed: bool, draws: bool = True):
+    """A fresh run of the default recipe on ``data``, the seeded model (as
+    every rank builds it) and generator -> its ``DeviceEpoch``. Without
+    ``draws`` no generator and no dropout: FPS from index 0, and a step's
+    result depends on its batch's order only through float32 rounding."""
+    from maskplanner_tpu_torch.losses import DeviceWeights, LossHandler
+    from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.train import make_optimizer
+    from maskplanner_tpu_torch.train.trainer import DeviceEpoch
+
+    device = data["point_cloud"].device
+    model = get_model(cfg, device=device, dropout=0.3 if draws else 0.0,
+                      generator=torch.Generator().manual_seed(0))
+    handler = LossHandler(cfg["loss"], cfg)
+    weights = DeviceWeights(active_weights(cfg, handler), device)
+    gen = torch.Generator(device=device).manual_seed(0) if draws else None
+    return DeviceEpoch(model, make_optimizer(model, cfg), handler, data,
+                       weights, gen, int(cfg["pc_points"]), graphed=graphed)
+
+
+def dp_state(ep) -> dict:
+    """Every tensor a step reads and writes: the parameters, the BatchNorm
+    statistics, Adam's moments and step counts, by name."""
+    names = {p: n for n, p in ep.model.named_parameters()}
+    out = {f"param {n}": p for n, p in ep.model.named_parameters()}
+    out.update({f"buffer {n}": b for n, b in ep.model.named_buffers()})
+    for p, st in ep.optimizer.state.items():
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            out[f"{k} {names[p]}"] = st[k]
+    return out
+
+
+def dp_run(ep, perm, start: dict | None, gen_state, lr: float) -> dict:
+    """An epoch of ``ep`` over ``perm`` from the state ``start``
+    (``dp_state``'s names; none before the first run) and the generator
+    state, at LR ``lr`` -> its losses and terms, the state after it and the
+    generator's, on the host."""
+    with torch.no_grad():
+        if start is not None:
+            # Adam's state starts at zero (moments and step counts)
+            for k, t in dp_state(ep).items():
+                t.copy_(start[k]) if k in start else t.zero_()
+        ep.optimizer.param_groups[0]["lr"].fill_(lr)
+    ep.generator.set_state(gen_state)
+    losses, terms = ep.run(perm)
+    torch.cuda.synchronize()
+    return dict(losses=losses.cpu(), terms={k: v.cpu()
+                                            for k, v in terms.items()},
+                state={k: t.detach().cpu().clone()
+                       for k, t in dp_state(ep).items()},
+                gen=ep.generator.get_state())
+
+
+def dp_rel_l2(a: dict, b: dict, keys) -> float:
+    """The relative L2 distance of ``a``'s tensors from ``b``'s over
+    ``keys`` (``dp_run``'s states)."""
+    num = sum(float((a[k].double() - b[k].double()).norm() ** 2)
+              for k in keys)
+    den = sum(float(b[k].double().norm() ** 2) for k in keys)
+    return (num / den) ** 0.5
+
+
+def dp_within_noise(label: str, got: dict, runs: list, prefix: str
+                    ) -> tuple[float, float]:
+    """``got``'s state tensors named ``prefix``... within the noise of the
+    ungrouped ``runs`` (``DP_NOISE_FACTOR``, ``DP_NOISE_FLOOR``) -> its
+    distance from ``runs[0]`` and the largest between two runs."""
+    keys = [k for k in runs[0]["state"] if k.startswith(prefix)]
+    pairs = max(dp_rel_l2(a["state"], b["state"], keys)
+                for a, b in itertools.combinations(runs, 2))
+    d = dp_rel_l2(got["state"], runs[0]["state"], keys)
+    if not d <= DP_NOISE_FACTOR * pairs + DP_NOISE_FLOOR:
+        raise AssertionError(f"[{label}] {prefix}*: grouped-ungrouped "
+                             f"{d:.3e} > {DP_NOISE_FACTOR:g} x {pairs:.3e} "
+                             f"+ {DP_NOISE_FLOOR:g} (ungrouped pairs)")
+    return d, pairs
+
+
+def dp_bitwise(label: str, got: dict, want: dict) -> None:
+    """``got`` and ``want`` (``dp_run``'s) bit for bit, but for Adam's
+    moments (``phase_dp_world_one``)."""
+    differ = [k for k in want["state"] if not k.startswith("exp_avg")
+              and not torch.equal(got["state"][k], want["state"][k])]
+    differ += [f"term {k}" for k in want["terms"]
+               if not torch.equal(got["terms"][k], want["terms"][k])]
+    if not torch.equal(got["losses"], want["losses"]):
+        differ.append("losses")
+    if not torch.equal(got["gen"], want["gen"]):
+        differ.append("generator")
+    if differ:
+        raise AssertionError(f"[{label}] not bitwise equal: "
+                             f"{differ[:8]} ({len(differ)} in all)")
+
+
+def dp_first_step(ep) -> dict:
+    """The parameter gradients of an eager ``ep``'s last step (after the
+    step's all-reduce), on the host."""
+    return {n: p.grad.detach().cpu().double()
+            for n, p in ep.model.named_parameters()}
+
+
+def dp_worker(rank: int, world: int, store: str, backend: str, graphed: bool,
+              inputs: str, out: str) -> None:
+    """One rank of phase 28's (b) or (c) on its rows of the 64 staged
+    items: the default recipe's eager device-resident epoch of one step,
+    then a fresh run (graphed with ``graphed``: an eager step, the capture,
+    then replays) of 3 one-step epochs -> ``out``: the first step's global
+    loss and all-reduced gradients, the 3 steps' losses and the parameters
+    after them, the host ms of a step over ``DP_TIMED_STEPS`` more, the
+    NCCL kernels of a traced replay (one more step) and their share of its
+    busy device time."""
+    from maskplanner_tpu_torch import parallel
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    parallel.distributed_init(f"file://{store}", rank, world, device=device,
+                              backend=backend)
+    ep = None
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = load_args(argv=[FLAGSHIP])
+        data = {k: v.to(device)
+                for k, v in torch.load(inputs, weights_only=True).items()}
+        perm = dp_perm(3, 1)
+        first = {}
+        for draws in (False, True):
+            ep = dp_epoch(cfg, data, graphed=False, draws=draws)
+            first[draws] = (float(ep.run(perm[:1])[0][0]), dp_first_step(ep))
+        ep = dp_epoch(cfg, data, graphed)
+        losses = torch.cat([ep.run(perm[i:i + 1])[0] for i in range(3)])
+        params = {n: p.detach().cpu().clone()
+                  for n, p in ep.model.named_parameters()}
+        # the ranks start the clock together, as they leave a collective
+        parallel.agree(False)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(DP_TIMED_STEPS):
+            ep.run(perm[i % 3:i % 3 + 1])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / DP_TIMED_STEPS
+        nccl, share = [], None
+        if graphed:
+            kernels = traced_kernels(lambda: ep.run(perm[2:3]))
+            nccl = [e for e in kernels
+                    if NCCL_KERNEL.search(e.get("name", ""))]
+            share = busy_ms(nccl) / busy_ms(kernels)
+            nccl = [e["name"] for e in nccl]
+        torch.save(dict(first=first, ms=ms, nccl=nccl, share=share,
+                        losses=losses.cpu(), params=params), out)
+    finally:
+        if ep is not None:
+            ep.close()
+        parallel.destroy()
+    log(f"[dp] {backend} rank {rank}: done, its group destroyed")
+
+
+def dp_spawn(world: int, backend: str, graphed: bool, inputs: str,
+             tmp: str, timeout: float = 120.0) -> list[dict]:
+    """``world`` ``dp_worker`` ranks, started with the ``spawn`` method and
+    joined; every rank must exit 0 within ``timeout`` s; none is left
+    running -> each rank's result."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(tmp, f"store-{backend}-{world}")
+    outs = [os.path.join(tmp, f"{backend}-rank{r}.pt") for r in range(world)]
+    procs = [ctx.Process(target=dp_worker, args=(
+        r, world, store, backend, graphed, inputs, outs[r]))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.join(max(deadline - time.perf_counter(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"{world} {backend} ranks exited {codes}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def dp_ranks_agree(label: str, ranks: list[dict]) -> None:
+    """Every rank's reported losses and its parameters bitwise rank 0's."""
+    for r, got in enumerate(ranks[1:], 1):
+        if got["first"][True][0] != ranks[0]["first"][True][0] or \
+                not torch.equal(got["losses"], ranks[0]["losses"]):
+            raise AssertionError(f"[{label}] rank {r} reports other losses")
+        differ = [n for n, p in ranks[0]["params"].items()
+                  if not torch.equal(p, got["params"][n])]
+        if differ:
+            raise AssertionError(f"[{label}] after 3 steps rank {r}'s "
+                                 f"parameters differ from rank 0's: "
+                                 f"{differ[:5]} ({len(differ)})")
+    log(f"[{label}] after 3 steps the {len(ranks)} ranks' parameters are "
+        f"bitwise equal ({len(ranks[0]['params'])} tensors), their "
+        f"losses too")
+
+
+def phase_dp_world_one(cfg, data: dict) -> dict:
+    """(a): a group of one process over NCCL around the graphed
+    device-resident epoch of the default recipe at batch 64 for
+    ``DP_STEPS`` steps, against the ungrouped graphed epoch from the same
+    seeded model and generator. K1's float atomics scatter the input
+    gradient in no fixed order, so two runs of one graph differ in their
+    last bits after a backward; what they leave unreproducible is held by
+    ``dp_within_noise`` against ``DP_NOISE_RUNS`` ungrouped runs. At LR 0
+    (the Adam update multiplies its move by the LR, so every step's
+    forward runs on the same weights) the two epochs' losses, terms,
+    parameters, BatchNorm statistics, Adam step counts and generator must
+    be bitwise equal, and Adam's moments (every step's gradient, after the
+    graph's collectives) within the noise. At the config's LR the first
+    step's loss must be bitwise equal and the parameters after the epoch
+    within the noise. On one rank NCCL's in-place SUM is a no-op, so the
+    captured collectives launch nothing: a traced epoch of the grouped
+    graph holds the port's kernels, those of a step a replay
+    (``per_replay``), and counts NCCL's; the collectives' kernels are
+    (c)'s, on two or more cards. Host ms a step of both graphs, in turns
+    -> the numbers."""
+    from maskplanner_tpu_torch import parallel
+
+    perm = dp_perm(DP_STEPS, 0)
+    lr = float(cfg["lr"])
+    ungrouped = dp_epoch(cfg, data, graphed=True)
+    gen0 = ungrouped.generator.get_state()
+    want = dp_run(ungrouped, perm, None, gen0, 0.0)
+    start = grouped = None
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.distributed_init(f"file://{tmp}/store", 0, 1,
+                                  device=torch.device("cuda", 0))
+        try:
+            grouped = dp_epoch(cfg, data, graphed=True)
+            start = {k: t.detach().clone()
+                     for k, t in dp_state(grouped).items()}
+            got = dp_run(grouped, perm, None, gen0, 0.0)
+            dp_bitwise("dp world-1", got, want)
+            # the driver's stop flag, reduced on the card over NCCL
+            if not parallel.agree(True) or parallel.agree(False):
+                raise AssertionError("agree over a group of one")
+            log(f"[dp] (a) world-1 NCCL group, graphed epoch of {DP_STEPS} "
+                f"steps at batch {BATCH}, LR 0: losses, terms, parameters, "
+                f"BatchNorm statistics, step counts and generator bitwise "
+                f"the ungrouped graph's; losses "
+                + " ".join(f"{v:.6f}" for v in got["losses"].tolist()))
+            reset_counts()
+            epochs = TRACED_REPLAYS // DP_STEPS
+            kernels = traced_kernels(
+                lambda: [grouped.run(perm) for _ in range(epochs)])
+            wrapped = read_counts()
+            if any(wrapped.values()):
+                raise AssertionError(f"a replay counted {wrapped}")
+            per_replay(trace_launches(kernels), TRACED_REPLAYS,
+                       STEP_LAUNCHES, "[dp] (a) grouped graph")
+            nccl = [e for e in kernels if NCCL_KERNEL.search(e["name"])]
+            busy = busy_ms(kernels)
+            log(f"[dp] (a) {epochs} traced epochs of {DP_STEPS} grouped "
+                f"replays: {len(nccl)} NCCL kernels, "
+                f"{busy / TRACED_REPLAYS:.3f} busy ms a step")
+            times = {"ungrouped": [], "grouped": []}
+            for kind in ("ungrouped", "grouped", "grouped", "ungrouped"):
+                ep = ungrouped if kind == "ungrouped" else grouped
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(2):
+                    ep.run(perm)
+                torch.cuda.synchronize()
+                times[kind].append((time.perf_counter() - t) * 1e3
+                                   / (2 * DP_STEPS))
+            ms = {k: statistics.mean(v) for k, v in times.items()}
+            log(f"[dp] (a) graphed step at batch {BATCH}, ms (host clock, "
+                f"2 epochs of {DP_STEPS}, in turns): ungrouped "
+                f"{ms['ungrouped']:.3f} ({times['ungrouped'][0]:.3f}, "
+                f"{times['ungrouped'][1]:.3f}), world-1 NCCL group "
+                f"{ms['grouped']:.3f} ({times['grouped'][0]:.3f}, "
+                f"{times['grouped'][1]:.3f})")
+            moved = dp_run(grouped, perm, start, gen0, lr)
+        finally:
+            if grouped is not None:
+                grouped.close()
+            parallel.destroy()
+    still = [want] + [dp_run(ungrouped, perm, start, gen0, 0.0)
+                      for _ in range(DP_NOISE_RUNS - 1)]
+    noise = {f"LR 0 {prefix}": dp_within_noise("dp (a) LR 0", got, still,
+                                               prefix)
+             for prefix in ("exp_avg ", "exp_avg_sq ")}
+    runs = [dp_run(ungrouped, perm, start, gen0, lr)
+            for _ in range(DP_NOISE_RUNS)]
+    if not all(torch.equal(r["losses"][0], moved["losses"][0])
+               for r in runs):
+        raise AssertionError("[dp] (a) at the LR the grouped graph's first "
+                             "loss differs from the ungrouped one's")
+    noise[f"LR {lr:g} param"] = dp_within_noise(f"dp (a) LR {lr:g}", moved,
+                                                runs, "param ")
+    log(f"[dp] (a) within the noise of {DP_NOISE_RUNS} ungrouped runs "
+        f"(relative L2, grouped-ungrouped / the largest ungrouped pair): "
+        + "; ".join(f"{k.strip()} {d:.3e} / {p:.3e}"
+                    for k, (d, p) in noise.items())
+        + f"; at LR {lr:g} the first loss bitwise, losses grouped "
+        + " ".join(f"{v:.4f}" for v in moved["losses"].tolist())
+        + ", ungrouped " + " ".join(f"{v:.4f}"
+                                    for v in runs[0]["losses"].tolist()))
+    # a replay's NCCL kernels (the profiler loses a record now and then)
+    return dict(ungrouped_ms=ms["ungrouped"], grouped_ms=ms["grouped"],
+                nccl_kernels=int(len(nccl) / TRACED_REPLAYS + 0.5))
+
+
+def phase_dp_ranks(cfg, data_cpu: dict) -> dict:
+    """(b) 2 ranks over gloo on the one card with CUDA tensors, and (c) 2
+    over NCCL on two cards, graphed, where there are two (and 4 on four,
+    where there are four). Each rank runs
+    the device-resident epoch (eager in (b)) on its 32 rows of every
+    global batch of 64. Their first step's global loss and all-reduced
+    gradients against the single process's eager first step at batch 64
+    by phase 8's rule (``hold_rule``), without draws (FPS from index 0,
+    no dropout), where the single process's own float32 error is its
+    distance from the same step on the batch in reverse order (the card
+    has no float64 step); the same with the draws (the FPS starts and
+    dropout masks over the global batch), each group's distance logged
+    beside the other's; after 3 steps with the draws the ranks'
+    parameters bitwise equal -> each case's ms a step and, graphed, the
+    NCCL kernels' share of a traced replay's busy time, by case and world
+    size."""
+    data = {k: v.cuda() for k, v in data_cpu.items()}
+    row = dp_perm(3, 1)[:1]
+    single = {}
+    for name, draws, perm in (("plain", False, row),
+                              ("reversed", False, row[:, ::-1].copy()),
+                              ("drawn", True, row)):
+        ep = dp_epoch(cfg, data, graphed=False, draws=draws)
+        losses, _ = ep.run(perm)
+        single[name] = (float(losses[0]), dp_first_step(ep))
+    # 0 in exact arithmetic: both sides' values are rounding noise
+    zero = batchnorm_fed_biases(ep.model)
+    del ep, data
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.pt")
+        torch.save(data_cpu, inputs)
+        cases = [("b", 2, "gloo", False)]
+        cards = torch.cuda.device_count()
+        cases += [("c", w, "nccl", True) for w in (2, 4) if cards >= w]
+        if cards < 2:
+            log(f"[dp] (c) 2 NCCL ranks, graphed: not run: {cards} device")
+        for case, world, backend, graphed in cases:
+            t = time.perf_counter()
+            ranks = dp_spawn(world, backend, graphed, inputs, tmp)
+            label = f"dp ({case}) {world} {backend} ranks"
+            plain, drawn = ranks[0]["first"][False], ranks[0]["first"][True]
+            own = {n: g - single["reversed"][1][n]
+                   for n, g in single["plain"][1].items()}
+            dists = {"DP-single": group_rel_l2(plain[1], single["plain"][1]),
+                     "single-reversed": group_rel_l2(
+                         single["reversed"][1], single["plain"][1]),
+                     "DP-single, drawn": group_rel_l2(drawn[1],
+                                                      single["drawn"][1])}
+            log(f"[{label}] first step, each group's relative L2 gradient "
+                f"distance, " + "; ".join(
+                    f"{k}: " + ", ".join(f"{g} {v:.2e}" for g, v in d.items())
+                    for k, d in dists.items())
+                + f"; losses DP {plain[0]:.9g} / single "
+                f"{single['plain'][0]:.9g} / reversed "
+                f"{single['reversed'][0]:.9g}, drawn DP "
+                f"{drawn[0]:.9g} / single {single['drawn'][0]:.9g}")
+            hold_rule(label, (plain[0], single["plain"][0],
+                              single["reversed"][0]),
+                      (plain[1], single["plain"][1], single["reversed"][1]),
+                      zero=zero)
+            # the draws move the step; the same allowance, the own error
+            # that of the step without them
+            hold_rule(f"{label}, drawn", (drawn[0], single["drawn"][0],
+                                          single["drawn"][0]),
+                      (drawn[1], single["drawn"][1],
+                       {n: g - own[n] for n, g in single["drawn"][1].items()}),
+                      zero=zero)
+            dp_ranks_agree(label, ranks)
+            if graphed and not all(r["nccl"] for r in ranks):
+                raise AssertionError(f"[{label}] no NCCL kernel in a traced "
+                                     f"replay")
+            out[f"{case}{world}_ms"] = statistics.mean(r["ms"]
+                                                       for r in ranks)
+            if graphed:
+                out[f"{case}{world}_all_reduce_share"] = statistics.mean(
+                    r["share"] for r in ranks)
+                log(f"[{label}] a traced replay: NCCL kernels "
+                    + ", ".join(f"rank {i} {len(r['nccl'])}"
+                                for i, r in enumerate(ranks))
+                    + ", their share of the busy time " + ", ".join(
+                        f"{r['share']:.5f}" for r in ranks))
+            log(f"[{label}] ms a step (host clock, {DP_TIMED_STEPS} steps "
+                f"after a collective, eager {not graphed}), each rank: "
+                + ", ".join(f"{r['ms']:.3f}" for r in ranks)
+                + f"; {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def phase_msg(clouds: np.ndarray, res: dict) -> None:
+    """(d): ``SetAbstractionMsg`` (``MSG_LEVEL``) on 64 clouds, eval: one
+    FPS and a ball query a scale, exactly fps 1 and ball_query 3 launches
+    (the counts set to 0 just before the forward and read just after),
+    finite; each scale's ball indices (#7) identical to
+    ``ball_query_plain``'s on the same centres; the forward's ms, #7's at
+    the widest scale with its plain time and bound."""
+    from maskplanner_tpu_torch.models import pointnet2
+    from maskplanner_tpu_torch.ops.cuda.group_gather import ball_query_cuda
+    from maskplanner_tpu_torch.ops.sampling import ball_query_plain
+
+    torch.manual_seed(0)
+    level = pointnet2.SetAbstractionMsg(**MSG_LEVEL).cuda().eval()
+    xyz = torch.from_numpy(clouds).cuda()
+    seen, query = [], pointnet2.query_ball_point
+
+    def recorded(radius, nsample, x, q):
+        seen.append((radius, nsample, q, query(radius, nsample, x, q)))
+        return seen[-1][-1]
+
+    pointnet2.query_ball_point = recorded
+    try:
+        with torch.no_grad():
+            reset_counts()
+            new_xyz, feats = level(xyz, None)
+            launches = read_counts()
+    finally:
+        pointnet2.query_ball_point = query
+    want = launches_of(fps=1, ball_query=len(MSG_LEVEL["radii"]))
+    if launches != want:
+        raise AssertionError(f"the MSG forward launched {launches}, "
+                             f"expected {want}")
+    width = sum(m[-1] for m in MSG_LEVEL["mlps"])
+    if feats.shape != (BATCH, MSG_LEVEL["npoint"], width) or not bool(
+            torch.isfinite(feats).all()):
+        raise AssertionError(f"MSG output {tuple(feats.shape)}, finite "
+                             f"{bool(torch.isfinite(feats).all())}")
+    for radius, nsample, q, idx in seen:
+        if q is not seen[0][2] or not torch.equal(
+                idx.long(), ball_query_plain(radius, nsample, xyz, q).long()):
+            raise AssertionError(f"MSG scale r={radius} K={nsample}: the "
+                                 f"ball indices differ from the plain "
+                                 f"version's")
+    with torch.no_grad():
+        ms = median_host_s(lambda: level(xyz, None), 5) * 1e3
+    radius, nsample, q, _ = seen[-1]
+    kernel = median_ms(lambda: ball_query_cuda(radius, nsample, xyz, q), 10)
+    plain = median_ms(lambda: ball_query_plain(radius, nsample, xyz, q), 3)
+    b = bound(scan_ops(radius, nsample, xyz, q),
+              4.0 * (xyz.numel() + q.numel() + BATCH * q.shape[1] * nsample))
+    res["ball_query"].update(msg_launches=launches["ball_query"],
+                             msg_ms=kernel, msg_plain_ms=plain,
+                             msg_bound_ms=b["bound_ms"],
+                             msg_bound_by=b["bound_by"])
+    log(f"[dp] (d) SetAbstractionMsg at batch {BATCH} (512 centres, K "
+        f"{MSG_LEVEL['nsamples']}): {launches}, every scale's indices "
+        f"identical to the plain version's; forward {ms:.3f} ms; #7 at "
+        f"r={radius} K={nsample} {kernel:.4f} ms, plain {plain:.3f}, bound "
+        f"{b['bound_ms']:.4f} ({b['bound_by']})")
+
+
+def phase_data_parallel(cfg, items: list, clouds: np.ndarray,
+                        res: dict) -> dict:
+    """Phase 28 -> its numbers."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()     # the ranks of (b) share the card
+    data_cpu = to_batch(items, "cpu")
+    data = {k: v.cuda() for k, v in data_cpu.items()}
+    out = phase_dp_world_one(cfg, data)
+    del data
+    torch.cuda.empty_cache()
+    out.update(phase_dp_ranks(cfg, data_cpu))
+    phase_msg(clouds, res)
+    torch.cuda.empty_cache()
+    log(f"[dp] phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5436,6 +5982,10 @@ def main() -> int:
     phase_zoo(res, card)
     # the segmenters and the GAN recipe: likewise
     seg_gan = phase_segmenters_gan(train_items, res)
+    # data-parallel training and the multi-scale level: likewise (the
+    # graphed epoch's from its trace)
+    dp = phase_data_parallel(cfg, train_items, clouds, res)
+    log("[dp] " + json.dumps(dp))
     log(f"[time] all phases done at {time.perf_counter() - t0:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (

@@ -62,6 +62,9 @@ and the trees of this slice's models, told apart by their module names
 - ``MLP`` as ``MLPRegressor``'s hidden layers (``fcs.{j}``, ``bns.{j}``,
   its output the last of ``fcs``); ``MLPGenerator``'s ``MLP_0/...`` ->
   ``mlp.fcs``, ``mlp.bns``
+- ``SetAbstractionMsg`` (no model builds it; its own tree):
+  ``mlp_{i}/{Dense,BatchNorm,LayerNorm}_{j}`` -> ``mlps.{i}.mlp_convs.{j}``,
+  ``mlp_bns.{j}``, ``mlp_lns.{j}``
 
 Dense kernels (in, out) are transposed to (out, in). BatchNorm ``mean`` /
 ``var`` are copied as they are (eval reads only them).
@@ -111,6 +114,7 @@ _ENCODER_MODULE = re.compile(
     r"encoder/(sa\d)/PointMLP_0/(Dense|BatchNorm|LayerNorm)_(\d+)$")
 _ENCODER_LISTS = {"Dense": "mlp_convs", "BatchNorm": "mlp_bns",
                   "LayerNorm": "mlp_lns"}
+_MSG_MODULE = re.compile(r"mlp_(\d+)/(Dense|BatchNorm|LayerNorm)_(\d+)$")
 _MLP_MODULE = re.compile(r"(Dense|BatchNorm)_(\d+)$")
 _MLP_LISTS = {"Dense": "fcs", "BatchNorm": "bns"}
 _LAYER_MODULE = re.compile(
@@ -128,6 +132,10 @@ def _torch_module(path: tuple[str, ...]) -> str:
     if m:
         sa, kind, j = m.groups()
         return f"{sa}.{_ENCODER_LISTS[kind]}.{j}"
+    m = _MSG_MODULE.match(flat)
+    if m:
+        i, kind, j = m.groups()
+        return f"mlps.{i}.{_ENCODER_LISTS[kind]}.{j}"
     m = _MLP_MODULE.match(flat)
     if m:
         kind, j = m.groups()
@@ -293,6 +301,8 @@ _FLAX_HEAD_PATHS = {v: k for k, v in _HEAD_MODULES.items()}
 _FLAX_ENCODER_LISTS = {v: k for k, v in _ENCODER_LISTS.items()}
 _TORCH_MODULE = re.compile(r"(sa\d)\.(mlp_convs|mlp_bns|mlp_lns)\.(\d+)$")
 _FLAX_MLP_LISTS = {v: k for k, v in _MLP_LISTS.items()}
+_TORCH_MSG_MODULE = re.compile(
+    r"mlps\.(\d+)\.(mlp_convs|mlp_bns|mlp_lns)\.(\d+)$")
 _TORCH_MLP_MODULE = re.compile(r"(fcs|bns)\.(\d+)$")
 _FLAX_LAYER_LISTS = {v: k for k, v in _LAYER_LISTS.items()}
 _TORCH_LAYER_MODULE = re.compile(
@@ -306,6 +316,10 @@ def _flax_path(module: str) -> tuple[str, ...]:
         sa, kind, j = m.groups()
         return ("encoder", sa, "PointMLP_0",
                 f"{_FLAX_ENCODER_LISTS[kind]}_{j}")
+    m = _TORCH_MSG_MODULE.match(module)
+    if m:
+        i, kind, j = m.groups()
+        return (f"mlp_{i}", f"{_FLAX_ENCODER_LISTS[kind]}_{j}")
     m = _TORCH_MLP_MODULE.match(module)
     if m:
         kind, j = m.groups()

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.chamfer import chamfer_distance
+from ..parallel import global_rows, local_rows
 
 
 def chamfer(y_pred, y, y_mask=None, min_centroids=False, velocities=False,
@@ -62,7 +63,8 @@ def random_subset(n: int, take: int, batch: int, device,
     permutation of ``n``, drawn as the argsort of uniform keys from
     ``generator`` on ``device`` (which a CUDA graph can capture, where
     ``torch.randperm`` cannot)."""
-    keys = torch.rand((batch, n), generator=generator, device=device)
+    keys = local_rows(torch.rand((global_rows(batch), n),
+                                 generator=generator, device=device))
     return keys.argsort(dim=-1)[:, :take]
 
 

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from ..ops.chamfer import (chamfer_distance, mask_from_padding,
                            nearest_sq_distance)
 from ..ops.hungarian import hungarian
+from ..parallel import batch_count
 from .chamfer_losses import (reverse_asymm_point_chamfer,
                              reverse_asymm_segment_chamfer,
                              symm_point_chamfer)
@@ -70,7 +71,8 @@ def stroke_masks_loss(pred_to_gt_match, pred_stroke_masks, scores,
         per_col = ((chosen - tgt) ** 2).sum(-1)
     else:
         per_col = bce_with_logits(chosen, tgt).sum(-1)
-    total_matched = torch.clamp(matched.sum(), min=1)
+    # over the global batch in a data-parallel step (``parallel``)
+    total_matched = batch_count(matched.sum(), 1)
     mask_loss = torch.where(matched, per_col, 0.0).sum() / total_matched
 
     # 1 where predicted mask i was matched to a real target

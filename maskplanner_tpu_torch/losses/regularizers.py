@@ -14,6 +14,7 @@ import torch
 
 from ..ops.chamfer import mask_from_padding
 from ..ops.distance import smallest_k
+from ..parallel import global_mean, global_rows, local_rows
 from .common import euclid_cdist, masked_mean
 
 _BIG = 1e10
@@ -142,9 +143,10 @@ def contrastive_v1(latent_segments, stroke_ids, generator=None, margin=0.3,
     positive = pair_target == 1
     if balance_negatives:
         if uniform is None:
-            uniform = torch.rand(pair_target.shape, generator=generator,
-                                 device=feat.device)
-        pos_fraction = positive.to(feat.dtype).mean()
+            uniform = local_rows(torch.rand(
+                (global_rows(B), *pair_target.shape[1:]),
+                generator=generator, device=feat.device))
+        pos_fraction = global_mean(positive.to(feat.dtype).mean())
         sample_mask = positive | (uniform > 1 - pos_fraction)
     else:
         sample_mask = torch.ones_like(positive)

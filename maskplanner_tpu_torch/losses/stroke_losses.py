@@ -15,6 +15,7 @@ from torch.nn import functional
 from ..ops.chamfer import mask_from_padding
 from ..ops.hungarian import hungarian
 from ..ops.sinkhorn import sinkhorn_emd
+from ..parallel import batch_count, global_sum
 from .common import bce_with_logits, euclid_cdist
 
 # above this many (prediction, GT) pairs the exact assignment gives way to
@@ -44,8 +45,8 @@ def mse_nexttoken_v2(stacked_pred_nexttoken, stacked_gt_nexttoken,
     mse = 100.0 * ((stacked_pred_nexttoken - stacked_gt_nexttoken) ** 2) \
         .sum(-1).mean()
     eop = end_of_path_gt.to(torch.float32)
-    true_count = torch.clamp(eop.sum(), min=1.0)
-    false_count = torch.clamp((1.0 - eop).sum(), min=1.0)
+    true_count = torch.clamp(global_sum(eop.sum()), min=1.0)
+    false_count = torch.clamp(global_sum((1.0 - eop).sum()), min=1.0)
     w = torch.where(eop == 0, true_count / false_count, 1.0)
     bce = (w * bce_with_logits(end_of_path_scores, eop)).mean()
     return mse + weights["explicit_weight_endofpath_confidence_loss"] * bce
@@ -147,7 +148,7 @@ def masked_mse_strokes_v2(pred_points_per_stroke, points_per_stroke,
 
     chosen = _take_rows(pred_trunc, row4col)
     per_col = _masked_mse_rows(chosen, points_per_stroke)
-    total = torch.clamp(matched.sum(), min=1)
+    total = batch_count(matched.sum(), 1)
     masked_mse = torch.where(matched, per_col, 0.0).sum() / total
 
     # per-point confidence: the matched GT stroke's point validity, 0
@@ -192,7 +193,7 @@ def emd(y_pred, y, y_mask=None, **_):
     chosen = torch.take_along_dim(
         y_pred, torch.clamp(row4col, max=n_pred - 1)[..., None], dim=1)
     per_col = ((chosen - torch.where(y_mask[..., None], y, 0.0)) ** 2).sum(-1)
-    total = torch.clamp(matched.sum(), min=1)
+    total = batch_count(matched.sum(), 1)
     return torch.where(matched, per_col, 0.0).sum() / total
 
 
@@ -211,7 +212,7 @@ def hungarian_sops(sop_pred, sop_gt, pred_sop_conf_scores, weights,
     chosen = _take_rows(sop_pred, row4col)
     per_col = ((chosen - torch.where(sop_mask[..., None], sop_gt, 0.0))
                ** 2).sum(-1)
-    total = torch.clamp(matched.sum(), min=1)
+    total = batch_count(matched.sum(), 1)
     mse = torch.where(matched, per_col, 0.0).sum() / total
 
     assigned = _assigned(row4col, matched, sop_pred.shape[1])

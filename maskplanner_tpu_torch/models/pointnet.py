@@ -17,6 +17,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..parallel import global_rows
 from .pointnet2 import (BATCH_NORM_EPS, FlaxBatchNorm1d, batch_norm_rows,
                         dropout)
 
@@ -111,11 +112,12 @@ class PointNetFeat(nn.Module):
 
 class PointNetRegressor(nn.Module):
     """(B, N, 3) -> (B, out_vectors, outdim) on the global feature: fc1 ->
-    bn1 -> ReLU -> fc2 -> dropout -> bn2 -> ReLU -> fc3. At batch 1 the two
-    BatchNorms are left out (the original repository's bypass; the JAX
-    package calls them in running-average mode and drops what they give,
-    so nothing moves their statistics there either). ``dropout``: its rate
-    in train mode, the mask drawn from the caller's generator."""
+    bn1 -> ReLU -> fc2 -> dropout -> bn2 -> ReLU -> fc3. At batch 1 (the
+    global batch in a data-parallel step) the two BatchNorms are left out
+    (the original repository's bypass; the JAX package calls them in
+    running-average mode and drops what they give, so nothing moves their
+    statistics there either). ``dropout``: its rate in train mode, the
+    mask drawn from the caller's generator."""
 
     def __init__(self, out_vectors: int, outdim: int = 3,
                  feature_transform: bool = False, affinetrans: bool = False,
@@ -133,7 +135,7 @@ class PointNetRegressor(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        bypass = x.shape[0] == 1
+        bypass = global_rows(x.shape[0]) == 1
 
         def bn(norm, h):
             return h if bypass else norm(h)

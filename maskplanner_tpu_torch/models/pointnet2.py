@@ -41,6 +41,7 @@ from ..ops.fused_sa import (LAYER_NORM_EPS, fold_pointmlp_params,
 from ..ops.group_gather import ball_group
 from ..ops.sampling import (farthest_point_sample, index_points, knn,
                             query_ball_point)
+from ..parallel import global_rows, local_rows, mean_over_ranks
 
 BATCH_NORM_EPS = 1e-5
 BATCH_NORM_MOMENTUM = 0.9  # Flax's: running = 0.9 running + 0.1 batch
@@ -59,7 +60,13 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     (a bf16 Dense's output) is cast to it twice, for the statistics and for
     the normalisation, as Flax's ``BatchNorm`` casts it: in train mode its
     gradient then arrives as two parts, each rounded to the input's dtype,
-    summed in that dtype."""
+    summed in that dtype.
+
+    In a data-parallel step (``parallel.sharded_batch``) the two means are
+    the global batch's (``parallel.mean_over_ranks``: the ranks' means
+    over their equal row counts, averaged by one all-reduce whose backward
+    averages the ranks' cotangents), as Flax's reduction over a sharded axis
+    lowers to a psum."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.weight.dtype
@@ -67,7 +74,9 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
             return super().forward(x.to(dtype))
         stats = x.to(dtype)
         mean = stats.mean(0)
-        var = torch.clamp((stats * stats).mean(0) - mean * mean, min=0.0)
+        mean_sq = (stats * stats).mean(0)
+        mean, mean_sq = mean_over_ranks(mean, mean_sq)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             m = BATCH_NORM_MOMENTUM
             self.running_mean.mul_(m).add_((1.0 - m) * mean)
@@ -80,24 +89,30 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout whose keep mask comes from ``generator`` (the
-    global generator when None), drawn in f32 whatever ``x``'s dtype; the
-    identity in eval or at rate 0."""
+    global generator when None), drawn in f32 whatever ``x``'s dtype, over
+    the global batch in a data-parallel step (``parallel.global_rows``),
+    of which this rank keeps its rows; the identity in eval or at rate
+    0."""
     if not training or rate == 0.0:
         return x
-    keep = torch.bernoulli(torch.full(x.shape, 1.0 - rate,
-                                      device=x.device), generator=generator)
+    shape = (global_rows(x.shape[0]), *x.shape[1:])
+    keep = local_rows(torch.bernoulli(torch.full(shape, 1.0 - rate,
+                                                 device=x.device),
+                                      generator=generator))
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
 def random_starts(xyz: torch.Tensor,
                   generator: torch.Generator | None) -> torch.Tensor | None:
-    """(B,) random FPS start indices drawn from ``generator``; None (start
-    0) without one."""
+    """(B,) random FPS start indices drawn from ``generator`` (over the
+    global batch in a data-parallel step, of which this rank keeps its
+    rows); None (start 0) without one."""
     if generator is None:
         return None
     B, N, _ = xyz.shape
-    return torch.randint(0, N, (B,), generator=generator,
-                         device=generator.device).to(xyz.device)
+    return local_rows(torch.randint(0, N, (global_rows(B),),
+                                    generator=generator,
+                                    device=generator.device)).to(xyz.device)
 
 
 def batch_norm_rows(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
@@ -254,6 +269,47 @@ class SetAbstraction(PointMLP):
         if self.training or (features is None and not bf16):
             return new_xyz, self.pool(self.run_mlp(grouped))
         return new_xyz, self.run_folded(grouped)
+
+
+class SetAbstractionMsg(nn.Module):
+    """PointNet++ set-abstraction level with multi-scale grouping
+    (``maskplanner_tpu/models/pointnet2.py::SetAbstractionMsg``, the
+    original repository's ``PointNetSetAbstractionMsg``; no model of
+    either package builds it). One FPS draw of ``npoint`` centres (a random
+    start from ``generator`` in train) serves every scale; scale ``i``
+    queries the ball of ``radii[i]`` for ``nsamples[i]`` neighbours
+    (``query_ball_point``: the ball query kernel on the card), gathers
+    their features before their xyz relative to the centre, runs its own
+    ``PointMLP`` (``mlps.{i}``) and takes the max over the neighbours in
+    f32; the scales' descriptors are concatenated on the channels."""
+
+    def __init__(self, npoint: int, radii: Sequence[float],
+                 nsamples: Sequence[int], in_channel: int,
+                 mlps: Sequence[Sequence[int]], norm: str = "batch",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if not len(radii) == len(nsamples) == len(mlps):
+            raise ValueError("radii, nsamples and mlps differ in length")
+        self.npoint = npoint
+        self.radii = tuple(radii)
+        self.nsamples = tuple(nsamples)
+        self.mlps = nn.ModuleList(PointMLP(in_channel + 3, mlp, norm, dtype)
+                                  for mlp in mlps)
+
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor | None,
+                generator: torch.Generator | None = None):
+        start = random_starts(xyz, generator) if self.training else None
+        new_xyz = index_points(xyz, farthest_point_sample(xyz, self.npoint,
+                                                          start))
+        pooled = []
+        for radius, nsample, mlp in zip(self.radii, self.nsamples, self.mlps):
+            idx = query_ball_point(radius, nsample, xyz, new_xyz)
+            grouped = index_points(xyz, idx) - new_xyz[:, :, None, :]
+            if features is not None:
+                grouped = torch.cat([index_points(features, idx), grouped],
+                                    dim=-1)
+            pooled.append(mlp.pool(mlp.run_mlp(grouped)))
+        return new_xyz, torch.cat(pooled, dim=-1)
 
 
 class FeaturePropagation(PointMLP):

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from ..parallel import global_sum
+
 _NEG_INF = -1e30
 
 
@@ -72,8 +74,9 @@ def sinkhorn_emd(y_pred, y, y_mask=None, x_mask=None, eps: float = 0.005,
         valid = valid & y_mask[:, None, :]
     if x_mask is not None:
         valid = valid & x_mask[:, :, None]
-    scale = torch.clamp(torch.where(valid, c0, 0.0).sum()
-                        / torch.clamp(valid.sum(), min=1), min=1e-8)
+    scale = torch.clamp(global_sum(torch.where(valid, c0, 0.0).sum())
+                        / torch.clamp(global_sum(valid.sum()), min=1),
+                        min=1e-8)
     f, g = log_sinkhorn_potentials(c0 / scale, log_a, log_b, eps, iters)
     plan = transport_plan(c0 / scale, log_a, log_b, f, g, eps)
     return (plan * cost).sum((-1, -2)).mean()

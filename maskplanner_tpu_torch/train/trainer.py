@@ -17,6 +17,16 @@ An epoch runs the step over the host loader's batches (:func:`host_epoch`)
 or over a split staged on the device (:class:`DeviceEpoch`, the JAX
 package's ``make_scan_train_epoch``): there each step gathers its batch on
 the device, and on the card the whole step is one CUDA graph replay.
+
+In a process group (``parallel``: one process a card, each with its rows
+of the global batch) :func:`train_step` is the single-process step at the
+global batch: the forward, the loss and the backward run inside
+``parallel.sharded_batch`` (global BatchNorm statistics, draws and loss
+normalisers), each rank's loss is its share of the global loss, the
+gradients are summed over the ranks in one all-reduce before Adam, and the
+loss and terms it returns are the global values. :class:`DeviceEpoch`'s
+ranks each hold the whole staged split and gather their rows of each
+step's batch.
 """
 from __future__ import annotations
 
@@ -29,6 +39,8 @@ from ..losses import LossHandler
 from ..losses.common import at_least_f32
 from ..models import MaskPlannerOutput
 from ..models.maskplanner import f32_accumulation
+from ..parallel import (all_reduce_grads, collective_warm_up, global_rows,
+                        global_values, local_rows, loss_share, sharded_batch)
 
 
 def make_optimizer(model: torch.nn.Module, config) -> torch.optim.Adam:
@@ -77,16 +89,21 @@ def batch_to_device(batch: dict, device) -> dict:
 def train_step(model, optimizer, handler: LossHandler, batch, weights,
                generator: torch.Generator | None = None):
     """One step on a batch already on the model's device -> (loss, terms),
-    detached tensors (no host sync)."""
+    detached tensors (no host sync). In a process group ``batch`` is this
+    rank's rows of the global batch, and the step is the global batch's
+    (the module's docstring)."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    with f32_accumulation():
+    with f32_accumulation(), sharded_batch():
         out = model(batch["point_cloud"], generator=generator)
         total, terms = handler.compute(weights, generator=generator,
                                        **build_loss_batch(out, batch))
-        total.backward()
+        loss_share(total).backward()
+        all_reduce_grads(model.parameters())
+        loss, terms = global_values(
+            total.detach(), {k: v.detach() for k, v in terms.items()})
     optimizer.step()
-    return total.detach(), {k: v.detach() for k, v in terms.items()}
+    return loss, terms
 
 
 def gan_train_step(model, optimizer, handler: LossHandler, batch, weights,
@@ -161,8 +178,11 @@ def subsample_points(pc: torch.Tensor, n: int,
                      generator: torch.Generator | None) -> torch.Tensor:
     """(B, N, 3) clouds -> (B, n, 3): a fresh subset of ``n`` points of each
     cloud, without replacement, drawn on the clouds' device from
-    ``generator`` (the on-device ``pc_online_subsampling``)."""
-    keys = torch.rand(pc.shape[:2], generator=generator, device=pc.device)
+    ``generator`` (the on-device ``pc_online_subsampling``; over the
+    global batch in a data-parallel step, of which this rank keeps its
+    rows)."""
+    keys = local_rows(torch.rand((global_rows(pc.shape[0]), pc.shape[1]),
+                                 generator=generator, device=pc.device))
     pick = keys.argsort(dim=-1)[:, :n]
     return torch.take_along_dim(pc, pick[..., None], dim=1)
 
@@ -199,7 +219,12 @@ class DeviceEpoch:
     (``make_optimizer``) are tensors that the graph reads at replay. A
     capture that fails raises: there is no eager fallback. A replay runs
     no Python, so the kernel wrappers' ``launches`` counts see the warm-up
-    and the capture and no replay."""
+    and the capture and no replay.
+
+    In a process group every rank holds the whole split (the JAX package
+    replicates it) and each step gathers this rank's rows of its row of
+    ``perm`` (``parallel.local_rows``); the step's collectives are in the
+    graph, after one collective outside it (``collective_warm_up``)."""
 
     def __init__(self, model, optimizer, handler: LossHandler, data: dict,
                  weights, generator: torch.Generator | None,
@@ -225,21 +250,26 @@ class DeviceEpoch:
     def _step(self) -> None:
         """The step at ``counter``, its loss and terms into the buffers."""
         at = self.counter.view(1)
-        idx = self.perm.index_select(0, at).view(-1)
-        batch = gather_batch(self.data, idx, self.pc_points, self.generator)
+        with sharded_batch():
+            idx = local_rows(self.perm.index_select(0, at).view(-1))
+            batch = gather_batch(self.data, idx, self.pc_points,
+                                 self.generator)
         loss, terms = self.step_fn(self.model, self.optimizer, self.handler,
                                    batch, self.weights, self.generator)
         if self.losses is None:
             steps = self.perm.shape[0]
-            self.losses = torch.zeros(steps, device=self.device)
-            self.terms = {k: torch.zeros(steps, device=self.device)
-                          for k in terms}
+            self.losses = torch.zeros(steps, dtype=loss.dtype,
+                                      device=self.device)
+            self.terms = {k: torch.zeros(steps, dtype=v.dtype,
+                                         device=self.device)
+                          for k, v in terms.items()}
         self.losses.index_copy_(0, at, loss.view(1))
         for k, v in terms.items():
             self.terms[k].index_copy_(0, at, v.view(1))
         self.counter += 1
 
     def _warm_up_and_capture(self) -> None:
+        collective_warm_up(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
@@ -266,6 +296,16 @@ class DeviceEpoch:
         self.graph = graph
         print(f"training step captured as a CUDA graph: private pool "
               f"{self.pool_bytes / 2**20:.1f} MiB")
+
+    def close(self) -> None:
+        """Drop the captured graph (a later :meth:`run` captures anew). A
+        graph that holds a collective of a group of several ranks keeps
+        NCCL's resources, and destroying the group waits for every such
+        graph to go: a grouped epoch is closed before its group is
+        destroyed."""
+        if self.graph is not None:
+            torch.cuda.synchronize(self.device)
+            self.graph = None
 
     def run(self, perm: np.ndarray):
         """One epoch over the (steps, batch) index matrix ``perm`` -> (the

@@ -93,6 +93,30 @@ a child process renders the dumps (``render_results``, PNGs under
 ``<run_dir>/renders/``), as the JAX driver does; its exit status is
 printed and a failed render never fails the run (rendering needs
 matplotlib, which only that child imports).
+
+Data-parallel training, one process a card (the JAX driver's mesh over
+every device):
+
+    torchrun --nproc_per_node=4 -m maskplanner_tpu_torch.train_maskplanner \\
+        config=[maskplanner,windows_v2,longx_v2] seed=1
+
+``batch_size`` is the global batch; each rank (``cuda:LOCAL_RANK``) trains
+on ``batch_size / N`` rows of it, and a ``batch_size`` that N does not
+divide raises. The step is the single-process step at the global batch
+(``train.trainer``, ``parallel``): every rank holds the same parameters,
+Adam state and generator. The device-resident epoch stages the whole split
+on every rank, which gathers its rows of each batch; the host loader gives
+each rank its rows (``DataLoader(num_shards=N, shard_index=rank)``, whose
+augmentations draw per shard, as the JAX multi-host loader's do). Only
+rank 0 writes (the run directory, the config, ``logs.jsonl``, checkpoints,
+the final eval's dumps and its render child, the ``profile=true`` trace)
+and evaluates, on the whole test split (the other ranks wait); ``resume``
+loads the same checkpoint on every rank; SIGTERM or SIGINT on any rank
+stops every rank at the end of the same epoch (``parallel.agree``). A
+recipe with an adversarial term trains in one process only: with N > 1 it
+raises. Without torchrun's ``WORLD_SIZE`` (or with 1) nothing of this
+applies. A process already in a group (``parallel.distributed_init``) runs
+in that group.
 """
 from __future__ import annotations
 
@@ -118,6 +142,8 @@ from .losses import DeviceWeights, LossHandler
 from .losses.gan import AdversarialLoss
 from .metrics import MetricsHandler
 from .models import STROKE_MASK_BACKBONES, get_model
+from .parallel import (agree, distributed_init, from_rank_0, grouped,
+                       rank_and_world, replicate)
 from .serve import resolve_device
 from .train import (PSACDScheduler, apply_delayed_activations, forward,
                     make_lr_scheduler, make_optimizer, train_step)
@@ -136,18 +162,18 @@ def get_output_dir(config):
     return config.get("output_dir") or os.environ.get("WORKDIR") or "runs"
 
 
-def restore_frozen_config(config, run_dir):
+def restore_frozen_config(config, run_dir, write: bool = True):
     """Resume-time config restore: the run's frozen ``config.yaml`` wins,
     except for the keys typed on this command line (the merged config also
     holds ``default.yaml``'s underlay, which must not shadow the frozen
-    values). The carried keys are saved back so that the run's record
-    stays true for the eval and serving entry points."""
+    values). The carried keys are saved back (unless not ``write``) so that
+    the run's record stays true for the eval and serving entry points."""
     frozen = load_config(os.path.join(run_dir, "config.yaml"))
     carried = [k for k in getattr(config, "cli_overrides", [])
                if k not in ("resume", "default")]
     for key in carried:
         frozen.set_dotted(key, config.select(key))
-    if carried:
+    if carried and write:
         save_config(frozen, run_dir)
     frozen["resume"] = True
     return frozen
@@ -304,29 +330,58 @@ ADVERSARIAL_TERMS = ("discriminator", "wdiscriminator")
 def main(argv=None):
     """Train; returns (run_dir, model). SIGTERM and SIGINT stop the run at
     the end of the current epoch; the previous handlers come back when it
-    returns."""
-    with _Preemption() as preempted:
-        return _train(load_args(argv=argv), preempted)
+    returns. Under torchrun (``WORLD_SIZE`` > 1) each process joins the
+    group and leaves it when it returns."""
+    config = load_args(argv=argv)
+    owns_group = not grouped()
+    try:
+        with _Preemption() as preempted:
+            return _train(config, preempted)
+    finally:
+        if owns_group and grouped():
+            torch.distributed.destroy_process_group()
 
 
 def _train(config, preempted: _Preemption):
     run_dir = _resume_dir(config)
+    typed = config
     if run_dir is not None:
-        config = restore_frozen_config(config, run_dir)
+        # the frozen config names the device
+        config = restore_frozen_config(typed, run_dir, write=False)
     device = resolve_device(config.get("device") or "cuda")
+    distributed_init(device=device)
+    rank, world = rank_and_world()
+    if run_dir is not None:
+        agree(False)        # a barrier: every rank has read the file
+        if rank == 0:
+            # the carried keys written back
+            restore_frozen_config(typed, run_dir)
+    if device.type == "cuda" and grouped():
+        device = torch.device("cuda", torch.cuda.current_device())
+    if world > 1 and any(n in ADVERSARIAL_TERMS for n in config["loss"]):
+        raise NotImplementedError(
+            f"a recipe with an adversarial term trains in one process; "
+            f"{world} ranks were launched (GAN recipes under data "
+            f"parallelism are queued in ROADMAP.md)")
+    if int(config["batch_size"]) % world:
+        raise ValueError(f"batch_size={config['batch_size']} (the global "
+                         f"batch) does not divide over {world} ranks")
     if config["model"]["backbone"] not in TRAINABLE_BACKBONES:
         raise NotImplementedError(
             f"the driver trains {', '.join(TRAINABLE_BACKBONES)}; "
             f"{config['model']['backbone']!r} has no loss batch in the "
             f"training step (the JAX driver does not train it either): build "
             f"its batches and call losses.LossHandler directly")
-    if run_dir is None:
+    if run_dir is None and rank == 0:
         run_dir = create_dirs(os.path.join(get_output_dir(config),
                                            get_run_name(config)))
         save_config(config, run_dir)
-    print(f"Run dir: {run_dir}")
-    # after the frozen config's restore: a resumed run keeps its own seed
-    seed = set_seed(config.get("seed"))
+    if rank == 0:
+        print(f"Run dir: {run_dir}")
+    # after the frozen config's restore: a resumed run keeps its own seed;
+    # rank 0's on every rank (seed 0 or none draws a fresh one), so that
+    # every rank's generator makes the same draws over the global batch
+    seed = set_seed(from_rank_0(set_seed(config.get("seed"))))
     generator = torch.Generator(device=device).manual_seed(seed)
 
     # ---- data -------------------------------------------------------------
@@ -335,8 +390,10 @@ def _train(config, preempted: _Preemption):
     te_dataset = PaintDataset(config, split="test",
                               size=config.get("test_dataset_size"))
     batch_size = int(config["batch_size"])
+    # each rank's rows of every global batch
     tr_loader = DataLoader(tr_dataset, batch_size, shuffle=True,
-                           seed=int(config.get("seed") or 0))
+                           seed=int(config.get("seed") or 0),
+                           num_shards=world, shard_index=rank)
     te_loader = DataLoader(te_dataset, min(batch_size, len(te_dataset)),
                            shuffle=False, drop_last=False)
     if len(tr_loader) == 0:
@@ -353,6 +410,7 @@ def _train(config, preempted: _Preemption):
         warm_start_custom(model, config)
     elif config["model"].get("pretrained"):
         warm_start_encoder(model, config)
+    replicate(model)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Model: {config['model']['backbone']} | params: "
           f"{n_params / 1e6:.2f}M | device: {device}")
@@ -376,7 +434,9 @@ def _train(config, preempted: _Preemption):
 
     epochs = int(config["epochs"])
     start_epoch, step = 0, 0
-    if config.get("resume") and os.path.isfile(
+    # every rank loads the same checkpoint (a fresh run's rank > 0 has no
+    # run directory)
+    if config.get("resume") and run_dir is not None and os.path.isfile(
             checkpoint_path(run_dir, "last_checkpoint")):
         start_epoch, step = load_training_state(
             run_dir, "last_checkpoint", model, optimizer, lr_sched, generator)
@@ -412,7 +472,7 @@ def _train(config, preempted: _Preemption):
     if uncapturable:
         print(f"device-resident dataset: off, the step cannot be captured "
               f"as a CUDA graph: {uncapturable}")
-    elif device_dataset_eligible(config, 1, batch_size):
+    elif device_dataset_eligible(config, world, batch_size):
         data = stage_device_dataset(tr_dataset, device=device)
     if data is not None:
         device_epoch = DeviceEpoch(model, optimizer, handler, data, weights,
@@ -426,12 +486,16 @@ def _train(config, preempted: _Preemption):
         prefetcher = Prefetcher(tr_loader, device)
 
     def save(name: str, epoch: int) -> None:
+        if rank:
+            return
         save_checkpoint(run_dir, name, model, epoch, optimizer=optimizer,
                         lr_sched=lr_sched, step=step, generator=generator)
         if critic is not None:
             save_aux_state(run_dir, name, critic)
 
     def copy(src: str, dst: str) -> None:
+        if rank:
+            return
         copy_checkpoint(run_dir, src, dst)
         if critic is not None:
             copy_checkpoint(run_dir, aux_name(src), aux_name(dst))
@@ -440,11 +504,15 @@ def _train(config, preempted: _Preemption):
     best_eval_loss, best_epoch = float("inf"), -1
     eval_loss = float("nan")
     t_train0 = time.time()
-    with open(os.path.join(run_dir, "logs.jsonl"), "a") as log_fh:
+    # rank 0 logs; the other ranks write nothing
+    log_fh = (open(os.path.join(run_dir, "logs.jsonl"), "a") if rank == 0
+              else None)
+    try:
         for epoch in range(start_epoch, epochs):
             t0 = time.time()
             with profile_trace(run_dir, bool(config.get("profile"))
-                               and epoch == start_epoch + 1, device):
+                               and epoch == start_epoch + 1 and rank == 0,
+                               device):
                 if device_epoch is not None:
                     losses, terms = device_epoch.run(epoch_perm(
                         len(tr_dataset), batch_size,
@@ -464,7 +532,10 @@ def _train(config, preempted: _Preemption):
             if lr_sched is not None:
                 lr_sched.step()
 
-            if (epoch + 1) % eval_freq == 0 or (epoch + 1) == epochs:
+            # rank 0 evaluates the whole test split (every rank holds the
+            # same weights and statistics); the others wait in agree()
+            if rank == 0 and ((epoch + 1) % eval_freq == 0
+                              or (epoch + 1) == epochs):
                 eval_loss, eval_terms, eval_metrics, _ = evaluate(
                     model, te_loader, handler, weights, metrics_handler,
                     device)
@@ -486,22 +557,35 @@ def _train(config, preempted: _Preemption):
                              f"intermediate_checkpoint_epoch{epoch + 1}")
                 print(f"[{epoch + 1}/{epochs}] train {epoch_loss:.4f} "
                       f"| eval {eval_loss:.4f} | {log['epoch_seconds']:.2f}s")
-            log_fh.write(json.dumps(log) + "\n")
-            log_fh.flush()
+            if log_fh is not None:
+                log_fh.write(json.dumps(log) + "\n")
+                log_fh.flush()
 
             if psacd is not None and psacd.is_time_to_step(epoch, epochs):
                 floats = psacd.step_loss_weights(floats)
             floats = apply_delayed_activations(config, floats, epoch)
             weights.load(floats)
 
-            if preempted.flag:
+            # a signal on any rank stops every rank after this epoch
+            if agree(preempted.flag):
                 if not config.get("no_save"):
                     save("last_checkpoint", epoch + 1)
-                    print(f"Preempted at epoch {epoch + 1}; checkpoint saved "
-                          f"(resume with resume={run_dir})")
+                    if rank == 0:
+                        print(f"Preempted at epoch {epoch + 1}; checkpoint "
+                              f"saved (resume with resume={run_dir})")
                 break
+    finally:
+        if log_fh is not None:
+            log_fh.close()
+        if device_epoch is not None:
+            # before the group goes (DeviceEpoch.close)
+            device_epoch.close()
 
     tot = time.time() - t_train0
+    if rank:
+        # rank 0 alone runs the final eval and writes the summary
+        model.eval()
+        return run_dir, model
     summary = {"best_epoch": best_epoch, "best_eval_loss": best_eval_loss,
                "last_eval_loss": eval_loss,
                "tot_train_seconds": round(tot, 2)}
