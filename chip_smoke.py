@@ -365,7 +365,39 @@ result line:
     ``segmenters_gan_launches``, each kernel's on phase 27's paths; the
     ball query's numbers its segmenter inputs', its own check's under
     ``own_check``, its launches and times on the multi-scale level under
-    ``msg_*``), and the result line last.
+    ``msg_*``; the masked FPS's row, ``fps_masked``, from phase 29's own
+    check, with its large path's numbers under ``large_*``), and the
+    result line last. (The phase numbered 29 below runs before this
+    line: the list keeps the card line's number of earlier slices.)
+29. slice 19 (``phase_slice_19``): (a) the GAN recipe's step under data
+    parallelism on the one card: 2 gloo ranks with CUDA tensors, each
+    with 4 of a global batch of 8 (``GAN_RECIPE``, k 20, 1350 poses),
+    against the single process at 8, two steps (each with the critic's
+    update; both Adams at LR 0, so that their moments keep both steps'
+    gradients; FPS from index 0, no dropout, the penalty's mixing weights
+    given), every run on the critic graphs of the single run
+    (``critic_neighbours``): the loss and terms, the generator's and the
+    critic's Adam moments as trees, each within 3x the single process's
+    own float32 error (its distance from the same steps on the batch in
+    reverse order; the card has no float64 generator) plus 1e-6 of the
+    norm, the critic's statistics as a tree within 10x, the ranks'
+    critics bitwise equal; (b) where there are 2 cards, 2 NCCL
+    ranks at a global batch of 64: ms a step, the critic's share, each
+    rank's peak memory (with one card a line says ``not run: 1
+    device``); (c) #1's masked mode (``fps_cuda(mask=)``) bitwise its
+    plain version at 64 x 5120 -> 512 and 64 x 16384 -> 512 (the large
+    path), with 20% of the points masked, clouds with fewer valid points
+    than 512, one with none, and invalid starts; its launches through
+    ``farthest_point_sample(mask=)``; masked and unmasked times in turns;
+    (d) ``MASKPLANNER_ALGEBRAIC_BN=1``: the ``model.norm=batch`` step at
+    batch 64 in f32 and bf16, default and algebraic in turns (eager and
+    the graphed device-resident loop), ms a step, its launches, and its
+    loss and its gradients for fixed cotangents card against CPU by phase
+    16's rule on the CPU float64 run's ReLU and max-pool choices
+    (``algebraic_card_vs_cpu``); (e) a
+    two-device export file (``devices=["cuda", "cpu"]``) served on
+    ``cuda`` and on ``cpu``, each bitwise the single-device export of
+    that device; the phase's seconds.
 
 It needs one CUDA card and the repository around it; without either it
 exits non-zero.
@@ -463,10 +495,15 @@ KERNELS = {
     "lap_large": dict(source="maskplanner_tpu_torch/csrc/lap.cu",
                       replaces="maskplanner_tpu/ops/pallas/lap.py:150",
                       mode="more than 128 rows"),
+    # the masked mode of #1 (phase 29), on either of its paths
+    "fps_masked": dict(source="maskplanner_tpu_torch/csrc/fps.cu",
+                       replaces="maskplanner_tpu/ops/pallas/fps.py:84",
+                       mode="mask= (maskplanner_tpu/ops/sampling.py:86-98)"),
 }
-# each large-shape path and the kernel whose count includes its launches
+# each large-shape path or mode and the kernel whose count includes its
+# launches
 PATH_OF = {"fps_large": "fps", "nn_argmin_chunked": "nn_argmin",
-           "lap_large": "lap"}
+           "lap_large": "lap", "fps_masked": "fps"}
 
 
 def launches_of(**counts) -> dict:
@@ -5531,19 +5568,20 @@ def dp_worker(rank: int, world: int, store: str, backend: str, graphed: bool,
     log(f"[dp] {backend} rank {rank}: done, its group destroyed")
 
 
-def dp_spawn(world: int, backend: str, graphed: bool, inputs: str,
-             tmp: str, timeout: float = 120.0) -> list[dict]:
-    """``world`` ``dp_worker`` ranks, started with the ``spawn`` method and
-    joined; every rank must exit 0 within ``timeout`` s; none is left
-    running -> each rank's result."""
+def spawn_ranks(worker, world: int, args: tuple, tmp: str, tag: str,
+                timeout: float = 300.0) -> list:
+    """``worker(rank, world, store, *args, out)`` in ``world`` processes
+    started by the ``spawn`` method, joined in a group at a ``file://``
+    store named by ``tag`` under ``tmp``; each must exit 0 within
+    ``timeout`` s, none is left running -> each rank's saved result."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
-    store = os.path.join(tmp, f"store-{backend}-{world}")
-    outs = [os.path.join(tmp, f"{backend}-rank{r}.pt") for r in range(world)]
-    procs = [ctx.Process(target=dp_worker, args=(
-        r, world, store, backend, graphed, inputs, outs[r]))
-        for r in range(world)]
+    store = os.path.join(tmp, f"store-{tag}")
+    outs = [os.path.join(tmp, f"{tag}-rank{r}.pt") for r in range(world)]
+    procs = [ctx.Process(target=worker, args=(r, world, store, *args,
+                                              outs[r]))
+             for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.perf_counter() + timeout
@@ -5557,7 +5595,7 @@ def dp_spawn(world: int, backend: str, graphed: bool, inputs: str,
                 p.join()
     codes = [p.exitcode for p in procs]
     if codes != [0] * world:
-        raise AssertionError(f"{world} {backend} ranks exited {codes}")
+        raise AssertionError(f"{world} ranks of {tag} exited {codes}")
     return [torch.load(o, weights_only=False) for o in outs]
 
 
@@ -5724,7 +5762,8 @@ def phase_dp_ranks(cfg, data_cpu: dict) -> dict:
             log(f"[dp] (c) 2 NCCL ranks, graphed: not run: {cards} device")
         for case, world, backend, graphed in cases:
             t = time.perf_counter()
-            ranks = dp_spawn(world, backend, graphed, inputs, tmp)
+            ranks = spawn_ranks(dp_worker, world, (backend, graphed, inputs),
+                                tmp, f"{backend}-{world}", timeout=120.0)
             label = f"dp ({case}) {world} {backend} ranks"
             plain, drawn = ranks[0]["first"][False], ranks[0]["first"][True]
             own = {n: g - single["reversed"][1][n]
@@ -5849,6 +5888,586 @@ def phase_data_parallel(cfg, items: list, clouds: np.ndarray,
     phase_msg(clouds, res)
     torch.cuda.empty_cache()
     log(f"[dp] phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# slice 19: the GAN recipe under data parallelism, #1's masked mode, the
+# algebraic BatchNorm, one export file for several devices
+# ---------------------------------------------------------------------------
+
+# (a): the global batch, the steps, and the rule's factor and floor. Both
+# Adams run at LR 0, so that their moments keep every step's gradients
+# and the second step runs on the first's weights: at the critic's LR,
+# Adam moves each parameter by ±lr on its gradient's sign, which rounding
+# decides where the gradient is near 0, and the two runs' second steps
+# would part by more than rounding (the CPU test,
+# tests/test_torch_port_gan_parallel.py, holds the parameters in float64)
+GAN_DP_BATCH = 8
+GAN_DP_STEPS = 2
+GAN_DP_FACTOR = 3.0
+GAN_DP_STATS_FACTOR = 10.0
+GAN_DP_FLOOR = 1e-6
+# (b): steps a rank times after one warm-up step
+GAN_DP_TIMED = 5
+# (c): the masked share, the clouds with few valid points, their count
+MASKED_SHARE = 0.2
+FEW_VALID = 100
+# (d): steps of the graphed loop's epochs, and timed reps of the eager step
+ALGEBRAIC_EPOCH_STEPS = 4
+ALGEBRAIC_REPS = 5
+
+
+def gan_dp_steps(cfg, batch: dict, eps: torch.Tensor, graphs: list) -> dict:
+    """``GAN_DP_STEPS`` GAN steps of the seeded generator (FPS from index
+    0, no dropout) and critic (no dropout), both Adams at LR 0, on
+    ``batch`` (this process's rows) with the mixing weights ``eps``
+    (steps, global batch, 1, 1) and the critic graphs ``graphs``
+    (``critic_neighbours``'s, this process's rows), on this process's card
+    -> per step the loss and terms, then the generator's Adam first
+    moments and the critic's state and moments, on the host."""
+    import functools
+
+    from maskplanner_tpu_torch.losses import LossHandler
+    from maskplanner_tpu_torch.losses.gan import AdversarialLoss
+    from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.train import gan_train_step
+
+    model = get_model(cfg, device="cuda", dropout=0.0,
+                      generator=torch.Generator().manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=0.0)
+    handler = LossHandler(cfg["loss"], cfg)
+    weights = active_weights(cfg, handler)
+    adv, critic = gan_critic(cfg)
+    critic.module.dropout_rate = 0.0
+    critic.optimizer.param_groups[0]["lr"] = 0.0
+    named = dict(critic.module.named_parameters())
+    steps = []
+    with critic_neighbours(replay=graphs):
+        for i in range(GAN_DP_STEPS):
+            adv.discriminator_update = functools.partial(
+                AdversarialLoss.discriminator_update, adv, eps=eps[i:i + 1])
+            loss, terms = gan_train_step(model, opt, handler, batch,
+                                         weights, None, adv=adv,
+                                         critic=critic, step=i)
+            steps.append({"loss": float(loss),
+                          **{k: float(v) for k, v in terms.items()}})
+    torch.cuda.synchronize()
+    co = critic.optimizer
+    return dict(
+        steps=steps,
+        generator={n: opt.state[p]["exp_avg"].detach().cpu().double()
+                   for n, p in model.named_parameters() if p in opt.state},
+        critic_mu={n: co.state[p]["exp_avg"].cpu().double()
+                   for n, p in named.items() if p in co.state},
+        critic_nu={n: co.state[p]["exp_avg_sq"].cpu().double()
+                   for n, p in named.items() if p in co.state},
+        critic={n: t.detach().cpu().double()
+                for n, t in critic.module.state_dict().items()
+                if t.is_floating_point()})
+
+
+def gan_dp_worker(rank: int, world: int, store: str, inputs: str,
+                  out: str) -> None:
+    """One rank of phase 29(a): gloo on the one card, its rows of the
+    global batch and of the single run's critic graphs."""
+    from maskplanner_tpu_torch import parallel
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    parallel.distributed_init(f"file://{store}", rank, world, device=device,
+                              backend="gloo")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        got = torch.load(inputs, weights_only=False)
+        rows = {k: parallel.shard_rows(v, rank, world).to(device)
+                for k, v in got["batch"].items()}
+        graphs = [parallel.shard_rows(g, rank, world)
+                  for g in got["graphs"]]
+        cfg = load_args(argv=GAN_RECIPE)
+        torch.save(gan_dp_steps(cfg, rows, got["eps"].to(device), graphs),
+                   out)
+    finally:
+        parallel.destroy()
+
+
+def tree_distance(a: dict, b: dict) -> float:
+    return sum(float((a[k] - v).norm()) ** 2 for k, v in b.items()) ** 0.5
+
+
+def hold_gan_dp(label: str, got: dict, want: dict, own: dict) -> list:
+    """(a)'s rule: ``got`` (a rank's) against ``want`` (the single run's),
+    allowances from ``own`` (the single run on the reversed batch) ->
+    printable readings; raises where a reading leaves its allowance."""
+    readings, bad = [], []
+    for i, (g, w, o) in enumerate(zip(got["steps"], want["steps"],
+                                      own["steps"])):
+        for k, v in w.items():
+            d, tol = abs(g[k] - v), (GAN_DP_FACTOR * abs(o[k] - v)
+                                     + GAN_DP_FLOOR * max(abs(v), 1.0))
+            readings.append(f"step {i} {k} {d:.3e}/{tol:.3e}")
+            if not d <= tol:
+                bad.append(f"step {i} {k}")
+    for part in ("generator", "critic_mu", "critic_nu"):
+        if got[part].keys() != want[part].keys():
+            raise AssertionError(f"[{label}] {part}: other tensors")
+        norm = tree_distance({k: 0.0 * v for k, v in want[part].items()},
+                             want[part])
+        d = tree_distance(got[part], want[part])
+        tol = (GAN_DP_FACTOR * tree_distance(own[part], want[part])
+               + GAN_DP_FLOOR * norm)
+        readings.append(f"{part} {d:.3e}/{tol:.3e} (norm {norm:.3e})")
+        if not d <= tol:
+            bad.append(part)
+    stats = {n: w for n, w in want["critic"].items() if "running_" in n}
+    for n, w in want["critic"].items():
+        # LR 0: the parameters stay the seeded ones
+        if n not in stats and not torch.equal(got["critic"][n], w):
+            bad.append(n)
+    # the statistics as one tree, within 10x (the step tests' factor):
+    # E[x²] − E[x]² over the GT's −100 padding cancels most digits, and
+    # the own error is one draw of that rounding, which two runs draw more
+    # than 3x apart (the CPU test holds them in float64 within 1e-9; a
+    # rank's own statistics would part by O(1))
+    d = tree_distance({n: got["critic"][n] for n in stats}, stats)
+    tol = (GAN_DP_STATS_FACTOR * tree_distance({n: own["critic"][n]
+                                          for n in stats}, stats)
+           + GAN_DP_FLOOR * tree_distance({n: 0.0 * w
+                                           for n, w in stats.items()},
+                                          stats))
+    readings.append(f"critic statistics {d:.3e}/{tol:.3e}")
+    if not d <= tol:
+        bad.append("critic statistics")
+    if bad:
+        raise AssertionError(f"[{label}] beyond the single run's own float32 "
+                             f"error: {bad[:8]} ({len(bad)}); "
+                             + "; ".join(readings))
+    return readings
+
+
+def phase_gan_dp_one_card(items: list) -> None:
+    """(a): the GAN step over 2 gloo ranks on the one card against the
+    single process at ``GAN_DP_BATCH``, by ``hold_gan_dp``."""
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    t = time.perf_counter()
+    cfg = load_args(argv=GAN_RECIPE)
+    batch = to_batch(items[:GAN_DP_BATCH], "cpu")
+    eps = torch.rand(GAN_DP_STEPS, GAN_DP_BATCH, 1, 1,
+                     generator=torch.Generator().manual_seed(6))
+    graphs = []
+    with critic_neighbours(record=graphs):
+        # the critic graphs of every critic pass of the two steps
+        single = gan_dp_steps(cfg, {k: v.cuda() for k, v in batch.items()},
+                              eps.cuda(), None)
+    rev = {k: v.flip(0) for k, v in batch.items()}
+    own = gan_dp_steps(cfg, {k: v.cuda() for k, v in rev.items()},
+                       eps.flip(1).cuda(), [g.flip(0) for g in graphs])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.pt")
+        torch.save(dict(batch=batch, eps=eps, graphs=graphs), inputs)
+        ranks = spawn_ranks(gan_dp_worker, 2, (inputs,), tmp, "gan-gloo")
+    readings = hold_gan_dp("gan-dp (a)", ranks[0], single, own)
+    differ = [n for n, v in ranks[0]["critic"].items()
+              if not torch.equal(v, ranks[1]["critic"][n])]
+    if differ or ranks[0]["steps"] != ranks[1]["steps"]:
+        raise AssertionError(f"[gan-dp (a)] the ranks differ: {differ[:5]}")
+    log(f"[gan-dp] (a) 2 gloo ranks on the card x {GAN_DP_BATCH // 2} "
+        f"clouds against the single process at {GAN_DP_BATCH}, "
+        f"{GAN_DP_STEPS} steps, distance/allowance (the allowance "
+        f"{GAN_DP_FACTOR:g}x the single run's distance from the reversed "
+        f"batch's, plus {GAN_DP_FLOOR:g} of the norm): " + "; ".join(readings)
+        + f"; the ranks' critics bitwise equal; losses "
+        + ", ".join(f"{s['loss']:.6f}" for s in ranks[0]["steps"])
+        + f" (single " + ", ".join(f"{s['loss']:.6f}"
+                                   for s in single["steps"])
+        + f"); {time.perf_counter() - t:.1f} s")
+
+
+def gan_cards_worker(rank: int, world: int, store: str, inputs: str,
+                     out: str) -> None:
+    """One rank of phase 29(b): NCCL on card ``rank``, its rows of the
+    global batch of 64: one warm-up step, ``GAN_DP_TIMED`` timed steps,
+    the critic's share (its update and the generator's term forward and
+    backward, timed apart), the peak memory."""
+    from maskplanner_tpu_torch import parallel
+    from maskplanner_tpu_torch.train import gan_train_step
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    parallel.distributed_init(f"file://{store}", rank, world, device=device,
+                              backend="nccl")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = load_args(argv=GAN_RECIPE)
+        got = torch.load(inputs, weights_only=False)
+        batch = {k: parallel.shard_rows(v, rank, world).to(device)
+                 for k, v in got.items()}
+        # "cuda" is this rank's card (set_device above)
+        model, opt, handler, weights, adv, critic = gan_parts(cfg)
+        gen = torch.Generator(device=device).manual_seed(0)
+        count = itertools.count()
+
+        def step():
+            return gan_train_step(model, opt, handler, batch, weights, gen,
+                                  adv=adv, critic=critic, step=next(count))
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        parallel.agree(False)
+        t = time.perf_counter()
+        for _ in range(GAN_DP_TIMED):
+            loss, terms = step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / GAN_DP_TIMED
+        peak = torch.cuda.max_memory_allocated(device)
+        with torch.no_grad():
+            model.train()
+            y_pred = model(batch["point_cloud"], generator=gen).traj.float()
+
+        def update():
+            with parallel.sharded_batch():
+                adv.discriminator_update(critic, y_pred, batch["traj"], gen)
+
+        def g_term():
+            yp = y_pred.detach().requires_grad_(True)
+            adv.generator_loss(critic, yp).backward()
+
+        parallel.agree(False)
+        upd = median_host_s(update, 3) * 1e3
+        gterm = median_host_s(g_term, 3) * 1e3
+        torch.save(dict(ms=ms, peak=peak, update_ms=upd, term_ms=gterm,
+                        loss=float(loss),
+                        finite=all(bool(torch.isfinite(v))
+                                   for v in terms.values())), out)
+    finally:
+        parallel.destroy()
+
+
+def phase_gan_dp_cards(items: list) -> dict:
+    """(b): 2 NCCL ranks at a global batch of 64, where there are 2
+    cards -> their numbers."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[gan-dp] (b) 2 NCCL ranks at a global batch of {BATCH}: not "
+            f"run: {cards} device")
+        return {}
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.pt")
+        torch.save(to_batch(items, "cpu"), inputs)
+        ranks = spawn_ranks(gan_cards_worker, 2, (inputs,), tmp, "gan-nccl")
+    if not all(r["finite"] and np.isfinite(r["loss"]) for r in ranks):
+        raise AssertionError("[gan-dp (b)] a non-finite loss or term")
+    out = dict(ms=[r["ms"] for r in ranks],
+               critic_share=[(r["update_ms"] + r["term_ms"]) / r["ms"]
+                             for r in ranks],
+               peak_gib=[r["peak"] / 2**30 for r in ranks])
+    log(f"[gan-dp] (b) 2 NCCL ranks x {BATCH // 2} clouds (global batch "
+        f"{BATCH}), {GAN_DP_TIMED} steps after one: ms a step "
+        + ", ".join(f"{v:.3f}" for v in out["ms"])
+        + "; the critic's share (its update and the generator's term, "
+        "timed apart) " + ", ".join(f"{v:.3f}" for v in out["critic_share"])
+        + "; peak memory GiB " + ", ".join(f"{v:.2f}"
+                                           for v in out["peak_gib"])
+        + f" (one card at batch {BATCH}: 708.3-710.7 ms, 36.89-38.57 GiB, "
+        f"PERF.md §5); {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def masked_case(xyz: torch.Tensor, npoint: int, seed: int):
+    """A mask of about ``MASKED_SHARE`` invalid points on ``xyz``, with
+    clouds 1-3 holding ``FEW_VALID`` valid points (fewer than ``npoint``),
+    cloud 4 none, and every even cloud's start on an invalid point ->
+    (mask, start)."""
+    B, N, _ = xyz.shape
+    gen = torch.Generator(device=xyz.device).manual_seed(seed)
+    mask = torch.rand((B, N), generator=gen, device=xyz.device) \
+        >= MASKED_SHARE
+    for b in (1, 2, 3):
+        keep = torch.randperm(N, generator=gen, device=xyz.device)[:FEW_VALID]
+        mask[b] = False
+        mask[b, keep] = True
+    mask[4] = False
+    start = torch.randint(0, N, (B,), generator=gen, device=xyz.device,
+                          dtype=torch.int32)
+    invalid = (~mask).to(torch.uint8).argmax(dim=1).to(torch.int32)
+    even = torch.arange(B, device=xyz.device) % 2 == 0
+    start = torch.where(even & (~mask).any(1), invalid, start)
+    assert npoint > FEW_VALID
+    return mask.contiguous(), start
+
+
+def phase_fps_masked(clouds: np.ndarray, res: dict) -> int:
+    """(c): #1's masked mode bitwise its plain version on both paths, its
+    launches through ``farthest_point_sample(mask=)``, masked and unmasked
+    times in turns -> the launches."""
+    from maskplanner_tpu_torch.ops.cuda.fps import fps_cuda
+    from maskplanner_tpu_torch.ops.sampling import (farthest_point_sample,
+                                                    fps_plain)
+
+    npoint = 512
+    small = torch.from_numpy(clouds).cuda()
+    large = torch.randn((BATCH, LIMITS_PC_POINTS, 3),
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(8), device="cuda")
+    rm = res["fps_masked"]
+    for tag, pts, seed in (("", small, 1), ("large_", large, 2)):
+        B, N, _ = pts.shape
+        mask, start = masked_case(pts, npoint, seed)
+        got = fps_cuda(pts, npoint, start, mask=mask)
+        want = fps_plain(pts, npoint, start, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"masked FPS {tuple(pts.shape)}->{npoint}: "
+                                 f"the kernel's indices differ from the "
+                                 f"plain version at "
+                                 f"{int((got != want).sum())} places")
+        if not bool(mask.gather(1, got.long())[mask.any(1)].all()):
+            raise AssertionError("masked FPS picked an invalid point")
+        times = {"unmasked": [], "masked": []}
+        for kind in ("unmasked", "masked", "masked", "unmasked"):
+            m = mask if kind == "masked" else None
+            times[kind].append(median_ms(
+                lambda: fps_cuda(pts, npoint, start, mask=m), 10))
+        plain = median_ms(lambda: fps_plain(pts, npoint, start, mask), 3, 1)
+        ms = statistics.mean(times["masked"])
+        b = bound(10.0 * B * npoint * N,
+                  4.0 * (B * N * 3 + B + B * npoint) + 1.0 * B * N)
+        rm.update({f"{tag}ms": ms, f"{tag}plain_ms": plain,
+                   f"{tag}unmasked_ms": statistics.mean(times["unmasked"]),
+                   f"{tag}bound_ms": b["bound_ms"],
+                   f"{tag}bound_by": b["bound_by"]})
+        log(f"[fps-masked] {tuple(pts.shape)}->{npoint} "
+            f"({'large' if tag else 'register'} path), "
+            f"{float((~mask).float().mean()):.3f} of the points masked, "
+            f"clouds 1-3 {FEW_VALID} valid, cloud 4 none, every even "
+            f"cloud's start invalid: indices identical to the plain "
+            f"version; ms in turns unmasked "
+            + "/".join(f"{v:.4f}" for v in times["unmasked"])
+            + ", masked " + "/".join(f"{v:.4f}" for v in times["masked"])
+            + f"; plain {plain:.3f}; bound {b['bound_ms']:.4f} "
+            f"({b['bound_by']})")
+    mask, start = masked_case(small, npoint, 1)
+    reset_counts()
+    farthest_point_sample(small, npoint, start, mask)
+    launches = read_counts()
+    if launches != launches_of(fps=1, fps_masked=1):
+        raise AssertionError(f"farthest_point_sample(mask=) launched "
+                             f"{launches}")
+    rm.update(max_abs_err=0.0, library_ms=None)
+    return launches["fps_masked"]
+
+
+def algebraic_models(cfg, bf16: bool):
+    """The seeded BatchNorm-recipe model (``bn_model``), in bf16 with
+    ``bf16``, its Adam, the loss handler and weights (on the card, as the
+    graphed loop reads them)."""
+    from maskplanner_tpu_torch.losses import DeviceWeights, LossHandler
+    from maskplanner_tpu_torch.train import make_optimizer
+
+    cfg = copy.deepcopy(cfg)
+    cfg["model"]["bf16"] = bf16
+    model = bn_model(cfg)
+    handler = LossHandler(cfg["loss"], cfg)
+    return cfg, model, make_optimizer(model, cfg), handler, \
+        DeviceWeights(active_weights(cfg, handler), "cuda")
+
+
+@contextlib.contextmanager
+def algebraic_batch_norm(on: bool):
+    """``MASKPLANNER_ALGEBRAIC_BN`` set (or unset) inside the block."""
+    before = os.environ.pop("MASKPLANNER_ALGEBRAIC_BN", None)
+    if on:
+        os.environ["MASKPLANNER_ALGEBRAIC_BN"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("MASKPLANNER_ALGEBRAIC_BN", None)
+        if before is not None:
+            os.environ["MASKPLANNER_ALGEBRAIC_BN"] = before
+
+
+def phase_algebraic_bn(bn_cfg, items: list) -> dict:
+    """(d): the ``model.norm=batch`` step at batch 64, default and
+    algebraic in turns, f32 and bf16, eager and graphed; the algebraic
+    step's launches; its loss and gradients card against CPU by phase
+    16's rule -> ms a step by case."""
+    from maskplanner_tpu_torch.models import pointnet2
+    from maskplanner_tpu_torch.train import train_step
+    from maskplanner_tpu_torch.train.trainer import DeviceEpoch
+
+    batch = to_batch(items, "cuda")
+    perm = dp_perm(ALGEBRAIC_EPOCH_STEPS, 2)
+    out = {}
+    for bf16 in (False, True):
+        dtype = "bf16" if bf16 else "f32"
+        runs = {}
+        for on in (False, True):
+            cfg, model, opt, handler, weights = algebraic_models(bn_cfg, bf16)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            calls, fold = [], pointnet2.PointMLP.folded_bn_layer
+
+            def counted(self, *a, fold=fold, calls=calls):
+                calls.append(1)
+                return fold(self, *a)
+
+            pointnet2.PointMLP.folded_bn_layer = counted
+            try:
+                with algebraic_batch_norm(on):
+                    train_step(model, opt, handler, batch, weights, gen)
+                    reset_counts()
+                    loss, _ = train_step(model, opt, handler, batch, weights,
+                                         gen)
+                    launches = read_counts()
+            finally:
+                pointnet2.PointMLP.folded_bn_layer = fold
+            expect = BN_BF16_STEP_LAUNCHES if bf16 else BN_STEP_LAUNCHES
+            if launches != expect or not bool(torch.isfinite(loss)) or \
+                    len(calls) != (18 if on else 0):
+                raise AssertionError(f"[algebraic-bn] {dtype} algebraic "
+                                     f"{on}: launched {launches}, loss "
+                                     f"{float(loss)}, {len(calls)} folded "
+                                     f"layers in two steps")
+            ep = DeviceEpoch(model, opt, handler, batch, weights, gen,
+                             int(cfg["pc_points"]), graphed=True)
+            with algebraic_batch_norm(on):
+                ep.run(perm)           # eager warm-up, capture, replays
+            runs[on] = (model, opt, handler, weights, gen, ep)
+        times = {(on, kind): [] for on in (False, True)
+                 for kind in ("eager", "graphed")}
+        for on in (False, True, True, False):
+            model, opt, handler, weights, gen, ep = runs[on]
+            with algebraic_batch_norm(on):
+                times[on, "eager"].append(median_host_s(
+                    lambda: train_step(model, opt, handler, batch, weights,
+                                       gen), ALGEBRAIC_REPS) * 1e3)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ep.run(perm)
+            torch.cuda.synchronize()
+            times[on, "graphed"].append((time.perf_counter() - t) * 1e3
+                                        / ALGEBRAIC_EPOCH_STEPS)
+        for (on, kind), v in times.items():
+            out[f"{dtype} {kind} {'algebraic' if on else 'default'}"] = \
+                statistics.mean(v)
+        for _, _, _, _, _, ep in runs.values():
+            ep.close()
+        del runs
+        torch.cuda.empty_cache()
+        log(f"[algebraic-bn] model.norm=batch step at batch {BATCH}, "
+            f"{dtype}, ms a step in turns (default, algebraic, algebraic, "
+            f"default; eager: median of {ALGEBRAIC_REPS}, graphed: an epoch "
+            f"of {ALGEBRAIC_EPOCH_STEPS} replays): " + "; ".join(
+                f"{kind} {'algebraic' if on else 'default'} "
+                + "/".join(f"{x:.3f}" for x in v)
+                for (on, kind), v in times.items()))
+    with algebraic_batch_norm(True):
+        cfg, _, _, handler, _ = algebraic_models(bn_cfg, False)
+        algebraic_card_vs_cpu(cfg, items[:16], handler)
+    return out
+
+
+def algebraic_card_vs_cpu(cfg, items: list, handler) -> None:
+    """(d)'s card against CPU on 16 samples, by phase 16's rule
+    (``hold_rule``; the same weights, FPS from index 0, no dropout): the
+    step's loss, and the gradients for fixed seeded cotangents on the
+    train forward's outputs (``step_grads(cotangent=True)``, phase 24's
+    rule for ``pointWise``), every run on the ReLU and max-pool choices of
+    the CPU's float64 run (``shared_choices``). Without them the rule
+    failed on the H100, at 1.006x and, with 10x the CPU's own error, at
+    4.1x: the discrete choices that float32 rounding decides (the loss's
+    matchings and nearest neighbours, near-zero ReLU inputs, near-tied
+    max-pool entries) fall differently on the card and on the CPU, and one
+    flip moves a gradient by up to 1% of its norm, where the CPU's own
+    error on the tensor may hold none."""
+    from maskplanner_tpu_torch.models import get_model
+
+    weights = active_weights(cfg, handler)
+    choices, res = [], {}
+    for dev, dtype, mode in (("cpu", torch.float64, "record"),
+                             ("cuda", torch.float32, "replay"),
+                             ("cpu", torch.float32, "replay")):
+        m = get_model(cfg, device="cpu", dropout=0.0,
+                      generator=torch.Generator().manual_seed(0))
+        m = m.to(device=dev, dtype=dtype)
+        b = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in to_batch(items, dev).items()}
+        with shared_choices(**{mode: choices}):
+            res[dev, dtype] = step_grads(m, handler, b, weights,
+                                         cotangent=True)
+    (l_64, g_64), (l_gpu, g_gpu), (l_cpu, g_cpu) = res.values()
+    hold_rule("card-vs-cpu bn-train algebraic, shared choices",
+              (l_gpu, l_cpu, l_64), (g_gpu, g_cpu, g_64))
+
+
+def phase_export_two_devices(cfg, model, clouds: np.ndarray) -> None:
+    """(e): one file for ``cuda`` and ``cpu`` (``Predictor.
+    export_compiled(devices=)``), served on each device bitwise the
+    single-device export of that device; the card's launches a call."""
+    from maskplanner_tpu_torch.convert import save_checkpoint
+    from maskplanner_tpu_torch.serve import Predictor, load_exported
+    from maskplanner_tpu_torch.utils.config import save_config
+
+    t = time.perf_counter()
+    x = clouds[:1]
+    with tempfile.TemporaryDirectory() as tmp:
+        save_config(cfg, tmp)
+        save_checkpoint(tmp, "last_checkpoint", model)
+        pred = Predictor(tmp, device="cuda", compute_dtype="f32")
+        paths = {k: os.path.join(tmp, f"{k}.pt2")
+                 for k in ("both", "cuda", "cpu")}
+        sizes = {k: len(pred.export_compiled(
+            p, devices=["cuda", "cpu"] if k == "both" else [k]))
+            for k, p in paths.items()}
+        for dev in ("cuda", "cpu"):
+            two = load_exported(paths["both"], dev)
+            one = load_exported(paths[dev], dev)
+            if two.meta["device"] != dev or two.meta["devices"] != [
+                    "cuda", "cpu"]:
+                raise AssertionError(f"[export-two] {two.meta}")
+            reset_counts()
+            got = [o.cpu() for o in two(x)[:3]]
+            launches = read_counts()
+            want = [o.cpu() for o in one(x)[:3]]
+            expect = FORWARD_LAUNCHES if dev == "cuda" else launches_of()
+            if launches != expect:
+                raise AssertionError(f"[export-two] on {dev} the program "
+                                     f"launched {launches}")
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"[export-two] on {dev} the two-device "
+                                     f"file's program is not bitwise the "
+                                     f"single-device export's")
+    log(f"[export-two] one file for cuda and cpu ({sizes['both']} bytes; "
+        f"the single-device files {sizes['cuda']} and {sizes['cpu']}): "
+        f"served on each, bitwise the single-device export of that device; "
+        f"on the card {FORWARD_LAUNCHES['fps']} fps and "
+        f"{FORWARD_LAUNCHES['fused_sa_fwd']} fused_sa_fwd launches a call; "
+        f"{time.perf_counter() - t:.1f} s")
+
+
+def phase_slice_19(cfg, model, bn_cfg, train_items: list,
+                   clouds: np.ndarray, res: dict) -> dict:
+    """Phase 29 -> its numbers and the masked mode's launches."""
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    gan_items = load_items(load_args(argv=GAN_RECIPE), "train")
+    phase_gan_dp_one_card(gan_items)
+    out = {"gan_dp_cards": phase_gan_dp_cards(gan_items)}
+    torch.cuda.empty_cache()
+    out["fps_masked_launches"] = phase_fps_masked(clouds, res)
+    out["algebraic_bn_ms"] = phase_algebraic_bn(bn_cfg, train_items)
+    torch.cuda.empty_cache()
+    phase_export_two_devices(cfg, model, clouds)
+    log(f"[slice-19] phase took {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -5986,6 +6605,10 @@ def main() -> int:
     # graphed epoch's from its trace)
     dp = phase_data_parallel(cfg, train_items, clouds, res)
     log("[dp] " + json.dumps(dp))
+    # slice 19: each path's counts set to 0 just before it and read just
+    # after
+    slice_19 = phase_slice_19(cfg, model, bn_cfg, train_items, clouds, res)
+    log("[slice-19] " + json.dumps(slice_19))
     log(f"[time] all phases done at {time.perf_counter() - t0:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -6009,6 +6632,8 @@ def main() -> int:
     counted["ball_query"] = (
         "pointnet2_segmenter_v1 (ball_in_xyz_space) eval forward, sa1",
         seg_gan["segmenter eval forward"]["ball_query"])
+    counted["fps_masked"] = ("own check, through its entry point",
+                             slice_19["fps_masked_launches"])
     for name, path in (("fps_large", "forward at pc_points=16384"),
                        ("nn_argmin_chunked", "training step at "
                                              "lambda_points=22"),

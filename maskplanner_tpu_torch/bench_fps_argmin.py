@@ -143,9 +143,9 @@ def fps_studies(levels: dict) -> dict:
             for threads in FPS_THREADS[level]:
                 fn = ctypes.CDLL(paths[f"{key} t{threads}"]).fps_forward
                 fn.restype = ctypes.c_int
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                               ctypes.c_void_p]
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
                 for batch in (BATCH, 1):
                     xyz = pts[:batch].contiguous()
                     start = torch.zeros(batch, dtype=torch.int32,
@@ -155,8 +155,9 @@ def fps_studies(levels: dict) -> dict:
                     stream = torch.cuda.current_stream().cuda_stream
 
                     def run():
-                        err = fn(xyz.data_ptr(), start.data_ptr(), batch,
-                                 xyz.shape[1], npoint, res.data_ptr(), stream)
+                        err = fn(xyz.data_ptr(), start.data_ptr(), None,
+                                 batch, xyz.shape[1], npoint, res.data_ptr(),
+                                 stream)
                         if err:
                             raise RuntimeError(f"fps_forward: CUDA error "
                                                f"{err}")

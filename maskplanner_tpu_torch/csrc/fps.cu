@@ -74,6 +74,20 @@
 // round-to-nearest intrinsics, so that no FMA contraction changes it: the
 // plain PyTorch version forms it the same way and the two must pick
 // identical indices.
+//
+// The masked mode (a (b, n) validity mask; the kMasked instantiation of
+// either path, the unmasked code unchanged) is the JAX package's
+// farthest_point_sample(mask=...) (maskplanner_tpu/ops/sampling.py:86-98),
+// which has no Pallas kernel: an invalid point's running distance starts at
+// -1e10 and stays there, an invalid start is replaced by the cloud's first
+// valid point (0 when none is valid), and the argmax takes the lowest index
+// among the largest distances as before. A negative float's bits do not
+// order as an unsigned integer, so the mode's key is 0 for a negative
+// distance (invalid points, and the small path's padded slots, which take
+// -1e10 too) and the bits plus one otherwise: every valid point ranks
+// above every invalid one, and a cloud with no valid point repeats index 0.
+// The first valid point is a block-wide minimum through the same warp
+// slots, taken once, before the loop, when the start is invalid.
 
 #include <cuda_runtime.h>
 
@@ -115,10 +129,34 @@ __host__ __device__ constexpr int threads_for(int P) {
   return P <= 8 ? 1024 : (P <= 16 ? 512 : 256);
 }
 
-template <int P>
+// The masked mode's key of a running distance (the header): 0 below 0,
+// else the bits plus one.
+__device__ __forceinline__ unsigned masked_key(float d) {
+  return d < 0.f ? 0u : __float_as_uint(d) + 1u;
+}
+
+// The lowest of the block's `own` indices (~0u where a thread has none,
+// and where no thread has one), through the warps' slots, on every thread;
+// the slots are free again when it returns.
+__device__ __forceinline__ unsigned block_min_index(unsigned own,
+                                                    uint2 (*slots)[32]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const unsigned m = __reduce_min_sync(0xffffffffu, own);
+  if (lane == 0) slots[0][warp].x = m;
+  __syncthreads();
+  const unsigned all = __reduce_min_sync(
+      0xffffffffu, lane < n_warps ? slots[0][lane].x : ~0u);
+  __syncthreads();
+  return all;
+}
+
+template <int P, bool kMasked>
 __global__ void __launch_bounds__(threads_for(P))
     fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
-               int n, int npoint, int* __restrict__ out) {
+               const unsigned char* __restrict__ mask, int n, int npoint,
+               int* __restrict__ out) {
   extern __shared__ float4 cloud[];  // n points (x, y, z, 0), then picks
   __shared__ uint2 slots[2][32];     // (key, index) of each warp
 
@@ -147,7 +185,10 @@ __global__ void __launch_bounds__(threads_for(P))
     flat[(e / 3) * 4 + e % 3] = pts[e];
   }
   __syncthreads();
+  const unsigned char* valid =
+      kMasked ? mask + static_cast<size_t>(b) * n : nullptr;
   float px[P], py[P], pz[P], dist[P];
+  unsigned first_own = ~0u;  // the thread's lowest valid index
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int j = tid * P + p;
@@ -157,9 +198,21 @@ __global__ void __launch_bounds__(threads_for(P))
       py[p] = c.y;
       pz[p] = c.z;
       dist[p] = 1e10f;
+      if (kMasked) {
+        if (valid[j]) {
+          first_own = min(first_own, static_cast<unsigned>(j));
+        } else {
+          dist[p] = -1e10f;
+        }
+      }
     } else {
-      px[p] = py[p] = pz[p] = dist[p] = 0.f;
+      px[p] = py[p] = pz[p] = 0.f;
+      dist[p] = kMasked ? -1e10f : 0.f;
     }
+  }
+  if (kMasked && !valid[far]) {  // block-uniform: every thread reads far
+    const unsigned first = block_min_index(first_own, slots);
+    far = first < static_cast<unsigned>(n) ? static_cast<int>(first) : 0;
   }
 
   uint2* const own_slot = &slots[0][warp];
@@ -189,8 +242,9 @@ __global__ void __launch_bounds__(threads_for(P))
     }
     const int buf = (i & 1) * 32;
     unsigned max_key;
-    const int g = warp_arg_max(__float_as_uint(best), tid * P + best_p,
-                               max_key);
+    const int g = warp_arg_max(kMasked ? masked_key(best)
+                                       : __float_as_uint(best),
+                               tid * P + best_p, max_key);
     if (lane == 0) own_slot[buf] = make_uint2(max_key, g);
     __syncthreads();
     // every warp reduces the warps' winners; lanes past the warps hold key
@@ -206,9 +260,10 @@ __global__ void __launch_bounds__(threads_for(P))
   }
 }
 
-template <int P>
-cudaError_t launch(const float* xyz, const int* start, int b, int n,
-                   int npoint, int threads, int* out, cudaStream_t stream) {
+template <int P, bool kMasked>
+cudaError_t launch(const float* xyz, const int* start,
+                   const unsigned char* mask, int b, int n, int npoint,
+                   int threads, int* out, cudaStream_t stream) {
   const int staged = npoint <= kMaxStaged ? npoint : 0;
   const size_t smem = static_cast<size_t>(n) * sizeof(float4) +
                       static_cast<size_t>(staged) * sizeof(int);
@@ -221,13 +276,14 @@ cudaError_t launch(const float* xyz, const int* start, int b, int n,
   size_t unknown = 0;
   size_t& set = device < kDevices ? smem_set[device] : unknown;
   if (smem > 48 * 1024 && smem > set) {
-    err = cudaFuncSetAttribute(fps_kernel<P>,
+    err = cudaFuncSetAttribute(fps_kernel<P, kMasked>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     set = smem;
   }
-  fps_kernel<P><<<b, threads, smem, stream>>>(xyz, start, n, npoint, out);
+  fps_kernel<P, kMasked><<<b, threads, smem, stream>>>(xyz, start, mask, n,
+                                                     npoint, out);
   return cudaGetLastError();
 }
 
@@ -244,10 +300,13 @@ inline bool large_dist_shared(int n, int npoint) {
   return (static_cast<size_t>(n) + large_staged(npoint)) * 4 <= kLargeSmem;
 }
 
+template <bool kMasked>
 __global__ void __launch_bounds__(kLargeThreads)
     fps_large_kernel(const float* __restrict__ xyz,
-                     const int* __restrict__ start, int n, int npoint,
-                     float* __restrict__ scratch, int* __restrict__ out) {
+                     const int* __restrict__ start,
+                     const unsigned char* __restrict__ mask, int n,
+                     int npoint, float* __restrict__ scratch,
+                     int* __restrict__ out) {
   // the running distances (unless `scratch`), then the staged picks
   extern __shared__ float smem[];
   __shared__ uint2 slots[2][32];  // (key, index) of each warp
@@ -274,7 +333,20 @@ __global__ void __launch_bounds__(kLargeThreads)
     __trap();
   }
   // a thread's own points only: no barrier needed before the first step
-  for (int j = tid; j < n; j += threads) dist[j] = 1e10f;
+  if (kMasked) {
+    const unsigned char* valid = mask + static_cast<size_t>(b) * n;
+    unsigned first_own = ~0u;  // the thread's lowest valid index
+    for (int j = tid; j < n; j += threads) {
+      dist[j] = valid[j] ? 1e10f : -1e10f;
+      if (valid[j]) first_own = min(first_own, static_cast<unsigned>(j));
+    }
+    if (!valid[far]) {  // block-uniform
+      const unsigned first = block_min_index(first_own, slots);
+      far = first < static_cast<unsigned>(n) ? static_cast<int>(first) : 0;
+    }
+  } else {
+    for (int j = tid; j < n; j += threads) dist[j] = 1e10f;
+  }
 
   uint2* const own_slot = &slots[0][warp];
   const uint2* const read_slot = &slots[0][lane];
@@ -284,8 +356,9 @@ __global__ void __launch_bounds__(kLargeThreads)
     const float cy = pts[3 * far + 1];
     const float cz = pts[3 * far + 2];
     // j grows: a strict '>' keeps the lowest index among a thread's ties; a
-    // thread without points offers key 0 at index ~0
-    float best = -1.f;
+    // thread without points offers key 0 at index ~0 (masked: below -1e10,
+    // which an invalid point holds)
+    float best = kMasked ? __uint_as_float(0xff800000u) : -1.f;
     int best_j = -1;
     for (int j = tid; j < n; j += threads) {
       const float d = fminf(
@@ -299,8 +372,9 @@ __global__ void __launch_bounds__(kLargeThreads)
     }
     const int buf = (i & 1) * 32;
     unsigned max_key;
-    const int g = warp_arg_max(best < 0.f ? 0u : __float_as_uint(best),
-                               best_j, max_key);
+    const int g = warp_arg_max(
+        kMasked ? masked_key(best) : (best < 0.f ? 0u : __float_as_uint(best)),
+        best_j, max_key);
     if (lane == 0) own_slot[buf] = make_uint2(max_key, g);
     __syncthreads();
     const uint2 s = lane < n_warps ? read_slot[buf] : make_uint2(0u, ~0u);
@@ -314,9 +388,10 @@ __global__ void __launch_bounds__(kLargeThreads)
   }
 }
 
-cudaError_t launch_large(const float* xyz, const int* start, int b, int n,
-                         int npoint, float* scratch, int* out,
-                         cudaStream_t stream) {
+template <bool kMasked>
+cudaError_t launch_large(const float* xyz, const int* start,
+                         const unsigned char* mask, int b, int n, int npoint,
+                         float* scratch, int* out, cudaStream_t stream) {
   const size_t staged = static_cast<size_t>(large_staged(npoint)) * 4;
   const size_t smem =
       staged + (scratch == nullptr ? static_cast<size_t>(n) * 4 : 0);
@@ -327,25 +402,27 @@ cudaError_t launch_large(const float* xyz, const int* start, int b, int n,
   bool unknown = false;
   bool& set = device < kDevices ? raised[device] : unknown;
   if (smem > 48 * 1024 && !set) {
-    err = cudaFuncSetAttribute(fps_large_kernel,
+    err = cudaFuncSetAttribute(fps_large_kernel<kMasked>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kLargeSmem));
     if (err != cudaSuccess) return err;
     set = true;
   }
   const int threads = std::min(kLargeThreads, (n + 31) / 32 * 32);
-  fps_large_kernel<<<b, threads, smem, stream>>>(xyz, start, n, npoint,
-                                                 scratch, out);
+  fps_large_kernel<kMasked><<<b, threads, smem, stream>>>(
+      xyz, start, mask, n, npoint, scratch, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // xyz (b, n, 3) f32 contiguous, start (b,) int32 in [0, n) (checked on the
-// device: a start outside traps) -> out (b, npoint) int32. Returns a
+// device: a start outside traps), mask (b, n) bytes, 0 for an invalid point,
+// or null (the unmasked mode) -> out (b, npoint) int32. Returns a
 // cudaError_t as int (0 = launched). The register path, n <= kMaxPoints;
 // fps_large_forward takes any n.
-extern "C" int fps_forward(const float* xyz, const int* start, int b, int n,
+extern "C" int fps_forward(const float* xyz, const int* start,
+                           const unsigned char* mask, int b, int n,
                            int npoint, int* out, void* stream) {
   if (b <= 0 || n <= 0 || npoint <= 0 || n > kMaxPoints) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -373,9 +450,14 @@ extern "C" int fps_forward(const float* xyz, const int* start, int b, int n,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ppt) {
-#define MP_FPS_CASE(P) \
-  case P:              \
-    return static_cast<int>(launch<P>(xyz, start, b, n, npoint, threads, out, s));
+#define MP_FPS_CASE(P)                                                    \
+  case P:                                                                 \
+    return static_cast<int>(                                              \
+        mask == nullptr                                                   \
+            ? launch<P, false>(xyz, start, mask, b, n, npoint, threads, out, \
+                               s)                                         \
+            : launch<P, true>(xyz, start, mask, b, n, npoint, threads, out, \
+                              s));
     MP_FPS_CASE(1)
     MP_FPS_CASE(2)
     MP_FPS_CASE(4)
@@ -400,14 +482,18 @@ extern "C" long long fps_large_scratch_floats(int n, int npoint) {
 // points): fps_forward's arguments, with `scratch` b x
 // fps_large_scratch_floats(n, npoint) floats of device memory, or null
 // when that is 0.
-extern "C" int fps_large_forward(const float* xyz, const int* start, int b,
-                                 int n, int npoint, float* scratch, int* out,
+extern "C" int fps_large_forward(const float* xyz, const int* start,
+                                 const unsigned char* mask, int b, int n,
+                                 int npoint, float* scratch, int* out,
                                  void* stream) {
   if (b <= 0 || n <= 0 || npoint <= 0 ||
       (scratch == nullptr && !large_dist_shared(n, npoint))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(launch_large(xyz, start, b, n, npoint, scratch,
-                                       out,
-                                       static_cast<cudaStream_t>(stream)));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      mask == nullptr
+          ? launch_large<false>(xyz, start, mask, b, n, npoint, scratch, out, s)
+          : launch_large<true>(xyz, start, mask, b, n, npoint, scratch, out,
+                               s));
 }

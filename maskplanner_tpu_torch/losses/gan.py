@@ -26,6 +26,16 @@ What the JAX package's functional state gives for free, made explicit:
 The update runs each part's backward as soon as its pass ends, so that
 one critic graph is alive at a time; the gradients sum to those of the
 whole loss.
+
+In a data-parallel step (``parallel.sharded_batch``: each rank holds its
+rows of the global batch, the critic replicated) the update is the single
+process's at the global batch: the critic's train-mode BatchNorms take the
+global moments (``parallel.mean_over_ranks``, twice differentiable, so the
+penalty's double backward sums over the ranks too), the dropout masks and
+the penalty's mixing weights are drawn at the global row count and each
+rank keeps its rows, each part of the loss is the rank's share of the
+global mean (``parallel.loss_share``), and the critic's gradients are
+summed over the ranks before its Adam (``parallel.all_reduce_grads``).
 """
 from __future__ import annotations
 
@@ -37,6 +47,8 @@ from ..data.pointcloud import get_dim_traj_points
 from ..models import init_parameters
 from ..models.dgcnn import DGCNNDiscriminator
 from ..models.mlp import MLP
+from ..parallel import (all_reduce_grads, global_mean, global_rows,
+                        local_rows, loss_share)
 from .common import bce_with_logits
 
 LR = 1e-4
@@ -168,13 +180,16 @@ class AdversarialLoss:
         prediction and GT -> the last step's loss (detached). Each step
         draws its dropout masks and, for WGAN-GP, the penalty's mixing
         weights (B, 1, ...) from ``generator``; ``eps`` (train_iter, B, 1,
-        ...) gives the weights instead."""
+        ...) gives the weights instead. In a data-parallel step (the
+        module's docstring) ``y_pred`` and ``y`` are this rank's rows, the
+        draws and ``eps`` the global batch's, and the loss the global
+        value."""
         real = self.prepare(y.detach())
         fake = self.prepare(y_pred.detach())
         module = critic.module
         module.train()
         w = self.weight_discr_training
-        eps_shape = (real.shape[0],) + (1,) * (real.dim() - 1)
+        eps_shape = (global_rows(real.shape[0]),) + (1,) * (real.dim() - 1)
         for it in range(self.train_iter):
             critic.optimizer.zero_grad(set_to_none=True)
             masks = (None if self.uses_mlp else module.dropout_masks(
@@ -185,23 +200,24 @@ class AdversarialLoss:
                                              ).mean()
             else:
                 part_r = -w * out_r.mean()
-            part_r.backward()
+            loss_share(part_r).backward()
             out_f = self._critic(critic, fake, masks)
             if self.kind == "discriminator":
                 part_f = w * bce_with_logits(out_f, torch.zeros_like(out_f)
                                              ).mean()
             else:
                 part_f = w * out_f.mean()
-            part_f.backward()
+            loss_share(part_f).backward()
             loss = part_r.detach() + part_f.detach()
             if self.kind != "discriminator":
-                mix = (eps[it] if eps is not None else torch.rand(
+                mix = local_rows(eps[it] if eps is not None else torch.rand(
                     eps_shape, generator=generator, device=real.device))
                 gp = self.gradient_penalty(critic, real, fake, mix, masks)
-                gp.backward()
+                loss_share(gp).backward()
                 loss = loss + gp.detach()
+            all_reduce_grads(module.parameters())
             critic.optimizer.step()
-        return loss
+        return global_mean(loss)
 
     def generator_loss(self, critic: CriticState,
                        y_pred: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,7 @@ from torch import nn
 from torch.nn import functional
 
 from ..ops.sampling import index_points, knn
+from ..parallel import global_rows, local_rows
 from .pointnet2 import BATCH_NORM_EPS, FlaxBatchNorm1d, batch_norm_rows
 
 SLOPE = 0.2
@@ -70,14 +71,15 @@ class DGCNNDiscriminator(nn.Module):
     def dropout_masks(self, batch: int, generator: torch.Generator | None,
                       device) -> tuple | None:
         """The two dropouts' scaled keep masks ((B, 512), (B, 256)) for one
-        critic step, drawn from ``generator``; None at rate 0."""
+        critic step, drawn from ``generator`` (over the global batch in a
+        data-parallel step, of which this rank keeps its B rows); None at
+        rate 0."""
         if self.dropout_rate == 0.0:
             return None
         keep = 1.0 - self.dropout_rate
-        return tuple(torch.bernoulli(torch.full((batch, w), keep,
-                                                device=device),
-                                     generator=generator) / keep
-                     for w in (512, 256))
+        return tuple(local_rows(torch.bernoulli(
+            torch.full((global_rows(batch), w), keep, device=device),
+            generator=generator)) / keep for w in (512, 256))
 
     def forward(self, x: torch.Tensor, masks: tuple | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:

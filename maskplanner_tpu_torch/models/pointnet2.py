@@ -30,6 +30,7 @@ where they are used):
 """
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
@@ -45,6 +46,14 @@ from ..parallel import global_rows, local_rows, mean_over_ranks
 
 BATCH_NORM_EPS = 1e-5
 BATCH_NORM_MOMENTUM = 0.9  # Flax's: running = 0.9 running + 0.1 batch
+
+
+def algebraic_batch_norm() -> bool:
+    """Whether a train-mode BatchNorm ``PointMLP`` takes the algebraic
+    path (:meth:`PointMLP.folded_bn_layer`): ``MASKPLANNER_ALGEBRAIC_BN``
+    set, read at each call as the JAX package reads it (opt-in; off by
+    default)."""
+    return bool(os.environ.get("MASKPLANNER_ALGEBRAIC_BN"))
 
 
 class FlaxBatchNorm1d(nn.BatchNorm1d):
@@ -77,13 +86,27 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
         mean_sq = (stats * stats).mean(0)
         mean, mean_sq = mean_over_ranks(mean, mean_sq)
         var = torch.clamp(mean_sq - mean * mean, min=0.0)
+        self._track(mean, var)
+        return (x.to(dtype) - mean) * (torch.rsqrt(var + self.eps)
+                                       * self.weight) + self.bias
+
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Move the running statistics by the batch's moments."""
         with torch.no_grad():
             m = BATCH_NORM_MOMENTUM
             self.running_mean.mul_(m).add_((1.0 - m) * mean)
             self.running_var.mul_(m).add_((1.0 - m) * var)
             self.num_batches_tracked += 1
-        return (x.to(dtype) - mean) * (torch.rsqrt(var + self.eps)
-                                       * self.weight) + self.bias
+
+    def fold(self, mean: torch.Tensor, var: torch.Tensor) -> tuple:
+        """Train mode on given batch moments (the algebraic path,
+        ``maskplanner_tpu/models/pointnet2.py::_AlgebraicBatchNorm``): the
+        running statistics moved as :meth:`forward` moves them -> the
+        normalisation as a scale and a shift, ``(rsqrt(var + eps) · scale,
+        bias − mean · that)``."""
+        self._track(mean, var)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return inv, self.bias - mean * inv
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -138,7 +161,8 @@ class PointMLP(nn.Module):
     "layer" (LayerNorm over channels, eps 1e-6 as in Flax) or "none".
     ``dtype``: the compute dtype of the Dense layers (:meth:`run_mlp`), of
     the folded chain (:meth:`run_folded`) and of a set-abstraction level's
-    own path."""
+    own path. Under ``MASKPLANNER_ALGEBRAIC_BN`` a train-mode BatchNorm MLP
+    runs each layer as :meth:`folded_bn_layer`."""
 
     def __init__(self, in_channel: int, channels: Sequence[int], norm: str,
                  dtype: torch.dtype = torch.float32):
@@ -163,7 +187,12 @@ class PointMLP(nn.Module):
         :func:`dense`), its norm in the parameters' dtype (f32), then the
         ReLU."""
         dtype = self.dtype if dtype is None else dtype
+        algebraic = (self.norm == "batch" and self.training
+                     and algebraic_batch_norm())
         for j, conv in enumerate(self.mlp_convs):
+            if algebraic:
+                x = self.folded_bn_layer(j, x, dtype)
+                continue
             x = dense(conv, x, dtype)
             if self.norm == "batch":
                 x = batch_norm_rows(self.mlp_bns[j], x)
@@ -172,6 +201,41 @@ class PointMLP(nn.Module):
                 x = ln(x.to(ln.weight.dtype))
             x = torch.relu(x)
         return x
+
+    def folded_bn_layer(self, j: int, x: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+        """Layer ``j`` in train mode with algebraic batch statistics
+        (``maskplanner_tpu/models/pointnet2.py::PointMLP._folded_bn_layer``):
+        the moments of ``y = xW + b`` over the rows from the input's mean
+        and Gram matrix (``mean_y = x̄W + b``, ``var_c = w_cᵀ Cov(x) w_c``,
+        in the parameters' dtype, f32), the BatchNorm's scale and shift
+        folded into the Dense weights (:meth:`FlaxBatchNorm1d.fold`), then
+        one product in ``dtype`` and the ReLU: the pre-BatchNorm tensor is
+        never formed, and the gradients flow through the moments. In a
+        data-parallel step the mean and the Gram matrix are the global
+        batch's (``parallel.mean_over_ranks``). The Gram product is a plain
+        matmul, as the JAX package leaves it to XLA."""
+        conv, bn = self.mlp_convs[j], self.mlp_bns[j]
+        # f32: the parameters' dtype (a float64 twin computes in float64)
+        stats = conv.weight.dtype
+        dtype = stats if dtype == torch.float32 else dtype
+        xl = x.to(dtype)
+        w = conv.weight.t()                                 # (Cin, C)
+        b = conv.bias
+        # bf16 inputs multiply exactly into f32
+        x2 = xl.reshape(-1, xl.shape[-1]).to(stats)         # (M, Cin)
+        xbar = x2.mean(0)
+        gram = torch.matmul(x2.t(), x2) / x2.shape[0]
+        xbar, gram = mean_over_ranks(xbar, gram)
+        cov = gram - torch.outer(xbar, xbar)
+        mean_y = torch.matmul(xbar, w) + b
+        var_y = torch.clamp((torch.matmul(cov, w) * w).sum(0), min=0.0)
+        inv, shift = bn.fold(mean_y, var_y)
+        wf = (w * inv[None, :]).to(dtype)
+        # the Dense bias rides the shift; its gradient is 0 (it cancels
+        # against its part of mean_y), as in the JAX package
+        return torch.relu((torch.matmul(xl, wf) + (b * inv + shift))
+                          .to(dtype))
 
     def pool(self, h: torch.Tensor) -> torch.Tensor:
         """The max over K of grouped rows, in the parameters' dtype (f32;

@@ -8,8 +8,9 @@ def launch_counters() -> dict:
     counts the calls that launch its kernel, or record it into a CUDA
     graph being captured; a graph's replays run no Python and count
     nothing. ``fps_large``, ``nn_argmin_chunked`` and ``lap_large`` count
-    the launches of those kernels' paths for large shapes, which their
-    wrappers' own counts include."""
+    the launches of those kernels' paths for large shapes, and
+    ``fps_masked`` those of FPS's masked mode, which their wrappers' own
+    counts include."""
     from .fps import fps_cuda
     from .fused_sa import (folded_sa_cuda, fused_sa_bf16_cuda,
                            fused_sa_bwd_bf16_cuda, fused_sa_bwd_cuda,
@@ -29,6 +30,6 @@ def launch_counters() -> dict:
             "ball_group_single": ball_group_single_cuda,
             "fused_sa_bwd_bf16": fused_sa_bwd_bf16_cuda,
             "sa_weight_grad_bf16": sa_weight_grad_bf16_cuda,
-            "fps_large": fps_cuda.large,
+            "fps_large": fps_cuda.large, "fps_masked": fps_cuda.masked,
             "nn_argmin_chunked": nn_argmin_cuda.chunked,
             "lap_large": lap_cuda.large}

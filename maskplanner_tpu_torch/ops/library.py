@@ -1,7 +1,8 @@
 """The inference kernels as ``torch.library`` custom ops (namespace
 ``maskplanner``), so that ``torch.export`` traces a forward through them:
 
-- ``maskplanner::fps`` (#1, ``csrc/fps.cu``);
+- ``maskplanner::fps`` (#1, ``csrc/fps.cu``, with its optional validity
+  mask: the kernel's masked mode);
 - ``maskplanner::fused_sa_fwd`` (#2) and ``maskplanner::fused_sa_fwd_bf16``
   (its bf16 mode, 2b; ``csrc/fused_sa_fwd.cu``);
 - ``maskplanner::ball_group`` (#6) and ``maskplanner::ball_group_single``
@@ -41,26 +42,29 @@ def _layers(flat, layer_norm: bool) -> list:
 
 @torch.library.custom_op(f"{NAMESPACE}::fps", mutates_args=(),
                          device_types="cuda")
-def fps(xyz: Tensor, npoint: int, start: Tensor) -> Tensor:
-    """(B, N, 3) f32 points, (B,) int32 start indices -> (B, npoint) int32
-    (``ops.sampling.farthest_point_sample``)."""
+def fps(xyz: Tensor, npoint: int, start: Tensor,
+        mask: Optional[Tensor] = None) -> Tensor:
+    """(B, N, 3) f32 points, (B,) int32 start indices, optional (B, N) bool
+    validity -> (B, npoint) int32 (``ops.sampling.farthest_point_sample``;
+    with ``mask`` the kernel's masked mode)."""
     from .cuda.fps import fps_cuda
 
-    return fps_cuda(xyz, npoint, start)
+    return fps_cuda(xyz, npoint, start, mask=mask)
 
 
 @fps.register_kernel("cpu")
-def _fps_cpu(xyz: Tensor, npoint: int, start: Tensor) -> Tensor:
+def _fps_cpu(xyz: Tensor, npoint: int, start: Tensor,
+             mask: Optional[Tensor] = None) -> Tensor:
     from .sampling import fps_plain
 
     n = xyz.shape[1]
     if bool(((start < 0) | (start >= n)).any()):
         raise ValueError(f"FPS start indices must lie in [0, {n})")
-    return fps_plain(xyz, npoint, start)
+    return fps_plain(xyz, npoint, start, mask)
 
 
 @fps.register_fake
-def _fps_fake(xyz, npoint, start):
+def _fps_fake(xyz, npoint, start, mask=None):
     return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)
 
 

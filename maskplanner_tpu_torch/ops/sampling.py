@@ -27,17 +27,28 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(*idx.shape, C)
 
 
-def fps_plain(xyz: torch.Tensor, npoint: int,
-              start: torch.Tensor) -> torch.Tensor:
+def fps_plain(xyz: torch.Tensor, npoint: int, start: torch.Tensor,
+              mask: torch.Tensor | None = None) -> torch.Tensor:
     """Plain farthest point sampling: (B, N, D), (B,) start -> (B, npoint)
     int32, the squared distances summed over the D coordinates in order.
     Ties go to the lowest index (``argmax`` returns the first maximum);
-    once every point is picked all distances are 0 and index 0 repeats."""
+    once every point is picked all distances are 0 and index 0 repeats.
+
+    ``mask`` (B, N) bool, the valid points (the JAX package's
+    ``farthest_point_sample(mask=...)``): an invalid point's running
+    distance starts at −1e10, so it is never picked while a valid one
+    remains; an invalid start becomes the cloud's first valid point (0
+    when none is); once every valid point is picked the lowest valid index
+    repeats, and a cloud without valid points repeats index 0."""
     B, N, _ = xyz.shape
     xyz = xyz.float()
     rows = torch.arange(B, device=xyz.device)
     far = start.long()
     dist = torch.full((B, N), _BIG, dtype=torch.float32, device=xyz.device)
+    if mask is not None:
+        dist = torch.where(mask, dist, -_BIG)
+        first_valid = mask.to(torch.uint8).argmax(dim=1)
+        far = torch.where(mask[rows, far], far, first_valid)
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     for i in range(npoint):
         out[:, i] = far
@@ -51,19 +62,23 @@ def fps_plain(xyz: torch.Tensor, npoint: int,
 
 
 def farthest_point_sample(xyz: torch.Tensor, npoint: int,
-                          start: torch.Tensor | None = None) -> torch.Tensor:
+                          start: torch.Tensor | None = None,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
     """Iterative farthest point sampling -> (B, npoint) int32 indices.
 
     ``start``: optional (B,) start indices in [0, N); the default starts
     every cloud at index 0 (the deterministic eval path). On the CPU a start
     outside raises ``ValueError``; on the card the kernel checks it and
-    traps, so that the host does not wait for the device."""
+    traps, so that the host does not wait for the device. ``mask``:
+    optional (B, N) validity (:func:`fps_plain`'s semantics; the kernel's
+    masked mode on the card)."""
     if xyz.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no FPS for device {xyz.device}")
     if start is None:
         start = torch.zeros(xyz.shape[0], dtype=torch.int32,
                             device=xyz.device)
-    return library.fps(xyz, npoint, start.to(torch.int32))
+    return library.fps(xyz, npoint, start.to(torch.int32),
+                       None if mask is None else mask.to(torch.bool))
 
 
 def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,

@@ -171,6 +171,11 @@ def _reduced(x: torch.Tensor, mean: bool) -> torch.Tensor:
 
 
 class _AllReduce(torch.autograd.Function):
+    """A sum (or mean) over the ranks whose backward is itself this
+    function: under ``create_graph`` the backward's all-reduce is recorded
+    and differentiated in turn, so that a double backward (a gradient
+    penalty through a global BatchNorm) also sums over the ranks."""
+
     @staticmethod
     def forward(ctx, x, mean):
         ctx.mean = mean
@@ -178,7 +183,7 @@ class _AllReduce(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return _reduced(grad, ctx.mean), None
+        return _AllReduce.apply(grad, ctx.mean), None
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:

@@ -12,11 +12,15 @@ robot programs, from a run directory holding a port checkpoint.
     python -m maskplanner_tpu_torch.predict --run RUN_DIR \\
         --from_export fwd.pt2 --meshes a.obj --out predicted_programs
 
+    # one file for the card and the CPU (a program traced on each);
+    # --from_export then serves the one for --device
+    python -m maskplanner_tpu_torch.predict --run RUN_DIR --export fwd.pt2 \
+        --platforms cuda cpu
+
 It runs on the card unless ``--device cpu`` is given, in bf16 unless
 ``--dtype f32`` (or ``train``: the run's own dtype) is given, as the JAX
-package's CLI. ``--platforms`` names the one device an export is traced
-for (default: ``--device``); a ``torch.export`` program holds one device,
-so a second one raises.
+package's CLI. ``--platforms`` names the devices an export is traced for
+(default: ``--device``), as the JAX CLI's ``--platforms tpu cpu``.
 """
 from __future__ import annotations
 
@@ -48,8 +52,8 @@ def parse_args(argv=None):
                    help="write the eval forward as a torch.export program "
                         "and exit (unless --meshes)")
     p.add_argument("--platforms", nargs="*", default=None,
-                   help="the one device (cuda | cpu) --export traces for; "
-                        "default --device")
+                   help="the devices (cuda, cpu) --export traces for, one "
+                        "program each in one file; default --device")
     p.add_argument("--from_export", default=None,
                    help="serve the forward from an exported program")
     return p.parse_args(argv)
@@ -57,10 +61,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.platforms is not None and len(args.platforms) != 1:
-        raise ValueError(f"--platforms takes one device (cuda or cpu), got "
-                         f"{args.platforms}: a torch.export program is "
-                         f"traced for one device (ROADMAP.md)")
     from .serve import Predictor
 
     pred = Predictor(args.run, model=args.model, device=args.device,
@@ -71,10 +71,10 @@ def main(argv=None):
     print(f"Loaded {args.model} (epoch {pred.epoch}) on {pred.device} in "
           f"{dtype} | pc_points={pred.pc_points} scale={pred.scale:.4f}")
     if args.export:
-        device = args.platforms[0] if args.platforms else pred.device
-        blob = pred.export_compiled(args.export, device=device)
+        devices = args.platforms or [pred.device.type]
+        blob = pred.export_compiled(args.export, devices=devices)
         print(f"exported the forward -> {args.export} ({len(blob)} bytes, "
-              f"device {device}, {dtype})")
+              f"devices {' '.join(map(str, devices))}, {dtype})")
     if args.from_export:
         pred.serve_exported(args.from_export)
         print(f"serving the forward from {args.from_export}")

@@ -15,7 +15,9 @@ ops of ``ops.library``), and :func:`load_exported` serves from that file
 with no config, checkpoint or model code: it needs only the op library.
 The file is a header (magic, SHA-256 digest, metadata) before the archive
 that ``torch.export.save`` writes; a file whose bytes do not match the
-digest raises.
+digest raises. A file for several devices (the JAX CLI's ``--platforms tpu
+cpu``) holds one archive a device, each traced on its device, one after
+the other (the metadata's ``devices`` and ``sizes``); it is sealed as one.
 """
 from __future__ import annotations
 
@@ -144,13 +146,39 @@ class Predictor:
             return self.model(x)
 
     def export_compiled(self, path: str, batch: int = 1,
-                        device: str | torch.device | None = None) -> bytes:
+                        devices: list | None = None) -> bytes:
         """Write the eval forward at batch ``batch`` in the Predictor's
-        compute dtype, traced by ``torch.export.export`` on ``device``
-        (default: the Predictor's) with the weights in the program, to
-        ``path`` -> the file's bytes. Serve it with :func:`load_exported`;
-        a program traced for the card runs on the card only."""
-        device = self.device if device is None else resolve_device(device)
+        compute dtype, traced by ``torch.export.export`` with the weights
+        in the program, to ``path`` -> the file's bytes. Serve it with
+        :func:`load_exported`; a program traced for the card runs on the
+        card only.
+
+        ``devices`` (default: the Predictor's; e.g. ``["cuda", "cpu"]``):
+        the file holds one program for each, each traced on its device,
+        and :func:`load_exported` picks the one it is asked for. Every
+        device is resolved before anything is traced or written (``cuda``
+        without a card raises)."""
+        targets = [resolve_device(d) for d in (devices or [self.device])]
+        kinds = [d.type for d in targets]
+        if len(set(kinds)) != len(kinds):
+            raise ValueError(f"devices {kinds}: name each device once")
+        archives = [self._traced(d, batch) for d in targets]
+        meta = {"batch": int(batch), "pc_points": self.pc_points,
+                "dtype": "bf16" if self.config["model"].get("bf16")
+                else "f32"}
+        if len(kinds) == 1:
+            meta = {"device": kinds[0], **meta}
+        else:
+            meta = {"devices": kinds, "sizes": [len(a) for a in archives],
+                    **meta}
+        blob = _seal(json.dumps(meta).encode(), b"".join(archives))
+        with open(path, "wb") as fh:
+            fh.write(blob)
+        return blob
+
+    def _traced(self, device: torch.device, batch: int) -> bytes:
+        """The eval forward traced on ``device`` -> its
+        ``torch.export.save`` archive."""
         model = _ServingForward(self.model).to(device)
         example = torch.zeros((batch, self.pc_points, 3), dtype=torch.float32,
                               device=device)
@@ -158,14 +186,7 @@ class Predictor:
             program = torch.export.export(model, (example,))
         archive = io.BytesIO()
         torch.export.save(program, archive)
-        meta = {"device": device.type, "batch": int(batch),
-                "pc_points": self.pc_points,
-                "dtype": "bf16" if self.config["model"].get("bf16")
-                else "f32"}
-        blob = _seal(json.dumps(meta).encode(), archive.getvalue())
-        with open(path, "wb") as fh:
-            fh.write(blob)
-        return blob
+        return archive.getvalue()
 
     def serve_exported(self, path: str) -> None:
         """Serve every later request's forward from the program at ``path``
@@ -252,21 +273,51 @@ def _unseal(blob: bytes, path: str) -> tuple[dict, bytes]:
     return json.loads(body[:n_meta]), body[n_meta:]
 
 
+def _program_for(meta: dict, archive: bytes, path: str,
+                 device: str | torch.device | None) -> tuple:
+    """The archive of the program for ``device`` in an exported file and
+    that device's type -> (device type, archive, the metadata of that
+    program). A file for several devices without ``device`` gives the
+    first of its devices that this process has (``cuda`` needs a card)."""
+    want = None if device is None else torch.device(device).type
+    if "devices" not in meta:
+        if want is not None and want != meta["device"]:
+            raise ValueError(f"{path} was exported for {meta['device']}, "
+                             f"not for {want}: export it again")
+        return meta["device"], archive, meta
+    held = meta["devices"]
+    if want is None:
+        have = [d for d in held
+                if d != "cuda" or torch.cuda.is_available()]
+        if not have:
+            raise RuntimeError(f"{path} holds programs for {held}, none of "
+                               f"which this process has")
+        want = have[0]
+    if want not in held:
+        raise ValueError(f"{path} holds programs for {', '.join(held)}, not "
+                         f"for {want}: export it again")
+    i = held.index(want)
+    start = sum(meta["sizes"][:i])
+    own = {k: v for k, v in meta.items() if k not in ("devices", "sizes")}
+    return want, archive[start:start + meta["sizes"][i]], {
+        "device": want, "devices": held, **own}
+
+
 def load_exported(path: str, device: str | torch.device | None = None):
     """Load a :meth:`Predictor.export_compiled` file -> ``fn(pc_batch) ->
     (traj, stroke_masks, mask_scores, seg_confidence)`` (``pc_batch`` a
     numpy array or a tensor) on the device it was
-    traced for (``device``, when given, must be that one). No config,
-    checkpoint or model is needed; the op library is imported here. A
-    program traced for the card raises where no card is present."""
+    traced for (``device``, when given, must be that one; in a file for
+    several devices, the program for ``device``, which the file must
+    hold). No config, checkpoint or model is needed; the op library is
+    imported here. A program traced for the card raises where no card is
+    present."""
     from .ops import library  # noqa: F401  (registers the custom ops)
 
     with open(path, "rb") as fh:
         meta, archive = _unseal(fh.read(), path)
-    own = resolve_device(meta["device"])
-    if device is not None and torch.device(device).type != own.type:
-        raise ValueError(f"{path} was exported for {own.type}, not for "
-                         f"{torch.device(device).type}: export it again")
+    kind, archive, meta = _program_for(meta, archive, path, device)
+    own = resolve_device(kind)
     program = torch.export.load(io.BytesIO(archive)).module()
     bf16 = meta["dtype"] == "bf16"
 

@@ -11,7 +11,7 @@ model's forward and backward both sum their bf16 products in f32
 
 :func:`gan_train_step` is the step of a recipe with an adversarial term
 (``make_gan_train_step``): the same step against the current critic, then
-the critic's update on the detached prediction.
+the critic's update on the detached prediction, in a process group too.
 
 An epoch runs the step over the host loader's batches (:func:`host_epoch`)
 or over a split staged on the device (:class:`DeviceEpoch`, the JAX
@@ -119,24 +119,33 @@ def gan_train_step(model, optimizer, handler: LossHandler, batch, weights,
     step; then, when ``step`` is a multiple of ``discr_train_freq``, the
     critic's update on the detached prediction
     and the GT (``discriminator_update``). ``terms["d_internal"]`` is the
-    update's loss, 0 on a step without one."""
+    update's loss, 0 on a step without one.
+
+    In a process group, as :func:`train_step`: ``batch`` is this rank's
+    rows, the generator's gradients are summed over the ranks before Adam,
+    and the critic, replicated on every rank, takes the single process's
+    update at the global batch (``losses.gan``); the loss and terms
+    returned are the global values."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    with f32_accumulation():
+    with f32_accumulation(), sharded_batch():
         out = model(batch["point_cloud"], generator=generator)
         lb = build_loss_batch(out, batch)
         total, terms = handler.compute(weights, generator=generator,
                                        gan_module=adv, gan_state=critic,
                                        **lb)
-        total.backward()
+        loss_share(total).backward()
+        all_reduce_grads(model.parameters())
+        loss, terms = global_values(
+            total.detach(), {k: v.detach() for k, v in terms.items()})
     optimizer.step()
-    terms = {k: v.detach() for k, v in terms.items()}
-    if step % adv.train_freq == 0:
-        terms["d_internal"] = adv.discriminator_update(
-            critic, lb["y_pred"].detach(), lb["y"], generator)
-    else:
-        terms["d_internal"] = torch.zeros((), device=total.device)
-    return total.detach(), terms
+    with sharded_batch():
+        if step % adv.train_freq == 0:
+            terms["d_internal"] = adv.discriminator_update(
+                critic, lb["y_pred"].detach(), lb["y"], generator)
+        else:
+            terms["d_internal"] = torch.zeros((), device=total.device)
+    return loss, terms
 
 
 def forward(model, point_cloud: torch.Tensor):

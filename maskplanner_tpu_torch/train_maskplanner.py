@@ -113,10 +113,12 @@ the final eval's dumps and its render child, the ``profile=true`` trace)
 and evaluates, on the whole test split (the other ranks wait); ``resume``
 loads the same checkpoint on every rank; SIGTERM or SIGINT on any rank
 stops every rank at the end of the same epoch (``parallel.agree``). A
-recipe with an adversarial term trains in one process only: with N > 1 it
-raises. Without torchrun's ``WORLD_SIZE`` (or with 1) nothing of this
-applies. A process already in a group (``parallel.distributed_init``) runs
-in that group.
+recipe with an adversarial term trains on the sharded host loader, its
+critic replicated on every rank and updated as the single process's at the
+global batch (``train.trainer.gan_train_step``); rank 0 alone writes the
+critic's state, and every rank loads it on resume. Without torchrun's
+``WORLD_SIZE`` (or with 1) nothing of this applies. A process already
+in a group (``parallel.distributed_init``) runs in that group.
 """
 from __future__ import annotations
 
@@ -358,11 +360,6 @@ def _train(config, preempted: _Preemption):
             restore_frozen_config(typed, run_dir)
     if device.type == "cuda" and grouped():
         device = torch.device("cuda", torch.cuda.current_device())
-    if world > 1 and any(n in ADVERSARIAL_TERMS for n in config["loss"]):
-        raise NotImplementedError(
-            f"a recipe with an adversarial term trains in one process; "
-            f"{world} ranks were launched (GAN recipes under data "
-            f"parallelism are queued in ROADMAP.md)")
     if int(config["batch_size"]) % world:
         raise ValueError(f"batch_size={config['batch_size']} (the global "
                          f"batch) does not divide over {world} ranks")

@@ -5,7 +5,14 @@ names them, the exported forward is bitwise the live one, it lies within
 ``test_torch_port_serve.py``'s tolerance (1e-4) of the JAX package's
 exported forward on the same weights, corrupt artifacts raise, and the
 ``predict`` CLI's ``--export``/``--from_export`` round trip gives the live
-rows.
+rows. A file for two devices (``export_compiled(devices=)``, ``predict
+--platforms cuda cpu``) serves on the CPU bitwise the CPU-only export,
+names its devices where it is asked for another, and is refused on
+``cuda`` without a card. Tracing for ``cuda`` needs a card, so here the
+file's ``cuda`` entry is a program traced on the CPU (at another batch,
+so that the two entries differ) through the same writer; it is never
+served here. ``chip_smoke.py`` (phase 29) serves both entries of a real
+``cuda`` + ``cpu`` file on the card's machine.
 """
 import json
 import os
@@ -200,11 +207,80 @@ def test_predict_cli_export_then_serve_gives_the_live_rows(serve_run,
 
 
 def test_predict_cli_takes_one_platform(serve_run, tmp_path):
+    """(Several now.) ``--platforms cuda cpu`` without a card raises before
+    anything is traced or written, and a device named twice raises."""
     from maskplanner_tpu_torch import predict
 
     run_dir, _ = serve_run
-    with pytest.raises(ValueError, match="one device"):
-        predict.main(["--run", run_dir, "--device", "cpu", "--export",
-                      str(tmp_path / "f.pt2"), "--platforms", "cuda",
-                      "cpu"])
+    common = ["--run", run_dir, "--device", "cpu", "--export",
+              str(tmp_path / "f.pt2")]
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict.main([*common, "--platforms", "cuda", "cpu"])
+    with pytest.raises(ValueError, match="each device once"):
+        predict.main([*common, "--platforms", "cpu", "cpu"])
     assert not (tmp_path / "f.pt2").exists()
+
+
+@pytest.fixture(scope="module")
+def two_device_file(serve_run, tmp_path_factory):
+    """A ``cuda`` + ``cpu`` file written by ``export_compiled(devices=)``,
+    its ``cuda`` entry traced on the CPU at batch 2 (the module's
+    docstring), and the CPU-only export beside it."""
+    from maskplanner_tpu_torch import serve
+    from maskplanner_tpu_torch.serve import Predictor
+
+    run_dir, mesh = serve_run
+    tmp = tmp_path_factory.mktemp("two_devices")
+    pred = Predictor(run_dir, model="last", device="cpu",
+                     compute_dtype="f32")
+    traced = Predictor._traced
+
+    def on_the_cpu(self, device, batch):
+        if device.type == "cuda":
+            return traced(self, torch.device("cpu"), 2)
+        return traced(self, device, batch)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(serve, "resolve_device", lambda d: torch.device(d))
+        mp.setattr(Predictor, "_traced", on_the_cpu)
+        both = pred.export_compiled(str(tmp / "both.pt2"),
+                                    devices=["cuda", "cpu"])
+    single = pred.export_compiled(str(tmp / "cpu.pt2"), devices=["cpu"])
+    return pred, mesh, tmp, both, single
+
+
+def test_two_device_file_serves_the_cpu_bitwise(two_device_file):
+    from maskplanner_tpu_torch.serve import load_exported
+
+    pred, mesh, tmp, both, single = two_device_file
+    assert len(both) > len(single)
+    pc, _ = pred.preprocess(mesh)
+    one = load_exported(str(tmp / "cpu.pt2"), "cpu")
+    assert one.meta == {"device": "cpu", "batch": 1, "pc_points": 64,
+                        "dtype": "f32"}
+    for device in ("cpu", None):     # without a card None picks the CPU
+        fn = load_exported(str(tmp / "both.pt2"), device)
+        assert fn.meta == {"device": "cpu", "devices": ["cuda", "cpu"],
+                           "batch": 1, "pc_points": 64, "dtype": "f32"}
+        for a, b in zip(fn(pc[None])[:3], one(pc[None])[:3]):
+            assert torch.equal(a, b)
+
+
+def test_two_device_file_names_its_devices(two_device_file):
+    from maskplanner_tpu_torch.serve import load_exported
+
+    _, _, tmp, _, _ = two_device_file
+    with pytest.raises(ValueError, match="holds programs for cuda, cpu, "
+                                         "not for meta"):
+        load_exported(str(tmp / "both.pt2"), "meta")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            load_exported(str(tmp / "both.pt2"), "cuda")
+    # the sealed file covers both programs: a flip in either raises
+    blob = bytearray((tmp / "both.pt2").read_bytes())
+    blob[-10] ^= 0x01
+    (tmp / "flipped.pt2").write_bytes(bytes(blob))
+    with pytest.raises(ValueError, match="corrupt"):
+        load_exported(str(tmp / "flipped.pt2"), "cuda")

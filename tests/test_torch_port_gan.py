@@ -8,7 +8,8 @@ penalty's pass moves nothing), the generator's term (its gradient reaches
 the prediction only), the minimax variant, two ``gan_train_step``s
 against ``make_gan_train_step`` run eagerly at ``discr_train_freq`` 1 and
 2 on 2 clouds, and on 4 clouds with both critic updates (the second from
-the first's Adam state), and the driver (``d_internal_train_loss``, the
+the first's Adam state, and the same 4-cloud steps over 2 gloo ranks),
+and the driver (``d_internal_train_loss``, the
 critic's state saved and restored bitwise, a fresh critic without it, the
 critic's update gated by the run's step count, the backbones it trains).
 
@@ -39,10 +40,13 @@ import torch
 
 from maskplanner_tpu.utils.args import load_args as jax_load_args
 from maskplanner_tpu_torch.utils.args import load_args
+from test_torch_port_parallel import join, start
 
 torch.set_num_threads(1)
 
 ROUNDING_FACTOR = 10
+# test_torch_port_train.py's factor on the JAX step's own float32 error
+JAX_ROUNDING_FACTOR = 3
 LR = 1e-4
 # the JAX test's small adversarial configuration (tests/test_gan.py)
 GAN = ["config=[maskplanner,cuboids_v2]", "lambda_points=1", "overlapping=0",
@@ -128,10 +132,12 @@ def _grads(module):
 
 
 def _assert_close_by_norm(got: dict, want: dict, what: str, rel=1e-4,
-                          exact: dict | None = None):
+                          exact: dict | None = None,
+                          want_exact: dict | None = None):
     """Within ``rel`` of the whole tree's norm, leaf by leaf; with
     ``exact`` (the port's float64 result) plus 10x the port's own float32
-    error on the leaf."""
+    error on the leaf; with ``want_exact`` (the reference's float64
+    result) plus 3x the reference's own float32 error on the leaf."""
     assert got.keys() == want.keys()
     norm = np.sqrt(sum((w ** 2).sum() for w in want.values()))
     assert norm > 0, what
@@ -139,8 +145,11 @@ def _assert_close_by_norm(got: dict, want: dict, what: str, rel=1e-4,
         err = np.sqrt(((got[k] - w) ** 2).sum())
         own = (0.0 if exact is None
                else np.sqrt(((got[k] - exact[k]) ** 2).sum()))
-        assert err <= rel * norm + ROUNDING_FACTOR * own, (what, k, err,
-                                                           norm, own)
+        ref_own = (0.0 if want_exact is None
+                   else np.sqrt(((w - want_exact[k]) ** 2).sum()))
+        assert err <= (rel * norm + ROUNDING_FACTOR * own
+                       + JAX_ROUNDING_FACTOR * ref_own), (what, k, err, norm,
+                                                          own, ref_own)
 
 
 # ------------------------------------------------------------ the critic
@@ -476,18 +485,23 @@ STEP = ["config=[pointWise,cuboids_v2,longx_v2,debug]", "pc_points=64",
         "knn_gcn=4", "batch_size=2"]
 
 
-def _jax_gan_steps(batch, freqs=(1, 2)):
+def _jax_gan_steps(batch, freqs=(1, 2), start=None, y_pred=None,
+                   second=True):
     """``make_gan_train_step`` run eagerly (Adam at lr 0 for the generator,
     whose gradients Adam's first moment keeps; FPS from index 0; no
     dropout): one step, then from its state a second step at each
     ``discr_train_freq`` of ``freqs`` -> ({freq: [step 1, step 2]}, each a
     dict of the loss, the terms, the states, the penalty's mixing weights
     and the prediction the critic's update took), the initial variables
-    and the critic's initial state."""
+    and the critic's initial state. ``start``: (variables, critic state)
+    to start from in place of the seeded ones; ``y_pred``: the loss batch
+    takes it in value, its gradient still reaching the generator (as
+    ``_port_gan_steps``'s); without ``second`` the first step alone."""
     import flax.linen as fnn
     import optax
 
     import maskplanner_tpu.models.pointnet2 as jax_pointnet2
+    import maskplanner_tpu.train.trainer as jax_trainer
     from maskplanner_tpu.losses import LossHandler as JaxLossHandler
     from maskplanner_tpu.losses.gan import AdversarialLoss as JaxAdv
     from maskplanner_tpu.models import get_model as get_flax_model
@@ -501,7 +515,7 @@ def _jax_gan_steps(batch, freqs=(1, 2)):
     # seeded non-zero biases and scales: at Flax's zero biases sa1's first
     # LayerNorm sees constant rows (see tests/test_torch_port_train.py)
     rng_np = np.random.default_rng(0)
-    variables = jax.tree_util.tree_map_with_path(
+    variables = start[0] if start else jax.tree_util.tree_map_with_path(
         lambda p, a: (np.asarray(a) + rng_np.normal(size=a.shape) * 0.1
                       ).astype(np.float32)
         if p[-1].key in ("bias", "scale", "mean") else
@@ -520,6 +534,17 @@ def _jax_gan_steps(batch, freqs=(1, 2)):
         fps = jax_pointnet2.farthest_point_sample
         mp.setattr(jax_pointnet2, "farthest_point_sample",
                    lambda xyz, npoint, key=None, **k: fps(xyz, npoint, **k))
+        if y_pred is not None:
+            build = jax_trainer.build_loss_batch
+
+            def shared(out, b, config):
+                lb = build(out, b, config)
+                fixed = jnp.asarray(y_pred, lb["y_pred"].dtype)
+                lb["y_pred"] = lb["y_pred"] + jax.lax.stop_gradient(
+                    fixed - lb["y_pred"])
+                return lb
+
+            mp.setattr(jax_trainer, "build_loss_batch", shared)
         steps, seen = {}, []
         for freq in freqs:
             adv = JaxAdv(jax_load_args(argv=[*STEP,
@@ -540,7 +565,8 @@ def _jax_gan_steps(batch, freqs=(1, 2)):
                 return update(ds, y_pred, *a)
 
             adv.discriminator_update = recorded
-        d0 = adv.init_state(jax.random.PRNGKey(2), jnp.asarray(batch["traj"]))
+        d0 = start[1] if start else adv.init_state(
+            jax.random.PRNGKey(2), jnp.asarray(batch["traj"]))
 
         def run(freq, st, ds):
             seen.clear()
@@ -556,9 +582,34 @@ def _jax_gan_steps(batch, freqs=(1, 2)):
                         y_pred=seen[-1] if seen else None)
 
         first = run(1, state, d0)       # step 0: an update at either freq
-        out = {freq: [first, run(freq, first["state"], first["d_state"])]
+        out = {freq: [first] + ([run(freq, first["state"],
+                                     first["d_state"])] if second else [])
                for freq in freqs}
     return out, variables, d0
+
+
+def _jax_first_step_x64(batch, variables, d0, y_pred):
+    """JAX's first step (``_jax_gan_steps``) in float64 from the same
+    float32 weights, on the batch in float64, the loss batch taking
+    ``y_pred`` (the float32 step's prediction) in value: under
+    ``jax.enable_x64`` with ``jnp.float32`` read as float64 (the package
+    names float32 where it means its working precision). FPS, whose
+    distances the package takes in float32 whatever the input, picks as
+    in float32 -> the generator's gradients by leaf (Adam's first moment
+    over 0.1)."""
+    def f64(a):
+        a = np.asarray(a)
+        return a.astype(np.float64) if a.dtype == np.float32 else a
+
+    b64 = {k: f64(v) for k, v in batch.items()}
+    start64 = jax.tree_util.tree_map(f64, (variables, d0))
+    with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnp, "float32", jnp.float64)
+        ref, _, _ = _jax_gan_steps(b64, (1,), start=start64,
+                                   y_pred=f64(y_pred), second=False)
+        return _leaves(jax.tree_util.tree_map(
+            lambda m: np.asarray(m, np.float64) / 0.1,
+            ref[1][0]["state"].opt_state[0].mu))
 
 
 def _port_gan_steps(batch, variables, d_state, eps_list, dtype,
@@ -636,9 +687,12 @@ def _port_gan_steps(batch, variables, d_state, eps_list, dtype,
     return out
 
 
-def _gan_steps(clouds, freqs, shared_prediction):
+def _gan_steps(clouds, freqs, shared_prediction, tmp=None):
     """The JAX steps on ``clouds`` train items and the port's in float32
-    and float64 -> (JAX, {dtype: port})."""
+    and float64 -> (JAX, {dtype: port}); with ``shared_prediction`` also
+    the JAX first step's generator gradients in float64
+    (``_jax_first_step_x64``) and the port's step over 2 gloo ranks
+    (``_two_rank_gan_steps``), started beside the JAX steps."""
     from maskplanner_tpu.data import PaintDataset as JaxPaintDataset
     from maskplanner_tpu.data import collate
 
@@ -652,10 +706,16 @@ def _gan_steps(clouds, freqs, shared_prediction):
     for steps in ref.values():
         for r in steps:
             assert r["y_pred"] is None or (r["y_pred"] == y_pred).all()
+    if shared_prediction:
+        ranks = start(_two_rank_gan_steps, 2, tmp, batch, variables,
+                      jax.tree_util.tree_map(np.asarray, d0), eps, y_pred)
     got = {dtype: _port_gan_steps(batch, variables, d0, eps, dtype, freqs,
                                   y_pred if shared_prediction else None)
            for dtype in (torch.float32, torch.float64)}
-    return ref, got
+    if not shared_prediction:
+        return ref, got
+    return ref, got, _jax_first_step_x64(batch, variables, d0,
+                                         y_pred), join(ranks)
 
 
 @pytest.fixture(scope="module")
@@ -664,8 +724,25 @@ def gan_steps():
 
 
 @pytest.fixture(scope="module")
-def gan_steps_4():
-    return _gan_steps(4, (1,), shared_prediction=True)
+def gan_steps_4(tmp_path_factory):
+    return _gan_steps(4, (1,), shared_prediction=True,
+                      tmp=tmp_path_factory.mktemp("gan_ranks"))
+
+
+def _two_rank_gan_steps(rank, world, batch, variables, d0, eps, y_pred):
+    """``_port_gan_steps`` (``discr_train_freq`` 1) on this rank's rows of
+    ``batch`` and of the shared prediction, in a gloo group of ``world``
+    -> {dtype: [step 1, step 2]}."""
+    from maskplanner_tpu_torch.parallel import shard_rows
+
+    def rows(a):
+        return shard_rows(torch.from_numpy(np.asarray(a)), rank,
+                          world).numpy()
+
+    mine = {k: rows(v) for k, v in batch.items()}
+    return {dtype: _port_gan_steps(mine, variables, d0, eps, dtype, (1,),
+                                   rows(y_pred))[1]
+            for dtype in (torch.float32, torch.float64)}
 
 
 def _assert_step_matches(r, g, e, what, skip=()):
@@ -727,19 +804,55 @@ def test_gan_train_step_matches_jax(freq, gan_steps):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def _generator_grads(steps: list, step: int, jax_side: bool) -> dict:
+    """The generator's gradients of ``step`` from Adam's first moments at
+    lr 0 (mu_1 = 0.1 g_1, mu_2 = 0.9 mu_1 + 0.1 g_2), by leaf."""
+    from maskplanner_tpu_torch.convert import flax_tree_from_state_dict
+
+    def mu(x):
+        if jax_side:
+            return _leaves(x["state"].opt_state[0].mu)
+        return _leaves(flax_tree_from_state_dict(x["mu"])["params"])
+
+    now = mu(steps[step])
+    before = mu(steps[step - 1]) if step else {k: 0.0 for k in now}
+    return {k: (v - 0.9 * before[k]) / 0.1 for k, v in now.items()}
+
+
+def _assert_generator_grads(port32, port64, ref, jax64, step: int,
+                            what: str):
+    """The generator's gradients of ``step``, the port's (``port32``, its
+    float64 twin ``port64``: lists of steps) against JAX's (``ref``) by
+    repair of the 4-cloud gap: within 1e-4 of the gradients' norm plus 10x
+    the port's own float32 error plus 3x JAX's own, JAX's float32 first
+    step against its float64 one (``jax64``, ``_jax_first_step_x64``).
+    The second step's gradients differ from the first's by the critic's
+    term alone (1% of the loss; lr 0), so JAX's own error there is taken
+    as the first step's."""
+    jax32 = [_generator_grads(ref, i, True) for i in range(step + 1)]
+    want_exact = {k: v - (jax32[0][k] - jax64[k])
+                  for k, v in jax32[step].items()}
+    _assert_close_by_norm(_generator_grads(port32, step, False), jax32[step],
+                          what, exact=_generator_grads(port64, step, False),
+                          want_exact=want_exact)
+
+
 @pytest.mark.parametrize("step", [0, 1])
 def test_gan_train_step_carries_the_critic_like_jax(step, gan_steps_4):
     """Two steps on 4 clouds, each updating the critic, the second from
     the first's Adam state: the loss and its terms by
     ``test_gan_train_step_matches_jax``'s rule, the generator's prediction
     within 1e-5 of its largest entry plus 10x the port's own float32
-    error, and the critic after the update by the update's rules (Adam
-    moves a parameter by at most lr a step). The loss batch takes the JAX
-    step's prediction in value (``_port_gan_steps``). The generator's
-    gradients are held at 2 clouds: at 4, with or without the adversarial
-    term, its first level's bias gradient lies 1.4e-3 of the gradients'
-    norm from JAX's, where the port's own float32 error is 3e-5."""
-    ref, got = gan_steps_4
+    error, the critic after the update by the update's rules (Adam
+    moves a parameter by at most lr a step), and the generator's gradients
+    by ``_assert_generator_grads``. The loss batch takes the JAX step's
+    prediction in value (``_port_gan_steps``). At 4 clouds the first
+    level's bias gradient lies 1.4e-3 of the gradients' norm from JAX's,
+    where the port's own float32 error is 3e-5: it is JAX's own float32
+    error (Flax's LayerNorm takes the variance as E[x²] − E[x]² in one
+    pass; ROADMAP.md, Queue 3), which its float64 step, 2e-8 from the
+    port's, measures."""
+    ref, got, jax64, _ = gan_steps_4
     r = ref[1][step]
     g, e = (got[dtype][1][step] for dtype in (torch.float32, torch.float64))
     _assert_step_matches(r, g, e, f"step {step}")
@@ -752,6 +865,36 @@ def test_gan_train_step_carries_the_critic_like_jax(step, gan_steps_4):
                                    r["d_state"].opt_state[0].mu)
     _assert_update_matches(r["d_state"], g["critic"], ref_g,
                            twin=e["critic"], steps=step + 1)
+    _assert_generator_grads(got[torch.float32][1], got[torch.float64][1],
+                            ref[1], jax64, step, f"generator, step {step}")
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_gan_step_over_two_ranks_matches_jax(step, gan_steps_4):
+    """The port's GAN step over 2 gloo ranks, each with 2 of the 4 clouds
+    and its rows of the shared prediction, against the eager JAX step at
+    the global batch of 4, by the 4-cloud test's rules with the 2-rank
+    step's own float32 error (the same ranks in float64): the loss and its
+    terms, the critic after each update, the generator's gradients. The
+    ranks' losses, critics and generator moments are bitwise equal."""
+    ref, _, jax64, ranks = gan_steps_4
+    r = ref[1][step]
+    g, e = (ranks[0][dtype][step] for dtype in (torch.float32, torch.float64))
+    _assert_step_matches(r, g, e, f"2 ranks, step {step}")
+    ref_g = jax.tree_util.tree_map(lambda m: m / 0.1,
+                                   r["d_state"].opt_state[0].mu)
+    _assert_update_matches(r["d_state"], g["critic"], ref_g,
+                           twin=e["critic"], steps=step + 1)
+    _assert_generator_grads(ranks[0][torch.float32], ranks[0][torch.float64],
+                            ref[1], jax64, step,
+                            f"2 ranks, generator, step {step}")
+    other = ranks[1][torch.float32][step]
+    assert other["loss"] == g["loss"] and other["terms"] == g["terms"]
+    for a, b in zip(g["critic"].module.state_dict().values(),
+                    other["critic"].module.state_dict().values()):
+        assert torch.equal(a, b)
+    for n, m in g["mu"].items():
+        assert torch.equal(m, other["mu"][n]), n
 
 
 # ------------------------------------------------------------ the driver
