@@ -367,8 +367,8 @@ result line:
     ``own_check``, its launches and times on the multi-scale level under
     ``msg_*``; the masked FPS's row, ``fps_masked``, from phase 29's own
     check, with its large path's numbers under ``large_*``), and the
-    result line last. (The phase numbered 29 below runs before this
-    line: the list keeps the card line's number of earlier slices.)
+    result line last. (The phases numbered 29 and 30 below run before
+    this line: the list keeps the card line's number of earlier slices.)
 29. slice 19 (``phase_slice_19``): (a) the GAN recipe's step under data
     parallelism on the one card: 2 gloo ranks with CUDA tensors, each
     with 4 of a global batch of 8 (``GAN_RECIPE``, k 20, 1350 poses),
@@ -398,6 +398,35 @@ result line:
     two-device export file (``devices=["cuda", "cpu"]``) served on
     ``cuda`` and on ``cpu``, each bitwise the single-device export of
     that device; the phase's seconds.
+30. slice 20 (``phase_slice_20``): (a) the flagship's eval sharded over
+    the ranks (``train.loop.evaluate`` in a process group) on CUDA
+    tensors: 2 gloo ranks on the one card, and 2 NCCL ranks where there
+    are 2 cards, against the single process on the card, on
+    ``SHARDED_EVAL_CLOUDS`` test clouds at a global eval batch of 32 (a
+    batch of 32 sharded, then 13 run whole on every rank), with the
+    metrics, the dumps and the latency: the loss, its term and every
+    metric within 1e-5 relative of the single process's, the dumps
+    rank 0's alone with the single process's names, names and
+    ground-truth arrays bitwise, predicted arrays within 1e-5 relative
+    (``tests/test_torch_port_parallel_eval.py``'s rules, but that the
+    predicted arrays are held against their largest value), each rank's
+    launches of #1, #2, #4 and #5 in its run (counts set to 0 just
+    before, read just after), and the eval's seconds; the model is the
+    flagship with seeded biases (the mask head's last at std 2) and the
+    loss has its delayed terms active, so that it holds the stroke-mask
+    term, which divides by a count over the whole batch: that term's
+    eval alone is held too, on this split and on ``CONTROL_SPLIT`` (7
+    clouds at batch 4), and its row-weighted control (each rank's rows
+    with their own normaliser) must miss the rule on this split and
+    miss it by 10 times on ``CONTROL_SPLIT``; (b) a
+    ``model.backbone=pointnet2`` run's ``Predictor.forward`` on the card
+    at batch 8: its launches, its segments against the CPU
+    ``Predictor``'s within ``REL_TOL`` of their largest; (c) with 2
+    cards, ``torchrun --nproc_per_node=2`` of ``train_maskplanner``
+    (NCCL, the graphed epoch, 2 epochs at LR 0 with an eval each, then
+    the final eval) against the single process's run: the ``final_*``
+    keys and the logged records within 1e-5 relative, rank 1 writing
+    nothing; the phase's seconds.
 
 It needs one CUDA card and the repository around it; without either it
 exits non-zero.
@@ -6471,6 +6500,461 @@ def phase_slice_19(cfg, model, bn_cfg, train_items: list,
     return out
 
 
+SHARDED_EVAL_CLOUDS = 45
+SHARDED_EVAL_BATCH = 32
+SHARDED_EVAL_REL = 1e-5
+# what each eval needs of the kernels: the forward (#1, #2), the loss's
+# argmin and LAP (#4, #5), the pcd metric's argmin
+SHARDED_EVAL_KERNELS = ("fps", "fused_sa_fwd", "nn_argmin", "lap")
+# the recipe's weights but for these, set to 0: its stroke-mask term alone,
+# the loss's one term that divides by a count over the whole batch
+MASK_TERM = ("weight_asymm_segment_chamfer",
+             "weight_reverse_asymm_point_chamfer",
+             "weight_reverse_asymm_segment_chamfer",
+             "explicit_weight_stroke_masks_confidence")
+DUMP_GT_KEYS = ("traj", "stroke_ids", "stroke_ids_as_pc", "traj_as_pc",
+                "n_strokes", "point_cloud")
+DUMP_PRED_KEYS = ("traj_pred", "pred_stroke_masks", "stroke_masks_scores",
+                  "seg_logits")
+# the CPU test's split (7 clouds at a batch of 4: 2 rows a rank, then 3
+# whole), where the stroke counts of the ranks' rows differ more than on
+# the split above (whose ranks' first 16 rows hold 53 and 52 strokes), so
+# that the row-weighted control misses the rule by far
+CONTROL_SPLIT = (7, 4)
+REGRESSOR_BATCH = 8
+
+
+def eval_model(model):
+    """A copy of ``model`` with seeded biases and running statistics (std
+    0.1; the mask head's last bias std 2, so that the strokes' matching
+    costs differ as a trained model's do), as
+    ``tests/test_torch_port_parallel_eval.py`` takes them."""
+    model = copy.deepcopy(model)
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for name, t in [*model.named_parameters(), *model.named_buffers()]:
+            std = 2.0 if name == "sm_fc3.bias" else 0.1
+            if name.endswith(("bias", "running_mean")):
+                t.add_(torch.from_numpy(rng.normal(size=t.shape) * std).to(t))
+            elif name.endswith("running_var"):
+                t.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, t.shape)))
+    return model
+
+
+def eval_parts(cfg, clouds: int = SHARDED_EVAL_CLOUDS,
+               batch: int = SHARDED_EVAL_BATCH):
+    """The first ``clouds`` test clouds' loader at ``batch``, the loss
+    handler and its weights with the delayed terms active -> (loader,
+    handler, weights, the weights of the stroke-mask term alone)."""
+    from maskplanner_tpu_torch.data import DataLoader, PaintDataset
+    from maskplanner_tpu_torch.losses import LossHandler
+    from maskplanner_tpu_torch.train import apply_delayed_activations
+
+    loader = DataLoader(PaintDataset(cfg, split="test", size=clouds),
+                        batch, shuffle=False, drop_last=False)
+    handler = LossHandler(cfg["loss"], cfg)
+    weights = handler.init_weights()
+    weights.update(apply_delayed_activations(cfg, {}, 10 ** 6))
+    return loader, handler, weights, {**weights,
+                                      **dict.fromkeys(MASK_TERM, 0.0)}
+
+
+def sharded_eval(cfg, model, device, dump_dir: str) -> dict:
+    """``evaluate`` over the first ``SHARDED_EVAL_CLOUDS`` test clouds at
+    ``SHARDED_EVAL_BATCH`` with ``EVAL_METRICS``, its dumps and latency,
+    the kernels' counts set to 0 just before and read just after, then
+    the stroke-mask term's eval alone, on that split and on
+    ``CONTROL_SPLIT`` -> its results, launches, seconds and dump files."""
+    from maskplanner_tpu_torch.metrics import MetricsHandler
+    from maskplanner_tpu_torch.train import forward
+    from maskplanner_tpu_torch.train.loop import evaluate
+
+    loader, handler, weights, mask_weights = eval_parts(cfg)
+    os.makedirs(dump_dir)
+    reset_counts()
+    t = time.perf_counter()
+    loss, terms, values, ms = evaluate(
+        model, loader, handler, weights, MetricsHandler(cfg, EVAL_METRICS),
+        device, save=True, save_dir=dump_dir, forward=forward)
+    seconds = time.perf_counter() - t
+    launches = read_counts()
+    mask_term, _, _, _ = evaluate(model, loader, handler, mask_weights,
+                                  None, device)
+    small, handler, _, mask_weights = eval_parts(cfg, *CONTROL_SPLIT)
+    mask_term_small, _, _, _ = evaluate(model, small, handler, mask_weights,
+                                        None, device)
+    return dict(loss=loss, terms=terms, metrics=values, ms=ms,
+                mask_term=mask_term, mask_term_small=mask_term_small,
+                launches=launches, seconds=seconds,
+                files=sorted(os.listdir(dump_dir)))
+
+
+def mask_term_control(cfg, model, device, clouds: int, batch: int) -> float:
+    """The stroke-mask term without ``parallel.sharded_batch`` on the first
+    ``clouds`` test clouds at ``batch``: each of 2 ranks' rows with its own
+    normaliser, the halves averaged by row count (a batch that does not
+    divide, whole), in this process."""
+    from maskplanner_tpu_torch.parallel import shard_rows
+    from maskplanner_tpu_torch.train import batch_to_device, eval_step
+
+    loader, handler, _, weights = eval_parts(cfg, clouds, batch)
+    generator = torch.Generator(device=device).manual_seed(0)
+    total, count = 0.0, 0
+    for batch in loader.epoch(0):
+        B = batch["point_cloud"].shape[0]
+        world = 2 if B % 2 == 0 else 1
+        for r in range(world):
+            rows = {k: shard_rows(v, r, world) for k, v in batch.items()}
+            with torch.no_grad():
+                loss, _, _ = eval_step(model, handler,
+                                       batch_to_device(rows, device),
+                                       weights, generator)
+            total += float(loss) * (B // world)
+        count += B
+    return total / count
+
+
+def sharded_eval_worker(rank: int, world: int, store: str, backend: str,
+                        inputs: str, tmp: str, out: str) -> None:
+    """One rank of phase 30(a): the flagship with the weights in
+    ``inputs``, ``sharded_eval`` in the group, its dumps under ``tmp``."""
+    from maskplanner_tpu_torch import parallel
+    from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.distributed_init(f"file://{store}", rank, world, device=device,
+                              backend=backend)
+    try:
+        cfg = load_args(argv=[FLAGSHIP])
+        model = get_model(cfg, device=device)
+        model.load_state_dict(torch.load(inputs, map_location="cpu",
+                                         weights_only=True))
+        result = sharded_eval(cfg, model, device, os.path.join(
+            tmp, f"{backend}-dumps{rank}"))
+        torch.save(result, out)
+    finally:
+        parallel.destroy()
+
+
+def hold_sharded_eval(label: str, ranks: list, single: dict, tmp: str,
+                      backend: str) -> list:
+    """Phase 30(a)'s rules on each rank's results and rank 0's dumps ->
+    the readings (the largest relative errors). The predicted dump arrays
+    are held against their largest value: elementwise the card's rows at
+    batch 16 and 32 differ on values near 0 (``PERF.md`` §6)."""
+    def rel(got, want):
+        return abs(got - want) / abs(want) if want else abs(got)
+
+    worst = 0.0
+    for r, got in enumerate(ranks):
+        pairs = [("loss", got["loss"], single["loss"]),
+                 ("stroke-mask term", got["mask_term"], single["mask_term"]),
+                 ("stroke-mask term on the control's split",
+                  got["mask_term_small"], single["mask_term_small"])]
+        pairs += [(k, got["terms"][k], v) for k, v in single["terms"].items()]
+        pairs += [(k, got["metrics"][k], v)
+                  for k, v in single["metrics"].items()]
+        if list(got["metrics"]) != list(single["metrics"]):
+            raise AssertionError(f"[{label}] rank {r} gives the metrics "
+                                 f"{list(got['metrics'])}")
+        for what, a, b in pairs:
+            if not rel(a, b) <= SHARDED_EVAL_REL:
+                raise AssertionError(f"[{label}] rank {r}'s {what} {a} is "
+                                     f"not the single process's {b}")
+            worst = max(worst, rel(a, b))
+        idle = [k for k in SHARDED_EVAL_KERNELS if got["launches"][k] == 0]
+        if idle:
+            raise AssertionError(f"[{label}] rank {r} launched no {idle}")
+    if ranks[0]["files"] != single["files"] or any(r["files"]
+                                                   for r in ranks[1:]):
+        raise AssertionError(f"[{label}] the dumps are "
+                             f"{[r['files'] for r in ranks]}, the single "
+                             f"process's {single['files']}")
+    pred_rel = dict.fromkeys(DUMP_PRED_KEYS, 0.0)
+    elementwise = 0.0
+    for name in single["files"]:
+        want = np.load(os.path.join(tmp, "single", name),
+                       allow_pickle=True).item()
+        got = np.load(os.path.join(tmp, f"{backend}-dumps0", name),
+                      allow_pickle=True).item()
+        if got.keys() != want.keys() or got["dirnames"] != want[
+                "dirnames"] or any(not np.array_equal(got[k], want[k])
+                                   for k in DUMP_GT_KEYS):
+            raise AssertionError(f"[{label}] {name}: names or ground truth "
+                                 f"not the single process's")
+        for k in DUMP_PRED_KEYS:
+            if want[k] is None:
+                if got[k] is not None:
+                    raise AssertionError(f"[{label}] {name}: {k}")
+                continue
+            err = np.abs(got[k] - want[k])
+            rel_k = float(err.max() / np.abs(want[k]).max())
+            if not rel_k <= SHARDED_EVAL_REL:
+                raise AssertionError(
+                    f"[{label}] {name}: {k} off the single process's by "
+                    f"{rel_k:.2e} of its largest")
+            pred_rel[k] = max(pred_rel[k], rel_k)
+            elementwise = max(elementwise, float(
+                (err / np.maximum(np.abs(want[k]), 1e-30)).max()))
+    return [f"loss, stroke-mask term, term and metrics within {worst:.2e} "
+            "relative",
+            "predicted dump arrays within " + ", ".join(
+                f"{k} {v:.2e}" for k, v in pred_rel.items())
+            + f" of their largest (elementwise {elementwise:.2e} relative)"]
+
+
+def phase_sharded_eval(model) -> dict:
+    """(a): the single process's eval on the card, then the same eval over
+    2 gloo ranks on the one card and, with 2 cards, over 2 NCCL ranks,
+    and the row-weighted control of the stroke-mask term, which must miss
+    the rule -> {backend: each rank's launches and seconds, "control":
+    its miss, relative}."""
+    from maskplanner_tpu_torch.utils.args import load_args
+
+    cfg = load_args(argv=[FLAGSHIP])
+    model = eval_model(model)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        single = sharded_eval(cfg, model, "cuda", os.path.join(tmp, "single"))
+        log(f"[sharded-eval] single process: {SHARDED_EVAL_CLOUDS} clouds "
+            f"at batch {SHARDED_EVAL_BATCH}, loss {single['loss']:.6f}, "
+            f"stroke-mask term {single['mask_term']:.6f}, "
+            + ", ".join(f"{k} {v:.6g}" for k, v in single["metrics"].items())
+            + f"; launches {single['launches']}; "
+            f"{single['seconds']:.2f} s")
+        misses = {}
+        for split, key in (((SHARDED_EVAL_CLOUDS, SHARDED_EVAL_BATCH),
+                            "mask_term"), (CONTROL_SPLIT, "mask_term_small")):
+            control = mask_term_control(cfg, model, "cuda", *split)
+            misses[split] = abs(control - single[key]) / abs(single[key])
+            log(f"[sharded-eval] control (each rank's own normaliser, "
+                f"averaged by rows) on {split[0]} clouds at batch "
+                f"{split[1]}: stroke-mask term {control:.6f} against "
+                f"{single[key]:.6f}, {misses[split]:.2e} relative, "
+                f"{misses[split] / SHARDED_EVAL_REL:.2f} times the rule")
+        main_split = (SHARDED_EVAL_CLOUDS, SHARDED_EVAL_BATCH)
+        if not (misses[main_split] > SHARDED_EVAL_REL
+                and misses[CONTROL_SPLIT] > 10 * SHARDED_EVAL_REL):
+            raise AssertionError(f"[sharded-eval] the control misses the "
+                                 f"single process by only {misses}")
+        out["control"] = {f"{c}@{b}": m for (c, b), m in misses.items()}
+        inputs = os.path.join(tmp, "state.pt")
+        torch.save(model.state_dict(), inputs)
+        backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2
+                               else [])
+        for backend in backends:
+            ranks = spawn_ranks(sharded_eval_worker, 2, (backend, inputs, tmp),
+                                tmp, f"eval-{backend}")
+            label = f"sharded-eval {backend}"
+            readings = hold_sharded_eval(label, ranks, single, tmp, backend)
+            out[backend] = [dict(launches={k: r["launches"][k]
+                                           for k in SHARDED_EVAL_KERNELS},
+                                 seconds=r["seconds"]) for r in ranks]
+            log(f"[{label}] 2 ranks against the single process: "
+                + "; ".join(readings) + "; each rank's launches of #1, #2, "
+                "#4, #5: " + "; ".join(
+                    f"rank {r} {o['launches']}" for r, o in
+                    enumerate(out[backend]))
+                + "; seconds " + ", ".join(f"{o['seconds']:.2f}"
+                                           for o in out[backend]))
+        if len(backends) == 1:
+            log("[sharded-eval] nccl: not run: 1 device")
+    return out
+
+
+# phase 30(c): the driver at LR 0, so that both runs evaluate the same
+# weights; its test split a batch of 32 sharded, then 13 whole
+DP_DRIVER = [FLAGSHIP, "batch_size=32", "dataset_size=64",
+             f"test_dataset_size={SHARDED_EVAL_CLOUDS}", "epochs=2",
+             "eval_freq=1", "no_save=false", "skip_rendering=true",
+             "seed=3", "lr=0.0", f"eval_metrics=[{','.join(EVAL_METRICS)}]"]
+
+
+def driver_child(cmd: list, cwd: str, cuda_devices: str) -> subprocess.Popen:
+    """A child in its own session (so that its whole group can be killed)
+    on the cards ``cuda_devices``, the repository on its path."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=cuda_devices,
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT, *filter(None, [os.environ.get("PYTHONPATH")])]))
+    return subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+
+def wait_child(proc: subprocess.Popen, what: str, timeout: float) -> str:
+    """Wait for a child of ``driver_child`` that must exit 0; on the time
+    limit its whole group is killed -> its output."""
+    import signal
+
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{what} ran out of time:\n{out[-3000:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                             f"{out[-3000:]}")
+    return out
+
+
+def phase_dp_driver() -> dict:
+    """(c), with 2 cards: ``train_maskplanner`` under ``torchrun
+    --nproc_per_node=2`` (NCCL, the graphed epoch, an eval every epoch,
+    then the final eval) against the single process's run -> the largest
+    relative differences of the ``final_*`` keys and of the logged
+    records, and the seconds of each run."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, started, seconds = {}, {}, {}
+        for which in ("pair", "single"):
+            cwd = os.path.join(tmp, f"cwd-{which}")
+            os.makedirs(cwd)
+            args = [*DP_DRIVER, f"output_dir={tmp}/runs-{which}"]
+            cmd = ([sys.executable, "-m", "torch.distributed.run",
+                    "--standalone", "--nproc_per_node=2", "-m",
+                    "maskplanner_tpu_torch.train_maskplanner", *args]
+                   if which == "pair" else
+                   [sys.executable, "-m",
+                    "maskplanner_tpu_torch.train_maskplanner", *args])
+            runs[which] = (cwd, driver_child(
+                cmd, cwd, "0,1" if which == "pair" else
+                ("2" if torch.cuda.device_count() >= 3 else "0")))
+            started[which] = time.perf_counter()
+            if torch.cuda.device_count() < 3:
+                # the single run shares card 0: one after the other
+                wait_child(runs[which][1], f"the {which} driver run", 600)
+                seconds[which] = time.perf_counter() - started[which]
+        for which, (cwd, proc) in runs.items():
+            if which not in seconds:
+                wait_child(proc, f"the {which} driver run", 600)
+                seconds[which] = time.perf_counter() - started[which]
+            if os.listdir(cwd):
+                raise AssertionError(f"[dp-driver] the {which} run wrote "
+                                     f"{os.listdir(cwd)} in its directory")
+        dirs = {}
+        for which in runs:
+            made = os.listdir(os.path.join(tmp, f"runs-{which}"))
+            if len(made) != 1:
+                raise AssertionError(f"[dp-driver] the {which} run made "
+                                     f"{made}")
+            dirs[which] = os.path.join(tmp, f"runs-{which}", made[0])
+        if sorted(os.listdir(os.path.join(dirs["pair"], "results"))) != \
+                sorted(os.listdir(os.path.join(dirs["single"], "results"))):
+            raise AssertionError("[dp-driver] the dumps differ in name")
+
+        def summary(run_dir):
+            with open(os.path.join(run_dir, "summary.json")) as fh:
+                return json.load(fh)
+
+        def logged(run_dir):
+            with open(os.path.join(run_dir, "logs.jsonl")) as fh:
+                return [{k: v for k, v in json.loads(line).items()
+                         if k not in ("_time", "epoch_seconds")}
+                        for line in fh]
+
+        def rel(a, b):
+            if not isinstance(b, (int, float)):
+                return 0.0 if a == b else float("inf")
+            return abs(a - b) / abs(b) if b else abs(a)
+
+        got, want = summary(dirs["pair"]), summary(dirs["single"])
+        final = sorted(k for k in want if k.startswith("final_"))
+        if not final or final != sorted(k for k in got
+                                        if k.startswith("final_")):
+            raise AssertionError(f"[dp-driver] final keys {sorted(got)} "
+                                 f"against {sorted(want)}")
+        final_rel = {k: rel(got[k], want[k]) for k in final}
+        pairs = list(zip(logged(dirs["pair"]), logged(dirs["single"]),
+                         strict=True))
+        if len(pairs) != 2 or any(a.keys() != b.keys() or "eval_loss" not in a
+                                  for a, b in pairs):
+            raise AssertionError("[dp-driver] logs.jsonl differ in records "
+                                 "or keys")
+        logged_rel = max(rel(a[k], b[k]) for a, b in pairs for k in b)
+        bad = {k: v for k, v in final_rel.items() if not v <= SHARDED_EVAL_REL}
+        if bad or not logged_rel <= SHARDED_EVAL_REL:
+            raise AssertionError(f"[dp-driver] off the single run: final "
+                                 f"{bad}, logged records {logged_rel:.2e}")
+    worst = max(final_rel.values())
+    log(f"[dp-driver] torchrun --nproc_per_node=2 train_maskplanner (NCCL, "
+        f"graphed epoch, 2 epochs at LR 0, eval every epoch, final eval) "
+        f"against the single run: {len(final)} final_* keys within "
+        f"{worst:.2e} relative ("
+        + ", ".join(f"{k} {got[k]:.6g}" for k in final
+                    if k in ("final_train_loss", "final_test_loss",
+                             "final_test_point-wise chamfer distance"))
+        + f"), logged records within {logged_rel:.2e}; rank 1 wrote "
+        f"nothing; seconds pair {seconds['pair']:.1f}, single "
+        f"{seconds['single']:.1f}, phase {time.perf_counter() - t0:.1f}")
+    return dict(final_rel=worst, logged_rel=logged_rel, seconds=seconds)
+
+
+def phase_regressor_predictor() -> dict:
+    """(b): a ``pointnet2`` run (full width, seeded weights) served by a
+    ``Predictor`` on the card and one on the CPU at ``REGRESSOR_BATCH``
+    test clouds -> the card forward's launches (counts set to 0 just
+    before, read just after)."""
+    from maskplanner_tpu_torch.convert import save_checkpoint
+    from maskplanner_tpu_torch.models import get_model
+    from maskplanner_tpu_torch.serve import Predictor
+    from maskplanner_tpu_torch.utils.args import load_args
+    from maskplanner_tpu_torch.utils.config import save_config
+
+    cfg = load_args(argv=[FLAGSHIP, "model.backbone=pointnet2",
+                          "loss=[chamfer,repulsion]", "eval_metrics=[pcd]"])
+    clouds = np.stack([it["point_cloud"] for it in
+                       load_items(cfg, "test")[:REGRESSOR_BATCH]])
+    with tempfile.TemporaryDirectory() as run_dir:
+        save_config(cfg, run_dir)
+        save_checkpoint(run_dir, "last_checkpoint", get_model(
+            cfg, device="cpu", generator=torch.Generator().manual_seed(0)),
+            epoch=1)
+        card = Predictor(run_dir, device="cuda", data_scale_factor=1.0)
+        host = Predictor(run_dir, device="cpu", data_scale_factor=1.0)
+        card.forward(clouds)
+        reset_counts()
+        got = card.forward(clouds)
+        launches = read_counts()
+        ref = host.forward(clouds)
+    if not isinstance(got, torch.Tensor) or got.shape != ref.shape:
+        raise AssertionError(f"[regressor-serve] the card's forward gave "
+                             f"{type(got)}")
+    err = float((got.cpu() - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not err <= REL_TOL * scale:
+        raise AssertionError(f"[regressor-serve] card vs CPU {err:.3e} > "
+                             f"{REL_TOL} x {scale:.3f}")
+    if not launches["fps"] or not (launches["fused_sa_fwd"]
+                                   + launches["ball_group"]):
+        raise AssertionError(f"[regressor-serve] launches {launches}")
+    log(f"[regressor-serve] pointnet2 Predictor.forward at batch "
+        f"{REGRESSOR_BATCH}: {tuple(got.shape)} segments, card vs CPU "
+        f"{err:.3e} (max|ref| {scale:.3f}); launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return {k: n for k, n in launches.items() if n}
+
+
+def phase_slice_20(model) -> dict:
+    """Phase 30 -> each rank's launches in the sharded evals, the
+    regressor's forward launches and, with 2 cards, the 2-rank driver's
+    distance from the single run."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"sharded_eval": phase_sharded_eval(model),
+           "regressor_forward": phase_regressor_predictor()}
+    if torch.cuda.device_count() >= 2:
+        out["dp_driver"] = phase_dp_driver()
+    else:
+        log("[dp-driver] not run: 1 device")
+    log(f"[slice-20] phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6609,6 +7093,10 @@ def main() -> int:
     # after
     slice_19 = phase_slice_19(cfg, model, bn_cfg, train_items, clouds, res)
     log("[slice-19] " + json.dumps(slice_19))
+    # slice 20: each path's counts set to 0 just before it and read just
+    # after (in each rank's process)
+    slice_20 = phase_slice_20(model)
+    log("[slice-20] " + json.dumps(slice_20))
     log(f"[time] all phases done at {time.perf_counter() - t0:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in (

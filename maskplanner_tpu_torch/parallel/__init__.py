@@ -14,14 +14,16 @@ global batch, up to the order of reductions.
 """
 from .mesh import (agree, all_reduce_grads, all_reduce_mean, all_reduce_sum,
                    batch_count, collective_warm_up, destroy,
-                   distributed_init, from_rank_0, global_mean, global_rows,
-                   global_sum, global_values, grouped, host_shard_bounds,
-                   local_rows, loss_share, mean_over_ranks, rank_and_world,
-                   replicate, shard_rows, sharded_batch)
+                   distributed_init, from_rank_0, gather_rows, global_mean,
+                   global_rows, global_sum, global_values, grouped,
+                   host_shard_bounds, local_rows, loss_share,
+                   mean_over_ranks, rank_and_world, replicate, shard_rows,
+                   sharded_batch, sum_over_ranks)
 
 __all__ = ["agree", "all_reduce_grads", "all_reduce_mean", "all_reduce_sum",
            "batch_count", "collective_warm_up", "destroy",
-           "distributed_init", "from_rank_0", "global_mean", "global_rows",
-           "global_sum", "global_values", "grouped", "host_shard_bounds",
-           "local_rows", "loss_share", "mean_over_ranks", "rank_and_world",
-           "replicate", "shard_rows", "sharded_batch"]
+           "distributed_init", "from_rank_0", "gather_rows", "global_mean",
+           "global_rows", "global_sum", "global_values", "grouped",
+           "host_shard_bounds", "local_rows", "loss_share",
+           "mean_over_ranks", "rank_and_world", "replicate", "shard_rows",
+           "sharded_batch", "sum_over_ranks"]

@@ -17,10 +17,16 @@ rows, and these functions make the result that program's:
   of the global loss (:func:`loss_share`), whose sum over the ranks is the
   global loss, and the gradients are summed (:func:`all_reduce_grads`).
 
-Outside :func:`sharded_batch` (no process group, or the eval on rank 0)
-every function is the identity, so an ungrouped run computes what it did
-before, bit for bit; a group of one process runs the collectives on
-unchanged values.
+The eval (``train.loop.evaluate``) shards each batch that divides over
+the ranks the same way, inside :func:`sharded_batch`: the loss takes the
+same normalisers, and :func:`gather_rows` collects the rows' outputs for
+rank 0's dumps; :func:`sum_over_ranks` adds the ranks' row-weighted
+metric sums at its end.
+
+Outside :func:`sharded_batch` (no process group, or a batch that does not
+divide) every function is the identity, so an ungrouped run computes what
+it did before, bit for bit; a group of one process runs the collectives
+on unchanged values.
 
 ``make_multislice_mesh`` and its sharding helpers
 (``maskplanner_tpu/parallel/mesh.py:135-169``) have no counterpart: one
@@ -275,17 +281,47 @@ def collective_warm_up(device) -> None:
             torch.cuda.synchronize(t.device)
 
 
+def _collective_device() -> torch.device:
+    """Where the group's collectives run: NCCL on this process's card,
+    gloo on the host."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
 def agree(flag: bool) -> bool:
     """Whether any rank's ``flag`` is set (a MAX all-reduce): every rank
     gets the same answer. ``flag`` itself without a group."""
     if not grouped():
         return bool(flag)
-    # NCCL reduces on this process's card
-    device = (torch.device("cuda", torch.cuda.current_device())
-              if dist.get_backend() == "nccl" else "cpu")
-    t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=device)
+    t = torch.tensor([1 if flag else 0], dtype=torch.int32,
+                     device=_collective_device())
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item())
+
+
+def sum_over_ranks(values: list[float]) -> list[float]:
+    """Host floats -> their sums over the ranks (one float64 all-reduce);
+    ``values`` themselves without a group. Every rank passes as many."""
+    if not grouped():
+        return list(values)
+    t = torch.tensor(values, dtype=torch.float64,
+                     device=_collective_device())
+    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    return t.tolist()
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a sharded batch's tensor -> the global batch's
+    rows in rank order (:func:`shard_rows`'s inverse; one all-gather), on
+    ``x``'s device; ``x`` outside :func:`sharded_batch`. Every rank holds
+    as many rows."""
+    if _SHARDED is None:
+        return x
+    part = x.detach().contiguous().to(_collective_device())
+    parts = [torch.empty_like(part) for _ in range(_SHARDED[1])]
+    dist.all_gather(parts, part)
+    return torch.cat(parts).to(x.device)
 
 
 def destroy() -> None:

@@ -18,6 +18,10 @@ that ``torch.export.save`` writes; a file whose bytes do not match the
 digest raises. A file for several devices (the JAX CLI's ``--platforms tpu
 cpu``) holds one archive a device, each traced on its device, one after
 the other (the metadata's ``devices`` and ``sizes``); it is sealed as one.
+
+A ``Predictor`` loads a run of any backbone that ``models.get_model``
+builds and serves its ``forward``; the program export and the exported
+forward need the stroke-mask models' outputs, and raise for any other.
 """
 from __future__ import annotations
 
@@ -108,12 +112,6 @@ class Predictor:
         self.extra_data = list(self.config["extra_data"])
         self.outdim = get_dim_traj_points(self.extra_data)
         self.scale = resolve_scale(self.config, data_scale_factor)
-        backbone = self.config["model"]["backbone"]
-        if backbone not in STROKE_MASK_BACKBONES:
-            raise NotImplementedError(
-                f"a Predictor serves the stroke-mask models; a {backbone} "
-                f"run has no masks to post-process (score a pointnet2 run "
-                f"with test_maskplanner)")
         self.model = get_model(self.config, device="cpu")
         self.epoch = load_checkpoint(run_dir, checkpoint_name(model),
                                      self.model)
@@ -134,9 +132,20 @@ class Predictor:
                              f"{self.pc_points} samples; raise n_raw_points")
         return pc.astype(np.float32), centroid
 
-    def forward(self, pc_batch) -> MaskPlannerOutput:
+    def _needs_masks(self, what: str) -> None:
+        """Raise for a run whose model has no stroke masks."""
+        backbone = self.config["model"]["backbone"]
+        if backbone not in STROKE_MASK_BACKBONES:
+            raise ValueError(
+                f"{what} needs a stroke-mask model "
+                f"({', '.join(STROKE_MASK_BACKBONES)}); this is a {backbone} "
+                f"run: serve its forward, or score it with test_maskplanner")
+
+    def forward(self, pc_batch) -> MaskPlannerOutput | torch.Tensor:
         """Model forward on a (B, pc_points, 3) normalized batch, or the
-        exported program's after :meth:`serve_exported`; the outputs stay
+        exported program's after :meth:`serve_exported` -> what the model
+        returns: a ``MaskPlannerOutput``, or the plain segment tensor of a
+        ``pointnet2`` run (``models.PointNet2Regressor``); the outputs stay
         on the device."""
         if self.exported is not None:
             return MaskPlannerOutput(*self.exported(pc_batch))
@@ -157,7 +166,12 @@ class Predictor:
         the file holds one program for each, each traced on its device,
         and :func:`load_exported` picks the one it is asked for. Every
         device is resolved before anything is traced or written (``cuda``
-        without a card raises)."""
+        without a card raises). A run without stroke masks raises: the
+        JAX export of such a run takes ``tuple(...)`` of the model's
+        segment array, which splits it along the batch
+        (``maskplanner_tpu/serve.py:203-204``), so its artefact is not a
+        serving forward either."""
+        self._needs_masks("the exported forward")
         targets = [resolve_device(d) for d in (devices or [self.device])]
         kinds = [d.type for d in targets]
         if len(set(kinds)) != len(kinds):
@@ -201,6 +215,7 @@ class Predictor:
         denormalize -> orientnorm -> Euler. ``cover_all`` (the serving
         default) executes every predicted segment by splitting the segments
         off the Edmonds path into sub-strokes."""
+        self._needs_masks("a program")
         if "orientnorm" not in self.extra_data:
             raise ValueError("program export needs orientnorm poses")
         pc, centroid = self.preprocess(mesh_file)

@@ -19,7 +19,10 @@ any of them. After training the final eval (``train.loop.evaluate``) scores
 ``last_checkpoint``) on the train and test splits, writes the ``.npy``
 dumps under ``<run_dir>/results/`` and the ``final_*`` and
 ``*_inference_ms`` keys of ``summary.json``. ``no_save`` writes no
-checkpoint and runs no final eval.
+checkpoint and runs no final eval. The run log is ``utils.logging.Run``:
+``logs.jsonl`` a line an epoch (with ``_time`` and ``_step``) and
+``summary.json``, mirrored to wandb where it imports, under the JAX
+driver's rule for its mode (``wandb_mode``).
 
 ``resume=<run_dir>`` (or a run name under ``output_dir``) continues that
 run: the frozen config wins but for the keys typed on this command line,
@@ -109,8 +112,12 @@ on every rank, which gathers its rows of each batch; the host loader gives
 each rank its rows (``DataLoader(num_shards=N, shard_index=rank)``, whose
 augmentations draw per shard, as the JAX multi-host loader's do). Only
 rank 0 writes (the run directory, the config, ``logs.jsonl``, checkpoints,
-the final eval's dumps and its render child, the ``profile=true`` trace)
-and evaluates, on the whole test split (the other ranks wait); ``resume``
+the final eval's dumps and its render child, the ``profile=true`` trace).
+Every rank evaluates, at every eval and at the final eval, as the JAX
+driver does under its mesh: each batch that divides over the ranks is
+sharded, and the results are the single process's
+(``train.loop.evaluate``); the final eval's weights are rank 0's
+checkpoint, sent to every rank. ``resume``
 loads the same checkpoint on every rank; SIGTERM or SIGINT on any rank
 stops every rank at the end of the same epoch (``parallel.agree``). A
 recipe with an adversarial term trains on the sharded host loader, its
@@ -123,7 +130,6 @@ in a group (``parallel.distributed_init``) runs in that group.
 from __future__ import annotations
 
 import itertools
-import json
 import os
 import signal
 import subprocess
@@ -154,6 +160,7 @@ from .train.trainer import DeviceEpoch, gan_train_step, host_epoch
 from .utils import create_dirs, get_run_name, set_seed
 from .utils.args import load_args
 from .utils.config import load_config, save_config
+from .utils.logging import Run
 from .utils.profiling import profile_trace
 
 # the directory that holds the package (the render child imports it)
@@ -272,17 +279,30 @@ class _Preemption:
             signal.signal(sig, handler)
 
 
+def wandb_mode(config) -> str:
+    """The run log's wandb mode, the JAX driver's rule: ``disabled`` under
+    ``debug`` or ``wandb: disabled``, else the config's ``wandb`` key."""
+    if config.get("debug") or config.get("wandb") == "disabled":
+        return "disabled"
+    return config.get("wandb", "disabled")
+
+
 def _final_eval(config, run_dir, model, loaders, handler, weights,
                 metrics_handler, device) -> dict:
     """Score ``eval_ckpt`` on each split with the ``.npy`` dumps under
     ``<run_dir>/results/`` -> the summary's ``final_*`` and
-    ``*_inference_ms`` keys."""
+    ``*_inference_ms`` keys. In a process group every rank evaluates
+    rank 0's checkpoint, and rank 0 alone writes and renders."""
+    rank, _ = rank_and_world()
     eval_ckpt = config.get("eval_ckpt", "last")
-    name = ("best_model" if eval_ckpt == "best" and os.path.isfile(
-        checkpoint_path(run_dir, "best_model")) else "last_checkpoint")
-    if os.path.isfile(checkpoint_path(run_dir, name)):
-        load_checkpoint(run_dir, name, model)
-    results_dir = create_dirs(os.path.join(run_dir, "results"))
+    results_dir = None
+    if rank == 0:
+        name = ("best_model" if eval_ckpt == "best" and os.path.isfile(
+            checkpoint_path(run_dir, "best_model")) else "last_checkpoint")
+        if os.path.isfile(checkpoint_path(run_dir, name)):
+            load_checkpoint(run_dir, name, model)
+        results_dir = create_dirs(os.path.join(run_dir, "results"))
+    replicate(model)
     summary = {}
     for split, loader in loaders:
         loss, _, metrics, ms = evaluate(
@@ -294,7 +314,8 @@ def _final_eval(config, run_dir, model, loaders, handler, weights,
             summary[f"final_{split}_{k}"] = v
         if ms is not None:
             summary[f"{split}_inference_ms"] = ms
-    if not config.get("skip_rendering") and not config.get("debug"):
+    if rank == 0 and not config.get("skip_rendering") \
+            and not config.get("debug"):
         render(run_dir, results_dir, eval_ckpt)
     return summary
 
@@ -391,6 +412,7 @@ def _train(config, preempted: _Preemption):
     tr_loader = DataLoader(tr_dataset, batch_size, shuffle=True,
                            seed=int(config.get("seed") or 0),
                            num_shards=world, shard_index=rank)
+    # the evals take the global batches, which they shard themselves
     te_loader = DataLoader(te_dataset, min(batch_size, len(te_dataset)),
                            shuffle=False, drop_last=False)
     if len(tr_loader) == 0:
@@ -502,8 +524,10 @@ def _train(config, preempted: _Preemption):
     eval_loss = float("nan")
     t_train0 = time.time()
     # rank 0 logs; the other ranks write nothing
-    log_fh = (open(os.path.join(run_dir, "logs.jsonl"), "a") if rank == 0
-              else None)
+    run = (Run(run_dir, config=config.to_dict(),
+               group=config.get("group") or config.get("auto_wandb_group"),
+               name=config.get("name"), mode=wandb_mode(config))
+           if rank == 0 else None)
     try:
         for epoch in range(start_epoch, epochs):
             t0 = time.time()
@@ -529,10 +553,9 @@ def _train(config, preempted: _Preemption):
             if lr_sched is not None:
                 lr_sched.step()
 
-            # rank 0 evaluates the whole test split (every rank holds the
-            # same weights and statistics); the others wait in agree()
-            if rank == 0 and ((epoch + 1) % eval_freq == 0
-                              or (epoch + 1) == epochs):
+            # every rank evaluates its rows of the test split; rank 0 logs
+            # and writes
+            if (epoch + 1) % eval_freq == 0 or (epoch + 1) == epochs:
                 eval_loss, eval_terms, eval_metrics, _ = evaluate(
                     model, te_loader, handler, weights, metrics_handler,
                     device)
@@ -552,11 +575,12 @@ def _train(config, preempted: _Preemption):
                                 config["save_intermediate_models_freq"]) == 0):
                         copy("last_checkpoint",
                              f"intermediate_checkpoint_epoch{epoch + 1}")
-                print(f"[{epoch + 1}/{epochs}] train {epoch_loss:.4f} "
-                      f"| eval {eval_loss:.4f} | {log['epoch_seconds']:.2f}s")
-            if log_fh is not None:
-                log_fh.write(json.dumps(log) + "\n")
-                log_fh.flush()
+                if rank == 0:
+                    print(f"[{epoch + 1}/{epochs}] train {epoch_loss:.4f} "
+                          f"| eval {eval_loss:.4f} | "
+                          f"{log['epoch_seconds']:.2f}s")
+            if run is not None:
+                run.log(log, step=epoch + 1)
 
             if psacd is not None and psacd.is_time_to_step(epoch, epochs):
                 floats = psacd.step_loss_weights(floats)
@@ -572,28 +596,27 @@ def _train(config, preempted: _Preemption):
                               f"saved (resume with resume={run_dir})")
                 break
     finally:
-        if log_fh is not None:
-            log_fh.close()
         if device_epoch is not None:
             # before the group goes (DeviceEpoch.close)
             device_epoch.close()
 
     tot = time.time() - t_train0
-    if rank:
-        # rank 0 alone runs the final eval and writes the summary
-        model.eval()
-        return run_dir, model
     summary = {"best_epoch": best_epoch, "best_eval_loss": best_eval_loss,
                "last_eval_loss": eval_loss,
                "tot_train_seconds": round(tot, 2)}
-    print(f"Training finished in {tot:.1f}s | best epoch {best_epoch} "
-          f"({best_eval_loss:.4f})")
+    if rank == 0:
+        print(f"Training finished in {tot:.1f}s | best epoch {best_epoch} "
+              f"({best_eval_loss:.4f})")
     if not config.get("no_save"):
-        loaders = (("train", tr_loader), ("test", te_loader))
+        # the train split's global batches, in the single process's order
+        loaders = (("train", DataLoader(
+            tr_dataset, batch_size, shuffle=True,
+            seed=int(config.get("seed") or 0))), ("test", te_loader))
         summary.update(_final_eval(config, run_dir, model, loaders, handler,
                                    weights, metrics_handler, device))
-    with open(os.path.join(run_dir, "summary.json"), "w") as fh:
-        json.dump(summary, fh, indent=2)
+    if run is not None:
+        run.summary.update(summary)
+        run.finish()
     model.eval()
     return run_dir, model
 

@@ -3,8 +3,12 @@
 A fabricated on-disk category and a run dir from a fresh Flax init (as
 tests/test_serve.py), plus the port checkpoint written from the same
 variables: both ``Predictor``s must give the same program rows within 1e-4,
-raw and postprocessed. A child process shows that the port imports none of
-the JAX package, jax and flax.
+raw and postprocessed. A ``model.backbone=pointnet2`` run made the same
+way: the port's ``Predictor`` loads it, its ``forward`` is the JAX
+``Predictor.forward``'s segment array within the same 1e-4, and the
+program and the export, which need stroke masks, raise naming the
+backbone. A child process shows that the port imports none of the JAX
+package, jax and flax.
 """
 import json
 import os
@@ -71,6 +75,85 @@ def serve_run(tmp_path_factory):
     save_checkpoint(str(run_dir), "last_checkpoint", port, epoch=1)
     yield str(run_dir), str(cat / names[2] / f"{names[2]}.obj")
     mp.undo()
+
+
+@pytest.fixture(scope="module")
+def regressor_run(serve_run, tmp_path_factory):
+    """A ``pointnet2`` run on the same category (``serve_run`` keeps its
+    environment): the JAX checkpoint and the port checkpoint converted
+    from its variables (``convert.state_dict_from_flax``)."""
+    import jax
+
+    from maskplanner_tpu.models import get_model
+    from maskplanner_tpu.train import checkpoints, create_train_state
+    from maskplanner_tpu.utils import set_seed
+    from maskplanner_tpu_torch.convert import save_checkpoint, \
+        state_dict_from_flax
+    from maskplanner_tpu_torch.models import get_model as get_port_model
+
+    run_dir = tmp_path_factory.mktemp("run") / "regressor_run"
+    run_dir.mkdir()
+    cfg = load_args(argv=[
+        "config=[maskplanner,cuboids_v2,longx_v2,debug]",
+        "model.backbone=pointnet2", "loss=[chamfer,repulsion]",
+        "eval_metrics=[pcd]", "dataset=minicubes-v1", "pc_points=64",
+        "traj_points=120", "n_pred_traj_points=120", "batch_size=2",
+        "seed=5", "traj_with_equally_spaced_points=false"])
+    state = create_train_state(get_model(cfg), cfg, set_seed(5),
+                               np.zeros((1, 64, 3), np.float32))
+    save_config(cfg, str(run_dir))
+    checkpoints.save_checkpoint(str(run_dir), "last_checkpoint", state, 1,
+                                0.0)
+    variables = jax.tree_util.tree_map(
+        np.asarray, {"params": state.params,
+                     "batch_stats": state.batch_stats})
+    port = get_port_model(cfg, device="cpu")
+    port.load_state_dict(state_dict_from_flax(variables), strict=True)
+    save_checkpoint(str(run_dir), "last_checkpoint", port, epoch=1)
+    return str(run_dir)
+
+
+def test_pointnet2_forward_matches_jax(serve_run, regressor_run):
+    """A ``pointnet2`` run loads (the refusal it met is gone) and its
+    ``forward`` is the plain segment tensor, the JAX ``Predictor``'s
+    array within 1e-4, on the category's three meshes normalised as one
+    batch."""
+    from maskplanner_tpu.serve import Predictor as JaxPredictor
+    from maskplanner_tpu_torch.models import PointNet2Regressor
+    from maskplanner_tpu_torch.serve import Predictor
+
+    _, mesh = serve_run
+    jax_pred = JaxPredictor(regressor_run, model="last")
+    pred = Predictor(regressor_run, model="last", device="cpu")
+    assert type(pred.model) is PointNet2Regressor and pred.epoch == 1
+    cat = os.path.dirname(os.path.dirname(mesh))
+    batch = np.stack([pred.preprocess(os.path.join(cat, n, f"{n}.obj"))[0]
+                      for n in sorted(os.listdir(cat))
+                      if os.path.isdir(os.path.join(cat, n))])
+    assert batch.shape == (3, 64, 3)
+    ref = np.asarray(jax_pred.forward(batch))
+    got = pred.forward(batch)
+    assert isinstance(got, torch.Tensor) and got.shape == ref.shape
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
+
+
+def test_pointnet2_program_and_export_raise(serve_run, regressor_run,
+                                            tmp_path):
+    """The program needs the stroke masks, and the export serves the
+    stroke-mask models' four outputs: a ``pointnet2`` run raises, naming
+    its backbone, and writes nothing."""
+    from maskplanner_tpu_torch.serve import Predictor
+
+    _, mesh = serve_run
+    pred = Predictor(regressor_run, model="last", device="cpu")
+    out = tmp_path / "program.txt"
+    for call in (lambda: pred.predict_program(mesh),
+                 lambda: pred.save_program(mesh, str(out)),
+                 lambda: pred.export_compiled(str(tmp_path / "fwd.pt2"))):
+        with pytest.raises(ValueError, match="this is a pointnet2 run"):
+            call()
+    assert list(tmp_path.iterdir()) == []
 
 
 @pytest.fixture(scope="module")
