@@ -123,9 +123,13 @@ result line:
     with falling loss, step time and device time by kernel;
 17. bf16 serving (``model.bf16=true``, the JAX CLI's default), both
     recipes, on the same weights as their f32 phases: the fused SA
-    forward's bf16 mode at sa1 and sa2 (batch 64) against the plain bf16
-    level, indices identical, pooled within 3 x the plain level's own
-    spread between float32 and float64 sums of the same bf16 operands;
+    forward's bf16 mode (``csrc/fused_sa_fwd_bf16.cu``, built in its own
+    nvcc whose seconds phase 2 logs) at sa1 and sa2 (batch 64) against the
+    plain bf16 level, indices identical, pooled within 3 x the plain
+    level's own spread between float32 and float64 sums of the same bf16
+    operands, two launches bitwise equal, its max-pool winner a row within
+    3 x that spread of the float64 max and the plain first argmax wherever
+    the plain top two rows lie more than 6 x apart (``check_winner``);
     the single-pass ball-group gather against its plain version, indices
     and values identical; times and bounds (bf16 products at the tensor
     cores' bf16 rate); each recipe's bf16 forward (exactly fps 2 and
@@ -136,7 +140,8 @@ result line:
 18. bf16 training (``model.bf16=true``), both recipes, on the same weights:
     the fused SA backward's bf16 mode (K1 ``fused_sa_bwd_bf16``, K2
     ``sa_weight_grad_bf16``) at sa1 and sa2 (batch 64, on the bf16
-    forward's pooled output) against the plain bf16 backward, each
+    forward's pooled output and winner, which K1's bf16 mode routes by)
+    against the plain bf16 backward, each
     gradient's rms error from the float64 plain level within 3 x the
     float32 plain level's (``check_against_exact``), every positive max
     routed, dW bitwise equal across two launches, times and bounds (bf16
@@ -496,7 +501,7 @@ KERNELS = {
         replaces="maskplanner_tpu/ops/pallas/fused_sa.py:158"),
     # the bf16 modes of #2 and #6
     "fused_sa_fwd_bf16": dict(
-        source="maskplanner_tpu_torch/csrc/fused_sa_fwd.cu",
+        source="maskplanner_tpu_torch/csrc/fused_sa_fwd_bf16.cu",
         replaces="maskplanner_tpu/ops/pallas/fused_sa_train.py:540",
         mode='precision="default"'),
     "ball_group_single": dict(
@@ -745,7 +750,9 @@ def per_replay(traced: dict, replays: int, expect: dict, what: str) -> dict:
 
 # the port's kernel symbols (``csrc/*.cu``), each in its source's anonymous
 # namespace
-KERNEL_SYMBOLS = ("fps_kernel", "fused_sa_fwd_kernel", "fused_sa_bwd_kernel",
+KERNEL_SYMBOLS = ("fps_kernel", "fused_sa_fwd_kernel",
+                  "fused_sa_fwd_bf16_kernel", "fused_sa_pack_bf16_kernel",
+                  "fused_sa_bwd_kernel",
                   "dw_partial", "vec_partial", "::finish(", "nn_argmin_kernel",
                   "lap_warp_kernel", "lap_block_kernel", "ball_group_kernel",
                   "fps_large_kernel", "nn_argmin_chunked_kernel",
@@ -761,22 +768,25 @@ def kernel_of(symbol: str) -> str | None:
     tell them apart; #8 runs #2's f32 kernel, so a trace counts it as
     ``fused_sa_fwd`` (no training path runs #8). K2's two other kernels,
     which each of its calls launches after ``dw_partial``, come back as
-    ``k2_vec_partial`` and ``k2_finish``."""
+    ``k2_vec_partial`` and ``k2_finish``, and the bf16 forward's packing,
+    which each of its calls launches first, as ``fsa_bf16_pack``."""
     m = re.match(
         r"(?:void )?\(anonymous namespace\)::(\w+)(?:<([^()]*)>)?\(", symbol)
     if m is None:
         return None
     name = m.group(1)
     args = [a.strip() for a in (m.group(2) or "").split(",")]
-    if name == "fused_sa_fwd_kernel":     # <kResident, kBf16>
-        return "fused_sa_fwd_bf16" if args[1] == "true" else "fused_sa_fwd"
+    if name == "fused_sa_fwd_kernel":     # <kResident>
+        return "fused_sa_fwd"
     if name == "fused_sa_bwd_kernel":     # <kBf16>
         return "fused_sa_bwd_bf16" if args[0] == "true" else "fused_sa_bwd"
     if name == "ball_group_kernel":       # <kGather, kStaged, Out>
         if args[0] == "false":
             return "ball_query"
         return "ball_group_single" if "bfloat16" in args[2] else "ball_group"
-    return {"fps_kernel": "fps", "dw_partial": "sa_weight_grad",
+    return {"fps_kernel": "fps", "fused_sa_fwd_bf16_kernel": "fused_sa_fwd_bf16",
+            "fused_sa_pack_bf16_kernel": "fsa_bf16_pack",
+            "dw_partial": "sa_weight_grad",
             "dw_partial_bf16": "sa_weight_grad_bf16",
             "vec_partial": "k2_vec_partial", "finish": "k2_finish",
             "nn_argmin_kernel": "nn_argmin", "lap_warp_kernel": "lap",
@@ -811,6 +821,10 @@ def trace_launches(kernels: list) -> dict:
         raise AssertionError(f"K2 ran dw_partial {k2} times, vec_partial "
                              f"{counts['k2_vec_partial']}, finish "
                              f"{counts['k2_finish']}")
+    if abs(counts["fsa_bf16_pack"] - out["fused_sa_fwd_bf16"]) > 4:
+        raise AssertionError(f"the bf16 forward ran "
+                             f"{out['fused_sa_fwd_bf16']} times, its packing "
+                             f"{counts['fsa_bf16_pack']}")
     return out
 
 
@@ -856,7 +870,10 @@ def phase_build() -> None:
 
     t = time.perf_counter()
     paths = build.build_all()
-    log(f"[build] {len(paths)} kernels in {time.perf_counter() - t:.1f} s")
+    log(f"[build] {len(paths)} kernels in {time.perf_counter() - t:.1f} s; "
+        f"nvcc seconds by source: " + ", ".join(
+            f"{name} {sec:.1f}" for name, sec in sorted(
+                build.build_seconds.items(), key=lambda kv: -kv[1])))
     for name, out in build.build_logs.items():
         for line in out.splitlines():
             if "registers" in line or (
@@ -878,7 +895,8 @@ def mlp_macs(level) -> int:
 
 
 def sa_backward_work(k1: dict, k2: dict, product: str, sa, pts, new_xyz,
-                     feats, idx, pooled, scratch_bytes: float) -> None:
+                     feats, idx, pooled, scratch_bytes: float,
+                     winner_bytes: float = 0.0) -> None:
     """Add one fused level's backward to K1's and K2's work: operations,
     ``product`` operations (the tensor-core products), ``bytes`` (what the
     function must move) and ``design_bytes`` (what this design moves).
@@ -891,7 +909,8 @@ def sa_backward_work(k1: dict, k2: dict, product: str, sa, pts, new_xyz,
     those bytes are split between K1 and K2 by their products. In this
     design K1 reads the inputs and writes the features' gradient, the
     scratch rows (``scratch_bytes``) and the per-query sums; K2 reads those
-    two and writes the weights' gradients."""
+    two and writes the weights' gradients. ``winner_bytes``: the bf16
+    forward's winner, which the bf16 backward reads too."""
     acts = sum(c.out_features for c in sa.mlp_convs)
     macs = mlp_macs(sa)
     din = macs - (0 if feats is not None else
@@ -904,7 +923,7 @@ def sa_backward_work(k1: dict, k2: dict, product: str, sa, pts, new_xyz,
     fn_bytes = (4.0 * (pts.numel() + new_xyz.numel() + idx.numel()
                        + 2 * pooled.numel()
                        + 2 * (0 if feats is None else feats.numel()))
-                + 2 * w_bytes)
+                + 2 * w_bytes + winner_bytes)
     share = (macs + din) / (2 * macs + din)
     k1["bytes"] += share * fn_bytes
     k2["bytes"] += (1 - share) * fn_bytes
@@ -1282,13 +1301,13 @@ def check_against_exact(name: str, got, plain, exact) -> float:
 
 
 def check_routing(name, sa, leaves, params, idx, pooled,
-                  bf16: bool = False) -> None:
+                  bf16: bool = False, winner=None) -> None:
     """The max-pool backward finds the forward's winner for every (query,
     channel): with d_pooled = 1 the last LayerNorm's beta gradient counts
     the routed pairs that pass the ReLU, which must be every pair with a
     positive maximum (a recompute that differed from the forward in one bit
     would lose the pair). ``bf16``: the kernels' bf16 modes, on the bf16
-    forward's ``pooled``."""
+    forward's ``pooled``, routed by its ``winner``."""
     from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_backward_cuda
 
     det = [None if t is None else t.detach() for t in leaves]
@@ -1297,7 +1316,7 @@ def check_routing(name, sa, leaves, params, idx, pooled,
     _, _, _, grads = fused_sa_backward_cuda(sa.nsample, True, *det, dparams,
                                             idx, pooled,
                                             torch.ones_like(pooled),
-                                            bf16=bf16)
+                                            bf16=bf16, winner=winner)
     routed = float(grads[-1][3].double().sum())
     want = int((pooled > 0).sum())
     log(f"[train-kernels]   routing: {routed:.0f} of {want} (query, channel) "
@@ -1307,14 +1326,16 @@ def check_routing(name, sa, leaves, params, idx, pooled,
                              f"max-pool gradients, expected {want}")
 
 
-def check_deterministic(name, args, bf16: bool = False) -> None:
+def check_deterministic(name, args, bf16: bool = False,
+                        winner=None) -> None:
     """Two launches of the level's backward (K1 then K2; their bf16 modes
-    with ``bf16``) give the same weight gradients, bit for bit: no atomic
-    and a summation order fixed by the shapes."""
+    with ``bf16``, routed by the bf16 forward's ``winner``) give the same
+    weight gradients, bit for bit: no atomic and a summation order fixed by
+    the shapes."""
     from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_backward_cuda
 
-    first = fused_sa_backward_cuda(*args, bf16=bf16)[3]
-    second = fused_sa_backward_cuda(*args, bf16=bf16)[3]
+    first = fused_sa_backward_cuda(*args, bf16=bf16, winner=winner)[3]
+    second = fused_sa_backward_cuda(*args, bf16=bf16, winner=winner)[3]
     for j, (a, b) in enumerate(zip(first, second)):
         for n, x, y in zip(("dW", "db", "dgamma", "dbeta"), a, b):
             if not torch.equal(x, y):
@@ -2857,15 +2878,51 @@ def bf16_twin(cfg, model):
     return twin
 
 
+def check_winner(name: str, winner, act, act64, spread: float) -> None:
+    """The bf16 forward's max-pool winner against the plain level's
+    activations (B, S, K, C) in float32 (``act``) and float64 (``act64``):
+    for every (query, channel) the winner is a row whose float64 activation
+    lies within 3x the plain level's spread of the float64 max; wherever
+    the plain level's top two rows differ by more than 6x the spread, it is
+    exactly the plain level's first argmax."""
+    from maskplanner_tpu_torch.ops.fused_sa import first_argmax
+
+    w = winner.long()
+    if int(w.min()) < 0 or int(w.max()) >= act.shape[2]:
+        raise AssertionError(f"fused SA bf16 {name}: a winner lies outside "
+                             f"[0, {act.shape[2]})")
+    short = float((act64.amax(2) - act64.gather(2, w[:, :, None, :])
+                   [:, :, 0]).max())
+    top = act.topk(2, dim=2).values
+    clear = (top[:, :, 0] - top[:, :, 1]).double() > 6.0 * spread
+    first = first_argmax(act, act.amax(2))
+    missed = int((clear & (w != first)).sum())
+    log(f"[bf16-kernels]   winner: float64 max − winner's float64 value at "
+        f"most {short:.3e} (limit 3 x {spread:.3e}); {int(clear.sum())} of "
+        f"{clear.numel()} (query, channel) pairs with a clear first winner, "
+        f"{missed} of them missed")
+    if not short <= 3.0 * spread:
+        raise AssertionError(f"fused SA bf16 {name}: a winner lies {short} "
+                             f"below the float64 max (> 3 x {spread})")
+    if missed:
+        raise AssertionError(f"fused SA bf16 {name}: {missed} winners differ "
+                             f"from the plain level's clear first argmax")
+
+
 def phase_bf16_kernels(model, xyz: torch.Tensor, res: dict) -> None:
-    """The fused SA forward's bf16 mode against the plain bf16 level at the
-    flagship sa1/sa2 shapes (batch 64). Kernel and plain round the same
-    operands but sum in other orders, and a one-ulp float32 difference can
-    flip the bf16 rounding of the next layer's input: so the plain level's
-    own spread, max|float32 − float64 sums of the same bf16 operands|, is
-    measured, and the kernel held within 3x that of the float64 level."""
-    from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_bf16_cuda
-    from maskplanner_tpu_torch.ops.fused_sa import fused_sa_forward_plain
+    """The fused SA forward's bf16 mode (``csrc/fused_sa_fwd_bf16.cu``)
+    against the plain bf16 level at the flagship sa1/sa2 shapes (batch 64).
+    Kernel and plain round the same operands but sum in other orders, and
+    a one-ulp float32 difference can flip the bf16 rounding of the next
+    layer's input: so the plain level's own spread, max|float32 − float64
+    sums of the same bf16 operands|, is measured, and the kernel held within
+    3x that of the float64 level; two launches bitwise equal; its max-pool
+    winner held by ``check_winner``. Times per level."""
+    from maskplanner_tpu_torch.ops.cuda.fused_sa import (fused_sa_bf16_cuda,
+                                                         pack_image,
+                                                         pack_image_cuda)
+    from maskplanner_tpu_torch.ops.fused_sa import (fused_sa_forward_plain,
+                                                    level_activations)
     from maskplanner_tpu_torch.ops.sampling import (farthest_point_sample,
                                                     index_points)
 
@@ -2880,18 +2937,29 @@ def phase_bf16_kernels(model, xyz: torch.Tensor, res: dict) -> None:
         params = [tuple(t.detach() for t in layer)
                   for layer in sa.layer_params()]
         args = (sa.radius, K)
-        pooled, idx = fused_sa_bf16_cuda(*args, True, pts, new_xyz, feats,
-                                         params)
-        ref, ref_idx = fused_sa_forward_plain(*args, "layer", pts, new_xyz,
-                                              feats, params, "bf16")
-        ref64, _ = fused_sa_forward_plain(
+        if not torch.equal(pack_image_cuda(params, True),
+                           pack_image(params, True)):
+            raise AssertionError(f"fused SA bf16 {name}: the packed image "
+                                 f"differs from its plain version")
+        pooled, idx, winner = fused_sa_bf16_cuda(*args, True, pts, new_xyz,
+                                                 feats, params, winner=True)
+        again = fused_sa_bf16_cuda(*args, True, pts, new_xyz, feats, params,
+                                   winner=True)
+        act, ref_idx = level_activations(*args, "layer", pts, new_xyz, feats,
+                                         params, "bf16")
+        ref = act.amax(2)
+        act64, _ = level_activations(
             *args, "layer", pts.double(), new_xyz.double(),
             None if feats is None else feats.double(),
             [tuple(t.double() for t in layer) for layer in params], "bf16")
+        ref64 = act64.amax(2)
         torch.cuda.synchronize()
         if not torch.equal(idx, ref_idx):
             raise AssertionError(f"fused SA bf16 {name}: kernel neighbour "
                                  f"indices differ from the plain version")
+        if not all(torch.equal(a, b) for a, b in zip((pooled, idx, winner),
+                                                      again)):
+            raise AssertionError(f"fused SA bf16 {name}: two launches differ")
         spread = float((ref.double() - ref64).abs().max())
         err = float((pooled.double() - ref64).abs().max())
         scale = float(ref64.abs().max())
@@ -2901,18 +2969,23 @@ def phase_bf16_kernels(model, xyz: torch.Tensor, res: dict) -> None:
             raise AssertionError(f"fused SA bf16 {name}: max|kernel − "
                                  f"float64| {err} > 3 x the plain level's "
                                  f"{spread}")
+        log(f"[bf16-kernels] fused_sa_fwd_bf16 {name} N={N} S={S} K={K}: "
+            f"packed image bitwise its plain version, idx identical, two "
+            f"launches bitwise equal; from the float64 "
+            f"sums max|Δ| kernel {err:.3e}, plain {spread:.3e} (max|ref| "
+            f"{scale:.3e}; rel. rms kernel {rms_k:.2e}, plain {rms_p:.2e})")
+        check_winner(name, winner, act, act64, spread)
+        del act, act64, again
         ms = median_ms(lambda: fused_sa_bf16_cuda(*args, True, pts, new_xyz,
                                                   feats, params), 20)
         plain = median_ms(lambda: fused_sa_forward_plain(
             *args, "layer", pts, new_xyz, feats, params, "bf16"), 5, 1)
-        log(f"[bf16-kernels] fused_sa_fwd_bf16 {name} N={N} S={S} K={K}: "
-            f"idx identical; from the float64 sums max|Δ| kernel {err:.3e}, "
-            f"plain {spread:.3e} (max|ref| {scale:.3e}; rel. rms kernel "
-            f"{rms_k:.2e}, plain {rms_p:.2e}); kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms")
+        log(f"[bf16-kernels] fused_sa_fwd_bf16 {name}: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms")
         r["max_abs_err"] = max(r["max_abs_err"],
                                float((pooled - ref).abs().max()))
         r["spread"][name] = spread
+        r.setdefault("level_ms", {})[name] = ms
         r["ms"] += ms
         r["plain_ms"] += plain
         rows = B * S * K
@@ -3030,8 +3103,9 @@ def phase_bf16_train_kernels(model, batch, res: dict) -> None:
     flip the bf16 rounding of a later operand or a max-pool near-tie, so
     the kernel is allowed 3x the plain float32 level's own rms error from
     the float64 one (the bf16 forward's rule, ``phase_bf16_kernels``).
-    Every positive max-pool output routed (``check_routing`` on the bf16 forward's
-    pooled), the weight gradients bitwise equal across two launches; K1
+    Every positive max-pool output routed (``check_routing`` on the bf16
+    forward's pooled and winner), the weight gradients bitwise equal across
+    two launches; K1
     and K2 timed apart, the plain backward beside them; the bound by this
     design's mix (bf16 products at the tensor cores' bf16 rate, the rest at
     the f32 rate)."""
@@ -3055,11 +3129,13 @@ def phase_bf16_train_kernels(model, batch, res: dict) -> None:
         params = [tuple(t.detach() for t in layer)
                   for layer in sa.layer_params()]
         leaves = [pts, new_xyz, feats]
-        pooled, idx = fused_sa_bf16_cuda(sa.radius, K, True, *leaves, params)
+        pooled, idx, winner = fused_sa_bf16_cuda(sa.radius, K, True, *leaves,
+                                                 params, winner=True)
         ct = torch.randn(pooled.shape, generator=gen, device="cuda")
         reset_counts()
         d_xyz, d_new, d_feat, grads = fused_sa_backward_cuda(
-            K, True, *leaves, params, idx, pooled, ct, bf16=True)
+            K, True, *leaves, params, idx, pooled, ct, bf16=True,
+            winner=winner)
         counts = read_counts()
         if (counts["fused_sa_bwd_bf16"], counts["sa_weight_grad_bf16"]) \
                 != (1, 1):
@@ -3089,7 +3165,8 @@ def phase_bf16_train_kernels(model, batch, res: dict) -> None:
                   for n in ("dW", "db", "dgamma", "dbeta")]
         log(f"[bf16-train-kernels] fused_sa_bwd_bf16 {name} B={B} N={N} "
             f"S={S} K={K}:")
-        check_routing(name, sa, leaves, params, idx, pooled, bf16=True)
+        check_routing(name, sa, leaves, params, idx, pooled, bf16=True,
+                      winner=winner)
         for n, a, b, c in zip(names, got, ref, ref64):
             err = check_against_exact(n, a, b, c)
             r = k2 if n.startswith("L") else k1
@@ -3098,10 +3175,12 @@ def phase_bf16_train_kernels(model, batch, res: dict) -> None:
         # gradient), K2 on its rows, and the plain bf16 backward
         needs = (False, False, feats is not None)
         args = (K, True, *leaves, params, idx, pooled, ct)
-        check_deterministic(name, args, bf16=True)
-        _, _, _, scratch, vec, chans = fused_sa_bwd_bf16_cuda(*args, needs)
+        check_deterministic(name, args, bf16=True, winner=winner)
+        _, _, _, scratch, vec, chans = fused_sa_bwd_bf16_cuda(
+            *args, needs, winner=winner)
         rows = idx.numel()
-        ms1 = median_ms(lambda: fused_sa_bwd_bf16_cuda(*args, needs), 5)
+        ms1 = median_ms(lambda: fused_sa_bwd_bf16_cuda(*args, needs,
+                                                       winner=winner), 5)
         ms2 = median_ms(lambda: sa_weight_grad_bf16_cuda(scratch, vec, chans,
                                                          True, rows), 5)
         del scratch, vec
@@ -3124,7 +3203,8 @@ def phase_bf16_train_kernels(model, batch, res: dict) -> None:
         sa_backward_work(work["fused_sa_bwd_bf16"],
                          work["sa_weight_grad_bf16"], "bf16", sa, pts,
                          new_xyz, feats, idx, pooled,
-                         2.0 * scratch_floats(chans, rows + rows % 2))
+                         2.0 * scratch_floats(chans, rows + rows % 2),
+                         float(winner.numel() * winner.element_size()))
         pts, feats = new_xyz, pooled
     for kname, wk in work.items():
         res[kname].update(bound(wk["ops"], wk["bytes"], bf16_ops=wk["bf16"]))
@@ -4699,6 +4779,24 @@ def zoo_terms(cfg, terms: dict, card: dict, res: dict) -> dict:
                              f"22 and 64 x 44 x 44")
     res["lap"]["zoo"] = {f"n{cost.shape[1]}": hold_lap(cost, "zoo")
                          for cost, _ in seen}
+    # n 44 runs the block path: its chain floor, the longest problem's
+    # dependent steps at the cycles one step needs (csrc/lap.cu's note), at
+    # the SM clock right after the timing
+    from maskplanner_tpu_torch.ops.cuda.lap import lap_block_step_cycles
+
+    r = res["lap"]["zoo"]["n44"]
+    mhz = sm_clock_mhz()
+    cycles = lap_block_step_cycles(44)
+    r.update(
+        chain_bound_ms=r["max_steps"] * cycles / (mhz * 1e6) * 1e3,
+        chain_bound_by=f"{r['max_steps']} dependent steps x {cycles} "
+                       f"cycles at {mhz:.0f} MHz (block path)",
+        ns_per_step=r["ms"] * 1e6 / r["max_steps"])
+    log(f"[zoo] lap n 44 (block path) chain: longest problem "
+        f"{r['max_steps']} of {r['steps']} steps; floor "
+        f"{r['chain_bound_ms']:.4f} ms ({cycles} cycles a step at {mhz:.0f} "
+        f"MHz); kernel {r['ms']:.4f} ms, {r['ns_per_step']:.1f} ns a "
+        f"dependent step (launch gap included)")
     return launches
 
 

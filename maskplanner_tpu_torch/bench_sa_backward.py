@@ -21,11 +21,16 @@ compiler's register and spill report of K1 comes first (and its SASS
 goes to the file $SA_BWD_SASS_OUT names, if set).
 
 ``--dtype bf16`` does the same for the bf16 modes, which bf16 models train
-with: the forward's (``fused_sa_forward_bf16``), K1's
-(``fused_sa_backward_bf16``, on the bf16 forward's pooled output) and K2's
-(``sa_weight_grad_bf16``). The copies are the same builds; in the bf16
-modes bit 128 leaves out the mma loop of both K1 products (both are
-``mma_product_bf16``) and bit 32 has no effect.
+with: K1's (``fused_sa_backward_bf16``, on the bf16 forward's pooled
+output and winner) and K2's (``sa_weight_grad_bf16``), in the same K1
+builds (bit 128 leaves out the mma loop of both K1 products, both
+``mma_product_bf16``; bit 32 has no effect); and the bf16 forward, its own
+source ``csrc/fused_sa_fwd_bf16.cu``, in copies that leave out its wgmma
+products (128), its register LayerNorm epilogue (256), the producer's
+neighbour scan (512) or its gather (1024), and a copy with
+``FSA_PHASES``, whose counters give the shares of a consumer warpgroup's
+and a producer warp's cycles (waiting for a tile, the layers, the max;
+the selection, waiting for a slot, the gather).
 """
 from __future__ import annotations
 
@@ -63,6 +68,15 @@ FWD_VARIANTS = {"full": 0, "no products' mma loop": 128,
                 "no LayerNorms": 256, "no neighbour scan": 512,
                 "no weight-tile streaming": 64,
                 "no mma loop, LayerNorms or scan": 896}
+# the bf16 forward's copies (csrc/fused_sa_fwd_bf16.cu)
+FWD_VARIANTS_BF16 = {"full": 0, "no wgmma products": 128,
+                     "no register LayerNorm": 256, "no neighbour scan": 512,
+                     "no gather": 1024, "no scan or gather": 1536,
+                     "none of the four": 1920}
+# FSA_PHASES counters (csrc/fused_sa_fwd_bf16.cu, FSA_PHASE(i))
+FWD_PHASES_BF16 = ("consumer: waiting for a tile", "consumer: the layers",
+                   "consumer: the max", "producer: the selection",
+                   "producer: waiting for a slot", "producer: the gather")
 # other shapes of the full K1 (csrc/fused_sa_bwd.cu macros): one thread
 # group a block instead of as many as fit
 SHAPES = {"one thread group a block": ("-DSA_BWD_GROUPS=1",)}
@@ -103,8 +117,12 @@ def main(argv=None) -> None:
     jobs = {key: ("fused_sa_bwd", (f"-DSA_BWD_SKIP={bits}",))
             for key, bits in (VARIANTS_BF16 if bf16 else VARIANTS).items()}
     jobs["phases"] = ("fused_sa_bwd", ("-DSA_BWD_PHASES",))
-    jobs.update({f"fwd {key}": ("fused_sa_fwd", (f"-DSA_BWD_SKIP={bits}",))
-                 for key, bits in FWD_VARIANTS.items()})
+    fwd_src = "fused_sa_fwd_bf16" if bf16 else "fused_sa_fwd"
+    jobs.update({f"fwd {key}": (fwd_src, (f"-DSA_BWD_SKIP={bits}",))
+                 for key, bits in (FWD_VARIANTS_BF16 if bf16
+                                   else FWD_VARIANTS).items()})
+    if bf16:
+        jobs["fwd phases"] = ("fused_sa_fwd_bf16", ("-DFSA_PHASES",))
     for key, flags in SHAPES.items():
         jobs[key] = ("fused_sa_bwd", flags)
     paths = build.build_all(jobs)
@@ -113,6 +131,7 @@ def main(argv=None) -> None:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {what}: {line.strip()}")
     phases_lib = ctypes.CDLL(paths.pop("phases"))
+    fwd_phases = ctypes.CDLL(paths.pop("fwd phases")) if bf16 else None
     fwd_paths = {key[4:]: paths.pop(key) for key in list(paths)
                  if key.startswith("fwd ")}
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
@@ -126,6 +145,7 @@ def main(argv=None) -> None:
             with open(os.environ["SA_BWD_SASS_OUT"], "w") as fh:
                 fh.write(sass)
     fwd_name = "fused_sa_forward_bf16" if bf16 else "fused_sa_forward"
+    fwd_sig = cuda_sa.fwd_bf16_signature if bf16 else cuda_sa.fwd_signature
     bwd_name = "fused_sa_backward_bf16" if bf16 else "fused_sa_backward"
     forward = cuda_sa.fused_sa_bf16_cuda if bf16 else cuda_sa.fused_sa_cuda
     k1 = cuda_sa.fused_sa_bwd_bf16_cuda if bf16 else cuda_sa.fused_sa_bwd_cuda
@@ -139,38 +159,64 @@ def main(argv=None) -> None:
                                      for i in range(64)])).cuda()
     feats = None
     gen = torch.Generator(device="cuda").manual_seed(1)
-    bind, bind_fwd = cuda_sa._bind_bwd, cuda_sa._bind
+    bind = cuda_sa._bind_bwd
+    fwd_attr = "_bind_bf16" if bf16 else "_bind"
+    bind_fwd = getattr(cuda_sa, fwd_attr)
     try:
         for name, sa in (("sa1", model.sa1), ("sa2", model.sa2)):
             K = sa.nsample
             new_xyz = index_points(pts, farthest_point_sample(pts, sa.npoint))
             params = [tuple(t.detach() for t in l) for l in sa.layer_params()]
             for key, path in fwd_paths.items():
-                fn = cuda_sa.fwd_signature(getattr(ctypes.CDLL(path),
-                                                   fwd_name))
-                cuda_sa._bind = lambda _bf16, fn=fn: fn
+                fn = fwd_sig(getattr(ctypes.CDLL(path), fwd_name))
+                setattr(cuda_sa, fwd_attr, lambda *_, fn=fn: fn)
                 with torch.no_grad():
                     ms = median_ms(lambda: forward(
                         sa.radius, K, True, pts, new_xyz, feats, params))
                 print(f"{name} forward {key:35s} {ms:9.4f} ms")
-            cuda_sa._bind = bind_fwd
+            if fwd_phases is not None:
+                fn = fwd_sig(getattr(fwd_phases, fwd_name))
+                setattr(cuda_sa, fwd_attr, lambda *_, fn=fn: fn)
+                cycles = (ctypes.c_ulonglong * len(FWD_PHASES_BF16))()
+                fwd_phases.fsa_phase_cycles(cycles)       # zero them
+                with torch.no_grad():
+                    forward(sa.radius, K, True, pts, new_xyz, feats, params)
+                torch.cuda.synchronize()
+                fwd_phases.fsa_phase_cycles(cycles)
+                for side, part in (("consumer", cycles[:3]),
+                                   ("producer", cycles[3:])):
+                    total = sum(part)
+                    print(f"{name} forward phases, share of a {side}'s "
+                          f"cycles:")
+                    for what, c in zip(FWD_PHASES_BF16, cycles):
+                        if what.startswith(side):
+                            print(f"{name}   {what:30s} "
+                                  f"{100.0 * c / total:5.1f}%")
+            setattr(cuda_sa, fwd_attr, bind_fwd)
+            winner = None
             with torch.no_grad():
-                pooled, idx = forward(sa.radius, K, True, pts, new_xyz, feats,
-                                      params)
+                if bf16:
+                    pooled, idx, winner = forward(sa.radius, K, True, pts,
+                                                  new_xyz, feats, params,
+                                                  winner=True)
+                else:
+                    pooled, idx = forward(sa.radius, K, True, pts, new_xyz,
+                                          feats, params)
             ct = torch.randn(pooled.shape, generator=gen, device="cuda")
             args = (K, True, pts, new_xyz, feats, params, idx, pooled, ct,
                     (False, False, feats is not None))
+            kw = {"winner": winner} if bf16 else {}
             for key, path in paths.items():
                 fn = cuda_sa.bwd_signature(getattr(ctypes.CDLL(path),
-                                                   bwd_name))
+                                                   bwd_name), bf16)
                 cuda_sa._bind_bwd = lambda _bf16, fn=fn: fn
-                ms = median_ms(lambda: k1(*args))
+                ms = median_ms(lambda: k1(*args, **kw))
                 print(f"{name} K1 {key:40s} {ms:9.4f} ms")
-            fn = cuda_sa.bwd_signature(getattr(phases_lib, bwd_name))
+            fn = cuda_sa.bwd_signature(getattr(phases_lib, bwd_name), bf16)
             cuda_sa._bind_bwd = lambda _bf16, fn=fn: fn
             cycles = (ctypes.c_ulonglong * len(PHASES))()
             phases_lib.sa_bwd_phase_cycles(cycles)       # zero them
-            k1(*args)
+            k1(*args, **kw)
             torch.cuda.synchronize()
             phases_lib.sa_bwd_phase_cycles(cycles)
             total = sum(cycles)
@@ -179,14 +225,14 @@ def main(argv=None) -> None:
             for what, c in zip(PHASES, cycles):
                 print(f"{name}   {what:30s} {100.0 * c / total:5.1f}%")
             cuda_sa._bind_bwd = bind
-            _, _, _, scratch, vec, chans = k1(*args)
+            _, _, _, scratch, vec, chans = k1(*args, **kw)
             ms = median_ms(lambda: k2(scratch, vec, chans, True, idx.numel()))
             print(f"{name} K2 {'':40s} {ms:9.4f} ms")
             del scratch, vec
             pts, feats = new_xyz, pooled
     finally:
         cuda_sa._bind_bwd = bind
-        cuda_sa._bind = bind_fwd
+        setattr(cuda_sa, fwd_attr, bind_fwd)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 // bf16 tensor-core products with mma.sync, for the bf16 modes of the fused
-// set-abstraction kernels: the forward's and K1's layer products
+// set-abstraction backward: K1's layer products
 // (fused_sa_common.cuh::mma_product_bf16) and K2's weight gradients
-// (sa_weight_grad.cu::dw_partial_bf16).
+// (sa_weight_grad.cu::dw_partial_bf16). The bf16 forward runs on wgmma
+// (fused_sa_fwd_bf16.cu, wgmma_bf16.cuh).
 //
 // The TPU kernel's precision="default" product
 // (maskplanner_tpu/ops/pallas/fused_sa_train.py, `_dot`) is one MXU pass

@@ -64,12 +64,17 @@
 //
 // The bf16 mode (fused_sa_backward_bf16) replaces the same Pallas kernel's
 // precision="default" (bf16 models train with it; `_bwd_kernel` with
-// `_Gather(single=True)`). Its recompute is the forward's bf16 mode
-// (fused_sa_fwd.cu) step for step: mma_product_bf16 on the weight as bf16 in
-// the Dense layout, the A operand read from the float32 rows and rounded in
-// registers, channels padded to 16 with zero pad rows and bias, the same
-// layer_norm_rows; so the routing by bit equality holds against the bf16
-// forward's pooled output too. The input gradient bf16(d_pre) · bf16(W) is
+// `_Gather(single=True)`). Its recompute takes the bf16 forward's rounding
+// points (mma_product_bf16 on the weight as bf16 in the Dense layout, the
+// A operand read from the float32 rows and rounded in registers, channels
+// padded to 16 with zero pad rows and bias, layer_norm_rows), but not its
+// bits: the bf16 forward (fused_sa_fwd_bf16.cu) sums in wgmma's order and
+// normalises in registers. So this mode does not route by equality: the
+// forward writes the winner of each (query, channel), the first neighbour
+// whose last activation is the max, and d_pooled[c] goes to that row where
+// the forward's pooled[c] > 0 (the ReLU's gate), which is the first-winner
+// rule of the float32 mode and of the JAX kernel. The input gradient
+// bf16(d_pre) · bf16(W) is
 // the same product on the transposed weight (ci16, co16) bf16, with no bias,
 // stored through the ReLU mask in place: one m16n8k16 mma a k-step of 16
 // where the float32 mode splits d_pre into TF32 parts and runs three. Its
@@ -439,7 +444,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const float* __restrict__ feats,
                         const int* __restrict__ idx,
                         const float* __restrict__ pooled,
-                        const float* __restrict__ d_pooled, int n, int s,
+                        const float* __restrict__ d_pooled,
+                        const void* __restrict__ winner, int win_bytes,
+                        int n, int s,
                         int f, int k_nb, int n_queries, Mlp mlp, int need,
                         float* __restrict__ d_xyz,
                         float* __restrict__ d_feats,
@@ -528,7 +535,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* dp_q = d_pooled + static_cast<size_t>(query) * c_last;
     th.sync();  // the previous query's slot is written out
     PHASE(8);
-    for (int c = tid; c < c_last; c += th.n) avail[c] = 1;
+    if constexpr (!kBf16) {
+      for (int c = tid; c < c_last; c += th.n) avail[c] = 1;
+    }
     for (int e = tid; e < mlp.n_vec; e += th.n) vec[e] = 0.f;
     float dq = 0.f;  // threads 0..2: -sum_k d_in[k][tid]
 
@@ -579,11 +588,26 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       // -- max-pool backward: the first winner takes d_pooled -------------
-      // The rows are cut into groups; each (row group, channel) finds its
-      // first row whose activation reaches the pooled value, and the lowest
-      // row group with one holds the chunk's winner, unless an earlier
-      // chunk took it.
-      {
+      if constexpr (kBf16) {
+        // the bf16 forward's winner, where its max passed the ReLU
+        const Layer& L = mlp.layer[n_layers - 1];
+        float* act = own + a_off[n_layers - 1];
+        const size_t w0 = static_cast<size_t>(query) * c_last;
+        for (int e = tid; e < rows * c_last; e += th.n) {
+          const int k = e / c_last;
+          const int c = e - k * c_last;
+          const int w =
+              win_bytes == 1
+                  ? static_cast<const uint8_t*>(winner)[w0 + c]
+                  : static_cast<const int*>(winner)[w0 + c];
+          act[k * L.ld + c] =
+              (k0 + k == w && pooled_q[c] > 0.f) ? dp_q[c] : 0.f;
+        }
+      } else {
+        // The rows are cut into groups; each (row group, channel) finds its
+        // first row whose activation reaches the pooled value, and the lowest
+        // row group with one holds the chunk's winner, unless an earlier
+        // chunk took it.
         const Layer& L = mlp.layer[n_layers - 1];
         float* act = own + a_off[n_layers - 1];
         const int groups = max(1, min(rows, th.n / c_last));
@@ -759,7 +783,8 @@ int stride16(int n) { return ((n - 8 + 15) & ~15) + 8; }
 
 template <bool kBf16>
 int launch(const float* xyz, const float* new_xyz, const float* feats,
-           const int* idx, const float* pooled, const float* d_pooled, int b,
+           const int* idx, const float* pooled, const float* d_pooled,
+           const void* winner, int win_bytes, int b,
            int n, int s, int f, int k_nb, int n_layers, const int* chans,
            const void* const* layer_ptrs, int layer_norm, int need,
            float* d_xyz, float* d_feats, float* d_new_xyz, void* scratch,
@@ -898,8 +923,8 @@ int launch(const float* xyz, const float* new_xyz, const float* feats,
   const int grid = std::max(
       1, std::min((n_queries + mlp.groups - 1) / mlp.groups, n_sm));
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xyz, new_xyz, feats, idx, pooled, d_pooled, n, s, f, k_nb, n_queries,
-      mlp, need, d_xyz, d_feats, d_new_xyz, vec);
+      xyz, new_xyz, feats, idx, pooled, d_pooled, winner, win_bytes, n, s, f,
+      k_nb, n_queries, mlp, need, d_xyz, d_feats, d_new_xyz, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -932,9 +957,10 @@ extern "C" int fused_sa_backward(const float* xyz, const float* new_xyz,
                                  int need, float* d_xyz, float* d_feats,
                                  float* d_new_xyz, void* scratch, float* vec,
                                  void* stream) {
-  return launch<false>(xyz, new_xyz, feats, idx, pooled, d_pooled, b, n, s, f,
-                       k_nb, n_layers, chans, layer_ptrs, layer_norm, need,
-                       d_xyz, d_feats, d_new_xyz, scratch, vec, stream);
+  return launch<false>(xyz, new_xyz, feats, idx, pooled, d_pooled, nullptr,
+                       0, b, n, s, f, k_nb, n_layers, chans, layer_ptrs,
+                       layer_norm, need, d_xyz, d_feats, d_new_xyz, scratch,
+                       vec, stream);
 }
 
 // The bf16 mode: as fused_sa_backward, but layer_ptrs[5l], [5l + 1] are the
@@ -943,17 +969,23 @@ extern "C" int fused_sa_backward(const float* xyz, const float* new_xyz,
 // and scratch is bf16: per layer l in order, d_pre then the layer's input,
 // each over R' = R rounded up to even rows, element (r, c) of a (R', w)
 // block at (r / 2) 2 w + 2 c + r % 2 (w = co, then ci_pad); the caller
-// zeroes it when R is odd. pooled is the bf16 forward's.
+// zeroes it when R is odd. pooled is the bf16 forward's, and winner (b, s,
+// C) its winner (fused_sa_fwd_bf16.cu), win_bytes 1 (uint8) or 4 (int32) an
+// element: d_pooled[c] goes to row winner[c] where pooled[c] > 0.
 extern "C" int fused_sa_backward_bf16(
     const float* xyz, const float* new_xyz, const float* feats,
-    const int* idx, const float* pooled, const float* d_pooled, int b, int n,
-    int s, int f, int k_nb, int n_layers, const int* chans,
-    const void* const* layer_ptrs, int layer_norm, int need, float* d_xyz,
-    float* d_feats, float* d_new_xyz, void* scratch, float* vec,
-    void* stream) {
-  return launch<true>(xyz, new_xyz, feats, idx, pooled, d_pooled, b, n, s, f,
-                      k_nb, n_layers, chans, layer_ptrs, layer_norm, need,
-                      d_xyz, d_feats, d_new_xyz, scratch, vec, stream);
+    const int* idx, const float* pooled, const float* d_pooled,
+    const void* winner, int win_bytes, int b, int n, int s, int f, int k_nb,
+    int n_layers, const int* chans, const void* const* layer_ptrs,
+    int layer_norm, int need, float* d_xyz, float* d_feats, float* d_new_xyz,
+    void* scratch, float* vec, void* stream) {
+  if (winner == nullptr || (win_bytes != 1 && win_bytes != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch<true>(xyz, new_xyz, feats, idx, pooled, d_pooled, winner,
+                      win_bytes, b, n, s, f, k_nb, n_layers, chans,
+                      layer_ptrs, layer_norm, need, d_xyz, d_feats,
+                      d_new_xyz, scratch, vec, stream);
 }
 
 #ifdef SA_BWD_PHASES

@@ -1,11 +1,12 @@
 // Device functions shared by the fused set-abstraction forward
 // (fused_sa_fwd.cu) and backward (fused_sa_bwd.cu); mma_product_bf16 is
-// the product of both kernels' bf16 modes (bf16 models serve and train with
-// them): the forward's layers, the backward's recompute and its input
-// gradients.
+// the product of the backward's bf16 mode (bf16 models train with it): its
+// recompute and its input gradients. The forward's bf16 mode is its own
+// kernel (fused_sa_fwd_bf16.cu), which writes the max-pool's winner for
+// that backward to route by.
 //
-// The backward recomputes the forward's activations and routes the
-// max-pool gradient to the first neighbour whose activation EQUALS the
+// In float32 the backward recomputes the forward's activations and routes
+// the max-pool gradient to the first neighbour whose activation EQUALS the
 // pooled value the forward wrote. So both kernels must form every
 // activation bit for bit alike: they share the selection distance, the
 // layer product (mma_product: ONE 3xTF32 tensor-core product, the same
@@ -23,7 +24,7 @@
 // the result then wrong; 0 in every real build. fused_sa_bwd.cu documents
 // its bits; mma_product reads 64 (no streaming of weight tiles) and 128 (no
 // mma loop), in both kernels; the forward reads 256 (no LayerNorm) and 512
-// (no scan: the first K points).
+// (no scan: the first K points); fused_sa_fwd_bf16.cu documents its own.
 #ifndef SA_BWD_SKIP
 #define SA_BWD_SKIP 0
 #endif
@@ -477,7 +478,7 @@ __device__ __forceinline__ void mma_tiles_bf16(
   }
 }
 
-// The layer product of the bf16 modes: out[m][o] = bias[o] + sum_i
+// The layer product of K1's bf16 mode: out[m][o] = bias[o] + sum_i
 // bf16(in[m][i]) * bf16(w[o][i]) for m < rows and o < cop, summed in
 // float32 on the tensor cores, by the warps of `th`. As mma_product, with
 // the weight w (cop, cip) bf16 (see above), cip and cop the layer's widths
@@ -485,10 +486,9 @@ __device__ __forceinline__ void mma_tiles_bf16(
 // k-tiles of `tile` columns through a ring of `stages` buffers; `in` at a
 // row stride of 8 mod 16, its columns ci..cip zero. The bias covers the
 // columns below co and is 0 past them (co = 0: no bias, bias may be null).
-// Exactness as mma_product's: an output is one accumulator from its bias
-// over the k-steps of 16 in ascending order, whatever the tiling, so the
-// backward's recompute gives the forward's bits. The backward's input
-// gradient is this product too, on the transposed weight with no bias.
+// An output is one accumulator from its bias over the k-steps of 16 in
+// ascending order, whatever the tiling. The backward's input gradient is
+// this product too, on the transposed weight with no bias.
 // Every thread of `th` must call it; the caller synchronises afterwards.
 __device__ void mma_product_bf16(const Threads& th, int store,
                                  const float* in, int ld_in, int rows,

@@ -55,21 +55,8 @@
 //   memory, in two ping-pong buffers whose row stride is 4 mod 8, so that
 //   the A fragments' loads (8 rows x 4 columns) hit distinct banks; the
 //   LayerNorm takes 4 rows a warp at a time, in place.
-// wgmma, TMA and clusters are later work.
-//
-// The bf16 mode (fused_sa_forward_bf16) replaces the same kernel's
-// precision="default" (bf16 models serve with it): every layer product
-// takes both operands rounded to bf16 and sums in float32, one m16n8k16
-// bf16 mma a k-step of 16 (fused_sa_common.cuh::mma_product_bf16); the
-// offsets x - q, the bias, the LayerNorm, the ReLU and the max stay float32,
-// as the feature rows do until their product rounds them. Its products are
-// a third of the 3xTF32 passes, on a unit twice as fast a pass (989 TFLOP/s
-// dense bf16: 0.1 ms at the flagship batch of 64). Channels pad to 16, the
-// activation rows sit at a stride of 8 mod 16 (float2 A loads, no bank
-// conflict), and the weights are staged as bf16, half the bytes: sa1's stay
-// resident as in float32; sa2's (143 KB) do not fit beside a group's rows,
-// so they stream in k-tiles, one query at a time. Its backward is
-// fused_sa_bwd.cu's bf16 mode.
+// wgmma, TMA and clusters are later work here. The bf16 mode of the same
+// Pallas kernel (precision="default") is fused_sa_fwd_bf16.cu.
 
 #include <cuda_runtime.h>
 
@@ -91,17 +78,15 @@ constexpr int kMaxLayers = 4;
 constexpr size_t kSmemPerBlock = 232448;  // bytes a block may have on Hopper
 
 struct Layer {
-  // f32: (ci8, co8) float, the Dense weight transposed and padded;
-  // bf16: (co8, ci8) bf16, the Dense weight padded (mma_product_bf16)
-  const void* wt;
+  const float* wt;     // (ci8, co8): the Dense weight transposed and padded
   const float* bias;   // (co,)
   const float* gamma;  // (co,) or null without LayerNorm
   const float* beta;   // (co,) or null without LayerNorm
-  int ci8;             // input channels, rounded up to the mma's k: 8 (16)
+  int ci8;             // input channels, rounded up to the mma's k of 8
   int co;
-  int co8;   // output channels, rounded up to 8 (bf16: 16)
-  int ldw;   // f32: row stride of the weight in shared memory (8 mod 32)
-  int tile;  // weight rows (bf16: columns) of a streamed tile
+  int co8;   // output channels, rounded up to 8
+  int ldw;   // row stride of the weight in shared memory (8 mod 32)
+  int tile;  // weight rows of a streamed tile
   int res;   // resident: the offset of this layer's weight in the buffer
   int vec;   // offset of its bias (co8, zero past co), gamma, beta (co)
 };
@@ -128,7 +113,7 @@ __host__ __device__ int head_floats(const Mlp& mlp, int k_nb) {
   return (mlp.qs * k_nb + 3) & ~3;
 }
 
-template <bool kResident, bool kBf16>
+template <bool kResident>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_sa_fwd_kernel(const float* __restrict__ xyz,
                         const float* __restrict__ new_xyz,
@@ -180,15 +165,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const Threads block{static_cast<int>(threadIdx.x), kThreads, 0};
     for (int l = 0; l < mlp.n_layers; ++l) {
       const Layer& L = mlp.layer[l];
-      if (kBf16) {
-        fused_sa::stage_cols_bf16(
-            block, static_cast<const __nv_bfloat16*>(L.wt), L.ci8, L.co8, 0,
-            L.ci8, reinterpret_cast<__nv_bfloat16*>(wbuf + L.res),
-            L.ci8 + 8);
-      } else {
-        fused_sa::stage_rows(block, static_cast<const float*>(L.wt), L.co8,
-                             0, L.ci8, wbuf + L.res, L.ldw, true);
-      }
+      fused_sa::stage_rows(block, L.wt, L.co8, 0, L.ci8, wbuf + L.res, L.ldw,
+                           true);
     }
     tf32::cp_async_wait<0>();
   }
@@ -259,19 +237,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int store =
             mlp.layer_norm ? fused_sa::kStorePlain : fused_sa::kStoreRelu;
         float* w_at = resident ? wbuf + L.res : wbuf;
-        if (kBf16) {
-          fused_sa::mma_product_bf16(
-              th, store, own + cur, ld_cur, rows,
-              static_cast<const __nv_bfloat16*>(L.wt), vec + L.vec, L.ci8,
-              L.co, L.co8, own + nxt, ld_nxt,
-              reinterpret_cast<__nv_bfloat16*>(w_at), L.tile, mlp.stages,
-              resident);
-        } else {
-          fused_sa::mma_product(th, store, own + cur, ld_cur, rows,
-                                static_cast<const float*>(L.wt), vec + L.vec,
-                                L.ci8, L.co, L.co8, own + nxt, ld_nxt, w_at,
-                                L.ldw, L.tile, mlp.stages, resident);
-        }
+        fused_sa::mma_product(th, store, own + cur, ld_cur, rows, L.wt,
+                              vec + L.vec, L.ci8, L.co, L.co8, own + nxt,
+                              ld_nxt, w_at, L.ldw, L.tile, mlp.stages,
+                              resident);
         th.sync();
         if (mlp.layer_norm && !(SA_BWD_SKIP & 256)) {
           fused_sa::layer_norm_rows(
@@ -304,7 +273,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 // The least stride of at least n floats that is r modulo `mod`.
 int stride(int n, int r, int mod) { return (n - r + mod - 1) / mod * mod + r; }
 
-template <bool kBf16>
 int launch(const float* xyz, const float* new_xyz, const float* feats, int b,
            int n, int s, int f, int k_nb, float radius2, int n_layers,
            const int* chans, const void* const* layer_ptrs, int layer_norm,
@@ -314,16 +282,13 @@ int launch(const float* xyz, const float* new_xyz, const float* feats, int b,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // the mma's k: channels pad to it, inputs and outputs alike
-  constexpr int kPad = kBf16 ? 16 : 8;
+  constexpr int kPad = 8;
   auto pad = [](int c) { return (c + kPad - 1) / kPad * kPad; };
-  // floats of a weight tile of k rows (f32) or k columns (bf16, at row
-  // stride k + 8: fused_sa_common.cuh), and the widest tile that fits in
+  // floats of a weight tile of k rows, and the widest tile that fits in
   // `floats`
-  auto tile_floats = [](const Layer& L, int k) {
-    return kBf16 ? L.co8 * (k + 8) / 2 : k * L.ldw;
-  };
+  auto tile_floats = [](const Layer& L, int k) { return k * L.ldw; };
   auto tile_of = [](const Layer& L, int floats) {
-    return kBf16 ? (2 * floats / L.co8 - 8) & ~15 : (floats / L.ldw) & ~7;
+    return (floats / L.ldw) & ~7;
   };
   Mlp mlp;
   mlp.n_layers = n_layers;
@@ -336,7 +301,7 @@ int launch(const float* xyz, const float* new_xyz, const float* feats, int b,
   int tile_max = 0;  // floats of the largest tile of kPad rows or columns
   for (int l = 0; l < n_layers; ++l) {
     Layer& L = mlp.layer[l];
-    L.wt = layer_ptrs[4 * l];
+    L.wt = static_cast<const float*>(layer_ptrs[4 * l]);
     L.bias = static_cast<const float*>(layer_ptrs[4 * l + 1]);
     L.gamma = static_cast<const float*>(layer_ptrs[4 * l + 2]);
     L.beta = static_cast<const float*>(layer_ptrs[4 * l + 3]);
@@ -353,10 +318,9 @@ int launch(const float* xyz, const float* new_xyz, const float* feats, int b,
     int& width = l % 2 == 0 ? width_b : width_a;
     width = std::max(width, L.co8);
   }
-  // the A fragments' loads hit distinct banks: 8 rows x 4 floats (f32), a
-  // half-warp's 4 rows x 4 float2 (bf16)
-  mlp.ld_a = kBf16 ? stride(width_a, 8, 16) : stride(width_a, 4, 8);
-  mlp.ld_b = kBf16 ? stride(width_b, 8, 16) : stride(width_b, 4, 8);
+  // the A fragments' loads (8 rows x 4 floats) hit distinct banks
+  mlp.ld_a = stride(width_a, 4, 8);
+  mlp.ld_b = stride(width_b, 4, 8);
   auto state_floats = [&](int q, int qs) {
     mlp.q = q;
     mlp.qs = qs;
@@ -425,13 +389,13 @@ int launch(const float* xyz, const float* new_xyz, const float* feats, int b,
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(mlp.n_wbuf) + mlp.n_vec +
                        mlp.groups * mlp.state);
-  auto kernel = mlp.resident ? fused_sa_fwd_kernel<true, kBf16>
-                             : fused_sa_fwd_kernel<false, kBf16>;
+  auto kernel = mlp.resident ? fused_sa_fwd_kernel<true>
+                             : fused_sa_fwd_kernel<false>;
   // no more shared memory than the block needs: the rest stays L1, which
   // holds the cloud that the groups' scans read again and again (set when
   // it changes: a call costs host time at small batches)
   constexpr int kDevices = 16;  // devices whose setting is remembered
-  static size_t smem_set[kDevices][2] = {};  // each kBf16 has its own
+  static size_t smem_set[kDevices][2] = {};
   size_t unknown = 0;
   size_t& set =
       device < kDevices ? smem_set[device][mlp.resident] : unknown;
@@ -472,22 +436,6 @@ extern "C" int fused_sa_forward(const float* xyz, const float* new_xyz,
                                 const int* chans, const void* const* layer_ptrs,
                                 int layer_norm, float* pooled, int* idx,
                                 void* stream) {
-  return launch<false>(xyz, new_xyz, feats, b, n, s, f, k_nb, radius2,
-                       n_layers, chans, layer_ptrs, layer_norm, pooled, idx,
-                       stream);
+  return launch(xyz, new_xyz, feats, b, n, s, f, k_nb, radius2, n_layers,
+                chans, layer_ptrs, layer_norm, pooled, idx, stream);
 }
-
-// The bf16 mode: as fused_sa_forward, but wt is (co16, ci16) bf16
-// row-major, the Dense weight itself zero-padded to multiples of 16.
-extern "C" int fused_sa_forward_bf16(const float* xyz, const float* new_xyz,
-                                     const float* feats, int b, int n, int s,
-                                     int f, int k_nb, float radius2,
-                                     int n_layers, const int* chans,
-                                     const void* const* layer_ptrs,
-                                     int layer_norm, float* pooled, int* idx,
-                                     void* stream) {
-  return launch<true>(xyz, new_xyz, feats, b, n, s, f, k_nb, radius2,
-                      n_layers, chans, layer_ptrs, layer_norm, pooled, idx,
-                      stream);
-}
-

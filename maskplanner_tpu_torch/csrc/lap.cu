@@ -40,7 +40,17 @@
 //   once per device); the row potentials, col4row, row4col and the
 //   scanned rows in shared memory; the argmin a warp-shuffle reduction and
 //   one round through shared memory over the warps; one thread walks the
-//   augmenting path.
+//   augmenting path. Its chain of one step, counted as the warp path's:
+//   the row's cost and potential from shared memory in parallel (24) ->
+//   the three adds (12) -> the shortest distance's compare and two selects
+//   (12) -> the unscanned column's select (4) -> five shuffle-and-merge
+//   rounds (5 x 40: two shuffles in parallel, 24, then the merge's
+//   compares and selects, 16) -> with more than one warp, lane 0's stores,
+//   the barrier and the load of warp 0's winner (64), then a shared load
+//   and a merge for each further warp (40) -> the winner's row4col from
+//   shared memory (24) and the next row's select (4) -> the step's closing
+//   barrier (20) -> the loop's test (4): lap_block_step_cycles(n), 408 at
+//   n = 44 (two warps).
 // - n > 128 (emd's exact route: 200 predictions against 50 GT rows pad to
 //   200 x 200), the large path, lap_large_kernel, with n bounded only by
 //   the card's memory: one block a problem of up to 1024 threads, thread t
@@ -523,6 +533,14 @@ extern "C" int lap_forward(const float* cost, int b, int n, int* col4row,
 // Cycles of one dependent Dijkstra step of the warp path (the chain floor
 // in this file's note).
 extern "C" int lap_step_cycles() { return kStepCycles; }
+
+// Cycles of one dependent Dijkstra step of the block path (33 <= n <= 128)
+// at n (the chain floor in this file's note): its fixed part, then the
+// round over the warps' winners.
+extern "C" int lap_block_step_cycles(int n) {
+  const int warps = (n + 31) / 32;
+  return 304 + (warps > 1 ? 64 + 40 * (warps - 1) : 0);
+}
 
 // Bytes of scratch a problem that the large path needs at n: 0 while its
 // state fits in shared memory, else the state's 26 bytes an index.

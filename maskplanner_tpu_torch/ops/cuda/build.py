@@ -5,7 +5,8 @@ with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``), under
 ``maskplanner_tpu_torch/_build/`` (git-ignored). The file name carries a hash
 of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
 edited source is rebuilt and a stale library is never loaded. :func:`build_all` starts one ``nvcc`` per source,
-all at once. A failed build raises with ``nvcc``'s output.
+all at once, and keeps each one's output (``build_logs``) and seconds
+(``build_seconds``). A failed build raises with ``nvcc``'s output.
 
 Pointers and the stream are passed as ``ctypes.c_void_p`` (a plain int would
 be cut to 32 bits). Every C entry point returns ``cudaGetLastError()`` after
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -32,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}
+# seconds from the start of a build_all to each of its nvcc's end
+build_seconds: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -76,6 +80,7 @@ def build_all(variants: dict | None = None) -> dict[str, str]:
             return paths
         nvcc = _nvcc()
         procs = {}
+        start = time.perf_counter()
         for key, path in todo.items():
             name, defines = jobs[key]
             tmp = f"{path}.{os.getpid()}.tmp"
@@ -84,9 +89,21 @@ def build_all(variants: dict | None = None) -> dict[str, str]:
             procs[key] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
+        outputs = {}
+
+        def wait(key, proc):
+            outputs[key] = proc.communicate()[0]
+            build_seconds[key] = time.perf_counter() - start
+
+        waiters = [threading.Thread(target=wait, args=(key, proc))
+                   for key, (_, proc) in procs.items()]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
         failed = []
         for name, (tmp, proc) in procs.items():
-            out, _ = proc.communicate()
+            out = outputs[name]
             build_logs[name] = out
             if proc.returncode != 0:
                 failed.append(f"nvcc failed for {name}.cu "

@@ -1,8 +1,9 @@
 """Wrappers of the fused set-abstraction kernels: the forward
-(``csrc/fused_sa_fwd.cu``) and the backward in two kernels, K1
-(``csrc/fused_sa_bwd.cu``: recompute, routing, input gradients, the rows
-of the weight gradient) and K2 (``csrc/sa_weight_grad.cu``: the weight
-gradients as fixed-order split-K products), each also in a bf16 mode.
+(``csrc/fused_sa_fwd.cu``; its bf16 mode ``csrc/fused_sa_fwd_bf16.cu``)
+and the backward in two kernels, K1 (``csrc/fused_sa_bwd.cu``: recompute,
+routing, input gradients, the rows of the weight gradient) and K2
+(``csrc/sa_weight_grad.cu``: the weight gradients as fixed-order split-K
+products), each also in a bf16 mode.
 
 ``fused_sa_cuda.launches``, ``fused_sa_bf16_cuda.launches`` (the forward's
 bf16 mode), ``folded_sa_cuda.launches`` (the forward on BatchNorm-folded
@@ -28,10 +29,13 @@ _MAX_LAYERS = 4
 SPLIT_ROWS = 8192
 
 
-def bwd_signature(fn):
-    """Set the ctypes signature of K1's C entry point ``fn``."""
+def bwd_signature(fn, bf16: bool = False):
+    """Set the ctypes signature of K1's C entry point ``fn`` (its bf16
+    mode's with ``bf16``: the forward's winner and its bytes an element
+    after ``d_pooled``)."""
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    winner = [ctypes.c_void_p, ctypes.c_int] if bf16 else []
+    fn.argtypes = [ctypes.c_void_p] * 6 + winner + [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p),
         ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
     return fn
@@ -41,7 +45,7 @@ def bwd_signature(fn):
 def _bind_bwd(bf16: bool):
     lib = build.library("fused_sa_bwd")
     return bwd_signature(lib.fused_sa_backward_bf16 if bf16
-                         else lib.fused_sa_backward)
+                         else lib.fused_sa_backward, bf16)
 
 
 @functools.cache
@@ -69,10 +73,39 @@ def fwd_signature(fn):
 
 
 @functools.cache
-def _bind(bf16: bool):
-    lib = build.library("fused_sa_fwd")
-    return fwd_signature(lib.fused_sa_forward_bf16 if bf16
-                         else lib.fused_sa_forward)
+def _bind():
+    return fwd_signature(build.library("fused_sa_fwd").fused_sa_forward)
+
+
+def fwd_bf16_signature(fn):
+    """Set the ctypes signature of the bf16 forward's C entry point
+    ``fn`` (``csrc/fused_sa_fwd_bf16.cu``)."""
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    return fn
+
+
+@functools.cache
+def _bind_bf16():
+    return fwd_bf16_signature(
+        build.library("fused_sa_fwd_bf16").fused_sa_forward_bf16)
+
+
+@functools.cache
+def _bind_pack():
+    fn = build.library("fused_sa_fwd_bf16").fused_sa_pack_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    return fn
 
 
 def _f32(t: torch.Tensor, device: torch.device, what: str) -> torch.Tensor:
@@ -139,9 +172,10 @@ def scratch_floats(chans, rows: int) -> int:
 
 
 def _bwd(nsample: int, layer_norm: bool, xyz, new_xyz, features, params,
-         idx, pooled, d_pooled, needs, bf16: bool):
-    """Launch K1 (its bf16 mode with ``bf16``) -> (d_xyz, d_new_xyz,
-    d_features, scratch, vec, chans)."""
+         idx, pooled, d_pooled, needs, bf16: bool, winner=None):
+    """Launch K1 (its bf16 mode with ``bf16``, which routes by the bf16
+    forward's ``winner``) -> (d_xyz, d_new_xyz, d_features, scratch, vec,
+    chans)."""
     xyz, new_xyz, features, F, chans = _check_level(xyz, new_xyz, features,
                                                     params, layer_norm)
     device = xyz.device
@@ -156,6 +190,16 @@ def _bwd(nsample: int, layer_norm: bool, xyz, new_xyz, features, params,
     if pooled.shape != shape or d_pooled.shape != shape:
         raise ValueError(f"pooled and d_pooled must be {shape}")
     idx = idx.contiguous()
+    win = []
+    if bf16:
+        if winner is None or winner.shape != shape \
+                or winner.dtype != winner_dtype(nsample) \
+                or winner.device != device:
+            raise ValueError(f"K1's bf16 mode routes by the bf16 forward's "
+                             f"winner: {shape} {winner_dtype(nsample)} on "
+                             f"{device}")
+        winner = winner.contiguous()
+        win = [winner.data_ptr(), winner.element_size()]
 
     ptrs, keep = [], []  # keep: the operands stay alive through the launch
     for layer in params:
@@ -198,7 +242,7 @@ def _bwd(nsample: int, layer_norm: bool, xyz, new_xyz, features, params,
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _bind_bwd(bf16)(xyz.data_ptr(), new_xyz.data_ptr(), ptr(features),
                           idx.data_ptr(), pooled.data_ptr(),
-                          d_pooled.data_ptr(), B, N, S, F, nsample,
+                          d_pooled.data_ptr(), *win, B, N, S, F, nsample,
                           len(params), c_chans, c_ptrs, int(layer_norm), need,
                           ptr(d_xyz), ptr(d_feat), ptr(d_new),
                           scratch.data_ptr(), vec.data_ptr(),
@@ -230,13 +274,16 @@ def fused_sa_bwd_bf16_cuda(nsample: int, layer_norm: bool,
                            xyz: torch.Tensor, new_xyz: torch.Tensor,
                            features: torch.Tensor | None, params,
                            idx: torch.Tensor, pooled: torch.Tensor,
-                           d_pooled: torch.Tensor, needs=(True, True, True)):
+                           d_pooled: torch.Tensor, needs=(True, True, True),
+                           winner: torch.Tensor | None = None):
     """K1's bf16 mode: the backward of :func:`fused_sa_bf16_cuda` from its
-    ``idx`` and ``pooled`` (``ops.fused_sa.fused_sa_backward_plain(...,
-    precision="bf16")``) -> as :func:`fused_sa_bwd_cuda`, its scratch rows
-    bf16 (for :func:`sa_weight_grad_bf16_cuda`). Counted apart."""
+    ``idx``, ``pooled`` and ``winner`` (``d_pooled[c]`` goes to the winner's
+    row where ``pooled[c] > 0``: ``ops.fused_sa.fused_sa_backward_plain(...,
+    precision="bf16", winner=)``) -> as :func:`fused_sa_bwd_cuda`, its
+    scratch rows bf16 (for :func:`sa_weight_grad_bf16_cuda`). Counted
+    apart."""
     out = _bwd(nsample, layer_norm, xyz, new_xyz, features, params, idx,
-               pooled, d_pooled, needs, True)
+               pooled, d_pooled, needs, True, winner)
     fused_sa_bwd_bf16_cuda.launches += 1
     return out
 
@@ -307,15 +354,21 @@ sa_weight_grad_bf16_cuda.launches = 0
 
 def fused_sa_backward_cuda(nsample: int, layer_norm: bool, xyz, new_xyz,
                            features, params, idx, pooled, d_pooled,
-                           needs=(True, True, True), bf16: bool = False):
+                           needs=(True, True, True), bf16: bool = False,
+                           winner: torch.Tensor | None = None):
     """The level's whole backward on the card, K1 then K2 (their bf16 modes
-    with ``bf16``) -> (d_xyz, d_new_xyz, d_features, each None where not
-    asked; per-layer gradients shaped like ``params``)."""
-    k1, k2 = ((fused_sa_bwd_bf16_cuda, sa_weight_grad_bf16_cuda) if bf16
-              else (fused_sa_bwd_cuda, sa_weight_grad_cuda))
-    d_xyz, d_new, d_feat, scratch, vec, chans = k1(
-        nsample, layer_norm, xyz, new_xyz, features, params, idx, pooled,
-        d_pooled, needs)
+    with ``bf16``, routed by the bf16 forward's ``winner``) -> (d_xyz,
+    d_new_xyz, d_features, each None where not asked; per-layer gradients
+    shaped like ``params``)."""
+    args = (nsample, layer_norm, xyz, new_xyz, features, params, idx,
+            pooled, d_pooled, needs)
+    if bf16:
+        d_xyz, d_new, d_feat, scratch, vec, chans = fused_sa_bwd_bf16_cuda(
+            *args, winner=winner)
+        k2 = sa_weight_grad_bf16_cuda
+    else:
+        d_xyz, d_new, d_feat, scratch, vec, chans = fused_sa_bwd_cuda(*args)
+        k2 = sa_weight_grad_cuda
     grads = k2(scratch, vec, chans, layer_norm, idx.numel())
     return d_xyz, d_new, d_feat, grads
 
@@ -331,18 +384,16 @@ def padded_bf16(w: torch.Tensor) -> torch.Tensor:
 
 def _forward(radius: float, nsample: int, layer_norm: bool,
              xyz: torch.Tensor, new_xyz: torch.Tensor,
-             features: torch.Tensor | None, params, bf16: bool = False):
-    """Launch ``csrc/fused_sa_fwd.cu`` (its bf16 mode with ``bf16``) ->
-    (pooled, idx)."""
+             features: torch.Tensor | None, params):
+    """Launch ``csrc/fused_sa_fwd.cu`` -> (pooled, idx)."""
     xyz, new_xyz, features, F, chans = _check_level(xyz, new_xyz, features,
                                                     params, layer_norm)
     device = xyz.device
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
-    layout = padded_bf16 if bf16 else padded_transpose
     ptrs, keep = [], []  # keep: the operands stay alive through the launch
     for layer in params:
-        wt = layout(_f32(layer[0], device, "weight"))
+        wt = padded_transpose(_f32(layer[0], device, "weight"))
         rest = [_f32(a, device, "bias/gamma/beta") for a in layer[1:]]
         keep += [wt, *rest]
         ptrs += [wt.data_ptr(), *(a.data_ptr() for a in rest)]
@@ -353,13 +404,161 @@ def _forward(radius: float, nsample: int, layer_norm: bool,
     idx = torch.empty((B, S, nsample), dtype=torch.int32, device=device)
     c_chans = (ctypes.c_int * len(chans))(*chans)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    err = _bind(bf16)(xyz.data_ptr(), new_xyz.data_ptr(),
+    err = _bind()(xyz.data_ptr(), new_xyz.data_ptr(),
                   None if features is None else features.data_ptr(),
                   B, N, S, F, nsample, float(radius) ** 2, len(params),
                   c_chans, c_ptrs, int(layer_norm), pooled.data_ptr(),
                   idx.data_ptr(), build.stream_ptr(device))
     build.check(err, "fused_sa_forward")
     return pooled, idx
+
+
+# the bf16 forward's widths: a layer's output padded to a multiple of
+# WIDTH_STEP (one wgmma of n 64, 128, 192 or 256), at most MAX_WIDTH; the
+# gathered rows to a multiple of 16 (wgmma's k)
+WIDTH_STEP = 64
+MAX_WIDTH = 256
+
+
+def padded_widths(chans) -> tuple[list, list]:
+    """The bf16 forward's padded widths of a level of channels ``chans``
+    -> (kp, np): layer l takes kp[l] inputs (layer 0's rows rounded up to
+    16, else the previous layer's np) and gives np[l] outputs (rounded up
+    to ``WIDTH_STEP``)."""
+    np_ = [-(-co // WIDTH_STEP) * WIDTH_STEP for co in chans[1:]]
+    kp = [-(-chans[0] // 16) * 16] + np_[:-1]
+    return kp, np_
+
+
+def pack_wgmma(w: torch.Tensor, kp: int, np_: int) -> torch.Tensor:
+    """A Dense weight (C_out, C_in) -> rounded to bf16 (to nearest even),
+    zero-padded to (np_, kp) and packed in wgmma's K-major core-matrix
+    layout without swizzle, the bf16 forward's B operand (the plain version
+    of what ``fused_sa_pack_bf16_kernel`` writes): core matrices of
+    8 output rows x 8 inputs (16 bytes a row, 128 contiguous bytes each),
+    the input chunks outermost. Element (o, i) lies at flat index
+    ``((i // 8) * (np_ // 8) + o // 8) * 64 + (o % 8) * 8 + i % 8``, so the
+    result is ``(kp // 8, np_ // 8, 8, 8)``."""
+    co, ci = w.shape
+    if (co, ci) != (np_, kp):
+        w = torch.nn.functional.pad(w, (0, kp - ci, 0, np_ - co))
+    out = torch.empty((kp // 8, np_ // 8, 8, 8), dtype=torch.bfloat16,
+                      device=w.device)
+    out.copy_(w.view(np_ // 8, 8, kp // 8, 8).permute(2, 0, 1, 3))
+    return out
+
+
+def pack_vectors(params, layer_norm: bool, np_) -> torch.Tensor:
+    """The bf16 forward's vectors, f32: per layer the bias, then with
+    LayerNorm the gamma and the beta, each zero-padded to the layer's
+    padded width."""
+    parts = []
+    for layer, width in zip(params, np_):
+        for a in layer[1:4 if layer_norm else 2]:
+            parts.append(a if a.shape[0] == width else
+                         torch.nn.functional.pad(a, (0, width - a.shape[0])))
+    return torch.cat(parts)
+
+
+def image_offsets(chans) -> tuple[list, int]:
+    """Where the bf16 forward's image keeps each layer's packed weight
+    (bytes, each at a multiple of 128) and where its vectors begin."""
+    kp, np_ = padded_widths(chans)
+    offsets, at = [], 0
+    for k, n in zip(kp, np_):
+        offsets.append(at)
+        at += -(-k * n * 2 // 128) * 128
+    return offsets, at
+
+
+def image_bytes(chans, layer_norm: bool) -> int:
+    """Bytes of the bf16 forward's image of a level of channels ``chans``."""
+    _, np_ = padded_widths(chans)
+    return image_offsets(chans)[1] + 4 * sum(np_) * (3 if layer_norm else 1)
+
+
+def pack_image(params, layer_norm: bool) -> torch.Tensor:
+    """The plain version of the image that ``csrc/fused_sa_fwd_bf16.cu``
+    packs on the card (``fused_sa_pack_bf16_kernel``) and copies into
+    shared memory: each layer's :func:`pack_wgmma` at its
+    :func:`image_offsets` offset (zero between), then
+    :func:`pack_vectors` -> uint8 (``image_bytes``,)."""
+    chans = [params[0][0].shape[1]] + [layer[0].shape[0] for layer in params]
+    kp, np_ = padded_widths(chans)
+    offsets, at = image_offsets(chans)
+    out = torch.zeros(image_bytes(chans, layer_norm), dtype=torch.uint8,
+                      device=params[0][0].device)
+    for layer, k, n, off in zip(params, kp, np_, offsets):
+        w = pack_wgmma(layer[0], k, n).reshape(-1).view(torch.uint8)
+        out[off:off + w.numel()] = w
+    out[at:] = pack_vectors(params, layer_norm, np_).view(torch.uint8)
+    return out
+
+
+def winner_dtype(nsample: int) -> torch.dtype:
+    """The bf16 forward's winner: one byte a channel up to K 256."""
+    return torch.uint8 if nsample <= 256 else torch.int32
+
+
+def _layer_pointers(params, layer_norm: bool, device):
+    """The level's f32 tensors (kept alive by the caller) and their
+    pointers, four a layer, gamma and beta null without LayerNorm."""
+    keep, ptrs = [], []
+    for layer in params:
+        ts = [_f32(a, device, "weight/bias/gamma/beta") for a in layer]
+        keep += ts
+        ptrs += [t.data_ptr() for t in ts] + ([] if layer_norm
+                                               else [None, None])
+    return keep, (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def pack_image_cuda(params, layer_norm: bool) -> torch.Tensor:
+    """``fused_sa_pack_bf16_kernel`` alone: the image the bf16 forward
+    packs before its kernel, for holding against :func:`pack_image`."""
+    device = params[0][0].device
+    chans = [params[0][0].shape[1]] + [layer[0].shape[0] for layer in params]
+    keep, c_ptrs = _layer_pointers(params, layer_norm, device)
+    out = torch.empty(image_bytes(chans, layer_norm), dtype=torch.uint8,
+                      device=device)
+    c_chans = (ctypes.c_int * len(chans))(*chans)
+    err = _bind_pack()(len(params), c_chans, c_ptrs, int(layer_norm),
+                       out.data_ptr(), out.numel(), build.stream_ptr(device))
+    build.check(err, "fused_sa_pack_bf16")
+    return out
+
+
+def _forward_bf16(radius: float, nsample: int, layer_norm: bool,
+                  xyz: torch.Tensor, new_xyz: torch.Tensor,
+                  features: torch.Tensor | None, params, winner: bool):
+    """Launch ``csrc/fused_sa_fwd_bf16.cu`` (its image's packing, then the
+    level) -> (pooled, idx, winner or None)."""
+    xyz, new_xyz, features, F, chans = _check_level(xyz, new_xyz, features,
+                                                    params, layer_norm)
+    if max(chans[1:]) > MAX_WIDTH:
+        raise ValueError(f"the bf16 fused SA forward takes layers of at most "
+                         f"{MAX_WIDTH} channels, got {chans[1:]}")
+    device = xyz.device
+    B, N, _ = xyz.shape
+    S = new_xyz.shape[1]
+    keep, c_ptrs = _layer_pointers(params, layer_norm, device)
+    image = torch.empty(image_bytes(chans, layer_norm), dtype=torch.uint8,
+                        device=device)
+    shape = (B, S, chans[-1])
+    pooled = torch.empty(shape, dtype=torch.float32, device=device)
+    idx = torch.empty((B, S, nsample), dtype=torch.int32, device=device)
+    win = (torch.empty(shape, dtype=winner_dtype(nsample), device=device)
+           if winner else None)
+    c_chans = (ctypes.c_int * len(chans))(*chans)
+    err = _bind_bf16()(xyz.data_ptr(), new_xyz.data_ptr(),
+                       None if features is None else features.data_ptr(),
+                       B, N, S, F, nsample, float(radius) ** 2, len(params),
+                       c_chans, c_ptrs, int(layer_norm), image.data_ptr(),
+                       image.numel(), pooled.data_ptr(), idx.data_ptr(),
+                       None if win is None else win.data_ptr(),
+                       0 if win is None else win.element_size(),
+                       build.stream_ptr(device))
+    build.check(err, "fused_sa_forward_bf16")
+    return pooled, idx, win
 
 
 def fused_sa_cuda(radius: float, nsample: int, layer_norm: bool,
@@ -379,17 +578,21 @@ fused_sa_cuda.launches = 0
 
 def fused_sa_bf16_cuda(radius: float, nsample: int, layer_norm: bool,
                        xyz: torch.Tensor, new_xyz: torch.Tensor,
-                       features: torch.Tensor | None, params):
-    """The level's bf16 mode on the card (its backward:
-    :func:`fused_sa_bwd_bf16_cuda`) -> (pooled
-    (B, S, C_last) f32, idx (B, S, nsample) int32): every layer product on
-    operands rounded to bf16, summed in f32
+                       features: torch.Tensor | None, params,
+                       winner: bool = False):
+    """The level's bf16 mode on the card (``csrc/fused_sa_fwd_bf16.cu``;
+    its backward: :func:`fused_sa_bwd_bf16_cuda`) -> (pooled
+    (B, S, C_last) f32, idx (B, S, nsample) int32), and with ``winner``
+    the max-pool's winner (B, S, C_last) (:func:`winner_dtype`: the first
+    neighbour whose last activation is the max, which the backward routes
+    to): every layer product on operands rounded to bf16, summed in f32
     (``ops.fused_sa.fused_sa_forward_plain(..., precision="bf16")``).
-    Arguments as :func:`fused_sa_cuda`; counted apart from it."""
-    out = _forward(radius, nsample, layer_norm, xyz, new_xyz, features,
-                   params, bf16=True)
+    Arguments as :func:`fused_sa_cuda`, every layer at most 256 channels;
+    counted apart from it."""
+    pooled, idx, win = _forward_bf16(radius, nsample, layer_norm, xyz,
+                                     new_xyz, features, params, winner)
     fused_sa_bf16_cuda.launches += 1
-    return out
+    return (pooled, idx, win) if winner else (pooled, idx)
 
 
 fused_sa_bf16_cuda.launches = 0

@@ -47,6 +47,16 @@ def lap_step_cycles() -> int:
     return int(fn())
 
 
+def lap_block_step_cycles(n: int) -> int:
+    """Cycles of one dependent Dijkstra step of the kernel's block path
+    (33 to 128 rows) at ``n`` rows, the chain floor stated in
+    ``csrc/lap.cu``'s note."""
+    fn = build.library("lap").lap_block_step_cycles
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    return int(fn(n))
+
+
 def lap_large_step_cycles(n: int) -> int:
     """Cycles of one dependent Dijkstra step of the kernel's large path at
     ``n`` rows, the chain floor stated in ``csrc/lap.cu``'s note."""

@@ -84,19 +84,41 @@ def _mlp_plain(h, params, norm: str, product=torch.matmul) -> list:
     return layers
 
 
-def fused_sa_forward_plain(radius: float, nsample: int, norm: str,
-                           xyz: torch.Tensor, new_xyz: torch.Tensor,
-                           features: torch.Tensor | None, params,
-                           precision: str = "f32"):
-    """Plain version: the same level as separate PyTorch ops. In bf16 the
-    feature rows are gathered rounded to bf16 and every product is
-    :func:`matmul_bf16`."""
+def first_argmax(act: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
+    """The max-pool's winner: for each (query, channel) of ``act`` (B, S,
+    K, C), the first k whose value equals ``pooled`` (B, S, C), int64."""
+    return (act == pooled[:, :, None, :]).int().argmax(dim=2)
+
+
+def level_activations(radius: float, nsample: int, norm: str,
+                      xyz: torch.Tensor, new_xyz: torch.Tensor,
+                      features: torch.Tensor | None, params,
+                      precision: str = "f32"):
+    """The plain level before its max: -> (the last layer's activations
+    (B, S, K, C), idx (B, S, K)). In bf16 the feature rows are gathered
+    rounded to bf16 and every product is :func:`matmul_bf16`."""
     idx = ball_query_plain(radius, nsample, xyz, new_xyz)        # (B, S, K)
     if precision == "bf16" and features is not None:
         features = bf16_round(features)
     layers = _mlp_plain(_gather_plain(xyz, new_xyz, features, idx), params,
                         norm, PRODUCTS[precision])
-    return layers[-1][3].amax(dim=2), idx
+    return layers[-1][3], idx
+
+
+def fused_sa_forward_plain(radius: float, nsample: int, norm: str,
+                           xyz: torch.Tensor, new_xyz: torch.Tensor,
+                           features: torch.Tensor | None, params,
+                           precision: str = "f32", winner: bool = False):
+    """Plain version: the same level as separate PyTorch ops
+    (:func:`level_activations`, then the max over K) -> (pooled, idx), and
+    with ``winner`` the max-pool's first winner (:func:`first_argmax`, as
+    the bf16 kernel writes it)."""
+    act, idx = level_activations(radius, nsample, norm, xyz, new_xyz,
+                                 features, params, precision)
+    pooled = act.amax(dim=2)
+    if winner:
+        return pooled, idx, first_argmax(act, pooled)
+    return pooled, idx
 
 
 def tf32_split(x: torch.Tensor):
@@ -137,14 +159,17 @@ def fused_sa_backward_plain(nsample: int, norm: str, xyz: torch.Tensor,
                             idx: torch.Tensor, pooled: torch.Tensor,
                             d_pooled: torch.Tensor,
                             needs=(True, True, True), splits: int = 1,
-                            precision: str = "f32"):
+                            precision: str = "f32",
+                            winner: torch.Tensor | None = None):
     """The level's backward in the kernels' decomposition
     (``csrc/fused_sa_bwd.cu`` then ``csrc/sa_weight_grad.cu``), from the
     forward's ``idx`` and ``pooled``:
 
     1. recompute every layer from the re-gathered rows;
     2. route ``d_pooled[c]`` to the FIRST neighbour whose last activation
-       is >= ``pooled[c]`` (and > 0: the ReLU);
+       is >= ``pooled[c]`` (and > 0: the ReLU); with ``winner`` (B, S, C),
+       the forward's first winner (K1's bf16 mode), to row ``winner[c]``
+       where ``pooled[c] > 0``;
     3. per layer, last to first: the LayerNorm backward, then the rows the
        weight gradient needs, ``d_pre`` (rows, C_out) and the layer's input
        (rows, C_in), then the input gradient ``d_pre · W`` masked by the
@@ -176,9 +201,15 @@ def fused_sa_backward_plain(nsample: int, norm: str, xyz: torch.Tensor,
     x = _gather_plain(xyz, new_xyz, features, idx)
     layers = _mlp_plain(x, params, norm, product)
     act = layers[-1][3]
-    hit = act >= pooled[:, :, None, :]
-    first = hit & (hit.int().cumsum(2) == 1)
-    d = torch.where(first & (act > 0), d_pooled[:, :, None, :], 0.0)
+    if winner is None:
+        hit = act >= pooled[:, :, None, :]
+        first = hit & (hit.int().cumsum(2) == 1)
+        passed = act > 0
+    else:
+        first = (torch.arange(nsample, device=act.device)[:, None]
+                 == winner.long()[:, :, None, :])
+        passed = (pooled > 0)[:, :, None, :]
+    d = torch.where(first & passed, d_pooled[:, :, None, :], 0.0)
     rows = d.shape[0] * d.shape[1] * d.shape[2]
     step = -(-rows // splits)
 
@@ -234,7 +265,8 @@ class FusedSALevel(torch.autograd.Function):
     recomputes the activations from them (``csrc/fused_sa_bwd.cu``) and
     forms the weight gradients from the rows it writes
     (``csrc/sa_weight_grad.cu``). ``bf16``: the kernels' bf16 modes
-    (``precision="bf16"``).
+    (``precision="bf16"``); the bf16 forward (``csrc/fused_sa_fwd_bf16.cu``)
+    also saves the max-pool's winner, which its backward routes by.
 
     ``apply(radius, nsample, layer_norm, bf16, xyz, new_xyz, features,
     n_per, *flat_params)``: ``flat_params`` holds the layers' tensors in
@@ -245,11 +277,18 @@ class FusedSALevel(torch.autograd.Function):
                 features, n_per, *flat):
         from .cuda.fused_sa import fused_sa_bf16_cuda, fused_sa_cuda
 
-        forward = fused_sa_bf16_cuda if bf16 else fused_sa_cuda
-        pooled, idx = forward(radius, nsample, layer_norm, xyz, new_xyz,
-                              features, _layers(flat, n_per))
+        params = _layers(flat, n_per)
+        winner = None
+        if bf16:
+            pooled, idx, winner = fused_sa_bf16_cuda(
+                radius, nsample, layer_norm, xyz, new_xyz, features, params,
+                winner=True)
+        else:
+            pooled, idx = fused_sa_cuda(radius, nsample, layer_norm, xyz,
+                                        new_xyz, features, params)
         ctx.level = (nsample, layer_norm, bf16, n_per)
-        ctx.save_for_backward(xyz, new_xyz, features, idx, pooled, *flat)
+        ctx.save_for_backward(xyz, new_xyz, features, idx, pooled, winner,
+                              *flat)
         ctx.mark_non_differentiable(idx)
         return pooled, idx
 
@@ -258,13 +297,14 @@ class FusedSALevel(torch.autograd.Function):
         from .cuda.fused_sa import fused_sa_backward_cuda
 
         nsample, layer_norm, bf16, n_per = ctx.level
-        xyz, new_xyz, features, idx, pooled, *flat = ctx.saved_tensors
+        xyz, new_xyz, features, idx, pooled, winner, *flat = \
+            ctx.saved_tensors
         # only the input gradients autograd asks for (the points and the
         # FPS centroids of a step carry none)
         d_xyz, d_new, d_feat, d_params = fused_sa_backward_cuda(
             nsample, layer_norm, xyz, new_xyz, features, _layers(flat, n_per),
             idx, pooled, d_pooled.contiguous(),
-            needs=ctx.needs_input_grad[4:7], bf16=bf16)
+            needs=ctx.needs_input_grad[4:7], bf16=bf16, winner=winner)
         return (None, None, None, None, d_xyz, d_new, d_feat, None,
                 *(g for layer in d_params for g in layer))
 

@@ -755,10 +755,11 @@ class TestBf16BackwardOnCard:
     @LEVEL_CASES
     def test_bf16_backward_kernels_match_plain(self, norm, with_features,
                                                cuda_device):
-        """K1 and K2 in bf16 on the bf16 forward's pooled output: every
-        gradient's rms error from the float64 plain level within 3x the
-        float32 plain level's own, every positive max routed, dW bitwise
-        equal across two launches, one launch of each counted."""
+        """K1 and K2 in bf16 on the bf16 forward's pooled output and
+        winner: every gradient's rms error from the float64 plain level
+        within 3x the float32 plain level's own, every positive max routed,
+        dW bitwise equal across two launches, one launch of each
+        counted."""
         from maskplanner_tpu_torch.ops.cuda.fused_sa import (
             fused_sa_backward_cuda, fused_sa_bf16_cuda,
             fused_sa_bwd_bf16_cuda, sa_weight_grad_bf16_cuda)
@@ -770,18 +771,20 @@ class TestBf16BackwardOnCard:
         tparams = [tuple(_t(a).to(dev) for a in layer) for layer in params]
         tct = _t(ct).to(dev)
         layer_norm = norm == "layer"
-        pooled, idx = fused_sa_bf16_cuda(RADIUS, K, layer_norm, *leaves,
-                                         tparams)
+        pooled, idx, winner = fused_sa_bf16_cuda(RADIUS, K, layer_norm,
+                                                 *leaves, tparams,
+                                                 winner=True)
         before = (fused_sa_bwd_bf16_cuda.launches,
                   sa_weight_grad_bf16_cuda.launches)
         got = _flat(*fused_sa_backward_cuda(K, layer_norm, *leaves, tparams,
-                                            idx, pooled, tct, bf16=True))
+                                            idx, pooled, tct, bf16=True,
+                                            winner=winner))
         assert (fused_sa_bwd_bf16_cuda.launches,
                 sa_weight_grad_bf16_cuda.launches) == (before[0] + 1,
                                                        before[1] + 1)
         again = _flat(*fused_sa_backward_cuda(K, layer_norm, *leaves,
                                               tparams, idx, pooled, tct,
-                                              bf16=True))
+                                              bf16=True, winner=winner))
         n_in = 2 + (feats is not None)
         for a, b in zip(got[n_in:], again[n_in:]):
             assert torch.equal(a, b)
@@ -801,6 +804,6 @@ class TestBf16BackwardOnCard:
         if layer_norm:
             ones = fused_sa_backward_cuda(K, True, *leaves, tparams, idx,
                                           pooled, torch.ones_like(pooled),
-                                          bf16=True)[3]
+                                          bf16=True, winner=winner)[3]
             assert float(ones[-1][3].double().sum()) == float(
                 (pooled > 0).sum())
