@@ -144,7 +144,8 @@ result line:
     against the plain bf16 backward, each
     gradient's rms error from the float64 plain level within 3 x the
     float32 plain level's (``check_against_exact``), every positive max
-    routed, dW bitwise equal across two launches, times and bounds (bf16
+    routed, dW and K1's scratch rows and per-query sums bitwise equal
+    across two launches, times and bounds (bf16
     products at the tensor cores' bf16 rate, the function's own bytes;
     beside them ``design_bound_ms`` with the scratch rows this design
     writes and reads); each recipe's bf16 step
@@ -510,7 +511,7 @@ KERNELS = {
         mode="single_pass=True"),
     # the bf16 mode of #3 (bf16 training): K1 and K2
     "fused_sa_bwd_bf16": dict(
-        source="maskplanner_tpu_torch/csrc/fused_sa_bwd.cu",
+        source="maskplanner_tpu_torch/csrc/fused_sa_bwd_bf16.cu",
         replaces="maskplanner_tpu/ops/pallas/fused_sa_train.py:589",
         mode='precision="default"'),
     "sa_weight_grad_bf16": dict(
@@ -752,7 +753,7 @@ def per_replay(traced: dict, replays: int, expect: dict, what: str) -> dict:
 # namespace
 KERNEL_SYMBOLS = ("fps_kernel", "fused_sa_fwd_kernel",
                   "fused_sa_fwd_bf16_kernel", "fused_sa_pack_bf16_kernel",
-                  "fused_sa_bwd_kernel",
+                  "fused_sa_bwd_kernel", "fused_sa_bwd_bf16_kernel",
                   "dw_partial", "vec_partial", "::finish(", "nn_argmin_kernel",
                   "lap_warp_kernel", "lap_block_kernel", "ball_group_kernel",
                   "fps_large_kernel", "nn_argmin_chunked_kernel",
@@ -778,13 +779,13 @@ def kernel_of(symbol: str) -> str | None:
     args = [a.strip() for a in (m.group(2) or "").split(",")]
     if name == "fused_sa_fwd_kernel":     # <kResident>
         return "fused_sa_fwd"
-    if name == "fused_sa_bwd_kernel":     # <kBf16>
-        return "fused_sa_bwd_bf16" if args[0] == "true" else "fused_sa_bwd"
     if name == "ball_group_kernel":       # <kGather, kStaged, Out>
         if args[0] == "false":
             return "ball_query"
         return "ball_group_single" if "bfloat16" in args[2] else "ball_group"
     return {"fps_kernel": "fps", "fused_sa_fwd_bf16_kernel": "fused_sa_fwd_bf16",
+            "fused_sa_bwd_kernel": "fused_sa_bwd",
+            "fused_sa_bwd_bf16_kernel": "fused_sa_bwd_bf16",
             "fused_sa_pack_bf16_kernel": "fsa_bf16_pack",
             "dw_partial": "sa_weight_grad",
             "dw_partial_bf16": "sa_weight_grad_bf16",
@@ -876,7 +877,7 @@ def phase_build() -> None:
                 build.build_seconds.items(), key=lambda kv: -kv[1])))
     for name, out in build.build_logs.items():
         for line in out.splitlines():
-            if "registers" in line or (
+            if ("registers" in line and "(C75" not in line) or (
                     "spill" in line and " 0 bytes spill" not in line):
                 log(f"[build] {name}: {line.strip()}")
 
@@ -1301,13 +1302,14 @@ def check_against_exact(name: str, got, plain, exact) -> float:
 
 
 def check_routing(name, sa, leaves, params, idx, pooled,
-                  bf16: bool = False, winner=None) -> None:
+                  bf16: bool = False, winner=None, image=None) -> None:
     """The max-pool backward finds the forward's winner for every (query,
     channel): with d_pooled = 1 the last LayerNorm's beta gradient counts
     the routed pairs that pass the ReLU, which must be every pair with a
     positive maximum (a recompute that differed from the forward in one bit
     would lose the pair). ``bf16``: the kernels' bf16 modes, on the bf16
-    forward's ``pooled``, routed by its ``winner``."""
+    forward's ``pooled``, routed by its ``winner``, on its packed
+    ``image``."""
     from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_backward_cuda
 
     det = [None if t is None else t.detach() for t in leaves]
@@ -1316,7 +1318,8 @@ def check_routing(name, sa, leaves, params, idx, pooled,
     _, _, _, grads = fused_sa_backward_cuda(sa.nsample, True, *det, dparams,
                                             idx, pooled,
                                             torch.ones_like(pooled),
-                                            bf16=bf16, winner=winner)
+                                            bf16=bf16, winner=winner,
+                                            image=image)
     routed = float(grads[-1][3].double().sum())
     want = int((pooled > 0).sum())
     log(f"[train-kernels]   routing: {routed:.0f} of {want} (query, channel) "
@@ -1327,15 +1330,29 @@ def check_routing(name, sa, leaves, params, idx, pooled,
 
 
 def check_deterministic(name, args, bf16: bool = False,
-                        winner=None) -> None:
+                        winner=None, image=None) -> None:
     """Two launches of the level's backward (K1 then K2; their bf16 modes
-    with ``bf16``, routed by the bf16 forward's ``winner``) give the same
-    weight gradients, bit for bit: no atomic and a summation order fixed by
-    the shapes."""
-    from maskplanner_tpu_torch.ops.cuda.fused_sa import fused_sa_backward_cuda
+    with ``bf16``, routed by the bf16 forward's ``winner`` on its packed
+    ``image``) give the same weight gradients, bit for bit: no atomic and a
+    summation order fixed by the shapes. In bf16 K1's own outputs too: its
+    scratch rows and per-query sums (vec)."""
+    from maskplanner_tpu_torch.ops.cuda.fused_sa import (
+        fused_sa_backward_cuda, fused_sa_bwd_bf16_cuda)
 
-    first = fused_sa_backward_cuda(*args, bf16=bf16, winner=winner)[3]
-    second = fused_sa_backward_cuda(*args, bf16=bf16, winner=winner)[3]
+    if bf16:
+        one = fused_sa_bwd_bf16_cuda(*args, winner=winner, image=image)
+        two = fused_sa_bwd_bf16_cuda(*args, winner=winner, image=image)
+        for what, i in (("scratch rows", 3), ("vec", 4)):
+            if not torch.equal(one[i], two[i]):
+                raise AssertionError(f"fused SA {name}: K1's {what} differ "
+                                     f"between two launches")
+        log(f"[train-kernels]   K1's scratch rows ({one[3].numel()} bf16) "
+            f"and vec ({one[4].numel()} floats) bitwise equal across two "
+            f"launches")
+    first = fused_sa_backward_cuda(*args, bf16=bf16, winner=winner,
+                                   image=image)[3]
+    second = fused_sa_backward_cuda(*args, bf16=bf16, winner=winner,
+                                    image=image)[3]
     for j, (a, b) in enumerate(zip(first, second)):
         for n, x, y in zip(("dW", "db", "dgamma", "dbeta"), a, b):
             if not torch.equal(x, y):
@@ -3104,8 +3121,9 @@ def phase_bf16_train_kernels(model, batch, res: dict) -> None:
     the kernel is allowed 3x the plain float32 level's own rms error from
     the float64 one (the bf16 forward's rule, ``phase_bf16_kernels``).
     Every positive max-pool output routed (``check_routing`` on the bf16
-    forward's pooled and winner), the weight gradients bitwise equal across
-    two launches; K1
+    forward's pooled and winner), the weight gradients and K1's scratch rows
+    and per-query sums bitwise equal across two launches (K1 on the image
+    the bf16 forward packed, as the step's backward); K1
     and K2 timed apart, the plain backward beside them; the bound by this
     design's mix (bf16 products at the tensor cores' bf16 rate, the rest at
     the f32 rate)."""
@@ -3129,13 +3147,13 @@ def phase_bf16_train_kernels(model, batch, res: dict) -> None:
         params = [tuple(t.detach() for t in layer)
                   for layer in sa.layer_params()]
         leaves = [pts, new_xyz, feats]
-        pooled, idx, winner = fused_sa_bf16_cuda(sa.radius, K, True, *leaves,
-                                                 params, winner=True)
+        pooled, idx, winner, image = fused_sa_bf16_cuda(
+            sa.radius, K, True, *leaves, params, winner=True, image=True)
         ct = torch.randn(pooled.shape, generator=gen, device="cuda")
         reset_counts()
         d_xyz, d_new, d_feat, grads = fused_sa_backward_cuda(
             K, True, *leaves, params, idx, pooled, ct, bf16=True,
-            winner=winner)
+            winner=winner, image=image)
         counts = read_counts()
         if (counts["fused_sa_bwd_bf16"], counts["sa_weight_grad_bf16"]) \
                 != (1, 1):
@@ -3166,7 +3184,7 @@ def phase_bf16_train_kernels(model, batch, res: dict) -> None:
         log(f"[bf16-train-kernels] fused_sa_bwd_bf16 {name} B={B} N={N} "
             f"S={S} K={K}:")
         check_routing(name, sa, leaves, params, idx, pooled, bf16=True,
-                      winner=winner)
+                      winner=winner, image=image)
         for n, a, b, c in zip(names, got, ref, ref64):
             err = check_against_exact(n, a, b, c)
             r = k2 if n.startswith("L") else k1
@@ -3175,12 +3193,13 @@ def phase_bf16_train_kernels(model, batch, res: dict) -> None:
         # gradient), K2 on its rows, and the plain bf16 backward
         needs = (False, False, feats is not None)
         args = (K, True, *leaves, params, idx, pooled, ct)
-        check_deterministic(name, args, bf16=True, winner=winner)
+        check_deterministic(name, args, bf16=True, winner=winner,
+                            image=image)
         _, _, _, scratch, vec, chans = fused_sa_bwd_bf16_cuda(
-            *args, needs, winner=winner)
+            *args, needs, winner=winner, image=image)
         rows = idx.numel()
-        ms1 = median_ms(lambda: fused_sa_bwd_bf16_cuda(*args, needs,
-                                                       winner=winner), 5)
+        ms1 = median_ms(lambda: fused_sa_bwd_bf16_cuda(
+            *args, needs, winner=winner, image=image), 5)
         ms2 = median_ms(lambda: sa_weight_grad_bf16_cuda(scratch, vec, chans,
                                                          True, rows), 5)
         del scratch, vec

@@ -21,16 +21,20 @@ compiler's register and spill report of K1 comes first (and its SASS
 goes to the file $SA_BWD_SASS_OUT names, if set).
 
 ``--dtype bf16`` does the same for the bf16 modes, which bf16 models train
-with: K1's (``fused_sa_backward_bf16``, on the bf16 forward's pooled
-output and winner) and K2's (``sa_weight_grad_bf16``), in the same K1
-builds (bit 128 leaves out the mma loop of both K1 products, both
-``mma_product_bf16``; bit 32 has no effect); and the bf16 forward, its own
-source ``csrc/fused_sa_fwd_bf16.cu``, in copies that leave out its wgmma
-products (128), its register LayerNorm epilogue (256), the producer's
-neighbour scan (512) or its gather (1024), and a copy with
-``FSA_PHASES``, whose counters give the shares of a consumer warpgroup's
-and a producer warp's cycles (waiting for a tile, the layers, the max;
-the selection, waiting for a slot, the gather).
+with: K1's, its own source ``csrc/fused_sa_bwd_bf16.cu``
+(``fused_sa_backward_bf16``, on the bf16 forward's pooled output, winner
+and packed image), in copies that leave out its recompute's wgmma (1), its
+scratch rows (2), its input gradient's wgmma (4), its LayerNorm
+backward's arithmetic (8), its column sums (16), its scatter (32), its
+register LayerNorm forward (256) or the producer's gather (1024), and a
+copy with ``SA_BWD_PHASES``, whose counters give the shares of a consumer
+warpgroup's and a producer warp's cycles; K2's (``sa_weight_grad_bf16``);
+and the bf16 forward, its own source ``csrc/fused_sa_fwd_bf16.cu``, in
+copies that leave out its wgmma products (128), its register LayerNorm
+epilogue (256), the producer's neighbour scan (512) or its gather (1024),
+and a copy with ``FSA_PHASES``, whose counters give the shares of a
+consumer warpgroup's and a producer warp's cycles (waiting for a tile, the
+layers, the max; the selection, waiting for a slot, the gather).
 """
 from __future__ import annotations
 
@@ -57,12 +61,13 @@ VARIANTS = {"full": 0, "no recompute products": 1, "no scratch rows": 2,
             "input gradient: no mma loop": 32,
             "no weight-tile streaming": 64,
             "recompute: no multiply-adds": 128}
-# the bf16 mode's copies (both K1 products are mma_product_bf16)
-VARIANTS_BF16 = {"full": 0, "no recompute products": 1,
-                 "no scratch rows": 2, "no input-gradient products": 4,
-                 "no LayerNorm backward": 8, "no d_pre sums": 16,
-                 "all five left out": 31, "no weight-tile streaming": 64,
-                 "no mma loops (both products)": 128}
+# K1's bf16 copies (csrc/fused_sa_bwd_bf16.cu)
+VARIANTS_BF16 = {"full": 0, "no recompute wgmma": 1, "no scratch rows": 2,
+                 "no input-gradient wgmma": 4,
+                 "no LayerNorm backward arithmetic": 8,
+                 "no column sums": 16, "no scatter": 32,
+                 "no register LayerNorm forward": 256, "no gather": 1024,
+                 "none of the eight": 1343}
 # forward copy -> SA_BWD_SKIP bits (csrc/fused_sa_common.cuh)
 FWD_VARIANTS = {"full": 0, "no products' mma loop": 128,
                 "no LayerNorms": 256, "no neighbour scan": 512,
@@ -85,6 +90,19 @@ PHASES = ("indices and gather", "recompute products", "LayerNorm forward",
           "max-pool routing", "LayerNorm backward",
           "d_pre sums and scratch rows", "input-gradient products",
           "scatter", "query start and slot")
+# K1-bf16's (csrc/fused_sa_bwd_bf16.cu, Clock::mark(i)): a consumer
+# warpgroup's, then a producer warp's
+PHASES_BF16 = ("consumer: waiting for a tile",
+               "consumer: forward (wgmma, LayerNorm, input rows)",
+               "consumer: LayerNorm backward, routing, column sums",
+               "producer: the scatter of layer 0's input gradient",
+               "consumer: d_pre to bf16, scratch rows",
+               "consumer: the input gradient's wgmma (what is left)",
+               "consumer: recompute of a lower layer",
+               "consumer: d_new_xyz, rows left for the producer",
+               "producer: the indices", "producer: waiting for a slot",
+               "producer: the gather",
+               "producer: routing data, points, layer 0's input rows")
 
 
 def median_ms(fn, reps: int = 10) -> float:
@@ -114,17 +132,19 @@ def main(argv=None) -> None:
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
     print(f"mode: {'bf16' if bf16 else 'f32'}")
-    jobs = {key: ("fused_sa_bwd", (f"-DSA_BWD_SKIP={bits}",))
+    bwd_src = "fused_sa_bwd_bf16" if bf16 else "fused_sa_bwd"
+    jobs = {key: (bwd_src, (f"-DSA_BWD_SKIP={bits}",))
             for key, bits in (VARIANTS_BF16 if bf16 else VARIANTS).items()}
-    jobs["phases"] = ("fused_sa_bwd", ("-DSA_BWD_PHASES",))
+    jobs["phases"] = (bwd_src, ("-DSA_BWD_PHASES",))
     fwd_src = "fused_sa_fwd_bf16" if bf16 else "fused_sa_fwd"
     jobs.update({f"fwd {key}": (fwd_src, (f"-DSA_BWD_SKIP={bits}",))
                  for key, bits in (FWD_VARIANTS_BF16 if bf16
                                    else FWD_VARIANTS).items()})
     if bf16:
         jobs["fwd phases"] = ("fused_sa_fwd_bf16", ("-DFSA_PHASES",))
-    for key, flags in SHAPES.items():
-        jobs[key] = ("fused_sa_bwd", flags)
+    if not bf16:
+        for key, flags in SHAPES.items():
+            jobs[key] = ("fused_sa_bwd", flags)
     paths = build.build_all(jobs)
     for key, what in (("fwd full", "forward"), ("full", "K1")):
         for line in build.build_logs.get(key, "").splitlines():
@@ -140,7 +160,7 @@ def main(argv=None) -> None:
                               capture_output=True, text=True).stdout
         n = sum(1 for line in sass.splitlines() if line.strip().startswith("/*")
                 and "*/" in line and line.strip()[2:6].strip().isalnum())
-        print(f"[sass] K1 (both modes): {n} instructions")
+        print(f"[sass] K1 ({'bf16' if bf16 else 'f32'}): {n} instructions")
         if os.environ.get("SA_BWD_SASS_OUT"):
             with open(os.environ["SA_BWD_SASS_OUT"], "w") as fh:
                 fh.write(sass)
@@ -193,19 +213,19 @@ def main(argv=None) -> None:
                             print(f"{name}   {what:30s} "
                                   f"{100.0 * c / total:5.1f}%")
             setattr(cuda_sa, fwd_attr, bind_fwd)
-            winner = None
+            kw = {}
             with torch.no_grad():
                 if bf16:
-                    pooled, idx, winner = forward(sa.radius, K, True, pts,
-                                                  new_xyz, feats, params,
-                                                  winner=True)
+                    pooled, idx, winner, image = forward(
+                        sa.radius, K, True, pts, new_xyz, feats, params,
+                        winner=True, image=True)
+                    kw = {"winner": winner, "image": image}
                 else:
                     pooled, idx = forward(sa.radius, K, True, pts, new_xyz,
                                           feats, params)
             ct = torch.randn(pooled.shape, generator=gen, device="cuda")
             args = (K, True, pts, new_xyz, feats, params, idx, pooled, ct,
                     (False, False, feats is not None))
-            kw = {"winner": winner} if bf16 else {}
             for key, path in paths.items():
                 fn = cuda_sa.bwd_signature(getattr(ctypes.CDLL(path),
                                                    bwd_name), bf16)
@@ -214,16 +234,22 @@ def main(argv=None) -> None:
                 print(f"{name} K1 {key:40s} {ms:9.4f} ms")
             fn = cuda_sa.bwd_signature(getattr(phases_lib, bwd_name), bf16)
             cuda_sa._bind_bwd = lambda _bf16, fn=fn: fn
-            cycles = (ctypes.c_ulonglong * len(PHASES))()
+            names = PHASES_BF16 if bf16 else PHASES
+            cycles = (ctypes.c_ulonglong * len(names))()
             phases_lib.sa_bwd_phase_cycles(cycles)       # zero them
             k1(*args, **kw)
             torch.cuda.synchronize()
             phases_lib.sa_bwd_phase_cycles(cycles)
-            total = sum(cycles)
-            print(f"{name} K1 phases, share of the first thread group's "
-                  f"cycles:")
-            for what, c in zip(PHASES, cycles):
-                print(f"{name}   {what:30s} {100.0 * c / total:5.1f}%")
+            sides = (("consumer", "producer") if bf16
+                     else ("the first thread group",))
+            for side in sides:
+                part = [(what, c) for what, c in zip(names, cycles)
+                        if not bf16 or what.startswith(side)]
+                total = sum(c for _, c in part)
+                print(f"{name} K1 phases, share of {side}'s cycles:")
+                for what, c in part:
+                    print(f"{name}   {what:50s} "
+                          f"{100.0 * c / max(total, 1):5.1f}%")
             cuda_sa._bind_bwd = bind
             _, _, _, scratch, vec, chans = k1(*args, **kw)
             ms = median_ms(lambda: k2(scratch, vec, chans, True, idx.numel()))

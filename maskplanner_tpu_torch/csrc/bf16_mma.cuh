@@ -1,8 +1,8 @@
-// bf16 tensor-core products with mma.sync, for the bf16 modes of the fused
-// set-abstraction backward: K1's layer products
-// (fused_sa_common.cuh::mma_product_bf16) and K2's weight gradients
-// (sa_weight_grad.cu::dw_partial_bf16). The bf16 forward runs on wgmma
-// (fused_sa_fwd_bf16.cu, wgmma_bf16.cuh).
+// bf16 tensor-core products with mma.sync, for the bf16 mode of the fused
+// set-abstraction backward's weight gradients (K2,
+// sa_weight_grad.cu::dw_partial_bf16). The bf16 forward and K1's bf16 mode
+// run on wgmma (fused_sa_fwd_bf16.cu, fused_sa_bwd_bf16.cu,
+// wgmma_bf16.cuh).
 //
 // The TPU kernel's precision="default" product
 // (maskplanner_tpu/ops/pallas/fused_sa_train.py, `_dot`) is one MXU pass

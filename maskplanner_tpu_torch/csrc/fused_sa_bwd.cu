@@ -62,30 +62,8 @@
 // per-query sums go to their own slot and K2 reduces every sum in a fixed
 // order, so the weight gradients are the same bits from run to run.
 //
-// The bf16 mode (fused_sa_backward_bf16) replaces the same Pallas kernel's
-// precision="default" (bf16 models train with it; `_bwd_kernel` with
-// `_Gather(single=True)`). Its recompute takes the bf16 forward's rounding
-// points (mma_product_bf16 on the weight as bf16 in the Dense layout, the
-// A operand read from the float32 rows and rounded in registers, channels
-// padded to 16 with zero pad rows and bias, layer_norm_rows), but not its
-// bits: the bf16 forward (fused_sa_fwd_bf16.cu) sums in wgmma's order and
-// normalises in registers. So this mode does not route by equality: the
-// forward writes the winner of each (query, channel), the first neighbour
-// whose last activation is the max, and d_pooled[c] goes to that row where
-// the forward's pooled[c] > 0 (the ReLU's gate), which is the first-winner
-// rule of the float32 mode and of the JAX kernel. The input gradient
-// bf16(d_pre) · bf16(W) is
-// the same product on the transposed weight (ci16, co16) bf16, with no bias,
-// stored through the ReLU mask in place: one m16n8k16 mma a k-step of 16
-// where the float32 mode splits d_pre into TF32 parts and runs three. Its
-// sums stay float32, unrounded, as do the LayerNorm backward, db, dgamma and
-// dbeta. The rows scattered to the source points are rounded to bf16 before
-// the float32 atomics; d_new_xyz sums the unrounded offsets' gradient. The
-// scratch rows are stored rounded to bf16 (K2's bf16 mode rounds them
-// anyway): half the bytes, two neighbouring rows interleaved so that one
-// 32-bit word holds K2's mma fragment (sa_weight_grad.cu). Weights resident
-// where both orientations fit beside the groups (sa1: 58 KB), else streamed
-// in k-tiles through a double buffer by one group (sa2).
+// The bf16 mode of the same Pallas kernel (precision="default") is its own
+// kernel, fused_sa_bwd_bf16.cu.
 
 #include <cuda_runtime.h>
 
@@ -148,21 +126,11 @@ constexpr int kNeedFeats = 4;
 struct Layer {
   const float* wt;     // (ci8, co8): the Dense weight transposed, padded
   const float* w_pad;  // (co, ci_pad): the Dense weight, zero-padded
-  const __nv_bfloat16* w16;   // bf16: (cop, cip), the Dense weight, padded
-  const __nv_bfloat16* wt16;  // bf16: (cip, cop), its transpose, padded
   const float* bias;   // (co,)
   const float* gamma;  // (co,) or null without LayerNorm
   const float* beta;   // (co,) or null without LayerNorm
   float* d_rows;       // scratch (rows, co): d_pre
   float* in_rows;      // scratch (rows, ci_pad): the layer's input
-  __nv_bfloat16* d16;   // bf16: d_pre's scratch rows, in pairs
-  __nv_bfloat16* in16;  // bf16: the input's scratch rows, in pairs
-  int cip;     // bf16: ci rounded up to 16 (the mma's k)
-  int cop;     // bf16: co rounded up to 16
-  int tile16;  // bf16 streamed: columns of a w16 tile (the recompute)
-  int tilet;   // bf16 streamed: columns of a wt16 tile (the input gradient)
-  int res16;   // bf16 resident: offset of w16 in the weight buffer (floats)
-  int res16t;  // bf16 resident: offset of wt16
   int ci;
   int co;
   int ci_pad;  // ci rounded up to a multiple of 4
@@ -406,47 +374,13 @@ __device__ void write_rows(const Threads& th, const float* src, int ld,
   }
 }
 
-// As write_rows, rounded to bf16, the chunk's rows being rows row0.. of the
-// scratch: rows 2p and 2p + 1 interleave, element (r, c) at
-// (r / 2) 2 n_pad + 2 c + r % 2, so that a 32-bit word holds the two rows
-// of one column (K2's bf16 fragments). Two rows a warp.
-__device__ void write_rows_bf16(const Threads& th, const float* src, int ld,
-                                int n, int n_pad, int rows, size_t row0,
-                                __nv_bfloat16* __restrict__ dst) {
-  for (int k = 2 * (th.tid >> 5); k < rows; k += 2 * (th.n >> 5)) {
-    for (int c = th.tid & 31; c < n_pad; c += 32) {
-      for (int j = 0; j < 2 && k + j < rows; ++j) {
-        const size_t r = row0 + k + j;
-        const float v = c < n ? src[(k + j) * ld + c] : 0.f;
-        dst[(r >> 1) * 2 * n_pad + 2 * c + (r & 1)] = __float2bfloat16_rn(v);
-      }
-    }
-  }
-}
-
-// The bf16 product on a weight resident at wbuf + res or streamed through
-// wbuf (k-tiles of `tile` columns, a double buffer).
-__device__ void product_bf16(const Threads& th, int store, const float* in,
-                             int ld_in, int rows, const __nv_bfloat16* w,
-                             const float* bias, int cip, int co, int cop,
-                             float* out, int ld_out, float* wbuf, int res,
-                             int tile, bool resident) {
-  fused_sa::mma_product_bf16(
-      th, store, in, ld_in, rows, w, bias, cip, co, cop, out, ld_out,
-      reinterpret_cast<__nv_bfloat16*>(resident ? wbuf + res : wbuf), tile,
-      2, resident);
-}
-
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_sa_bwd_kernel(const float* __restrict__ xyz,
                         const float* __restrict__ new_xyz,
                         const float* __restrict__ feats,
                         const int* __restrict__ idx,
                         const float* __restrict__ pooled,
-                        const float* __restrict__ d_pooled,
-                        const void* __restrict__ winner, int win_bytes,
-                        int n, int s,
+                        const float* __restrict__ d_pooled, int n, int s,
                         int f, int k_nb, int n_queries, Mlp mlp, int need,
                         float* __restrict__ d_xyz,
                         float* __restrict__ d_feats,
@@ -508,17 +442,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const Threads block{static_cast<int>(threadIdx.x), kThreads, 0};
     for (int l = 0; l < n_layers; ++l) {
       const Layer& L = mlp.layer[l];
-      if constexpr (kBf16) {
-        fused_sa::stage_cols_bf16(
-            block, L.w16, L.cip, L.cop, 0, L.cip,
-            reinterpret_cast<__nv_bfloat16*>(wbuf + L.res16), L.cip + 8);
-        fused_sa::stage_cols_bf16(
-            block, L.wt16, L.cop, L.cip, 0, L.cop,
-            reinterpret_cast<__nv_bfloat16*>(wbuf + L.res16t), L.cop + 8);
-      } else {
-        fused_sa::stage_rows(block, L.wt, L.co8, 0, L.ci8, wbuf + L.res_wt,
-                             L.ld_wt, true);
-      }
+      fused_sa::stage_rows(block, L.wt, L.co8, 0, L.ci8, wbuf + L.res_wt,
+                           L.ld_wt, true);
     }
     tf32::cp_async_wait<0>();
   }
@@ -535,9 +460,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* dp_q = d_pooled + static_cast<size_t>(query) * c_last;
     th.sync();  // the previous query's slot is written out
     PHASE(8);
-    if constexpr (!kBf16) {
-      for (int c = tid; c < c_last; c += th.n) avail[c] = 1;
-    }
+    for (int c = tid; c < c_last; c += th.n) avail[c] = 1;
     for (int e = tid; e < mlp.n_vec; e += th.n) vec[e] = 0.f;
     float dq = 0.f;  // threads 0..2: -sum_k d_in[k][tid]
 
@@ -568,13 +491,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           // with LayerNorm the pre-norm h, else the activation
           const int store = mlp.layer_norm ? kStorePlain : kStoreRelu;
           float* out = own + (mlp.layer_norm ? h_off[l] : a_off[l]);
-          if constexpr (kBf16) {
-            product_bf16(th, store, in, ld_in, rows, L.w16, L.bias, L.cip,
-                         L.co, L.cop, out, L.ld, wbuf, L.res16, L.tile16,
-                         resident);
-          } else {
-            recompute(th, store, in, ld_in, rows, L, out, wbuf, resident);
-          }
+          recompute(th, store, in, ld_in, rows, L, out, wbuf, resident);
         }
         th.sync();
         PHASE(1);
@@ -588,63 +505,46 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       // -- max-pool backward: the first winner takes d_pooled -------------
-      if constexpr (kBf16) {
-        // the bf16 forward's winner, where its max passed the ReLU
-        const Layer& L = mlp.layer[n_layers - 1];
-        float* act = own + a_off[n_layers - 1];
-        const size_t w0 = static_cast<size_t>(query) * c_last;
-        for (int e = tid; e < rows * c_last; e += th.n) {
-          const int k = e / c_last;
-          const int c = e - k * c_last;
-          const int w =
-              win_bytes == 1
-                  ? static_cast<const uint8_t*>(winner)[w0 + c]
-                  : static_cast<const int*>(winner)[w0 + c];
-          act[k * L.ld + c] =
-              (k0 + k == w && pooled_q[c] > 0.f) ? dp_q[c] : 0.f;
-        }
-      } else {
-        // The rows are cut into groups; each (row group, channel) finds its
-        // first row whose activation reaches the pooled value, and the lowest
-        // row group with one holds the chunk's winner, unless an earlier
-        // chunk took it.
-        const Layer& L = mlp.layer[n_layers - 1];
-        float* act = own + a_off[n_layers - 1];
-        const int groups = max(1, min(rows, th.n / c_last));
-        const int per = (rows + groups - 1) / groups;
-        int* first = reinterpret_cast<int*>(part);  // groups x c_last
-        int* win = first + th.n;                     // c_last
-        for (int e = tid; e < groups * c_last; e += th.n) {
-          const int c = e % c_last;
-          const int grp = e / c_last;
-          const float pc = pooled_q[c];
-          const int k1 = min(rows, (grp + 1) * per);
-          int fk = rows;
-          for (int k = grp * per; k < k1; ++k) {
-            if (act[k * L.ld + c] >= pc) {
-              fk = k;
-              break;
-            }
+      // The rows are cut into groups; each (row group, channel) finds its
+      // first row whose activation reaches the pooled value, and the lowest
+      // row group with one holds the chunk's winner, unless an earlier
+      // chunk took it.
+      const Layer& L = mlp.layer[n_layers - 1];
+      float* act = own + a_off[n_layers - 1];
+      const int groups = max(1, min(rows, th.n / c_last));
+      const int per = (rows + groups - 1) / groups;
+      int* first = reinterpret_cast<int*>(part);  // groups x c_last
+      int* win = first + th.n;                     // c_last
+      for (int e = tid; e < groups * c_last; e += th.n) {
+        const int c = e % c_last;
+        const int grp = e / c_last;
+        const float pc = pooled_q[c];
+        const int k1 = min(rows, (grp + 1) * per);
+        int fk = rows;
+        for (int k = grp * per; k < k1; ++k) {
+          if (act[k * L.ld + c] >= pc) {
+            fk = k;
+            break;
           }
-          first[grp * c_last + c] = fk;
         }
-        th.sync();
-        for (int c = tid; c < c_last; c += th.n) {
-          int w = rows;
-          for (int g = 0; g < groups && avail[c] && w == rows; ++g) {
-            w = first[g * c_last + c];
-          }
-          win[c] = w;
-          if (w < rows) avail[c] = 0;
+        first[grp * c_last + c] = fk;
+      }
+      th.sync();
+      for (int c = tid; c < c_last; c += th.n) {
+        int w = rows;
+        for (int g = 0; g < groups && avail[c] && w == rows; ++g) {
+          w = first[g * c_last + c];
         }
-        th.sync();
-        for (int e = tid; e < rows * c_last; e += th.n) {
-          const int k = e / c_last;
-          const int c = e - k * c_last;
-          float* a = act + k * L.ld + c;
-          // the ReLU's backward: nothing passes where the activation is 0
-          *a = (k == win[c] && *a > 0.f) ? dp_q[c] : 0.f;
-        }
+        win[c] = w;
+        if (w < rows) avail[c] = 0;
+      }
+      th.sync();
+      for (int e = tid; e < rows * c_last; e += th.n) {
+        const int k = e / c_last;
+        const int c = e - k * c_last;
+        float* a = act + k * L.ld + c;
+        // the ReLU's backward: nothing passes where the activation is 0
+        *a = (k == win[c] && *a > 0.f) ? dp_q[c] : 0.f;
       }
       th.sync();
       PHASE(3);
@@ -712,33 +612,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float* in = l == 0 ? x_buf : own + a_off[l - 1];
         const int ld_in = l == 0 ? mlp.ld_x : mlp.layer[l - 1].ld;
         if (!(SA_BWD_SKIP & 2)) {
-          if constexpr (kBf16) {
-            write_rows_bf16(th, d, L.ld, L.co, L.co, rows, row0, L.d16);
-            write_rows_bf16(th, in, ld_in, L.ci, L.ci_pad, rows, row0,
-                            L.in16);
-          } else {
-            write_rows(th, d, L.ld, L.co, L.co, rows,
-                       L.d_rows + row0 * L.co);
-            write_rows(th, in, ld_in, L.ci, L.ci_pad, rows,
-                       L.in_rows + row0 * L.ci_pad);
-          }
+          write_rows(th, d, L.ld, L.co, L.co, rows, L.d_rows + row0 * L.co);
+          write_rows(th, in, ld_in, L.ci, L.ci_pad, rows,
+                     L.in_rows + row0 * L.ci_pad);
         }
         th.sync();
         PHASE(5);
         if ((SA_BWD_SKIP & 4) || (l == 0 && !need_in)) continue;
         float* d_in = l > 0 ? own + a_off[l - 1] : x_buf;
-        if constexpr (kBf16) {
-          // d_pre (rows, cop) · W: the transposed weight as a (cip, cop)
-          // layer without bias
-          product_bf16(th, l > 0 ? fused_sa::kStoreMask : kStorePlain, d,
-                       L.ld, rows, L.wt16, nullptr, L.cop, 0, L.cip, d_in,
-                       ld_in, wbuf, L.res16t, L.tilet, resident);
-        } else {
-          split_rows(th, d, own + lo_off[l], L.ld, L.co, rows);
-          th.sync();
-          input_grad(th, l > 0, resident, d, own + lo_off[l], L.ld, rows, L,
-                     d_in, ld_in, resident ? wbuf + L.res_wt : wbuf);
-        }
+        split_rows(th, d, own + lo_off[l], L.ld, L.co, rows);
+        th.sync();
+        input_grad(th, l > 0, resident, d, own + lo_off[l], L.ld, rows, L,
+                   d_in, ld_in, resident ? wbuf + L.res_wt : wbuf);
         th.sync();
         PHASE(6);
       }
@@ -747,9 +632,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = tid; e < rows * cin; e += th.n) {
         const int k = e / cin;
         const int c = e - k * cin;
-        float g = x_buf[k * mlp.ld_x + c];
-        // bf16: the row rounded, summed in float32
-        if constexpr (kBf16) g = __bfloat162float(__float2bfloat16_rn(g));
+        const float g = x_buf[k * mlp.ld_x + c];
         const size_t row = static_cast<size_t>(b) * n + sel[k];
         if (c < 3) {
           if (need & kNeedXyz) atomicAdd(d_xyz + row * 3 + c, g);
@@ -777,14 +660,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #endif
 }
 
-// The least row stride of at least n floats that is 8 modulo 16 (the bf16
-// product's float2 A loads: a half-warp's 4 rows x 4 float2 hit 32 banks).
-int stride16(int n) { return ((n - 8 + 15) & ~15) + 8; }
-
-template <bool kBf16>
 int launch(const float* xyz, const float* new_xyz, const float* feats,
-           const int* idx, const float* pooled, const float* d_pooled,
-           const void* winner, int win_bytes, int b,
+           const int* idx, const float* pooled, const float* d_pooled, int b,
            int n, int s, int f, int k_nb, int n_layers, const int* chans,
            const void* const* layer_ptrs, int layer_norm, int need,
            float* d_xyz, float* d_feats, float* d_new_xyz, void* scratch,
@@ -796,35 +673,21 @@ int launch(const float* xyz, const float* new_xyz, const float* feats,
   Mlp mlp;
   mlp.n_layers = n_layers;
   mlp.layer_norm = layer_norm;
-  // the gathered rows' channels zero-padded to the recompute's k (8; bf16:
-  // 16), at a stride of 4 mod 8 (bf16: 8 mod 16), which keeps its A
-  // fragments conflict-free too
-  mlp.ld_x = kBf16 ? stride16((chans[0] + 15) & ~15)
-                   : (((chans[0] + 7) & ~7) + 3) / 8 * 8 + 4;
+  // the gathered rows' channels zero-padded to the recompute's k (8), at a
+  // stride of 4 mod 8, which keeps its A fragments conflict-free too
+  mlp.ld_x = (((chans[0] + 7) & ~7) + 3) / 8 * 8 + 4;
   mlp.n_vec = 0;
   mlp.ld_max = 0;
   const size_t rows_all = static_cast<size_t>(b) * s * k_nb;
-  // bf16 scratch rows go in pairs: an odd last row has a (zero) partner
-  const size_t rows_pad = kBf16 ? (rows_all + 1) & ~size_t{1} : rows_all;
   float* p = static_cast<float*>(scratch);
-  __nv_bfloat16* p16 = static_cast<__nv_bfloat16*>(scratch);
   int row_floats = mlp.ld_x;  // shared floats per neighbour row
   int w_resident = 0;         // floats of every layer's weights, resident
   int w_full = 0;             // floats of the largest layer, streamed
   int w_min = 0;              // floats of the smallest streamed tiles
   for (int l = 0; l < n_layers; ++l) {
     Layer& L = mlp.layer[l];
-    L.wt = nullptr;
-    L.w_pad = nullptr;
-    L.w16 = nullptr;
-    L.wt16 = nullptr;
-    if (kBf16) {
-      L.w16 = static_cast<const __nv_bfloat16*>(layer_ptrs[5 * l]);
-      L.wt16 = static_cast<const __nv_bfloat16*>(layer_ptrs[5 * l + 1]);
-    } else {
-      L.wt = static_cast<const float*>(layer_ptrs[5 * l]);
-      L.w_pad = static_cast<const float*>(layer_ptrs[5 * l + 1]);
-    }
+    L.wt = static_cast<const float*>(layer_ptrs[5 * l]);
+    L.w_pad = static_cast<const float*>(layer_ptrs[5 * l + 1]);
     L.bias = static_cast<const float*>(layer_ptrs[5 * l + 2]);
     L.gamma = static_cast<const float*>(layer_ptrs[5 * l + 3]);
     L.beta = static_cast<const float*>(layer_ptrs[5 * l + 4]);
@@ -836,38 +699,23 @@ int launch(const float* xyz, const float* new_xyz, const float* feats,
     L.ci_pad = (L.ci + 3) & ~3;
     L.ci8 = (L.ci + 7) & ~7;
     L.co8 = (L.co + 7) & ~7;
-    L.cip = (L.ci + 15) & ~15;
-    L.cop = (L.co + 15) & ~15;
-    L.ld = kBf16 ? stride16(L.cop) : row_stride(L.co8);
+    L.ld = row_stride(L.co8);
     L.ld_wt = row_stride(L.co8, 8);
     L.ld_w = row_stride(L.ci_pad, 8);
     L.vec = mlp.n_vec;
     L.d_rows = p;
     L.in_rows = p + rows_all * L.co;
     p += rows_all * (L.co + L.ci_pad);
-    L.d16 = p16;
-    L.in16 = p16 + rows_pad * L.co;
-    p16 += rows_pad * (L.co + L.ci_pad);
-    if (kBf16) {
-      // both orientations, rows at a stride of k + 8 bf16 values
-      L.res16 = w_resident;
-      w_resident += L.cop * (L.cip + 8) / 2;
-      L.res16t = w_resident;
-      w_resident += L.cip * (L.cop + 8) / 2;
-      w_full = std::max({w_full, L.cop * (L.cip + 8), L.cip * (L.cop + 8)});
-      w_min = std::max({w_min, L.cop * 24, L.cip * 24});
-    } else {
-      L.res_wt = w_resident;
-      w_resident += L.ci8 * L.ld_wt;
-      w_full = std::max({w_full, 2 * L.ci8 * L.ld_wt, 2 * L.co8 * L.ld_w});
-      w_min = std::max({w_min, 2 * 8 * L.ld_wt, 2 * 8 * L.ld_w});
-    }
+    L.res_wt = w_resident;
+    w_resident += L.ci8 * L.ld_wt;
+    w_full = std::max({w_full, 2 * L.ci8 * L.ld_wt, 2 * L.co8 * L.ld_w});
+    w_min = std::max({w_min, 2 * 8 * L.ld_wt, 2 * 8 * L.ld_w});
     mlp.n_vec += L.co * (layer_norm ? 3 : 1);
     mlp.ld_max = std::max(mlp.ld_max, L.ld);
     row_floats += L.ld * (layer_norm ? 2 : 1);
   }
-  // the lo parts of d_pre (float32 only; with LayerNorm they take h's place)
-  if (!layer_norm && !kBf16) row_floats += mlp.ld_max;
+  // the lo parts of d_pre (with LayerNorm they take h's place)
+  if (!layer_norm) row_floats += mlp.ld_max;
   // The shape: chunks of up to 32 rows; the weights resident (every
   // layer's) for as many thread groups as fit beside them, else one group
   // that streams them through the rest.
@@ -900,12 +748,9 @@ int launch(const float* xyz, const float* new_xyz, const float* feats,
     Layer& L = mlp.layer[l];
     L.tile = std::min(L.ci8, (mlp.n_wbuf / (2 * L.ld_wt)) & ~7);
     L.tk = std::min((L.co + 7) & ~7, (mlp.n_wbuf / (2 * L.ld_w)) & ~7);
-    // bf16: a stage of the double buffer holds n_wbuf bf16 values
-    L.tile16 = std::min(L.cip, (mlp.n_wbuf / L.cop - 8) & ~15);
-    L.tilet = std::min(L.cop, (mlp.n_wbuf / L.cip - 8) & ~15);
   }
   const size_t smem = sizeof(float) * (mlp.groups * mlp.state + mlp.n_wbuf);
-  auto kernel = fused_sa_bwd_kernel<kBf16>;
+  auto kernel = fused_sa_bwd_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -923,8 +768,8 @@ int launch(const float* xyz, const float* new_xyz, const float* feats,
   const int grid = std::max(
       1, std::min((n_queries + mlp.groups - 1) / mlp.groups, n_sm));
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xyz, new_xyz, feats, idx, pooled, d_pooled, winner, win_bytes, n, s, f,
-      k_nb, n_queries, mlp, need, d_xyz, d_feats, d_new_xyz, vec);
+      xyz, new_xyz, feats, idx, pooled, d_pooled, n, s, f, k_nb, n_queries,
+      mlp, need, d_xyz, d_feats, d_new_xyz, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -957,35 +802,9 @@ extern "C" int fused_sa_backward(const float* xyz, const float* new_xyz,
                                  int need, float* d_xyz, float* d_feats,
                                  float* d_new_xyz, void* scratch, float* vec,
                                  void* stream) {
-  return launch<false>(xyz, new_xyz, feats, idx, pooled, d_pooled, nullptr,
-                       0, b, n, s, f, k_nb, n_layers, chans, layer_ptrs,
-                       layer_norm, need, d_xyz, d_feats, d_new_xyz, scratch,
-                       vec, stream);
-}
-
-// The bf16 mode: as fused_sa_backward, but layer_ptrs[5l], [5l + 1] are the
-// Dense weight (cop, cip) and its transpose (cip, cop), bf16 row-major,
-// zero-padded to multiples of 16 (cip, cop: ci and co rounded up to 16),
-// and scratch is bf16: per layer l in order, d_pre then the layer's input,
-// each over R' = R rounded up to even rows, element (r, c) of a (R', w)
-// block at (r / 2) 2 w + 2 c + r % 2 (w = co, then ci_pad); the caller
-// zeroes it when R is odd. pooled is the bf16 forward's, and winner (b, s,
-// C) its winner (fused_sa_fwd_bf16.cu), win_bytes 1 (uint8) or 4 (int32) an
-// element: d_pooled[c] goes to row winner[c] where pooled[c] > 0.
-extern "C" int fused_sa_backward_bf16(
-    const float* xyz, const float* new_xyz, const float* feats,
-    const int* idx, const float* pooled, const float* d_pooled,
-    const void* winner, int win_bytes, int b, int n, int s, int f, int k_nb,
-    int n_layers, const int* chans, const void* const* layer_ptrs,
-    int layer_norm, int need, float* d_xyz, float* d_feats, float* d_new_xyz,
-    void* scratch, float* vec, void* stream) {
-  if (winner == nullptr || (win_bytes != 1 && win_bytes != 4)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch<true>(xyz, new_xyz, feats, idx, pooled, d_pooled, winner,
-                      win_bytes, b, n, s, f, k_nb, n_layers, chans,
-                      layer_ptrs, layer_norm, need, d_xyz, d_feats,
-                      d_new_xyz, scratch, vec, stream);
+  return launch(xyz, new_xyz, feats, idx, pooled, d_pooled, b, n, s, f, k_nb,
+                n_layers, chans, layer_ptrs, layer_norm, need, d_xyz, d_feats,
+                d_new_xyz, scratch, vec, stream);
 }
 
 #ifdef SA_BWD_PHASES

@@ -1,9 +1,8 @@
 // Device functions shared by the fused set-abstraction forward
-// (fused_sa_fwd.cu) and backward (fused_sa_bwd.cu); mma_product_bf16 is
-// the product of the backward's bf16 mode (bf16 models train with it): its
-// recompute and its input gradients. The forward's bf16 mode is its own
-// kernel (fused_sa_fwd_bf16.cu), which writes the max-pool's winner for
-// that backward to route by.
+// (fused_sa_fwd.cu) and backward (fused_sa_bwd.cu). The bf16 modes are
+// kernels of their own (fused_sa_fwd_bf16.cu, fused_sa_bwd_bf16.cu, sharing
+// fused_sa_bf16.cuh): the forward writes the max-pool's winner for the
+// backward to route by.
 //
 // In float32 the backward recomputes the forward's activations and routes
 // the max-pool gradient to the first neighbour whose activation EQUALS the
@@ -17,7 +16,6 @@
 
 #include <cuda_runtime.h>
 
-#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 // Timing studies only (bench_sa_backward.py), each bit leaving out a part,
@@ -37,10 +35,8 @@ constexpr float kLayerNormEps = 1e-6f;
 constexpr int kMaxMT = 2;
 constexpr int kMaxNT = 4;
 
-// What mma_product stores: the sum, or max(sum, 0); kStoreMask (bf16 only)
-// the sum where the value already there is > 0 and 0 elsewhere, in place (a
-// ReLU's backward).
-enum Store { kStorePlain, kStoreRelu, kStoreMask };
+// What mma_product stores: the sum, or max(sum, 0).
+enum Store { kStorePlain, kStoreRelu };
 
 __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
                                          float x, float y, float z) {
@@ -317,218 +313,6 @@ __device__ void mma_product(const Threads& th, int store, const float* in,
     SA_MMA_TILES(1, 1);
   }
 #undef SA_MMA_TILES
-}
-
-
-// -- the bf16 product ---------------------------------------------------------
-//
-// The weight of a bf16 layer is the Dense weight itself, (cop, cip) row-major
-// bf16 in device memory, zero-padded to multiples of 16: an mma B fragment
-// (k x n, "col") is two consecutive k of one row n, one 32-bit word. In
-// shared memory it sits as k-tiles of `tile` columns (a multiple of 16),
-// row n of a tile at n * (tile + 8) elements: a word stride of 4 mod 8, so
-// that the B fragments' 8 rows x 4 words hit 32 distinct banks.
-
-// Copy columns [k0, k0 + cnt) of every row of such a weight into shared
-// memory at row stride ldk, asynchronously (cp.async, 8 values a copy), by
-// the threads of `th`; commits one group of copies.
-__device__ __forceinline__ void stage_cols_bf16(
-    const Threads& th, const __nv_bfloat16* __restrict__ w, int cip, int cop,
-    int k0, int cnt, __nv_bfloat16* dst, int ldk) {
-  const int c8 = cnt >> 3;
-  for (int e = th.tid; e < cop * c8; e += th.n) {
-    const int n = e / c8;
-    const int c = (e - n * c8) << 3;
-    tf32::cp_async16(dst + n * ldk + c,
-                     w + static_cast<size_t>(n) * cip + k0 + c, true);
-  }
-  tf32::cp_async_commit();
-}
-
-// mma_tiles in bf16: the same passes, weight ring and epilogue, with one
-// m16n8k16 bf16 mma a k-step of 16 in place of three TF32 ones a k-step of
-// 8. A's values are read as float2 from the float32 rows of `in` (row
-// stride 8 mod 16: a half-warp's 4 rows x 4 float2 hit 32 distinct banks)
-// and rounded to bf16 here, so a layer's input is rounded at its product.
-template <int WM, int WN>
-__device__ __forceinline__ void mma_tiles_bf16(
-    const Threads& th, int store, const float* in, int ld_in, int rows,
-    int mt, int tm, int tasks, const __nv_bfloat16* __restrict__ w,
-    const float* bias, int cip, int co, int cop, float* out, int ld_out,
-    __nv_bfloat16* wbuf, int tile, int stages, bool resident) {
-  const int lane = th.tid & 31;
-  const int warp = th.tid >> 5;
-  const int n_warps = th.n >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int n_tiles = (cip + tile - 1) / tile;
-  const int ldk = tile + 8;
-  const bool stage = !resident && !(SA_BWD_SKIP & 64);
-  for (int base = 0; base < tasks; base += n_warps) {
-    const int task = base + warp;  // the same for the whole warp
-    const bool active = task < tasks;
-    const int m0 = (task % tm) * WM;
-    const int n0 = (task / tm) * WN;
-    float acc[WM][WN][4];
-#pragma unroll
-    for (int j = 0; j < WN; ++j) {
-      const int o = (n0 + j) * 8 + 2 * t;
-      const float b0 = active && o < co ? bias[o] : 0.f;
-      const float b1 = active && o + 1 < co ? bias[o + 1] : 0.f;
-#pragma unroll
-      for (int i = 0; i < WM; ++i) {
-        acc[i][j][0] = b0;
-        acc[i][j][1] = b1;
-        acc[i][j][2] = b0;
-        acc[i][j][3] = b1;
-      }
-    }
-    // B: row n = (n0 + j) * 8 + g of the tile, words at k 2t and 2t + 8
-    int b_at[WN];
-    bool b_in[WN];
-#pragma unroll
-    for (int j = 0; j < WN; ++j) {
-      const int n = (n0 + j) * 8 + g;
-      b_in[j] = n < cop;
-      b_at[j] = n * ldk + 2 * t;
-    }
-    const float* a_row[WM];
-#pragma unroll
-    for (int i = 0; i < WM; ++i) {
-      a_row[i] = in + (min(m0 + i, mt - 1) * 16 + g) * ld_in + 2 * t;
-    }
-    for (int p = 0; stage && p < stages - 1 && p < n_tiles; ++p) {
-      stage_cols_bf16(th, w, cip, cop, p * tile, min(tile, cip - p * tile),
-                      wbuf + p * cop * ldk, ldk);
-    }
-    for (int tt = 0; tt < n_tiles; ++tt) {
-      const int k_base = tt * tile;
-      if (!resident) {
-        if (min(stages - 2, n_tiles - 1 - tt) >= 1) {
-          tf32::cp_async_wait<1>();
-        } else {
-          tf32::cp_async_wait<0>();
-        }
-        th.sync();  // tile tt seen by all; tile tt - 1's buffer free
-        const int next = tt + stages - 1;
-        if (stage && next < n_tiles) {
-          stage_cols_bf16(th, w, cip, cop, next * tile,
-                          min(tile, cip - next * tile),
-                          wbuf + (next % stages) * cop * ldk, ldk);
-        }
-      }
-      const __nv_bfloat16* wb =
-          resident ? wbuf : wbuf + (tt % stages) * cop * ldk;
-      const int cnt = min(tile, cip - k_base);
-      if (active && !(SA_BWD_SKIP & 128)) {
-        for (int kk = 0; kk < cnt; kk += 16) {
-          uint32_t b[WN][2];
-#pragma unroll
-          for (int j = 0; j < WN; ++j) {
-            const __nv_bfloat16* wk = wb + b_at[j] + kk;
-            b[j][0] = b_in[j] ? *reinterpret_cast<const uint32_t*>(wk) : 0u;
-            b[j][1] =
-                b_in[j] ? *reinterpret_cast<const uint32_t*>(wk + 8) : 0u;
-          }
-          uint32_t a[WM][4];
-#pragma unroll
-          for (int i = 0; i < WM; ++i) {
-            const float* r = a_row[i] + k_base + kk;
-            const float2 v0 = *reinterpret_cast<const float2*>(r);
-            const float2 v1 =
-                *reinterpret_cast<const float2*>(r + 8 * ld_in);
-            const float2 v2 = *reinterpret_cast<const float2*>(r + 8);
-            const float2 v3 =
-                *reinterpret_cast<const float2*>(r + 8 * ld_in + 8);
-            a[i][0] = bf16::pack(v0.x, v0.y);
-            a[i][1] = bf16::pack(v1.x, v1.y);
-            a[i][2] = bf16::pack(v2.x, v2.y);
-            a[i][3] = bf16::pack(v3.x, v3.y);
-          }
-#pragma unroll
-          for (int i = 0; i < WM; ++i) {
-#pragma unroll
-            for (int j = 0; j < WN; ++j) {
-              bf16::mma(acc[i][j], a[i], b[j][0], b[j][1]);
-            }
-          }
-        }
-      }
-    }
-    if (!resident) th.sync();  // the next pass refills the buffers
-    if (!active) continue;
-#pragma unroll
-    for (int i = 0; i < WM; ++i) {
-#pragma unroll
-      for (int j = 0; j < WN; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int m = (m0 + i) * 16 + g + (e >> 1) * 8;
-          const int o = (n0 + j) * 8 + 2 * t + (e & 1);
-          if (m < rows && o < cop) {
-            const float v = acc[i][j][e];
-            float* p = out + m * ld_out + o;
-            *p = store == kStoreRelu   ? fmaxf(v, 0.f)
-                 : store == kStoreMask ? (*p > 0.f ? v : 0.f)
-                                       : v;
-          }
-        }
-      }
-    }
-  }
-}
-
-// The layer product of K1's bf16 mode: out[m][o] = bias[o] + sum_i
-// bf16(in[m][i]) * bf16(w[o][i]) for m < rows and o < cop, summed in
-// float32 on the tensor cores, by the warps of `th`. As mma_product, with
-// the weight w (cop, cip) bf16 (see above), cip and cop the layer's widths
-// rounded up to 16 (zero pad), staged whole (resident, at wbuf) or in
-// k-tiles of `tile` columns through a ring of `stages` buffers; `in` at a
-// row stride of 8 mod 16, its columns ci..cip zero. The bias covers the
-// columns below co and is 0 past them (co = 0: no bias, bias may be null).
-// An output is one accumulator from its bias over the k-steps of 16 in
-// ascending order, whatever the tiling. The backward's input gradient is
-// this product too, on the transposed weight with no bias.
-// Every thread of `th` must call it; the caller synchronises afterwards.
-__device__ void mma_product_bf16(const Threads& th, int store,
-                                 const float* in, int ld_in, int rows,
-                                 const __nv_bfloat16* __restrict__ w,
-                                 const float* bias, int cip, int co, int cop,
-                                 float* out, int ld_out, __nv_bfloat16* wbuf,
-                                 int tile, int stages, bool resident) {
-  const int n_warps = th.n >> 5;
-  const int mt = (rows + 15) >> 4;
-  const int nt = cop >> 3;
-  int wm = kMaxMT;
-  int wn = kMaxNT;
-  auto tasks_of = [&](int a, int b) {
-    return ((mt + a - 1) / a) * ((nt + b - 1) / b);
-  };
-  while (wm > 1 && tasks_of(wm, wn) < n_warps) wm >>= 1;
-  while (wn > 1 && tasks_of(wm, wn) < n_warps) wn >>= 1;
-  const int tm = (mt + wm - 1) / wm;
-  const int tasks = tasks_of(wm, wn);
-  if (resident) tile = cip;
-#define SA_MMA_TILES_BF16(WM, WN)                                            \
-  mma_tiles_bf16<WM, WN>(th, store, in, ld_in, rows, mt, tm, tasks, w,      \
-                         bias, cip, co, cop, out, ld_out, wbuf, tile, stages, \
-                         resident)
-  if (wm == 2) {
-    if (wn == 4) {
-      SA_MMA_TILES_BF16(2, 4);
-    } else if (wn == 2) {
-      SA_MMA_TILES_BF16(2, 2);
-    } else {
-      SA_MMA_TILES_BF16(2, 1);
-    }
-  } else if (wn == 4) {
-    SA_MMA_TILES_BF16(1, 4);
-  } else if (wn == 2) {
-    SA_MMA_TILES_BF16(1, 2);
-  } else {
-    SA_MMA_TILES_BF16(1, 1);
-  }
-#undef SA_MMA_TILES_BF16
 }
 
 // LayerNorm statistics of R rows of n channels, by one warp: centred

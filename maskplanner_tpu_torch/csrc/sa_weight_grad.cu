@@ -34,8 +34,9 @@
 //
 // The bf16 mode (sa_weight_grad_bf16) is the weight gradient of the Pallas
 // kernel's precision="default": dW = sum_rows bf16(d_pre)ᵀ · bf16(in),
-// summed in float32. K1's bf16 mode writes the rows already rounded, two rows
-// interleaved (a 32-bit word holds rows 2p and 2p + 1 of one column), so a
+// summed in float32. K1's bf16 mode (fused_sa_bwd_bf16.cu) writes the rows
+// already rounded, two rows interleaved (a 32-bit word holds rows 2p and
+// 2p + 1 of one column), so a
 // word staged in shared memory is an m16n8k16 bf16 fragment register as it
 // is: dw_partial_bf16 is dw_partial with half the bytes to read, one bf16
 // mma a k-step of 16 rows and no TF32 split, over the same splits in the

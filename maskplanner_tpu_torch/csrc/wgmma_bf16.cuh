@@ -1,5 +1,6 @@
 // bf16 warpgroup products (wgmma.mma_async, sm_90a) for the fused
-// set-abstraction forward's bf16 mode (fused_sa_fwd_bf16.cu).
+// set-abstraction level's bf16 kernels (fused_sa_fwd_bf16.cu,
+// fused_sa_bwd_bf16.cu).
 //
 // Wgmma<N>::rs(d, a, desc_b): d += A x B, m64nNk16, A a 64 x 16 bf16 tile
 // in registers (four 32-bit registers a thread, each two bf16 values, the
@@ -9,10 +10,12 @@
 // memory too. d: the float32 accumulators, N / 2 a thread of the M >= N / 2
 // of the array (d[4i + e]: row
 // 16 warp + lane / 4 + 8 (e / 2), column 8i + 2 (lane % 4) + e % 2). Both
-// operands K-major (no transpose), scale 1, d accumulated (scale-d 1). Each
-// is only the instruction: the caller fences (wgmma.fence) before, commits
-// and waits after. N is 64, 128, 192 or 256; the register lists are
-// written out, as inline PTX needs them.
+// operands K-major, scale 1, d accumulated (scale-d 1); rs<1> reads B
+// MN-major instead (wgmma's transpose of B, for 16-bit types: each core
+// matrix holds 8 k-rows of 8 consecutive n). Each is only the instruction:
+// the caller fences (wgmma.fence) before, commits and waits after. N is 16,
+// 64, 128, 192 or 256 (16: rs only); the register lists are written out,
+// as inline PTX needs them.
 
 #pragma once
 
@@ -24,9 +27,28 @@ template <int N>
 struct Wgmma;
 
 template <>
+struct Wgmma<16> {
+  // d += a (registers) x B (descriptor), m64n16k16
+  template <int kTransB = 0, int M>
+  static __device__ __forceinline__ void rs(float (&d)[M],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(kTransB));
+  }
+};
+
+template <>
 struct Wgmma<64> {
   // d += a (registers) x B (descriptor), m64n64k16
-  template <int M>
+  template <int kTransB = 0, int M>
   static __device__ __forceinline__ void rs(float (&d)[M],
                                             const uint32_t (&a)[4],
                                             uint64_t desc_b) {
@@ -37,7 +59,7 @@ struct Wgmma<64> {
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -46,7 +68,8 @@ struct Wgmma<64> {
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(kTransB));
   }
   // d += A (descriptor) x B (descriptor), m64n64k16
   template <int M>
@@ -75,7 +98,7 @@ struct Wgmma<64> {
 template <>
 struct Wgmma<128> {
   // d += a (registers) x B (descriptor), m64n128k16
-  template <int M>
+  template <int kTransB = 0, int M>
   static __device__ __forceinline__ void rs(float (&d)[M],
                                             const uint32_t (&a)[4],
                                             uint64_t desc_b) {
@@ -90,7 +113,7 @@ struct Wgmma<128> {
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -107,7 +130,8 @@ struct Wgmma<128> {
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(kTransB));
   }
   // d += A (descriptor) x B (descriptor), m64n128k16
   template <int M>
@@ -148,7 +172,7 @@ struct Wgmma<128> {
 template <>
 struct Wgmma<192> {
   // d += a (registers) x B (descriptor), m64n192k16
-  template <int M>
+  template <int kTransB = 0, int M>
   static __device__ __forceinline__ void rs(float (&d)[M],
                                             const uint32_t (&a)[4],
                                             uint64_t desc_b) {
@@ -167,7 +191,7 @@ struct Wgmma<192> {
       "%72, %73, %74, %75, %76, %77, %78, %79, "
       "%80, %81, %82, %83, %84, %85, %86, %87, "
       "%88, %89, %90, %91, %92, %93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -192,7 +216,8 @@ struct Wgmma<192> {
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
         "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(kTransB));
   }
   // d += A (descriptor) x B (descriptor), m64n192k16
   template <int M>
@@ -245,7 +270,7 @@ struct Wgmma<192> {
 template <>
 struct Wgmma<256> {
   // d += a (registers) x B (descriptor), m64n256k16
-  template <int M>
+  template <int kTransB = 0, int M>
   static __device__ __forceinline__ void rs(float (&d)[M],
                                             const uint32_t (&a)[4],
                                             uint64_t desc_b) {
@@ -268,7 +293,7 @@ struct Wgmma<256> {
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -301,7 +326,8 @@ struct Wgmma<256> {
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(kTransB));
   }
   // d += A (descriptor) x B (descriptor), m64n256k16
   template <int M>
@@ -386,12 +412,14 @@ __device__ __forceinline__ void fence_operands(float (&d)[M]) {
   for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// The descriptor of a K-major operand in shared memory without swizzle
-// (wgmma's "interleave" canonical layout): core matrices of 8 rows x 16
-// bytes, each 128 contiguous bytes; `lbo` bytes between the two core
-// matrices of a k-step (along K), `sbo` bytes between 8-row groups (along
-// M or N). addr: the shared-memory address of the first core matrix,
-// 16-byte aligned.
+// The descriptor of an operand in shared memory without swizzle (wgmma's
+// "interleave" canonical layout): core matrices of 8 rows x 16 bytes, each
+// 128 contiguous bytes; `lbo` bytes between the core matrices adjacent
+// along K, `sbo` bytes between those adjacent along M or N. K-major, a
+// core matrix's 16-byte rows are 8 rows of M or N, each 8 consecutive k;
+// MN-major (rs<1>'s B), they are 8 consecutive k, each 8 consecutive n.
+// addr: the shared-memory address of the first core matrix, 16-byte
+// aligned.
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
                                          uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |

@@ -1,9 +1,10 @@
 """Wrappers of the fused set-abstraction kernels: the forward
 (``csrc/fused_sa_fwd.cu``; its bf16 mode ``csrc/fused_sa_fwd_bf16.cu``)
 and the backward in two kernels, K1 (``csrc/fused_sa_bwd.cu``: recompute,
-routing, input gradients, the rows of the weight gradient) and K2
+routing, input gradients, the rows of the weight gradient; its bf16 mode
+``csrc/fused_sa_bwd_bf16.cu``, on the bf16 forward's packed image) and K2
 (``csrc/sa_weight_grad.cu``: the weight gradients as fixed-order split-K
-products), each also in a bf16 mode.
+products, also in a bf16 mode).
 
 ``fused_sa_cuda.launches``, ``fused_sa_bf16_cuda.launches`` (the forward's
 bf16 mode), ``folded_sa_cuda.launches`` (the forward on BatchNorm-folded
@@ -32,10 +33,15 @@ SPLIT_ROWS = 8192
 def bwd_signature(fn, bf16: bool = False):
     """Set the ctypes signature of K1's C entry point ``fn`` (its bf16
     mode's with ``bf16``: the forward's winner and its bytes an element
-    after ``d_pooled``)."""
+    after ``d_pooled``, and the level's packed image in place of the
+    layers' pointers)."""
     fn.restype = ctypes.c_int
-    winner = [ctypes.c_void_p, ctypes.c_int] if bf16 else []
-    fn.argtypes = [ctypes.c_void_p] * 6 + winner + [ctypes.c_int] * 6 + [
+    if bf16:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 6
+        return fn
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p),
         ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
     return fn
@@ -43,9 +49,10 @@ def bwd_signature(fn, bf16: bool = False):
 
 @functools.cache
 def _bind_bwd(bf16: bool):
-    lib = build.library("fused_sa_bwd")
-    return bwd_signature(lib.fused_sa_backward_bf16 if bf16
-                         else lib.fused_sa_backward, bf16)
+    if bf16:
+        return bwd_signature(
+            build.library("fused_sa_bwd_bf16").fused_sa_backward_bf16, True)
+    return bwd_signature(build.library("fused_sa_bwd").fused_sa_backward)
 
 
 @functools.cache
@@ -172,9 +179,10 @@ def scratch_floats(chans, rows: int) -> int:
 
 
 def _bwd(nsample: int, layer_norm: bool, xyz, new_xyz, features, params,
-         idx, pooled, d_pooled, needs, bf16: bool, winner=None):
+         idx, pooled, d_pooled, needs, bf16: bool, winner=None, image=None):
     """Launch K1 (its bf16 mode with ``bf16``, which routes by the bf16
-    forward's ``winner``) -> (d_xyz, d_new_xyz, d_features, scratch, vec,
+    forward's ``winner`` and reads the level's packed ``image``, packed
+    here when None) -> (d_xyz, d_new_xyz, d_features, scratch, vec,
     chans)."""
     xyz, new_xyz, features, F, chans = _check_level(xyz, new_xyz, features,
                                                     params, layer_norm)
@@ -190,35 +198,6 @@ def _bwd(nsample: int, layer_norm: bool, xyz, new_xyz, features, params,
     if pooled.shape != shape or d_pooled.shape != shape:
         raise ValueError(f"pooled and d_pooled must be {shape}")
     idx = idx.contiguous()
-    win = []
-    if bf16:
-        if winner is None or winner.shape != shape \
-                or winner.dtype != winner_dtype(nsample) \
-                or winner.device != device:
-            raise ValueError(f"K1's bf16 mode routes by the bf16 forward's "
-                             f"winner: {shape} {winner_dtype(nsample)} on "
-                             f"{device}")
-        winner = winner.contiguous()
-        win = [winner.data_ptr(), winner.element_size()]
-
-    ptrs, keep = [], []  # keep: the operands stay alive through the launch
-    for layer in params:
-        w = _f32(layer[0], device, "weight")
-        co, ci = w.shape
-        if bf16:
-            # the recompute's (co16, ci16) and the input gradient's (ci16,
-            # co16), both bf16
-            ws = [padded_bf16(w), padded_bf16(w.t())]
-        else:
-            w_pad = torch.zeros((co, (ci + 3) // 4 * 4), dtype=torch.float32,
-                                device=device)
-            w_pad[:, :ci] = w                      # (co, ci_pad), d_in
-            ws = [padded_transpose(w), w_pad]      # (ci8, co8), the recompute
-        rest = [_f32(a, device, "bias/gamma/beta") for a in layer[1:]]
-        keep += [*ws, *rest]
-        ptrs += [*(a.data_ptr() for a in ws), *(a.data_ptr() for a in rest)]
-        if not layer_norm:
-            ptrs += [None, None]
 
     need_xyz, need_new, need_feat = needs
     need_feat = need_feat and features is not None
@@ -226,27 +205,66 @@ def _bwd(nsample: int, layer_norm: bool, xyz, new_xyz, features, params,
     d_feat = torch.zeros_like(features) if need_feat else None
     d_new = torch.empty_like(new_xyz) if need_new else None
     rows = B * S * nsample
+    n_vec = sum(chans[1:]) * (3 if layer_norm else 1)
+    vec = torch.empty((B * S, n_vec), dtype=torch.float32, device=device)
+    c_chans = (ctypes.c_int * len(chans))(*chans)
+    need = int(need_xyz) | 2 * int(need_new) | 4 * int(need_feat)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    head = (xyz.data_ptr(), new_xyz.data_ptr(), ptr(features),
+            idx.data_ptr(), pooled.data_ptr(), d_pooled.data_ptr())
+    tail = (ptr(d_xyz), ptr(d_feat), ptr(d_new))
     if bf16:
+        if max(chans[1:]) > MAX_WIDTH:
+            raise ValueError(f"K1's bf16 mode takes layers of at most "
+                             f"{MAX_WIDTH} channels, got {chans[1:]}")
+        if winner is None or winner.shape != shape \
+                or winner.dtype != winner_dtype(nsample) \
+                or winner.device != device:
+            raise ValueError(f"K1's bf16 mode routes by the bf16 forward's "
+                             f"winner: {shape} {winner_dtype(nsample)} on "
+                             f"{device}")
+        winner = winner.contiguous()
+        if image is None:
+            image = pack_image_cuda(params, layer_norm)
+        if image.dtype != torch.uint8 or image.device != device or \
+                image.numel() != image_bytes(chans, layer_norm):
+            raise ValueError(f"the level's image must be "
+                             f"{image_bytes(chans, layer_norm)} bytes "
+                             f"(uint8) on {device}")
+        image = image.contiguous()
         # rows in pairs: an odd last row's partner must read zero
         alloc = torch.zeros if rows % 2 else torch.empty
         scratch = alloc(scratch_floats(chans, rows + rows % 2),
                         dtype=torch.bfloat16, device=device)
-    else:
-        scratch = torch.empty(scratch_floats(chans, rows),
-                              dtype=torch.float32, device=device)
-    n_vec = sum(chans[1:]) * (3 if layer_norm else 1)
-    vec = torch.empty((B * S, n_vec), dtype=torch.float32, device=device)
-    c_chans = (ctypes.c_int * len(chans))(*chans)
+        err = _bind_bwd(True)(*head, winner.data_ptr(),
+                              winner.element_size(), B, N, S, F, nsample,
+                              len(params), c_chans, int(layer_norm),
+                              image.data_ptr(), image.numel(), need, *tail,
+                              scratch.data_ptr(), vec.data_ptr(),
+                              build.stream_ptr(device))
+        build.check(err, "fused_sa_backward_bf16")
+        return d_xyz, d_new, d_feat, scratch, vec, chans
+
+    ptrs, keep = [], []  # keep: the operands stay alive through the launch
+    for layer in params:
+        w = _f32(layer[0], device, "weight")
+        co, ci = w.shape
+        w_pad = torch.zeros((co, (ci + 3) // 4 * 4), dtype=torch.float32,
+                            device=device)
+        w_pad[:, :ci] = w                      # (co, ci_pad), d_in
+        ws = [padded_transpose(w), w_pad]      # (ci8, co8), the recompute
+        rest = [_f32(a, device, "bias/gamma/beta") for a in layer[1:]]
+        keep += [*ws, *rest]
+        ptrs += [*(a.data_ptr() for a in ws), *(a.data_ptr() for a in rest)]
+        if not layer_norm:
+            ptrs += [None, None]
+    scratch = torch.empty(scratch_floats(chans, rows), dtype=torch.float32,
+                          device=device)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    need = int(need_xyz) | 2 * int(need_new) | 4 * int(need_feat)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = _bind_bwd(bf16)(xyz.data_ptr(), new_xyz.data_ptr(), ptr(features),
-                          idx.data_ptr(), pooled.data_ptr(),
-                          d_pooled.data_ptr(), *win, B, N, S, F, nsample,
-                          len(params), c_chans, c_ptrs, int(layer_norm), need,
-                          ptr(d_xyz), ptr(d_feat), ptr(d_new),
-                          scratch.data_ptr(), vec.data_ptr(),
-                          build.stream_ptr(device))
+    err = _bind_bwd(False)(*head, B, N, S, F, nsample, len(params), c_chans,
+                           c_ptrs, int(layer_norm), need, *tail,
+                           scratch.data_ptr(), vec.data_ptr(),
+                           build.stream_ptr(device))
     build.check(err, "fused_sa_backward")
     return d_xyz, d_new, d_feat, scratch, vec, chans
 
@@ -275,15 +293,19 @@ def fused_sa_bwd_bf16_cuda(nsample: int, layer_norm: bool,
                            features: torch.Tensor | None, params,
                            idx: torch.Tensor, pooled: torch.Tensor,
                            d_pooled: torch.Tensor, needs=(True, True, True),
-                           winner: torch.Tensor | None = None):
-    """K1's bf16 mode: the backward of :func:`fused_sa_bf16_cuda` from its
-    ``idx``, ``pooled`` and ``winner`` (``d_pooled[c]`` goes to the winner's
-    row where ``pooled[c] > 0``: ``ops.fused_sa.fused_sa_backward_plain(...,
-    precision="bf16", winner=)``) -> as :func:`fused_sa_bwd_cuda`, its
-    scratch rows bf16 (for :func:`sa_weight_grad_bf16_cuda`). Counted
-    apart."""
+                           winner: torch.Tensor | None = None,
+                           image: torch.Tensor | None = None):
+    """K1's bf16 mode (``csrc/fused_sa_bwd_bf16.cu``): the backward of
+    :func:`fused_sa_bf16_cuda` from its ``idx``, ``pooled`` and ``winner``
+    (``d_pooled[c]`` goes to the winner's row where ``pooled[c] > 0``:
+    ``ops.fused_sa.fused_sa_backward_plain(..., precision="bf16",
+    winner=)``), on the level's packed ``image`` (the bf16 forward's, from
+    ``fused_sa_bf16_cuda(..., image=True)``; None: packed here by
+    :func:`pack_image_cuda`) -> as :func:`fused_sa_bwd_cuda`, its scratch
+    rows bf16 (for :func:`sa_weight_grad_bf16_cuda`). Every layer at most
+    256 channels. Counted apart."""
     out = _bwd(nsample, layer_norm, xyz, new_xyz, features, params, idx,
-               pooled, d_pooled, needs, True, winner)
+               pooled, d_pooled, needs, True, winner, image)
     fused_sa_bwd_bf16_cuda.launches += 1
     return out
 
@@ -355,31 +377,23 @@ sa_weight_grad_bf16_cuda.launches = 0
 def fused_sa_backward_cuda(nsample: int, layer_norm: bool, xyz, new_xyz,
                            features, params, idx, pooled, d_pooled,
                            needs=(True, True, True), bf16: bool = False,
-                           winner: torch.Tensor | None = None):
+                           winner: torch.Tensor | None = None,
+                           image: torch.Tensor | None = None):
     """The level's whole backward on the card, K1 then K2 (their bf16 modes
-    with ``bf16``, routed by the bf16 forward's ``winner``) -> (d_xyz,
-    d_new_xyz, d_features, each None where not asked; per-layer gradients
-    shaped like ``params``)."""
+    with ``bf16``, routed by the bf16 forward's ``winner`` on its packed
+    ``image``) -> (d_xyz, d_new_xyz, d_features, each None where not asked;
+    per-layer gradients shaped like ``params``)."""
     args = (nsample, layer_norm, xyz, new_xyz, features, params, idx,
             pooled, d_pooled, needs)
     if bf16:
         d_xyz, d_new, d_feat, scratch, vec, chans = fused_sa_bwd_bf16_cuda(
-            *args, winner=winner)
+            *args, winner=winner, image=image)
         k2 = sa_weight_grad_bf16_cuda
     else:
         d_xyz, d_new, d_feat, scratch, vec, chans = fused_sa_bwd_cuda(*args)
         k2 = sa_weight_grad_cuda
     grads = k2(scratch, vec, chans, layer_norm, idx.numel())
     return d_xyz, d_new, d_feat, grads
-
-
-def padded_bf16(w: torch.Tensor) -> torch.Tensor:
-    """A Dense weight (C_out, C_in) -> rounded to bf16 (to nearest even)
-    and zero-padded to multiples of 16: the layout of the bf16 product
-    (the mma's k of 16; a B fragment is two consecutive k of one row)."""
-    co, ci = w.shape
-    return torch.nn.functional.pad(w, (0, -ci % 16, 0, -co % 16)) \
-        .to(torch.bfloat16).contiguous()
 
 
 def _forward(radius: float, nsample: int, layer_norm: bool,
@@ -531,7 +545,7 @@ def _forward_bf16(radius: float, nsample: int, layer_norm: bool,
                   xyz: torch.Tensor, new_xyz: torch.Tensor,
                   features: torch.Tensor | None, params, winner: bool):
     """Launch ``csrc/fused_sa_fwd_bf16.cu`` (its image's packing, then the
-    level) -> (pooled, idx, winner or None)."""
+    level) -> (pooled, idx, winner or None, the level's packed image)."""
     xyz, new_xyz, features, F, chans = _check_level(xyz, new_xyz, features,
                                                     params, layer_norm)
     if max(chans[1:]) > MAX_WIDTH:
@@ -558,7 +572,7 @@ def _forward_bf16(radius: float, nsample: int, layer_norm: bool,
                        0 if win is None else win.element_size(),
                        build.stream_ptr(device))
     build.check(err, "fused_sa_forward_bf16")
-    return pooled, idx, win
+    return pooled, idx, win, image
 
 
 def fused_sa_cuda(radius: float, nsample: int, layer_norm: bool,
@@ -579,20 +593,24 @@ fused_sa_cuda.launches = 0
 def fused_sa_bf16_cuda(radius: float, nsample: int, layer_norm: bool,
                        xyz: torch.Tensor, new_xyz: torch.Tensor,
                        features: torch.Tensor | None, params,
-                       winner: bool = False):
+                       winner: bool = False, image: bool = False):
     """The level's bf16 mode on the card (``csrc/fused_sa_fwd_bf16.cu``;
     its backward: :func:`fused_sa_bwd_bf16_cuda`) -> (pooled
     (B, S, C_last) f32, idx (B, S, nsample) int32), and with ``winner``
     the max-pool's winner (B, S, C_last) (:func:`winner_dtype`: the first
     neighbour whose last activation is the max, which the backward routes
-    to): every layer product on operands rounded to bf16, summed in f32
+    to), and with ``image`` the level's packed image (:func:`pack_image`'s
+    layout, which the backward reads too): every layer product on operands
+    rounded to bf16, summed in f32
     (``ops.fused_sa.fused_sa_forward_plain(..., precision="bf16")``).
     Arguments as :func:`fused_sa_cuda`, every layer at most 256 channels;
     counted apart from it."""
-    pooled, idx, win = _forward_bf16(radius, nsample, layer_norm, xyz,
-                                     new_xyz, features, params, winner)
+    pooled, idx, win, packed = _forward_bf16(radius, nsample, layer_norm,
+                                             xyz, new_xyz, features, params,
+                                             winner)
     fused_sa_bf16_cuda.launches += 1
-    return (pooled, idx, win) if winner else (pooled, idx)
+    return (pooled, idx) + ((win,) if winner else ()) + (
+        (packed,) if image else ())
 
 
 fused_sa_bf16_cuda.launches = 0

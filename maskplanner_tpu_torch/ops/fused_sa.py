@@ -266,7 +266,10 @@ class FusedSALevel(torch.autograd.Function):
     forms the weight gradients from the rows it writes
     (``csrc/sa_weight_grad.cu``). ``bf16``: the kernels' bf16 modes
     (``precision="bf16"``); the bf16 forward (``csrc/fused_sa_fwd_bf16.cu``)
-    also saves the max-pool's winner, which its backward routes by.
+    also saves the max-pool's winner, which its backward
+    (``csrc/fused_sa_bwd_bf16.cu``) routes by, and the level's packed image
+    (every layer's bf16 weight in wgmma's layout, then the vectors), which
+    the backward reads in place of packing its own.
 
     ``apply(radius, nsample, layer_norm, bf16, xyz, new_xyz, features,
     n_per, *flat_params)``: ``flat_params`` holds the layers' tensors in
@@ -278,17 +281,17 @@ class FusedSALevel(torch.autograd.Function):
         from .cuda.fused_sa import fused_sa_bf16_cuda, fused_sa_cuda
 
         params = _layers(flat, n_per)
-        winner = None
+        winner = image = None
         if bf16:
-            pooled, idx, winner = fused_sa_bf16_cuda(
+            pooled, idx, winner, image = fused_sa_bf16_cuda(
                 radius, nsample, layer_norm, xyz, new_xyz, features, params,
-                winner=True)
+                winner=True, image=True)
         else:
             pooled, idx = fused_sa_cuda(radius, nsample, layer_norm, xyz,
                                         new_xyz, features, params)
         ctx.level = (nsample, layer_norm, bf16, n_per)
         ctx.save_for_backward(xyz, new_xyz, features, idx, pooled, winner,
-                              *flat)
+                              image, *flat)
         ctx.mark_non_differentiable(idx)
         return pooled, idx
 
@@ -297,14 +300,15 @@ class FusedSALevel(torch.autograd.Function):
         from .cuda.fused_sa import fused_sa_backward_cuda
 
         nsample, layer_norm, bf16, n_per = ctx.level
-        xyz, new_xyz, features, idx, pooled, winner, *flat = \
+        xyz, new_xyz, features, idx, pooled, winner, image, *flat = \
             ctx.saved_tensors
         # only the input gradients autograd asks for (the points and the
         # FPS centroids of a step carry none)
         d_xyz, d_new, d_feat, d_params = fused_sa_backward_cuda(
             nsample, layer_norm, xyz, new_xyz, features, _layers(flat, n_per),
             idx, pooled, d_pooled.contiguous(),
-            needs=ctx.needs_input_grad[4:7], bf16=bf16, winner=winner)
+            needs=ctx.needs_input_grad[4:7], bf16=bf16, winner=winner,
+            image=image)
         return (None, None, None, None, d_xyz, d_new, d_feat, None,
                 *(g for layer in d_params for g in layer))
 

@@ -258,17 +258,19 @@ def test_fused_level_saves_and_routes_by_winner(monkeypatch):
     seen = {}
 
     def forward(radius, nsample, layer_norm, xyz, new_xyz, features, params,
-                winner=False):
+                winner=False, image=False):
         out = fused_sa_forward_plain(radius, nsample,
                                      "layer" if layer_norm else "none", xyz,
                                      new_xyz, features, params, "bf16",
                                      winner=winner)
         seen["forward"] = out[-1] if winner else None
+        if image:
+            out = (*out, cuda_sa.pack_image(params, layer_norm))
         return out
 
     def backward(nsample, layer_norm, xyz, new_xyz, features, params, idx,
                  pooled, d_pooled, needs=(True, True, True), bf16=False,
-                 winner=None):
+                 winner=None, image=None):
         assert bf16 and winner is seen["forward"]
         seen["backward"] = winner
         return fused_sa_backward_plain(nsample,
